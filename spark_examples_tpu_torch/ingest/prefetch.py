@@ -1,0 +1,204 @@
+"""Pipelined host->device block feed.
+
+A producer thread builds each host block (source read, ragged-tail
+padding, 2-bit packing) into a bounded queue; the consumer copies it to
+the device and yields it. On a CUDA target the host blocks live in a
+ring of reusable **pinned** slabs, and each copy is ``non_blocking`` on
+a side stream, so block k+1's copy overlaps block k's update; the
+compute stream waits on the copy's event before it touches the block. A
+slab is recycled only after its copy's event has completed, and that
+wait lags :data:`TRANSFER_DEPTH` blocks behind the yield, so it is ~0 in
+a healthy pipeline. Pinning happens only for CUDA targets (a CPU-only
+torch refuses ``pin_memory``); CPU targets get a fresh host buffer per
+block, wrapped without a copy.
+
+Ragged final blocks are padded to the full width with MISSING (dense) or
+0xFF (packed: four missing codes per byte), which contribute zero to
+every gram product and keep one block shape for the whole stream.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections import deque
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from spark_examples_tpu_torch.core.dtypes import GENOTYPE_DTYPE, MISSING
+from spark_examples_tpu_torch.ingest import bitpack
+from spark_examples_tpu_torch.ingest.source import BlockMeta, GenotypeSource
+
+_END = object()
+
+# A byte of four missing codes (0b11_11_11_11).
+PACKED_MISSING = 0xFF
+
+# How many blocks a slab's recycling lags behind its yield.
+TRANSFER_DEPTH = 2
+
+
+def pad_block(block: np.ndarray, block_variants: int) -> np.ndarray:
+    """Right-pad a ragged block to ``block_variants`` with MISSING."""
+    n, v = block.shape
+    if v == block_variants:
+        return block
+    out = np.full((n, block_variants), MISSING, dtype=GENOTYPE_DTYPE)
+    out[:, :v] = block
+    return out
+
+
+def padded_width(block_variants: int, pack: bool = False) -> int:
+    """The column width every streamed block is padded to — bytes when
+    ``pack``, variants otherwise."""
+    if pack:
+        return bitpack.packed_width(block_variants)
+    return block_variants
+
+
+class _Slab:
+    """One pinned staging buffer plus its way home."""
+
+    __slots__ = ("tensor", "array", "_free")
+
+    def __init__(self, shape, dtype: torch.dtype, free: queue.Queue):
+        self.tensor = torch.empty(shape, dtype=dtype, pin_memory=True)
+        self.array = self.tensor.numpy()
+        self._free = free
+
+    def release(self) -> None:
+        self._free.put(self)
+
+
+class _PinnedRing:
+    """Pool of reusable pinned slabs, allocated lazily up to ``n_slots``.
+    The producer blocks in :meth:`acquire` while every slab is in flight,
+    which is the feed's backpressure over the copy stage."""
+
+    def __init__(self, n_slots: int, shape, dtype: torch.dtype):
+        self._shape, self._dtype = shape, dtype
+        self._free: queue.Queue = queue.Queue()
+        self._allocated = 0
+        self._n_slots = n_slots
+
+    def acquire(self, stop: threading.Event) -> _Slab | None:
+        while not stop.is_set():
+            try:
+                return self._free.get_nowait()
+            except queue.Empty:
+                pass
+            if self._allocated < self._n_slots:  # producer thread only
+                self._allocated += 1
+                return _Slab(self._shape, self._dtype, self._free)
+            try:
+                return self._free.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        return None
+
+
+def _produce(source, block_variants, start_variant, prefetch, pack, ring):
+    """Run the producer thread; yields ``(host array, slab | None, meta)``."""
+    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+    width = padded_width(block_variants, pack=pack)
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for block, meta in source.blocks(block_variants, start_variant):
+                if pack:
+                    host = bitpack.pack_dosages(
+                        pad_block(block, width * bitpack.VARIANTS_PER_BYTE))
+                else:
+                    host = pad_block(block, width)
+                slab = None
+                if ring is not None:
+                    slab = ring.acquire(stop)
+                    if slab is None:
+                        return
+                    np.copyto(slab.array, host)
+                    host = slab.array
+                if not put((host, slab, meta)):
+                    return
+            put(_END)
+        except BaseException as e:  # propagate into the consumer
+            put(e)
+
+    t = threading.Thread(target=produce, name="prefetch-producer",
+                         daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=10.0)
+
+
+def stream_to_device(
+    source: GenotypeSource,
+    block_variants: int,
+    device: torch.device,
+    start_variant: int = 0,
+    prefetch: int = 2,
+    pack: bool = False,
+) -> Iterator[tuple[torch.Tensor, BlockMeta]]:
+    """Yield device-resident, shape-stable (N, padded_width) blocks:
+    uint8 packed codes when ``pack``, int8 dosages otherwise. Errors in
+    the producer propagate to the consumer; abandoning the generator
+    stops the producer."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    ring = None
+    if cuda:
+        width = padded_width(block_variants, pack=pack)
+        ring = _PinnedRing(prefetch + TRANSFER_DEPTH + 2,
+                           (source.n_samples, width),
+                           torch.uint8 if pack else torch.int8)
+        copy_stream = torch.cuda.Stream(device)
+    # (copy event, slab) pairs whose copies may still be in flight.
+    pending: deque = deque()
+    producer = _produce(source, block_variants, start_variant,
+                        max(1, prefetch), pack, ring)
+    try:
+        for host, slab, meta in producer:
+            if not cuda:
+                yield torch.from_numpy(host), meta
+                continue
+            compute_stream = torch.cuda.current_stream(device)
+            with torch.cuda.stream(copy_stream):
+                block = slab.tensor.to(device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            compute_stream.wait_event(done)
+            # Allocated on the copy stream, used on the compute stream.
+            block.record_stream(compute_stream)
+            pending.append((done, slab))
+            if len(pending) > TRANSFER_DEPTH:
+                ev, old = pending.popleft()
+                ev.synchronize()
+                old.release()
+            yield block, meta
+    finally:
+        # Stop the producer first, then retire the in-flight copies.
+        producer.close()
+        while pending:
+            ev, slab = pending.popleft()
+            ev.synchronize()
+            slab.release()

@@ -1,0 +1,182 @@
+"""Genotype-block transforms: pair counting as int8 contractions.
+
+For a dosage block ``G`` of shape (N, V) with values {0, 1, 2, -1 =
+missing}, the indicator operands are
+
+    C  = [G >= 0]   valid (non-missing) call
+    T1 = [G >= 1]   carries at least one alt allele
+    T2 = [G >= 2]   homozygous alt
+
+plus Y = T1 + T2 (clipped dosage), YR = the raw masked value and QR =
+YR^2. Every pairwise co-occurrence count is a bilinear form in these
+operands: the raw products (``cc``, ``yc``, ``t1t1``, ...) are what
+the stream accumulates in int32, and the named statistics are assembled
+once, in :func:`combine_products`. Counts stay bit-exact while the
+worst per-variant increment times the stream length is below 2^31.
+
+Products are exact integers here: int8 operands are contracted in
+float64 (exact below 2^53) and cast back to int32, since PyTorch has no
+int32 matmul on CUDA. This is the plain lowering; the packed CUDA kernel
+(``ops/packed_gram.py``) is the fast one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# raw product name -> (left operand, right operand); each is one
+# ``A B^T`` contraction with int32 results.
+PRODUCT_OPERANDS: dict[str, tuple[str, str]] = {
+    "cc": ("c", "c"),
+    "t1c": ("t1", "c"),
+    "t2c": ("t2", "c"),
+    "yc": ("y", "c"),
+    "qc": ("qr", "c"),
+    "yy": ("yr", "yr"),
+    "t1t1": ("t1", "t1"),
+    "t1t2": ("t1", "t2"),
+    "t2t2": ("t2", "t2"),
+}
+
+# Products whose left operand exceeds int8: product -> weighted sum of
+# int8-operand contractions. qc = 128*(qh c^T) + (ql c^T) with
+# qh = qr >> 7, ql = qr & 127.
+_INT8_SPLIT: dict[str, tuple[tuple[tuple[str, str], int], ...]] = {
+    "qc": ((("qh", "c"), 128), (("ql", "c"), 1)),
+}
+
+# statistic -> raw products it needs.
+PIECE_PRODUCTS: dict[str, tuple[str, ...]] = {
+    "m": ("cc",),
+    "s": ("t1t1",),
+    "sc": ("t1c",),
+    "d1": ("yc", "t1t1", "t2t2"),
+    "ibs2": ("cc", "t1c", "t1t1", "t1t2", "t2t2"),
+    "dot": ("yy",),
+    "e2": ("qc", "yy"),
+    "hh": ("t1t1", "t1t2", "t2t2"),
+    "opp": ("t2c", "t1t2"),
+    "hc": ("t1c", "t2c"),
+}
+
+
+def operands(block: torch.Tensor) -> dict[str, torch.Tensor]:
+    """(N, V) int8 values -> the contraction operands. Missing (any
+    negative value) contributes zero to every operand, which gives the
+    pairwise-complete semantics. ``qr`` is int16 (127^2 > int8)."""
+    valid = block >= 0
+    c = valid.to(torch.int8)
+    t1 = (block >= 1).to(torch.int8)
+    t2 = (block >= 2).to(torch.int8)
+    yr = (valid * block).to(torch.int8)
+    qr = yr.to(torch.int16) ** 2
+    return {"c": c, "t1": t1, "t2": t2, "y": t1 + t2, "yr": yr, "qr": qr}
+
+
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact ``a @ b^T`` of integer operands, as int32: contracted in
+    float64, exact while every partial sum stays below 2^53."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64).T).to(
+        torch.int32)
+
+
+def _prepped_operands(block: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Operands ready to contract: ``qr`` split radix-128 into the int8
+    halves ``qh``/``ql``."""
+    ops = operands(block)
+    sq = ops.pop("qr")
+    ops["qh"] = (sq >> 7).to(torch.int8)
+    ops["ql"] = (sq & 127).to(torch.int8)
+    return ops
+
+
+def _product_spec(products: tuple[str, ...]):
+    """product -> weighted operand-pair terms, honoring the int8 split."""
+    return {
+        p: _INT8_SPLIT.get(p, ((PRODUCT_OPERANDS[p], 1),)) for p in products
+    }
+
+
+def _weighted_products(spec, ops_l, ops_r) -> dict[str, torch.Tensor]:
+    """name -> sum_w w * (opL @ opR^T), in int32."""
+    out = {}
+    for p, terms in spec.items():
+        acc = None
+        for (left, right), w in terms:
+            prod = int_dot(ops_l[left], ops_r[right])
+            prod = prod * w if w != 1 else prod
+            acc = prod if acc is None else acc + prod
+        out[p] = acc
+    return out
+
+
+def gram_products(block: torch.Tensor,
+                  products: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """Per-block raw products: int8 operands, int32 (N, N) outputs. Only
+    the requested products are contracted (ibs costs exactly four)."""
+    ops = _prepped_operands(block)
+    return _weighted_products(_product_spec(products), ops, ops)
+
+
+def tile_products(block_rows: torch.Tensor, block_cols: torch.Tensor,
+                  products: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """:func:`gram_products` for one (rows, cols) tile of the pair
+    matrix: product[p] = opL(rows) @ opR(cols)^T. The same slice for both
+    sides reproduces ``gram_products``."""
+    return _weighted_products(
+        _product_spec(products),
+        _prepped_operands(block_rows),
+        _prepped_operands(block_cols),
+    )
+
+
+def combine_products(prod: dict[str, torch.Tensor],
+                     pieces: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """Accumulated raw products -> named pairwise statistics, in integer
+    arithmetic (the subtractions are exact):
+
+      ``m``    valid-pair counts            C C^T
+      ``s``    shared-alt counts            T1 T1^T
+      ``sc``   carrier-by-valid counts      T1 C^T
+      ``d1``   Manhattan (sum |a-b|)        YC + YC^T - 2(T1T1 + T2T2)
+      ``ibs2`` exact-match counts
+      ``dot``  raw-value inner products     YR YR^T
+      ``e2``   squared euclidean            QC + QC^T - 2 YR YR^T
+      ``hh``   het-het co-occurrence
+      ``opp``  opposite homozygotes, both directions
+      ``hc``   het-by-valid counts
+    """
+    out = {}
+    for piece in pieces:
+        if piece == "m":
+            out["m"] = prod["cc"]
+        elif piece == "s":
+            out["s"] = prod["t1t1"]
+        elif piece == "sc":
+            out["sc"] = prod["t1c"]
+        elif piece == "d1":
+            p = prod["t1t1"] + prod["t2t2"]
+            out["d1"] = prod["yc"] + prod["yc"].T - 2 * p
+        elif piece == "ibs2":
+            out["ibs2"] = (
+                prod["cc"] - prod["t1c"] - prod["t1c"].T
+                + 2 * prod["t1t1"] - prod["t1t2"] - prod["t1t2"].T
+                + 2 * prod["t2t2"]
+            )
+        elif piece == "dot":
+            out["dot"] = prod["yy"]
+        elif piece == "e2":
+            out["e2"] = prod["qc"] + prod["qc"].T - 2 * prod["yy"]
+        elif piece == "hh":
+            out["hh"] = (
+                prod["t1t1"] - prod["t1t2"] - prod["t1t2"].T + prod["t2t2"]
+            )
+        elif piece == "opp":
+            out["opp"] = (
+                prod["t2c"] + prod["t2c"].T - prod["t1t2"] - prod["t1t2"].T
+            )
+        elif piece == "hc":
+            out["hc"] = prod["t1c"] - prod["t2c"]
+        else:
+            raise ValueError(f"unknown gram piece {piece!r}")
+    return out

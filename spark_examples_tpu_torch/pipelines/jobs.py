@@ -1,0 +1,88 @@
+"""Job entrypoints:
+
+- :func:`similarity_matrix_job` — stream cohort -> persist N x N matrix.
+- :func:`pcoa_job` — stream cohort -> distance -> double-center -> eig
+  -> coords, on the device (the streamed exact route: only the (N, k)
+  coordinates come back to the host).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from spark_examples_tpu_torch.core.config import EIGH_ITERS_DEFAULT, JobConfig
+from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
+from spark_examples_tpu_torch.models.pcoa import fit_pcoa
+from spark_examples_tpu_torch.ops.eigh import eigh_flops
+from spark_examples_tpu_torch.pipelines import io as pio
+from spark_examples_tpu_torch.pipelines import runner
+
+
+@dataclass
+class CoordsOutput:
+    sample_ids: list[str]
+    coords: np.ndarray
+    eigenvalues: np.ndarray
+    timer: PhaseTimer
+    n_variants: int = 0
+    # Fraction of TOTAL inertia per component (trace-based).
+    proportion: np.ndarray | None = None
+
+
+def similarity_matrix_job(job: JobConfig, source=None
+                          ) -> runner.SimilarityResult:
+    result = runner.run_similarity(job, source=source)
+    if job.output_path:
+        pio.write_matrix(job.output_path, result.sample_ids,
+                         result.similarity, kind="similarity")
+    return result
+
+
+def pcoa_job(job: JobConfig, source=None) -> CoordsOutput:
+    """Cohort -> PCoA coordinates: gram accumulators -> finalize ->
+    center -> eigh -> coords, without the N x N matrix leaving the
+    device."""
+    cfg = job.compute
+    metric = cfg.metric or "ibs"
+    timer = PhaseTimer()
+    if source is None:
+        with timer.phase("ingest_setup"):
+            source = runner.build_source(job.ingest)
+    grun = runner.run_gram(job, source, timer)
+    with timer.phase("finalize"):
+        dist = hard_sync(runner.finalize_field(grun.acc, metric, "distance"))
+    method = _eigh_method(cfg.eigh_mode, dist.shape[0])
+    with timer.phase("eigh"):
+        res = hard_sync(fit_pcoa(dist, k=cfg.num_pc, method=method,
+                                 iters=cfg.eigh_iters,
+                                 oversample=cfg.eigh_oversample))
+    return _emit_coords(job, grun.sample_ids, res.coords.cpu().numpy(),
+                        res.eigenvalues.cpu().numpy(), timer,
+                        grun.n_variants, method=method,
+                        eigh_iters=cfg.eigh_iters,
+                        proportion=res.proportion_explained.cpu().numpy())
+
+
+def _emit_coords(job: JobConfig, sample_ids, coords, vals, timer,
+                 n_variants: int, method: str,
+                 eigh_iters: int = EIGH_ITERS_DEFAULT,
+                 proportion=None) -> CoordsOutput:
+    """Shared output tail: solver-matched operation credit, result
+    assembly, optional TSV persistence."""
+    timer.add("eigh_flops", eigh_flops(len(sample_ids), method=method,
+                                       k=job.compute.num_pc,
+                                       oversample=job.compute.eigh_oversample,
+                                       iters=eigh_iters))
+    out = CoordsOutput(sample_ids, coords, vals, timer, n_variants,
+                       proportion=proportion)
+    if job.output_path:
+        pio.write_coords_tsv(job.output_path, sample_ids, out.coords)
+    return out
+
+
+def _eigh_method(eigh_mode: str, n: int) -> str:
+    if eigh_mode == "auto":
+        return "randomized" if n > 16384 else "dense"
+    return {"dense": "dense", "randomized": "randomized"}[eigh_mode]

@@ -1,0 +1,258 @@
+"""The PyTorch port's slice as a whole against the JAX package, on the
+CPU: the same SyntheticSource seed through both ``pcoa_job`` routes, the
+CLI, the feed, its error cases, and the import boundary."""
+
+import ast
+import os
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from spark_examples_tpu.core import config as jconfig
+from spark_examples_tpu.core.profiling import PhaseTimer as JPhaseTimer
+from spark_examples_tpu.ingest import SyntheticSource as JSyntheticSource
+from spark_examples_tpu.pipelines import jobs as jjobs
+from spark_examples_tpu.pipelines import runner as jrunner
+from spark_examples_tpu_torch.cli.main import main as tmain
+from spark_examples_tpu_torch.core import config as tconfig
+from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
+from spark_examples_tpu_torch.ingest import prefetch as tprefetch
+from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+from spark_examples_tpu_torch.pipelines import jobs as tjobs
+from spark_examples_tpu_torch.pipelines import runner as trunner
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, V, BV, K = 48, 4096, 512, 4
+
+
+def _jobs(num_pc=K, output_path=None):
+    j = jconfig.JobConfig(
+        ingest=jconfig.IngestConfig(n_samples=N, n_variants=V,
+                                    block_variants=BV),
+        compute=jconfig.ComputeConfig(metric="ibs", num_pc=num_pc))
+    t = tconfig.JobConfig(
+        ingest=tconfig.IngestConfig(n_samples=N, n_variants=V,
+                                    block_variants=BV),
+        compute=tconfig.ComputeConfig(metric="ibs", num_pc=num_pc,
+                                      device="cpu"),
+        output_path=output_path)
+    return j, t
+
+
+@pytest.fixture(scope="module")
+def slice_runs():
+    jjob, tjob = _jobs()
+    jg = jrunner.run_gram(jjob, JSyntheticSource(n_samples=N, n_variants=V),
+                          JPhaseTimer())
+    tg = trunner.run_gram(tjob, SyntheticSource(n_samples=N, n_variants=V),
+                          PhaseTimer())
+    jout = jjobs.pcoa_job(jjob, source=JSyntheticSource(n_samples=N,
+                                                        n_variants=V))
+    tout = tjobs.pcoa_job(tjob, source=SyntheticSource(n_samples=N,
+                                                       n_variants=V))
+    return jg, tg, jout, tout
+
+
+def test_slice_int32_accumulators_are_bitwise_equal(slice_runs):
+    jg, tg, _, _ = slice_runs
+    assert tg.lowering == "reference"
+    assert tg.n_variants == jg.n_variants == V
+    for leaf in ("cc", "yc", "t1t1", "t2t2"):
+        np.testing.assert_array_equal(tg.acc[leaf].numpy(),
+                                      np.asarray(jg.acc[leaf]), err_msg=leaf)
+
+
+def test_slice_eigenpairs_agree_with_jax(slice_runs):
+    """Eigenvalues agree within 1e-4 of lambda_1 (f32 centering and two
+    eigensolvers); coordinates agree per column up to sign, within 2e-3
+    of the column's scale, for columns whose eigengap to both neighbours
+    exceeds 2% of lambda_1 (closer pairs may rotate into each other)."""
+    _, _, jout, tout = slice_runs
+    jv, tv = np.asarray(jout.eigenvalues), tout.eigenvalues
+    np.testing.assert_allclose(tv, jv, atol=1e-4 * jv[0])
+    gaps = np.diff(jv)
+    checked = 0
+    for j in range(K):
+        left = abs(gaps[j - 1]) if j > 0 else np.inf
+        right = abs(gaps[j]) if j < K - 1 else np.inf
+        if min(left, right) <= 0.02 * jv[0]:
+            continue
+        jc, tc = np.asarray(jout.coords)[:, j], tout.coords[:, j]
+        s = np.sign(np.dot(jc, tc)) or 1.0
+        scale = np.abs(jc).max()
+        np.testing.assert_allclose(s * tc, jc, atol=2e-3 * scale,
+                                   err_msg=f"pc{j + 1}")
+        checked += 1
+    assert checked >= 1
+    assert np.isfinite(tout.coords).all()
+    assert tout.coords.shape == (N, K)
+
+
+def test_pcoa_cli_writes_the_coords_tsv(tmp_path, capsys):
+    out = tmp_path / "coords.tsv"
+    rc = tmain(["pcoa", "--device", "cpu", "--n-samples", "24",
+                "--n-variants", "600", "--block-variants", "256",
+                "--num-pc", "3", "--output-path", str(out), "--timings"])
+    assert rc == 0
+    lines = out.read_text().splitlines()
+    assert lines[0] == "sample\tpc1\tpc2\tpc3"
+    assert len(lines) == 25
+    captured = capsys.readouterr()
+    assert "24 samples x 3 components" in captured.out
+    assert '"gram"' in captured.err and '"eigh"' in captured.err
+
+
+def test_similarity_job_matches_jax(tmp_path):
+    jjob, tjob = _jobs(output_path=str(tmp_path / "sim.tsv"))
+    src_kw = dict(n_samples=N, n_variants=V)
+    got = tjobs.similarity_matrix_job(tjob, SyntheticSource(**src_kw))
+    want = jrunner.run_similarity(jjob, JSyntheticSource(**src_kw))
+    np.testing.assert_array_equal(got.similarity, want.similarity)
+    np.testing.assert_array_equal(got.distance, want.distance)
+    assert (tmp_path / "sim.tsv.meta.json").exists()
+
+
+def test_similarity_cli(tmp_path, capsys):
+    rc = tmain(["similarity", "--device", "cpu", "--n-samples", "10",
+                "--n-variants", "300", "--output-path",
+                str(tmp_path / "m.npy")])
+    assert rc == 0
+    assert np.load(tmp_path / "m.npy").shape == (10, 10)
+    assert "similarity[ibs] 10x10 over 300 variants" in capsys.readouterr().out
+
+
+def test_device_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cuda"):
+        tmain(["pcoa", "--n-samples", "8", "--n-variants", "64"])
+
+
+def test_fused_lowering_on_cpu_raises_naming_the_flag():
+    with pytest.raises(ValueError, match="--gram-lowering fused"):
+        tmain(["pcoa", "--device", "cpu", "--gram-lowering", "fused",
+               "--n-samples", "8", "--n-variants", "64"])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--metric", "king"], "invalid choice"),
+    (["--block-variants", "0"], "block_variants"),
+])
+def test_bad_flags_are_usage_errors(argv, match, capsys):
+    with pytest.raises(SystemExit):
+        tmain(["pcoa", "--device", "cpu"] + argv)
+    assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(metric="king"), "not yet ported"),
+    (dict(metric="bogus"), "registered kernels"),
+    (dict(pack_stream="zip"), "pack_stream"),
+    (dict(device="tpu"), "--device"),
+])
+def test_compute_config_validation(kw, match):
+    with pytest.raises(ValueError, match=match):
+        tconfig.ComputeConfig(**kw)
+
+
+def test_unported_source_and_checkpoints_are_refused():
+    with pytest.raises(ValueError, match="not yet ported"):
+        trunner.build_source(tconfig.IngestConfig(source="vcf"))
+    _, tjob = _jobs()
+    tjob.compute.checkpoint_dir = "ck"
+    with pytest.raises(ValueError, match="not yet ported"):
+        trunner.run_gram(tjob, SyntheticSource(n_samples=4, n_variants=8),
+                         PhaseTimer())
+
+
+@pytest.mark.parametrize("pack", [False, True])
+def test_feed_pads_the_ragged_tail_and_keeps_one_shape(pack):
+    src = SyntheticSource(n_samples=6, n_variants=1000, seed=2)
+    got = list(tprefetch.stream_to_device(src, 384, torch.device("cpu"),
+                                          pack=pack))
+    width = tprefetch.padded_width(384, pack=pack)
+    assert [m.stop for _, m in got] == [384, 768, 1000]
+    assert all(b.shape == (6, width) for b, _ in got)
+    tail = got[-1][0].numpy()
+    if pack:
+        assert (tail[:, (1000 - 768) // 4:] == 0xFF).all()
+    else:
+        assert (tail[:, 1000 - 768:] == -1).all()
+        np.testing.assert_array_equal(
+            tail[:, :1000 - 768], list(src.blocks(384))[-1][0])
+
+
+def test_feed_propagates_producer_errors_and_stops_on_abandon():
+    class Broken(SyntheticSource):
+        def blocks(self, bv, start_variant=0):
+            yield from super().blocks(bv, start_variant)
+            raise OSError("disk went away")
+
+    src = Broken(n_samples=4, n_variants=100)
+    with pytest.raises(OSError, match="disk went away"):
+        list(tprefetch.stream_to_device(src, 40, torch.device("cpu")))
+    it = tprefetch.stream_to_device(
+        SyntheticSource(n_samples=4, n_variants=10_000), 40,
+        torch.device("cpu"), prefetch=1)
+    next(it)
+    it.close()
+    assert not any(t.name == "prefetch-producer" and t.is_alive()
+                   for t in threading.enumerate())
+
+
+def test_hard_sync_returns_its_argument_and_timer_reports():
+    tree = {"a": torch.zeros(2), "b": [torch.ones(1)]}
+    assert hard_sync(tree) is tree
+    t = PhaseTimer()
+    with t.phase("gram"):
+        pass
+    t.add("gram_flops", 1e9)
+    rep = t.report()
+    assert rep["gram_flops"] == 1e9 and "gram_gflops" in rep
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Import every module of the port (and chip_smoke.py) in a fresh
+    interpreter: neither jax nor spark_examples_tpu may be loaded."""
+    code = (
+        "import importlib, pkgutil, sys, runpy\n"
+        "import spark_examples_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.') if not m.name.endswith('__main__')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "runpy.run_path('chip_smoke.py', run_name='chip_smoke_imported')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or "
+        "m == 'spark_examples_tpu' or m.startswith('spark_examples_tpu.'))\n"
+        "assert len(names) >= 20, names\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout
+    # Statically too, so imports inside functions (chip_smoke's main)
+    # are covered.
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f)
+        for d, _, fs in os.walk(os.path.join(REPO, "spark_examples_tpu_torch"))
+        for f in fs if f.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "jaxlib",
+                                               "spark_examples_tpu"), \
+                    f"{path}:{node.lineno} imports {m}"
