@@ -25,8 +25,31 @@ Phases (any failure exits non-zero; none is caught and ignored):
 6. Run the same job's gram stage under ``--gram-lowering reference`` and
    under ``auto`` (K1) through the library: the int32 accumulators and
    the finalized distances must be bitwise equal.
-7. Print the ``kernels`` JSON line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+7. Hold the Manhattan kernel (K2) against its plain PyTorch version on
+   the card: bitwise on ragged integer OTU-like tables and at the
+   Bray-Curtis job's shape (10,000 samples x 4,096 features), within
+   ``rtol = 2 F 2^-24`` on a non-integer table (the recursive-summation
+   bound of two f32 sums of F nonnegative terms in different orders).
+8. Time K2 at the job's shape with CUDA events, beside its bound, the
+   plain version (one rep), ``torch.cdist(p=1)`` (which must agree
+   bitwise on the integer table) and the ``matmul`` lowering
+   (levels 256).
+9. Run the Bray-Curtis job through the CLI: ``pcoa --metric braycurtis
+   --n-samples 10000 --n-variants 4096 --num-pc 10``; K2 must launch
+   exactly once, the coordinates must be finite and separate the
+   planted populations (PC1-2 separation >= SEPARATION_MIN; the JAX
+   package's own CPU run of this job on 500 and 1,000 samples of the
+   same seed gives 20.3 and 20.0).
+10. The ``exact`` and ``fused`` Bray-Curtis lowerings of the job's table
+    must give bitwise equal distances.
+11. Run the ``pca`` job through the CLI at the Quickstart shape: K1 must
+    launch 13 times, the coordinates must be finite and separate the
+    populations.
+12. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
+    the last line ``{"ok": true, "device": {...}}``.
+
+Each CLI run sets every kernel's launch count to 0 just before and reads
+them just after. A ptxas report with spills fails phase 2.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -38,6 +61,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -51,6 +75,15 @@ BLOCK_VARIANTS = 8192
 NUM_PC = 10
 DEVICE = "cuda"
 SEPARATION_MIN = 10.0
+# The Bray-Curtis job (BASELINE config 3's shape: a 10k-sample table of
+# 4,096 features).
+BC_SAMPLES = 10_000
+BC_FEATURES = 4096
+BC_LEVELS = 256
+BC_RAGGED = ((1, 1), (37, 301), (65, 130), (300, 1025), (257, 4097))
+# FP32 lanes per SM (Hopper): the CUDA-core instruction rate is
+# SMs x 128 x the SM clock.
+FP32_LANES_PER_SM = 128
 # H100 SXM published peaks (NVIDIA data sheet, dense): int8 tensor-core
 # rate and HBM3 bandwidth, at the full 700 W power limit.
 PEAK_INT8_OPS = 1.979e15
@@ -72,6 +105,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0].split()[0])
+    return mhz * 1e6
+
+
+def separation(coords: np.ndarray, pops: np.ndarray) -> float:
+    """Mean between-centroid over mean within-population distance in
+    PC1-2."""
+    c2 = coords[:, :2]
+    labels_u = np.unique(pops)
+    cents = np.stack([c2[pops == k].mean(0) for k in labels_u])
+    labels = np.searchsorted(labels_u, pops)
+    within = float(np.mean(np.linalg.norm(c2 - cents[labels], axis=1)))
+    between = float(np.mean([
+        np.linalg.norm(cents[a] - cents[b])
+        for a in range(len(cents)) for b in range(a + 1, len(cents))]))
+    return between / within
+
+
+def otu_table(rng, n: int, f: int) -> np.ndarray:
+    """Integer OTU-like counts: floor(gamma(0.5, 40)), 60 % zeros."""
+    x = rng.gamma(0.5, 40.0, size=(n, f)) * (rng.random((n, f)) > 0.6)
+    return x.astype(np.int32).astype(np.float32)
+
+
 def cuda_ms(fn, reps: int, warmup: int) -> float:
     """Mean milliseconds per call of ``fn`` over ``reps`` calls, timed
     with CUDA events after ``warmup`` calls."""
@@ -88,6 +150,34 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def run_cli(cli_main, argv: list[str], counters: dict, n_pc: int):
+    """One job through the CLI's ``main`` with ``--timings``: every
+    kernel's launch count set to 0 just before, read just after. Returns
+    (launches by kernel, phase timings, coords from the TSV, wall s)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv = os.path.join(tmp, "coords.tsv")
+        err = io.StringIO()
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(argv + ["--output-path", tsv, "--timings"])
+        wall = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in counters.items()}
+        if rc != 0:
+            fail(f"{argv[0]} CLI returned {rc}")
+        timings = json.loads(err.getvalue().strip().splitlines()[-1])
+        with open(tsv) as f:
+            header = f.readline().rstrip("\n").split("\t")
+            rows_ = [line.rstrip("\n").split("\t") for line in f]
+    coords = np.asarray([r[1:] for r in rows_], dtype=np.float64)
+    if len(header) != n_pc + 1:
+        fail(f"{argv[0]}: TSV header {header}")
+    if not np.isfinite(coords).all():
+        fail(f"{' '.join(argv)}: non-finite coordinates")
+    return launches, timings, coords, wall
 
 
 def main() -> int:
@@ -109,8 +199,11 @@ def main() -> int:
     from spark_examples_tpu_torch.ingest import bitpack
     from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
     from spark_examples_tpu_torch.ops import cuda_build, distances, genotype
-    from spark_examples_tpu_torch.ops import packed_gram
+    from spark_examples_tpu_torch.ops import braycurtis_kernel, packed_gram
     from spark_examples_tpu_torch.pipelines import runner
+
+    launch_counters = {"packed_gram": packed_gram,
+                       "braycurtis": braycurtis_kernel}
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -124,12 +217,16 @@ def main() -> int:
     print(f"build: {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         print(f"--- ptxas report, csrc/{name}.cu ---\n{rep.strip()}")
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill", rep)]
+        if not spills or any(spills):
+            fail(f"csrc/{name}.cu: ptxas reports spills (or no report): "
+                 f"{spills}")
 
     # -- 3. parity, bitwise ---------------------------------------------------
     rng = np.random.default_rng(0)
     cases = 0
     max_err = 0
-    metrics = kernels.names()
+    metrics = kernels.fused_names()
     for nr, nc, w in RAGGED_SHAPES:
         rows = torch.from_numpy(
             rng.integers(0, 256, (nr, w), dtype=np.uint8)).to(dev)
@@ -200,52 +297,27 @@ def main() -> int:
 
     # -- 5. the Quickstart job through the CLI ------------------------------
     expected = math.ceil(N_VARIANTS / BLOCK_VARIANTS)
-    with tempfile.TemporaryDirectory() as tmp:
-        tsv = os.path.join(tmp, "coords.tsv")
-        argv = ["pcoa", "--n-samples", str(N_SAMPLES), "--n-variants",
-                str(N_VARIANTS), "--metric", "ibs", "--num-pc",
-                str(NUM_PC), "--block-variants", str(BLOCK_VARIANTS),
-                "--device", DEVICE, "--output-path", tsv, "--timings"]
-        err = io.StringIO()
-        packed_gram.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stderr(err):
-            rc = cli_main(argv)
-        wall = time.perf_counter() - t0
-        launches = packed_gram.launches
-        if rc != 0:
-            fail(f"pcoa CLI returned {rc}")
-        if launches != expected:
-            fail(f"K1 launched {launches} times on the main path, "
-                 f"expected {expected}")
-        timings = json.loads(err.getvalue().strip().splitlines()[-1])
-        with open(tsv) as f:
-            header = f.readline().rstrip("\n").split("\t")
-            rows_ = [line.rstrip("\n").split("\t") for line in f]
-    coords = np.asarray([r[1:] for r in rows_], dtype=np.float64)
-    if coords.shape != (N_SAMPLES, NUM_PC) or len(header) != NUM_PC + 1:
+    argv = ["pcoa", "--n-samples", str(N_SAMPLES), "--n-variants",
+            str(N_VARIANTS), "--metric", "ibs", "--num-pc", str(NUM_PC),
+            "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
+    counts, timings, coords, wall = run_cli(cli_main, argv, launch_counters,
+                                            NUM_PC)
+    launches = counts["packed_gram"]
+    if launches != expected:
+        fail(f"K1 launched {launches} times on the main path, "
+             f"expected {expected}")
+    if coords.shape != (N_SAMPLES, NUM_PC):
         fail(f"coords shape {coords.shape}, expected "
              f"({N_SAMPLES}, {NUM_PC})")
-    if not np.isfinite(coords).all():
-        fail("non-finite coordinates")
-    pops = source.populations
-    c2 = coords[:, :2]
-    cents = np.stack([c2[pops == k].mean(0) for k in np.unique(pops)])
-    labels = np.searchsorted(np.unique(pops), pops)
-    within = float(np.mean(np.linalg.norm(c2 - cents[labels], axis=1)))
-    between = float(np.mean([
-        np.linalg.norm(cents[a] - cents[b])
-        for a in range(len(cents)) for b in range(a + 1, len(cents))]))
-    separation = between / within
-    if not separation >= SEPARATION_MIN:
-        fail(f"PC1-2 population separation {separation:.3f} < "
-             f"{SEPARATION_MIN}")
+    sep = separation(coords, source.populations)
+    if not sep >= SEPARATION_MIN:
+        fail(f"PC1-2 population separation {sep:.3f} < {SEPARATION_MIN}")
     print(f"pcoa {N_SAMPLES} x {N_VARIANTS} ibs, {NUM_PC} PCs [{card}]: "
           f"wall {wall:.3f} s; phases: "
           + ", ".join(f"{k} {timings[k]:.4f} s"
                       for k in ("ingest_setup", "gram", "finalize", "eigh"))
-          + f"; K1 launches {launches}; coords finite; PC1-2 separation "
-          f"{separation:.2f} (min {SEPARATION_MIN})")
+          + f"; launches {counts}; coords finite; PC1-2 separation "
+          f"{sep:.2f} (min {SEPARATION_MIN})")
 
     # -- 6. reference vs K1 lowering, bitwise -------------------------------
     accs, dists = {}, {}
@@ -270,13 +342,171 @@ def main() -> int:
         fail("ibs distances differ between lowerings")
     print("lowerings: reference and K1 accumulators "
           f"({', '.join(accs['auto'])}) and ibs distances bitwise equal")
+    del accs, dists, g
 
+    # -- 7. K2 parity ------------------------------------------------------
+    rng = np.random.default_rng(1)
+    k2_cases = 0
+    k2_err = 0.0
+    shapes = BC_RAGGED + ((BC_SAMPLES, BC_FEATURES),)
+    for n, f in shapes:
+        x = torch.from_numpy(otu_table(rng, n, f)).to(dev)
+        got = braycurtis_kernel.pairwise_manhattan_kernel(x)
+        if (n, f) == (BC_SAMPLES, BC_FEATURES):
+            # The plain version's one rep, timed here (phase 8 reports it).
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = distances.pairwise_manhattan(x)
+            end.record()
+            torch.cuda.synchronize()
+            k2_plain_ms = start.elapsed_time(end)
+            bc_table = x
+        else:
+            want = distances.pairwise_manhattan(x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if n else 0.0
+        k2_err = max(k2_err, err)
+        if not torch.equal(got, want):
+            fail(f"K2 != plain on the integer table {(n, f)}: max |diff| "
+                 f"{err}")
+        k2_cases += 1
+    n, f = 300, 1025
+    x = torch.from_numpy(
+        rng.gamma(0.7, 3.0, (n, f)).astype(np.float32)).to(dev)
+    got = braycurtis_kernel.pairwise_manhattan_kernel(x)
+    want = distances.pairwise_manhattan(x)
+    rtol = 2.0 * f * 2.0 ** -24
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    k2_float_err = float((got - want).abs().max())
+    if not rel <= rtol:
+        fail(f"K2 vs plain on the float table {(n, f)}: max relative "
+             f"diff {rel:.3g} > rtol {rtol:.3g}")
+    k2_cases += 1
+    print(f"parity: K2 == plain PyTorch bitwise on {k2_cases - 1} integer "
+          f"OTU-like tables {list(shapes)}; float table {(n, f)} max "
+          f"relative diff {rel:.3g} (rtol {rtol:.3g}), max |diff| "
+          f"{k2_float_err:.3g}")
+
+    # -- 8. K2 timing at the job's shape -----------------------------------
+    n, f = bc_table.shape
+    k2_ms = cuda_ms(lambda: braycurtis_kernel.pairwise_manhattan_kernel(
+        bc_table), reps=5, warmup=1)
+    num = braycurtis_kernel.pairwise_manhattan_kernel(bc_table)
+    lib = torch.cdist(bc_table, bc_table, p=1.0)
+    torch.cuda.synchronize()
+    if not torch.equal(lib, num):
+        fail("torch.cdist(p=1) disagrees with K2 on the integer table: max "
+             f"|diff| {float((lib - num).abs().max())}")
+    k2_library_ms = cuda_ms(lambda: torch.cdist(bc_table, bc_table, p=1.0),
+                            reps=3, warmup=1)
+    del lib
+    exact_bc = distances.bc_from_manhattan(num, bc_table.sum(dim=1))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    mm_bc = distances.braycurtis_matmul(bc_table, levels=BC_LEVELS)
+    end.record()
+    torch.cuda.synchronize()
+    matmul_ms = start.elapsed_time(end)
+    if not bool(torch.isfinite(mm_bc).all()):
+        fail("the matmul lowering gave non-finite distances")
+    mm_err = float((mm_bc - exact_bc).abs().max())
+    del mm_bc, exact_bc, num
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instr_s = sms * FP32_LANES_PER_SM * clock
+    k2_instr = 2.0 * n * n * f  # FADD + FADD|.| per (i, j, f) triple
+    k2_bytes = 4.0 * n * f + 4.0 * n * n
+    k2_ops_ms = k2_instr / instr_s * 1e3
+    k2_bytes_ms = k2_bytes / PEAK_BYTES_S * 1e3
+    k2_bound_ms = max(k2_ops_ms, k2_bytes_ms)
+    k2_bound_by = "operations" if k2_ops_ms >= k2_bytes_ms else "bytes"
+    print(f"K2 timing at ({n}, {f}) f32 [{card}]: {k2_ms:.4f} ms/launch; "
+          f"bound {k2_bound_ms:.4f} ms ({k2_bound_by}: {k2_instr:.4g} FP32 "
+          f"instructions at {sms} SMs x {FP32_LANES_PER_SM} lanes x "
+          f"{clock / 1e9:.3f} GHz = {instr_s:.4g}/s; {k2_bytes:.4g} bytes "
+          f"-> {k2_bytes_ms:.4f} ms); plain {k2_plain_ms:.4f} ms (1 rep); "
+          f"torch.cdist(p=1) {k2_library_ms:.4f} ms; matmul lowering "
+          f"(levels {BC_LEVELS}) {matmul_ms:.4f} ms (1 rep, max |BC - "
+          f"exact| {mm_err:.3g}); {k2_instr / (k2_ms * 1e-3) / 1e12:.2f} "
+          "T instructions/s achieved")
+    del bc_table
+
+    # -- 9. the Bray-Curtis job through the CLI -----------------------------
+    argv = ["pcoa", "--metric", "braycurtis", "--n-samples",
+            str(BC_SAMPLES), "--n-variants", str(BC_FEATURES), "--num-pc",
+            str(NUM_PC), "--device", DEVICE]
+    bc_counts, timings, coords, wall = run_cli(cli_main, argv,
+                                               launch_counters, NUM_PC)
+    if bc_counts["braycurtis"] != 1:
+        fail(f"K2 launched {bc_counts['braycurtis']} times on the "
+             "Bray-Curtis job, expected 1")
+    if coords.shape != (BC_SAMPLES, NUM_PC):
+        fail(f"Bray-Curtis coords shape {coords.shape}, expected "
+             f"({BC_SAMPLES}, {NUM_PC})")
+    bc_source = SyntheticSource(n_samples=BC_SAMPLES, n_variants=BC_FEATURES)
+    sep = separation(coords, bc_source.populations)
+    if not sep >= SEPARATION_MIN:
+        fail(f"Bray-Curtis PC1-2 population separation {sep:.3f} < "
+             f"{SEPARATION_MIN}")
+    print(f"pcoa {BC_SAMPLES} x {BC_FEATURES} braycurtis, {NUM_PC} PCs "
+          f"[{card}]: wall {wall:.3f} s; phases: "
+          + ", ".join(f"{k} {timings[k]:.4f} s"
+                      for k in ("ingest_setup", "ingest", "distance", "eigh"))
+          + f"; launches {bc_counts}; coords finite; PC1-2 separation "
+          f"{sep:.2f} (min {SEPARATION_MIN})")
+
+    # -- 10. exact vs fused Bray-Curtis lowering, bitwise -------------------
+    bc_dists = {}
+    for method in ("exact", "fused"):
+        job = JobConfig(
+            ingest=IngestConfig(n_samples=BC_SAMPLES,
+                                n_variants=BC_FEATURES),
+            compute=ComputeConfig(metric="braycurtis",
+                                  braycurtis_method=method, device=DEVICE))
+        bc_dists[method] = runner.braycurtis_distance(
+            job, SyntheticSource(n_samples=BC_SAMPLES,
+                                 n_variants=BC_FEATURES), PhaseTimer())
+    if not torch.equal(bc_dists["exact"], bc_dists["fused"]):
+        diff = float((bc_dists["exact"] - bc_dists["fused"]).abs().max())
+        fail(f"Bray-Curtis distances differ between lowerings: {diff}")
+    print("lowerings: exact and K2 Bray-Curtis distances bitwise equal on "
+          f"the job's {BC_SAMPLES} x {BC_FEATURES} table")
+    del bc_dists
+
+    # -- 11. the pca job through the CLI ------------------------------------
+    argv = ["pca", "--n-samples", str(N_SAMPLES), "--n-variants",
+            str(N_VARIANTS), "--num-pc", str(NUM_PC), "--block-variants",
+            str(BLOCK_VARIANTS), "--device", DEVICE]
+    pca_counts, timings, coords, wall = run_cli(cli_main, argv,
+                                                launch_counters, NUM_PC)
+    if pca_counts["packed_gram"] != expected:
+        fail(f"K1 launched {pca_counts['packed_gram']} times on the pca "
+             f"job, expected {expected}")
+    if coords.shape != (N_SAMPLES, NUM_PC):
+        fail(f"pca coords shape {coords.shape}")
+    sep = separation(coords, source.populations)
+    if not sep >= SEPARATION_MIN:
+        fail(f"pca PC1-2 population separation {sep:.3f} < "
+             f"{SEPARATION_MIN}")
+    print(f"pca {N_SAMPLES} x {N_VARIANTS} shared-alt, {NUM_PC} PCs "
+          f"[{card}]: wall {wall:.3f} s; phases: "
+          + ", ".join(f"{k} {timings[k]:.4f} s"
+                      for k in ("ingest_setup", "gram", "finalize", "eigh"))
+          + f"; launches {pca_counts}; coords finite; PC1-2 separation "
+          f"{sep:.2f} (min {SEPARATION_MIN})")
+
+    # -- 12. summary --------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
         "route": "cuda",
         "source": "spark_examples_tpu_torch/csrc/packed_gram.cu",
         "replaces": "spark_examples_tpu/ops/pallas/packed_gram.py:118",
         "launches": launches,
+        "launches_by_path": {"pcoa ibs": launches,
+                             "pcoa braycurtis": bc_counts["packed_gram"],
+                             "pca": pca_counts["packed_gram"]},
         "max_abs_err": max_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
@@ -285,6 +515,25 @@ def main() -> int:
         "library_ms": library_ms,
         "parity": "bitwise",
         "parity_cases": cases,
+    }, {
+        "name": "braycurtis",
+        "route": "cuda",
+        "source": "spark_examples_tpu_torch/csrc/braycurtis.cu",
+        "replaces": "spark_examples_tpu/ops/pallas/braycurtis_kernel.py:47",
+        "launches": bc_counts["braycurtis"],
+        "launches_by_path": {"pcoa ibs": counts["braycurtis"],
+                             "pcoa braycurtis": bc_counts["braycurtis"],
+                             "pca": pca_counts["braycurtis"]},
+        "max_abs_err": max(k2_err, k2_float_err),
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound_ms,
+        "bound_by": k2_bound_by,
+        "library_ms": k2_library_ms,
+        "matmul_lowering_ms": matmul_ms,
+        "parity": f"bitwise on integer tables; rtol {rtol:.3g} on a float "
+                  "table",
+        "parity_cases": k2_cases,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

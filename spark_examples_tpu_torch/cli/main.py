@@ -1,4 +1,4 @@
-"""Command-line entry: ``python -m spark_examples_tpu_torch {pcoa,similarity}``.
+"""Command-line entry: ``python -m spark_examples_tpu_torch {pcoa,pca,similarity}``.
 
 Flag names and defaults follow the JAX package's CLI for the flags the
 ported path reads, plus ``--device {cuda,cpu}`` (default cuda; a missing
@@ -6,6 +6,10 @@ card raises).
 
     python -m spark_examples_tpu_torch pcoa --n-samples 2504 \\
         --n-variants 100000 --metric ibs --num-pc 10 --output-path coords.tsv
+    python -m spark_examples_tpu_torch pcoa --metric braycurtis \\
+        --n-samples 10000 --n-variants 4096 --num-pc 10
+    python -m spark_examples_tpu_torch pca --n-samples 2504 \\
+        --n-variants 100000 --num-pc 10
 """
 
 from __future__ import annotations
@@ -45,6 +49,14 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    "visible")
     c.add_argument("--metric", default="ibs",
                    choices=list(kernels.finalizable_names()))
+    c.add_argument("--braycurtis-method", default="auto",
+                   choices=list(config.BRAYCURTIS_METHODS),
+                   help="braycurtis lowering: 'exact' = plain tiled "
+                   "broadcast-abs-sum; 'matmul' = threshold-decomposed "
+                   "products (quantised to --braycurtis-levels); 'fused' "
+                   "= the Manhattan CUDA kernel; 'auto' = fused on a CUDA "
+                   "device, exact elsewhere")
+    c.add_argument("--braycurtis-levels", type=int, default=256)
     c.add_argument("--num-pc", type=int, default=10)
     c.add_argument("--gram-lowering", default="auto",
                    choices=list(config.GRAM_LOWERINGS),
@@ -63,6 +75,14 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    "probe columns)")
     c.add_argument("--checkpoint-dir", default=None,
                    help="not yet ported: refused")
+    c.add_argument("--solver", default="exact",
+                   choices=list(config.SOLVER_LADDER),
+                   help="eigensolve accuracy ladder; only 'exact' is "
+                   "ported (the sketch rungs are refused)")
+    c.add_argument("--gram-mode", default="auto",
+                   choices=list(config.GRAM_MODES),
+                   help="gram accumulation plan; one device holds the "
+                   "matrix ('tile2d' is refused)")
     p.add_argument("--output-path", default=None)
     p.add_argument("--timings", action="store_true",
                    help="print per-phase timing JSON to stderr")
@@ -81,6 +101,8 @@ def _job_from_args(args) -> JobConfig:
         ),
         compute=ComputeConfig(
             metric=args.metric,
+            braycurtis_method=args.braycurtis_method,
+            braycurtis_levels=args.braycurtis_levels,
             num_pc=args.num_pc,
             gram_lowering=args.gram_lowering,
             eigh_mode=args.eigh_mode,
@@ -88,8 +110,11 @@ def _job_from_args(args) -> JobConfig:
             eigh_oversample=args.eigh_oversample,
             device=args.device,
             checkpoint_dir=args.checkpoint_dir,
+            solver=args.solver,
+            gram_mode=args.gram_mode,
         ),
         output_path=args.output_path,
+        model_path=getattr(args, "save_model", None),
     )
 
 
@@ -97,16 +122,29 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="spark_examples_tpu_torch",
         description="population-genomics pipelines on PyTorch/CUDA "
-        "(similarity / PCoA)",
+        "(similarity / PCoA / PCA)",
     )
     parser.add_argument("--version", action="version",
                         version=f"%(prog)s {__version__}")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_common(sub.add_parser("similarity", help="pairwise similarity "
                                "matrix"))
-    _add_common(sub.add_parser("pcoa", help="principal coordinates "
-                               "analysis"))
+    for name, helptext in (("pcoa", "principal coordinates analysis"),
+                           ("pca", "flagship variants-PCA job")):
+        p = sub.add_parser(name, help=helptext)
+        _add_common(p)
+        p.add_argument("--save-model", default=None,
+                       help="not yet ported: refused")
+    # The pca job is defined on the shared-alt similarity; any other
+    # --metric would be silently ignored, so it is rejected instead.
+    sub.choices["pca"].set_defaults(metric="shared-alt")
     args = parser.parse_args(argv)
+    if args.command == "pca" and args.metric != "shared-alt":
+        parser.error(
+            "pca computes the shared-alt similarity by definition; "
+            f"--metric {args.metric} is not accepted (use the similarity "
+            "or pcoa subcommands for other metrics)"
+        )
     try:
         job = _job_from_args(args)
     except ValueError as e:
@@ -123,7 +161,8 @@ def main(argv: list[str] | None = None) -> int:
         )
         timer = res.timer
     else:
-        out = jobs.pcoa_job(job)
+        run = jobs.pcoa_job if args.command == "pcoa" else jobs.variants_pca_job
+        out = run(job)
         _print_coords(out, job)
         timer = out.timer
     if args.timings:

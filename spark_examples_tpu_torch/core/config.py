@@ -18,8 +18,18 @@ from spark_examples_tpu_torch.core.device import DEVICES
 # (ops/packed_gram.py), "auto" = fused on a CUDA device for a packed
 # stream, reference elsewhere. Bit-identical int32 accumulators either way.
 GRAM_LOWERINGS = ("auto", "reference", "fused")
+# Bray-Curtis lowering (--braycurtis-method): "exact" = the plain tiled
+# broadcast-abs-sum, "matmul" = the threshold-decomposed matrix products
+# (quantised to --braycurtis-levels), "fused" = the Manhattan CUDA kernel
+# (ops/braycurtis_kernel.py), "auto" = fused on a CUDA device, exact on
+# the CPU.
+BRAYCURTIS_METHODS = ("auto", "exact", "matmul", "fused")
 EIGH_MODES = ("auto", "dense", "randomized")
 PACK_STREAMS = ("auto", "packed", "dense")
+# Accepted so that a config naming them is refused with a message: only
+# the exact rung on one device is ported.
+SOLVER_LADDER = ("exact", "sketch", "corrected")
+GRAM_MODES = ("auto", "replicated", "variant", "tile2d")
 
 # Randomized-eigh defaults (power iterations / subspace oversample).
 EIGH_ITERS_DEFAULT = 8
@@ -68,8 +78,10 @@ class IngestConfig:
 class ComputeConfig:
     """Compute-path knobs."""
 
-    # None = the job's default (ibs).
+    # None = the job's default (ibs; the pca job always uses shared-alt).
     metric: str | None = None
+    braycurtis_method: str = "auto"
+    braycurtis_levels: int = 256
     num_pc: int = 10
     # Host->device transport: "packed" ships 2-bit packed blocks, "dense"
     # int8; "auto" packs (every ported kernel takes dosage inputs).
@@ -81,11 +93,35 @@ class ComputeConfig:
     device: str = "cuda"
     # Not ported yet; set only to be refused with a message.
     checkpoint_dir: str | None = None
+    solver: str = "exact"
+    gram_mode: str = "auto"
 
     def __post_init__(self):
         _check_enum("compute", "--gram-lowering", self.gram_lowering,
                     GRAM_LOWERINGS, "reference = plain unpack-then-contract, "
                     "fused = the packed CUDA kernel, auto = fused on CUDA")
+        _check_enum("compute", "--braycurtis-method", self.braycurtis_method,
+                    BRAYCURTIS_METHODS, "exact = plain broadcast-abs-sum, "
+                    "matmul = threshold-decomposed products, fused = the "
+                    "Manhattan CUDA kernel, auto = fused on CUDA")
+        _check_int("compute", "--braycurtis-levels", self.braycurtis_levels,
+                   1, 1 << 16, "threshold grid of the matmul lowering")
+        _check_enum("compute", "--solver", self.solver, SOLVER_LADDER,
+                    "eigensolve accuracy ladder")
+        if self.solver != "exact":
+            raise ValueError(
+                f"bad compute config: --solver={self.solver!r} — the sketch "
+                "rungs are not yet ported to the PyTorch package; use "
+                "--solver exact"
+            )
+        _check_enum("compute", "--gram-mode", self.gram_mode, GRAM_MODES,
+                    "gram accumulation plan")
+        if self.gram_mode == "tile2d":
+            raise ValueError(
+                "bad compute config: --gram-mode='tile2d' — the tile-sharded "
+                "plan is not yet ported to the PyTorch package (one device "
+                "holds the whole matrix); use --gram-mode auto"
+            )
         _check_enum("compute", "--eigh-mode", self.eigh_mode, EIGH_MODES,
                     "dense eigh vs randomized subspace solver; auto picks "
                     "by shape")
@@ -99,18 +135,12 @@ class ComputeConfig:
                    "randomized solver power iterations")
         _check_int("compute", "--eigh-oversample", self.eigh_oversample, 0,
                    1 << 20, "randomized solver extra probe columns")
-        if self.metric is not None:
-            if self.metric not in kernels.names():
-                raise ValueError(
-                    f"bad compute config: --metric={self.metric!r} — "
-                    f"registered kernels: {' | '.join(kernels.names())}"
-                )
-            if self.metric not in kernels.finalizable_names():
-                raise ValueError(
-                    f"bad compute config: --metric={self.metric!r} — its "
-                    "finalize is not yet ported; ported metrics: "
-                    f"{' | '.join(kernels.finalizable_names())}"
-                )
+        if self.metric is not None and \
+                self.metric not in kernels.finalizable_names():
+            raise ValueError(
+                f"bad compute config: --metric={self.metric!r} — "
+                f"registered kernels: {' | '.join(kernels.finalizable_names())}"
+            )
 
 
 @dataclass
@@ -118,6 +148,16 @@ class JobConfig:
     ingest: IngestConfig = field(default_factory=IngestConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
     output_path: str | None = None
+    # Not ported yet; set only to be refused with a message.
+    model_path: str | None = None
+
+    def __post_init__(self):
+        if self.model_path:
+            raise ValueError(
+                "bad job config: --save-model — persisted models (and the "
+                "projection that reads them) are not yet ported to the "
+                "PyTorch package; run without it"
+            )
 
     def replace(self, **kw) -> "JobConfig":
         return dataclasses.replace(self, **kw)

@@ -1,16 +1,20 @@
-"""The count-family kernel registry: one declarative object per metric.
+"""The kernel registry: one declarative object per metric.
 
-A :class:`Kernel` says which raw int32 products a metric accumulates
-(``pieces``), which statistics its finalize reads (``stats``,
-``ops.genotype.combine_products`` names), its finalize, and the worst
-per-variant accumulator increment feeding the int32 exactness guard.
+Two families, as in the JAX package's registry:
 
-All six kernels here are 2-bit packable count kernels, so every one of
-them streams packed under ``pack_stream="auto"`` and every product set
-is served by the packed-gram CUDA kernel (``ops/packed_gram.py``).
-Only ``ibs`` has its finalize ported; the others carry their product
-tuples so the kernel's parity checks cover every product set the TPU
-kernel serves.
+- ``count``: the 2-bit packable pair-count kernels. A kernel says which
+  raw int32 products it accumulates (``pieces``), which statistics its
+  finalize reads (``stats``, ``ops.genotype.combine_products`` names),
+  its finalize, and the worst per-variant accumulator increment feeding
+  the int32 exactness guard. All six stream packed under
+  ``pack_stream="auto"``, and the packed-gram CUDA kernel
+  (``ops/packed_gram.py``) serves every one of their product sets.
+- ``table``: a dense-table pipeline with its own ``table_runner``
+  instead of the gram accumulator (braycurtis, whose Manhattan
+  contraction is the CUDA kernel of ``ops/braycurtis_kernel.py``).
+
+Each finalize is the counterpart of the JAX package's registration
+(``kernels/builtin.py``), whose ``np_finalize`` twins are the spec.
 """
 
 from __future__ import annotations
@@ -22,22 +26,34 @@ import torch
 
 from spark_examples_tpu_torch.ops import genotype
 
-
 @dataclass(frozen=True)
 class Kernel:
     name: str
-    pieces: tuple[str, ...]
-    stats: tuple[str, ...]
-    max_increment: int
+    family: str  # "count" | "table"
+    pieces: tuple[str, ...] = ()
+    stats: tuple[str, ...] = ()
+    max_increment: int | None = None
     finalize: Callable | None = None  # stats -> {"similarity", "distance"}
+    # (job, source, timer) -> the (N, N) distance on the job's device.
+    table_runner: Callable | None = None
 
     def flops(self, n: int, v: int) -> float:
-        """Matmul operations one (n, v) block contributes: one
-        ``2 n^2 v`` contraction per int8-split term of each product."""
+        """Operations one (n, v) block contributes. Count kernels: one
+        ``2 n^2 v`` contraction per int8-split term of each product.
+        Table kernels: ``3 n^2 v`` elementwise (|a - b|, a + b, the
+        ratio's share) over all pairs."""
+        if self.family == "table":
+            return 3.0 * n * n * v
         n_matmuls = sum(
             len(genotype._INT8_SPLIT.get(p, (None,))) for p in self.pieces
         )
         return 2.0 * n * n * v * n_matmuls
+
+
+def _similarity_to_distance(s: torch.Tensor) -> torch.Tensor:
+    from spark_examples_tpu_torch.ops.distances import similarity_to_distance
+
+    return similarity_to_distance(s)
 
 
 def _ibs_finalize(stats):
@@ -46,6 +62,59 @@ def _ibs_finalize(stats):
     m = stats["m"]
     dist = torch.where(m > 0, stats["d1"] / (2.0 * m), 0.0)
     return {"similarity": 1.0 - dist, "distance": dist}
+
+
+def _ibs2_finalize(stats):
+    """Fraction of pairwise-complete variants with identical genotype;
+    pairs sharing no complete variant score 1."""
+    m = stats["m"]
+    sim = torch.where(m > 0, stats["ibs2"] / (1.0 * m), 1.0)
+    return {"similarity": sim, "distance": 1.0 - sim}
+
+
+def _shared_alt_finalize(stats):
+    """Raw shared-alt-carrier counts (the pca job's similarity), Gower
+    distance."""
+    s = stats["s"].to(torch.float32)
+    return {"similarity": s, "distance": _similarity_to_distance(s)}
+
+
+def _king_finalize(stats):
+    """KING-robust kinship, between-family form: phi = (N_AaAa - 2
+    N_AA,aa) / (N_Aa(i) + N_Aa(j)) over pairwise-complete variants. Pairs
+    sharing no het variant get phi 0; the diagonal is pinned to
+    self-kinship 0.5 so the self-distance is exactly 0."""
+    den = (stats["hc"] + stats["hc"].T).to(torch.float32)
+    num = (stats["hh"] - 2 * stats["opp"]).to(torch.float32)
+    phi = torch.where(den > 0, num / den, 0.0)
+    phi.fill_diagonal_(0.5)
+    return {"similarity": phi, "distance": torch.clamp(0.5 - phi, min=0.0)}
+
+
+def _jaccard_finalize(stats):
+    """Carrier-set Jaccard over pairwise-complete variants: intersection
+    ``s`` over union ``sc + sc^T - s``; an empty union scores 1. Gower
+    distance."""
+    s = stats["s"]
+    union = stats["sc"] + stats["sc"].T - s
+    sim = torch.where(union > 0, s / union, 1.0)
+    return {"similarity": sim, "distance": _similarity_to_distance(sim)}
+
+
+def _pc_invariant_finalize(stats):
+    """Piecewise-constant invariant similarity: +1 identical genotype, -1
+    opposite homozygotes, over the valid-pair count m; pairs sharing no
+    complete variant score 1. Distance (1 - s) / 2."""
+    m = stats["m"].to(torch.float32)
+    num = (stats["ibs2"] - stats["opp"]).to(torch.float32)
+    sim = torch.where(m > 0, num / m, 1.0)
+    return {"similarity": sim, "distance": (1.0 - sim) / 2.0}
+
+
+def _braycurtis_runner(job, source, timer):
+    from spark_examples_tpu_torch.pipelines import runner
+
+    return runner.braycurtis_distance(job, source, timer)
 
 
 _REGISTRY: dict[str, Kernel] = {}
@@ -57,6 +126,7 @@ def _register(kernel: Kernel) -> None:
 
 _register(Kernel(
     name="ibs",
+    family="count",
     pieces=("cc", "yc", "t1t1", "t2t2"),
     stats=("m", "d1"),
     max_increment=2,  # yc with y <= 2
@@ -64,33 +134,48 @@ _register(Kernel(
 ))
 _register(Kernel(
     name="ibs2",
+    family="count",
     pieces=("cc", "t1c", "t1t1", "t1t2", "t2t2"),
     stats=("m", "ibs2"),
     max_increment=2,
+    finalize=_ibs2_finalize,
 ))
 _register(Kernel(
     name="shared-alt",
+    family="count",
     pieces=("t1t1",),
     stats=("s",),
     max_increment=1,
+    finalize=_shared_alt_finalize,
 ))
 _register(Kernel(
     name="king",
+    family="count",
     pieces=("t1c", "t2c", "t1t1", "t1t2", "t2t2"),
     stats=("hh", "opp", "hc"),
     max_increment=2,
+    finalize=_king_finalize,
 ))
 _register(Kernel(
     name="jaccard",
+    family="count",
     pieces=("t1c", "t1t1"),
     stats=("s", "sc"),
-    max_increment=2,
+    max_increment=2,  # the finalize's union sc + sc^T - s in int32
+    finalize=_jaccard_finalize,
 ))
 _register(Kernel(
     name="pc-invariant",
+    family="count",
     pieces=("cc", "t1c", "t2c", "t1t1", "t1t2", "t2t2"),
     stats=("m", "ibs2", "opp"),
     max_increment=2,
+    finalize=_pc_invariant_finalize,
+))
+_register(Kernel(
+    name="braycurtis",
+    family="table",
+    table_runner=_braycurtis_runner,
 ))
 
 
@@ -109,6 +194,13 @@ def names() -> tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def fused_names() -> tuple[str, ...]:
+    """The count kernels, every one served by the packed-gram CUDA kernel
+    (``--gram-lowering fused``)."""
+    return tuple(k.name for k in _REGISTRY.values() if k.family == "count")
+
+
 def finalizable_names() -> tuple[str, ...]:
-    """Kernels whose finalize is ported (the metrics a job can run)."""
-    return tuple(k.name for k in _REGISTRY.values() if k.finalize is not None)
+    """The metrics a job can run: a ported finalize or a table runner."""
+    return tuple(k.name for k in _REGISTRY.values()
+                 if k.finalize is not None or k.table_runner is not None)

@@ -1,19 +1,26 @@
 """Job entrypoints:
 
 - :func:`similarity_matrix_job` — stream cohort -> persist N x N matrix.
-- :func:`pcoa_job` — stream cohort -> distance -> double-center -> eig
-  -> coords, on the device (the streamed exact route: only the (N, k)
-  coordinates come back to the host).
+- :func:`pcoa_job` — cohort -> distance -> double-center -> eig ->
+  coords, on the device (only the (N, k) coordinates come back to the
+  host). Count kernels stream through the gram accumulators; table
+  kernels (braycurtis) materialise the table and lower it.
+- :func:`variants_pca_job` — the flagship job: shared-alt similarity
+  -> centered PCA, on the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
 
+from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.core.config import EIGH_ITERS_DEFAULT, JobConfig
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
+from spark_examples_tpu_torch.models.pca import fit_pca
 from spark_examples_tpu_torch.models.pcoa import fit_pcoa
 from spark_examples_tpu_torch.ops.eigh import eigh_flops
 from spark_examples_tpu_torch.pipelines import io as pio
@@ -41,28 +48,68 @@ def similarity_matrix_job(job: JobConfig, source=None
 
 
 def pcoa_job(job: JobConfig, source=None) -> CoordsOutput:
-    """Cohort -> PCoA coordinates: gram accumulators -> finalize ->
-    center -> eigh -> coords, without the N x N matrix leaving the
-    device."""
+    """Cohort -> PCoA coordinates: gram accumulators -> finalize (or a
+    table kernel's runner) -> center -> eigh -> coords, without the N x N
+    matrix leaving the device."""
     cfg = job.compute
     metric = cfg.metric or "ibs"
     timer = PhaseTimer()
     if source is None:
         with timer.phase("ingest_setup"):
             source = runner.build_source(job.ingest)
-    grun = runner.run_gram(job, source, timer)
-    with timer.phase("finalize"):
-        dist = hard_sync(runner.finalize_field(grun.acc, metric, "distance"))
+    table = kernels.get(metric).table_runner
+    if table is not None:
+        dist = table(job, source, timer)
+        sample_ids, n_variants = source.sample_ids, source.n_variants
+    else:
+        grun = runner.run_gram(job, source, timer)
+        with timer.phase("finalize"):
+            dist = hard_sync(runner.finalize_field(grun.acc, metric,
+                                                   "distance"))
+        sample_ids, n_variants = grun.sample_ids, grun.n_variants
     method = _eigh_method(cfg.eigh_mode, dist.shape[0])
     with timer.phase("eigh"):
         res = hard_sync(fit_pcoa(dist, k=cfg.num_pc, method=method,
                                  iters=cfg.eigh_iters,
                                  oversample=cfg.eigh_oversample))
+    return _emit_coords(job, sample_ids, res.coords.cpu().numpy(),
+                        res.eigenvalues.cpu().numpy(), timer, n_variants,
+                        method=method, eigh_iters=cfg.eigh_iters,
+                        proportion=res.proportion_explained.cpu().numpy())
+
+
+def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
+    """The flagship job: shared-alt similarity -> centered PCA, the
+    exact dense route on the device (only the (N, k) projections come
+    back to the host).
+
+    The metric is fixed by the job's definition (shared alt-carrier
+    counts); a config naming another metric is warned about, not
+    silently overridden (the CLI rejects it outright). ``metric=None``
+    means "the job's choice" and is silent.
+    """
+    if job.compute.metric not in (None, "shared-alt"):
+        warnings.warn(
+            f"variants_pca_job ignores compute.metric={job.compute.metric!r} "
+            "and always uses 'shared-alt'",
+            UserWarning,
+            stacklevel=2,
+        )
+    job = job.replace(
+        compute=dataclasses.replace(job.compute, metric="shared-alt"))
+    timer = PhaseTimer()
+    if source is None:
+        with timer.phase("ingest_setup"):
+            source = runner.build_source(job.ingest)
+    grun = runner.run_gram(job, source, timer)
+    with timer.phase("finalize"):
+        sim = hard_sync(runner.finalize_field(grun.acc, "shared-alt",
+                                              "similarity"))
+    with timer.phase("eigh"):
+        res = hard_sync(fit_pca(sim, k=job.compute.num_pc))
     return _emit_coords(job, grun.sample_ids, res.coords.cpu().numpy(),
                         res.eigenvalues.cpu().numpy(), timer,
-                        grun.n_variants, method=method,
-                        eigh_iters=cfg.eigh_iters,
-                        proportion=res.proportion_explained.cpu().numpy())
+                        grun.n_variants, method="dense")
 
 
 def _emit_coords(job: JobConfig, sample_ids, coords, vals, timer,

@@ -1,5 +1,7 @@
-"""The streaming job core: build the source, stream the cohort through
-the int32 gram accumulators on one device, finalize.
+"""The job core: build the source, then either stream the cohort
+through the int32 gram accumulators on one device and finalize (count
+kernels), or materialise the whole table and lower it (table kernels:
+Bray-Curtis).
 
 Single process, single device: there is no mesh and no distribution
 plan. Checkpoint/resume is not ported yet and is refused.
@@ -19,7 +21,7 @@ from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
 from spark_examples_tpu_torch.ingest.prefetch import stream_to_device
 from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
-from spark_examples_tpu_torch.ops import distances, gram
+from spark_examples_tpu_torch.ops import braycurtis_kernel, distances, gram
 
 
 def finalize_field(acc: dict, metric: str, field: str) -> torch.Tensor:
@@ -110,6 +112,15 @@ def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
         with timer.phase("ingest_setup"):
             source = build_source(job.ingest)
     metric = job.compute.metric or "ibs"
+
+    # Table-family kernels (braycurtis) carry their own dense-table
+    # runner instead of riding the gram accumulator.
+    table = kernels.get(metric).table_runner
+    if table is not None:
+        dist = table(job, source, timer).cpu().numpy()
+        return SimilarityResult(1.0 - dist, dist, source.sample_ids, metric,
+                                timer, source.n_variants)
+
     g = run_gram(job, source, timer)
     with timer.phase("finalize"):
         out = hard_sync(distances.finalize(g.acc, metric))
@@ -117,6 +128,38 @@ def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
         dist = out["distance"].cpu().numpy()
     return SimilarityResult(sim, dist, g.sample_ids, metric, timer,
                             g.n_variants)
+
+
+def _materialize(source, block_variants: int) -> np.ndarray:
+    """The source's whole (N, F) int8 table, block by block."""
+    return np.concatenate([b for b, _ in source.blocks(block_variants)],
+                          axis=1)
+
+
+def braycurtis_distance(job: JobConfig, source,
+                        timer: PhaseTimer) -> torch.Tensor:
+    """The Bray-Curtis (N, N) distance, left on the job's device: the
+    dense (N, F) table (the dosage matrix doubles as the count table;
+    missing counts as absence), lowered by the resolved
+    ``--braycurtis-method``."""
+    cfg = job.compute
+    device = resolve_device(cfg.device)
+    method = distances.resolve_braycurtis_method(cfg.braycurtis_method,
+                                                 device)
+    with timer.phase("ingest"):
+        x = np.maximum(_materialize(source, job.ingest.block_variants), 0)
+        # int8 over the link, widened on the device.
+        table = hard_sync(torch.from_numpy(x).to(device).to(torch.float32))
+    with timer.phase("distance"):
+        if method == "matmul":
+            d = distances.braycurtis_matmul(table,
+                                            levels=cfg.braycurtis_levels)
+        elif method == "fused":
+            d = braycurtis_kernel.braycurtis_kernel(table)
+        else:
+            d = distances.braycurtis(table)
+        d = hard_sync(d)
+    return d
 
 
 def _check_int32_budget(metric: str, n_variants: int) -> None:

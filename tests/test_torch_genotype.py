@@ -41,8 +41,8 @@ def test_registry_pieces_and_stats_equal_the_jax_registry():
     JAX registrations' products, statistics, increments and flops."""
     from spark_examples_tpu import kernels as jkernels
 
-    assert set(tkernels.names()) == set(jkernels.fused_names())
-    for name in tkernels.names():
+    assert set(tkernels.fused_names()) == set(jkernels.fused_names())
+    for name in tkernels.fused_names():
         t, j = tkernels.get(name), jkernels.get(name)
         assert (t.pieces, t.stats, t.max_increment) == (
             j.pieces, j.stats, j.max_increment), name

@@ -20,15 +20,20 @@ from spark_examples_tpu_torch.core.config import (
 )
 from spark_examples_tpu_torch.core.profiling import PhaseTimer
 from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
-from spark_examples_tpu_torch.ops import gram, packed_gram
-from spark_examples_tpu_torch.pipelines import runner
+from spark_examples_tpu_torch.ops import (
+    braycurtis_kernel,
+    distances,
+    gram,
+    packed_gram,
+)
+from spark_examples_tpu_torch.pipelines import jobs, runner
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the packed-gram CUDA kernel has "
-                    "no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode")
     return torch.device("cuda")
 
 
@@ -38,7 +43,7 @@ def _random_packed(rng, n, w, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric", kernels.names())
+@pytest.mark.parametrize("metric", kernels.fused_names())
 @pytest.mark.parametrize("nr,nc,w", [(37, 21, 301), (1, 1, 1),
                                      (130, 65, 17)])
 def test_cuda_kernel_matches_plain_bitwise(cuda_device, metric, nr, nc, w):
@@ -74,3 +79,49 @@ def test_auto_lowering_runs_the_kernel_on_cuda(cuda_device):
         src, PhaseTimer())
     for leaf in fused.acc:
         assert torch.equal(fused.acc[leaf], ref.acc[leaf]), leaf
+
+
+def _otu(seed, n, f):
+    """Integer OTU-like counts with a zero-total row: every partial sum
+    is exact in f32, so kernel and plain version agree bitwise."""
+    rng = np.random.default_rng(seed)
+    x = rng.gamma(0.5, 40.0, size=(n, f)) * (rng.random((n, f)) > 0.6)
+    x = x.astype(np.int32).astype(np.float32)
+    x[n // 2] = 0.0
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f", [(1, 1), (37, 301), (65, 130), (300, 1025)])
+def test_manhattan_kernel_matches_plain_bitwise(cuda_device, n, f):
+    x = torch.from_numpy(_otu(n * 13 + f, n, f)).to(cuda_device)
+    before = braycurtis_kernel.launches
+    got = braycurtis_kernel.pairwise_manhattan_kernel(x)
+    assert braycurtis_kernel.launches == before + 1
+    want = distances.pairwise_manhattan(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (n, n)
+    assert torch.equal(got, want)
+    assert torch.equal(braycurtis_kernel.braycurtis_kernel(x),
+                       distances.braycurtis(x))
+
+
+@pytest.mark.gpu
+def test_auto_runs_the_manhattan_kernel_once_per_braycurtis_job(cuda_device):
+    assert distances.resolve_braycurtis_method("auto", cuda_device) == "fused"
+    job = JobConfig(
+        ingest=IngestConfig(n_samples=90, n_variants=700,
+                            block_variants=256),
+        compute=ComputeConfig(metric="braycurtis", num_pc=3, device="cuda"))
+    before = braycurtis_kernel.launches
+    out = jobs.pcoa_job(job, source=SyntheticSource(n_samples=90,
+                                                    n_variants=700))
+    assert braycurtis_kernel.launches == before + 1
+    assert out.coords.shape == (90, 3) and np.isfinite(out.coords).all()
+    exact = runner.braycurtis_distance(
+        job.replace(compute=ComputeConfig(metric="braycurtis", device="cuda",
+                                          braycurtis_method="exact")),
+        SyntheticSource(n_samples=90, n_variants=700), PhaseTimer())
+    fused = runner.braycurtis_distance(
+        job, SyntheticSource(n_samples=90, n_variants=700), PhaseTimer())
+    assert torch.equal(exact, fused)

@@ -104,9 +104,10 @@ def test_similarity_to_distance_matches_jax(rng):
 
 
 def test_unported_finalize_is_refused():
-    acc = tgram.init(3, "king", CPU)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tdistances.finalize(acc, "king")
+    """Every count kernel's finalize is ported now; a table kernel has no
+    gram finalize to run, and asking for one is refused by name."""
+    with pytest.raises(ValueError, match="no gram finalize"):
+        tdistances.finalize({}, "braycurtis")
 
 
 @pytest.mark.parametrize("requested,packed,device,want", [

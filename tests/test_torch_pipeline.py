@@ -138,7 +138,7 @@ def test_fused_lowering_on_cpu_raises_naming_the_flag():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--metric", "king"], "invalid choice"),
+    (["--metric", "grm"], "invalid choice"),
     (["--block-variants", "0"], "block_variants"),
 ])
 def test_bad_flags_are_usage_errors(argv, match, capsys):
@@ -148,10 +148,11 @@ def test_bad_flags_are_usage_errors(argv, match, capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(metric="king"), "not yet ported"),
+    (dict(solver="sketch"), "not yet ported"),
     (dict(metric="bogus"), "registered kernels"),
     (dict(pack_stream="zip"), "pack_stream"),
     (dict(device="tpu"), "--device"),
+    (dict(braycurtis_method="pallas"), "--braycurtis-method"),
 ])
 def test_compute_config_validation(kw, match):
     with pytest.raises(ValueError, match=match):
