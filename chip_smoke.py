@@ -9,13 +9,22 @@ Phases (any failure exits non-zero; none is caught and ignored):
    limit (``nvidia-smi``) and ``torch.cuda.get_device_name(0)``.
 2. Build every kernel of ``spark_examples_tpu_torch/csrc`` with nvcc
    (one process per source, started together) and print the ptxas
-   report: registers, shared memory, spills.
+   report: registers, shared memory, spills. Read the SASS of the built
+   libraries (``cuobjdump -sass``): K1's must hold an int8 tensor-core
+   instruction (IMMA or IGMMA); K2's FADD count, and how many take the
+   ``|.|`` modifier, is printed.
 3. Hold the packed-gram kernel (K1) against its plain PyTorch version on
    the card, bitwise: all six count kernels' product sets on ragged
-   shapes, and the main shape (2504 samples x 2048 bytes, ibs).
-4. Time K1 at the main shape with CUDA events, beside its bound, the
-   plain version and one library yardstick (``torch._int_mm`` on the
-   pre-decoded int8 operands).
+   shapes and shapes at the tile and chunk edges, each as a symmetric
+   launch (one tensor on both sides: I <= J tiles, mirrored) and an
+   asymmetric one, and the main shape (2504 samples x 2048 bytes, ibs).
+4. Time K1 at the main shape with CUDA events for each output tile it
+   builds (64, 128), beside its bound (the work the output needs, and
+   the full square), the plain version and one library yardstick
+   (``torch._int_mm`` x4 on the pre-decoded int8 operands, which
+   computes the full square). Then at the largest N on the dense route
+   (16,384 samples x 2048 bytes, random bytes): K1 bitwise against
+   ``torch._int_mm`` and both timed (no plain version at that shape).
 5. Run the Quickstart job through the CLI's ``main``:
    ``pcoa --n-samples 2504 --n-variants 100000 --metric ibs --num-pc 10``,
    with K1's launch count set to 0 just before and read just after; it
@@ -26,12 +35,14 @@ Phases (any failure exits non-zero; none is caught and ignored):
    under ``auto`` (K1) through the library: the int32 accumulators and
    the finalized distances must be bitwise equal.
 7. Hold the Manhattan kernel (K2) against its plain PyTorch version on
-   the card: bitwise on ragged integer OTU-like tables and at the
+   the card: bitwise on ragged integer OTU-like tables (N at the 128
+   tile's edges, F % 4 in {0, 1, 3}) and at the
    Bray-Curtis job's shape (10,000 samples x 4,096 features), within
    ``rtol = 2 F 2^-24`` on a non-integer table (the recursive-summation
    bound of two f32 sums of F nonnegative terms in different orders).
-8. Time K2 at the job's shape with CUDA events, beside its bound, the
-   plain version (one rep), ``torch.cdist(p=1)`` (which must agree
+8. Time K2 at the job's shape with CUDA events, beside its bound (the
+   i <= j half the output needs, and the full square), the plain version
+   (one rep), ``torch.cdist(p=1)`` (the full square; it must agree
    bitwise on the integer table) and the ``matmul`` lowering
    (levels 256).
 9. Run the Bray-Curtis job through the CLI: ``pcoa --metric braycurtis
@@ -62,6 +73,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -80,7 +92,8 @@ SEPARATION_MIN = 10.0
 BC_SAMPLES = 10_000
 BC_FEATURES = 4096
 BC_LEVELS = 256
-BC_RAGGED = ((1, 1), (37, 301), (65, 130), (300, 1025), (257, 4097))
+BC_RAGGED = ((1, 1), (37, 301), (65, 130), (300, 1025), (257, 4097),
+             (127, 128), (128, 129), (129, 131), (257, 128))
 # FP32 lanes per SM (Hopper): the CUDA-core instruction rate is
 # SMs x 128 x the SM clock.
 FP32_LANES_PER_SM = 128
@@ -89,7 +102,41 @@ FP32_LANES_PER_SM = 128
 PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES_S = 3.35e12
 RAGGED_SHAPES = ((37, 21, 301), (1, 1, 1), (65, 130, 17), (64, 64, 16),
-                 (200, 129, 33))
+                 (200, 129, 33),
+                 # K1's 64-sample tile and 64-byte chunk, each -1, 0, +1,
+                 # and two tiles + 1.
+                 (63, 63, 63), (64, 64, 64), (65, 65, 65), (129, 129, 63),
+                 (129, 65, 65))
+# The largest N on the dense route (pipelines/jobs.py): K1 is timed there.
+LARGE_SAMPLES = 16_384
+# K1's output tiles timed at the main shape, and the one the port uses.
+K1_TILES = (64, 128)
+K1_TILE = 64
+
+
+def k1_bounds(n: int, w: int, products) -> dict:
+    """K1's least time for a symmetric launch over (n, w) packed bytes:
+    each (L, L) product needs the n(n+1)/2 pairs i <= j, each other
+    product all n^2, at 2 int8 operations per pair and variant; the bytes
+    are the block read once and every output written once. The
+    full-square bound counts n^2 pairs for every product (PR 1-2's
+    figure, and the work of the library yardstick)."""
+    from spark_examples_tpu_torch.ops.genotype import PRODUCT_OPERANDS
+
+    variants = 4 * w
+    pairs = sum(n * (n + 1) / 2 if PRODUCT_OPERANDS[p][0] ==
+                PRODUCT_OPERANDS[p][1] else n * n for p in products)
+    ops = 2.0 * variants * pairs
+    full_ops = 2.0 * variants * n * n * len(products)
+    byte_count = 1.0 * n * w + 4.0 * n * n * len(products)
+    ops_ms = ops / PEAK_INT8_OPS * 1e3
+    bytes_ms = byte_count / PEAK_BYTES_S * 1e3
+    return {
+        "ops": ops, "bytes": byte_count,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_full_ms": max(full_ops / PEAK_INT8_OPS * 1e3, bytes_ms),
+    }
 
 
 def fail(msg: str) -> None:
@@ -221,6 +268,23 @@ def main() -> int:
         if not spills or any(spills):
             fail(f"csrc/{name}.cu: ptxas reports spills (or no report): "
                  f"{spills}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        print("sass: the CUDA toolkit has no cuobjdump; SASS not read")
+    else:
+        sass = {name: subprocess.run(
+            [cuobjdump, "-sass", str(cuda_build._library_path(name))],
+            check=True, capture_output=True, text=True, timeout=300).stdout
+            for name in reports}
+        imma = re.findall(r"\b(?:IMMA|IGMMA)[.\w]*", sass["packed_gram"])
+        if not imma:
+            fail("K1's SASS holds no int8 tensor-core instruction (IMMA or "
+                 "IGMMA)")
+        fadd = re.findall(r"\bFADD\b[^;]*;", sass["braycurtis"])
+        fadd_abs = sum("|" in ins for ins in fadd)
+        print(f"sass: K1 {len(imma)} int8 tensor-core instructions "
+              f"({', '.join(sorted(set(imma)))}); K2 {len(fadd)} FADD, "
+              f"{fadd_abs} of them with the |.| operand modifier")
 
     # -- 3. parity, bitwise ---------------------------------------------------
     rng = np.random.default_rng(0)
@@ -262,17 +326,28 @@ def main() -> int:
           "{asymmetric, symmetric}, plus the main shape "
           f"{tuple(packed.shape)} ibs); max |diff| {max_err}")
 
-    # -- 4. timing at the main shape -----------------------------------------
+    # -- 4. timing at the main shape, then at N = 16,384 ------------------
     nr, w = packed.shape
-    k1_ms = cuda_ms(lambda: packed_gram.fused_tile_products(packed, packed,
-                                                            ibs),
-                    reps=20, warmup=3)
+    k1_tile_ms = {}
+    for tile in K1_TILES:
+        packed_gram.TILE = tile
+        got_t = packed_gram.fused_tile_products(packed, packed, ibs)
+        if not all(torch.equal(got_t[p], want[p]) for p in ibs):
+            fail(f"K1 at tile {tile} != plain at the main shape")
+        k1_tile_ms[tile] = cuda_ms(
+            lambda: packed_gram.fused_tile_products(packed, packed, ibs),
+            reps=20, warmup=3)
+    packed_gram.TILE = K1_TILE
+    k1_ms = k1_tile_ms[K1_TILE]
     plain_ms = cuda_ms(lambda: packed_gram.fused_tile_products_plain(
         packed, packed, ibs), reps=5, warmup=1)
-    ops = genotype.operands(bitpack.unpack_dosages(packed))
-    pairs = [(ops[genotype.PRODUCT_OPERANDS[p][0]].contiguous(),
-              ops[genotype.PRODUCT_OPERANDS[p][1]].t())
-             for p in ibs]
+
+    def int_mm_pairs(p8):
+        ops = genotype.operands(bitpack.unpack_dosages(p8))
+        return [(ops[genotype.PRODUCT_OPERANDS[p][0]].contiguous(),
+                 ops[genotype.PRODUCT_OPERANDS[p][1]].t()) for p in ibs]
+
+    pairs = int_mm_pairs(packed)
     lib = [torch._int_mm(a, b) for a, b in pairs]
     for p, got_lib in zip(ibs, lib):
         if not torch.equal(got_lib, got[p]):
@@ -280,20 +355,44 @@ def main() -> int:
                  "computes a different function)")
     library_ms = cuda_ms(lambda: [torch._int_mm(a, b) for a, b in pairs],
                          reps=20, warmup=3)
-    variants = 4 * w
-    op_count = len(ibs) * 2.0 * nr * nr * variants
-    byte_count = 2.0 * nr * w + len(ibs) * nr * nr * 4.0
-    bound_ops_ms = op_count / PEAK_INT8_OPS * 1e3
-    bound_bytes_ms = byte_count / PEAK_BYTES_S * 1e3
-    bound_ms = max(bound_ops_ms, bound_bytes_ms)
-    bound_by = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
-    print(f"K1 timing at ({nr}, {w}) x ({nr}, {w}) uint8, ibs [{card}]: "
-          f"{k1_ms:.4f} ms/launch; bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{op_count:.4g} int8 ops, {byte_count:.4g} bytes); plain "
-          f"{plain_ms:.4f} ms; torch._int_mm x{len(ibs)} on pre-decoded "
-          f"int8 operands {library_ms:.4f} ms; "
-          f"{op_count / (k1_ms * 1e-3) / 1e12:.2f} TOP/s achieved")
-    del ops, pairs, lib, got, want
+    k1_bound = k1_bounds(nr, w, ibs)
+    print(f"K1 timing at ({nr}, {w}) uint8, ibs, symmetric [{card}]: "
+          f"{k1_ms:.4f} ms/launch at tile {K1_TILE} ("
+          + ", ".join(f"tile {t}: {v:.4f} ms" for t, v in k1_tile_ms.items())
+          + f"); bound {k1_bound['bound_ms']:.4f} ms "
+          f"({k1_bound['bound_by']}: {k1_bound['ops']:.4g} int8 ops the "
+          f"output needs, {k1_bound['bytes']:.4g} bytes); full-square bound "
+          f"{k1_bound['bound_full_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"torch._int_mm x{len(ibs)} (full square) on pre-decoded int8 "
+          f"operands {library_ms:.4f} ms; "
+          f"{k1_bound['ops'] / (k1_ms * 1e-3) / 1e12:.2f} TOP/s achieved")
+    del pairs, lib, got, want, got_t
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    big = torch.randint(0, 256, (LARGE_SAMPLES, w), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    big_got = packed_gram.fused_tile_products(big, big, ibs)
+    pairs = int_mm_pairs(big)
+    for p, (a, b) in zip(ibs, pairs):
+        if not torch.equal(torch._int_mm(a, b), big_got[p]):
+            fail(f"K1 != torch._int_mm at ({LARGE_SAMPLES}, {w}), product "
+                 f"{p}")
+    del big_got
+    k1_big_ms = cuda_ms(
+        lambda: packed_gram.fused_tile_products(big, big, ibs),
+        reps=5, warmup=1)
+    library_big_ms = cuda_ms(
+        lambda: [torch._int_mm(a, b) for a, b in pairs], reps=5, warmup=1)
+    k1_big_bound = k1_bounds(LARGE_SAMPLES, w, ibs)
+    print(f"K1 timing at ({LARGE_SAMPLES}, {w}) uint8, ibs, symmetric "
+          f"[{card}]: {k1_big_ms:.4f} ms/launch; bitwise equal to "
+          f"torch._int_mm x{len(ibs)}, which takes {library_big_ms:.4f} ms; "
+          f"bound {k1_big_bound['bound_ms']:.4f} ms, full-square bound "
+          f"{k1_big_bound['bound_full_ms']:.4f} ms; "
+          f"{k1_big_bound['ops'] / (k1_big_ms * 1e-3) / 1e12:.2f} TOP/s "
+          "achieved")
+    del big, pairs
 
     # -- 5. the Quickstart job through the CLI ------------------------------
     expected = math.ceil(N_VARIANTS / BLOCK_VARIANTS)
@@ -416,18 +515,24 @@ def main() -> int:
     clock = max_sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     instr_s = sms * FP32_LANES_PER_SM * clock
-    k2_instr = 2.0 * n * n * f  # FADD + FADD|.| per (i, j, f) triple
+    # FADD + FADD|.| per (i, j, f) triple over the i <= j half the output
+    # needs (the other half is its transpose); the full square beside it.
+    k2_instr = 2.0 * n * (n + 1) / 2 * f
+    k2_full_instr = 2.0 * n * n * f
     k2_bytes = 4.0 * n * f + 4.0 * n * n
     k2_ops_ms = k2_instr / instr_s * 1e3
     k2_bytes_ms = k2_bytes / PEAK_BYTES_S * 1e3
     k2_bound_ms = max(k2_ops_ms, k2_bytes_ms)
     k2_bound_by = "operations" if k2_ops_ms >= k2_bytes_ms else "bytes"
+    k2_bound_full_ms = max(k2_full_instr / instr_s * 1e3, k2_bytes_ms)
     print(f"K2 timing at ({n}, {f}) f32 [{card}]: {k2_ms:.4f} ms/launch; "
           f"bound {k2_bound_ms:.4f} ms ({k2_bound_by}: {k2_instr:.4g} FP32 "
-          f"instructions at {sms} SMs x {FP32_LANES_PER_SM} lanes x "
+          f"instructions for i <= j; full square {k2_bound_full_ms:.4f} ms) "
+          f"at {sms} SMs x {FP32_LANES_PER_SM} lanes x "
           f"{clock / 1e9:.3f} GHz = {instr_s:.4g}/s; {k2_bytes:.4g} bytes "
           f"-> {k2_bytes_ms:.4f} ms); plain {k2_plain_ms:.4f} ms (1 rep); "
-          f"torch.cdist(p=1) {k2_library_ms:.4f} ms; matmul lowering "
+          f"torch.cdist(p=1) (full square) {k2_library_ms:.4f} ms; "
+          "matmul lowering "
           f"(levels {BC_LEVELS}) {matmul_ms:.4f} ms (1 rep, max |BC - "
           f"exact| {mm_err:.3g}); {k2_instr / (k2_ms * 1e-3) / 1e12:.2f} "
           "T instructions/s achieved")
@@ -510,9 +615,16 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": k1_bound["bound_ms"],
+        "bound_by": k1_bound["bound_by"],
         "library_ms": library_ms,
+        "bound_full_ms": k1_bound["bound_full_ms"],
+        "tile": K1_TILE,
+        "ms_by_tile": k1_tile_ms,
+        f"ms_n{LARGE_SAMPLES}": k1_big_ms,
+        f"library_ms_n{LARGE_SAMPLES}": library_big_ms,
+        f"bound_ms_n{LARGE_SAMPLES}": k1_big_bound["bound_ms"],
+        f"bound_full_ms_n{LARGE_SAMPLES}": k1_big_bound["bound_full_ms"],
         "parity": "bitwise",
         "parity_cases": cases,
     }, {
@@ -530,6 +642,7 @@ def main() -> int:
         "bound_ms": k2_bound_ms,
         "bound_by": k2_bound_by,
         "library_ms": k2_library_ms,
+        "bound_full_ms": k2_bound_full_ms,
         "matmul_lowering_ms": matmul_ms,
         "parity": f"bitwise on integer tables; rtol {rtol:.3g} on a float "
                   "table",

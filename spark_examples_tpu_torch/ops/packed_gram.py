@@ -11,6 +11,10 @@ int32}``, decode + mask + contract without materialising a dosage block.
 - :func:`fused_tile_products_plain` is the plain PyTorch version: decode
   per bit plane, contract each plane, sum. The CPU tests hold it against
   the JAX kernel; the chip smoke holds the CUDA kernel against it.
+- :func:`contraction_plan` is what a launch computes: the operand pairs
+  it contracts and where each lands. When rows and cols are the same
+  tensor (the gram update's call) the kernel runs only the tiles with
+  I <= J and mirrors each into [J, I] from the plan.
 
 ``launches`` counts the CUDA kernel's launches (one per call on CUDA
 tensors), so a run can show that its main path went through the kernel.
@@ -28,6 +32,10 @@ from spark_examples_tpu_torch.ops.genotype import PRODUCT_OPERANDS, int_dot
 _OPERAND_CODES = {"c": 0, "t1": 1, "t2": 2, "y": 3}
 _PACKABLE_OPERANDS = frozenset(_OPERAND_CODES)
 MAX_PRODUCTS = 7
+# The kernel's square output tile (64 or 128) and the packed bytes it
+# stages per step.
+TILE = 64
+CHUNK_BYTES = 64
 
 launches = 0
 
@@ -77,6 +85,32 @@ def fused_tile_products_plain(packed_rows: torch.Tensor,
     return out
 
 
+def contraction_plan(products: tuple[str, ...], symmetric: bool
+                     ) -> tuple[tuple[str, str, int, int], ...]:
+    """The contractions one launch computes, as ``(left, right, direct,
+    mirror)``: the operand pair, the index of the product whose [I, J]
+    tile it writes and of the product whose [J, I] tile it writes
+    transposed (-1 for none).
+
+    Asymmetric: one contraction per product, no mirror. Symmetric (rows
+    and cols are one tensor, only tiles with I <= J run): an (L, L)
+    product is its own mirror, and an (L, R) product takes its [J, I]
+    tile from the partner contraction (R, L), since
+    ``out[j][i] = sum_v L_j R_i``. ibs (cc, yc, t1t1, t2t2) needs 5.
+    """
+    products = tuple(products)
+    check_fusable(products)
+    if not symmetric:
+        return tuple((*PRODUCT_OPERANDS[p], i, -1)
+                     for i, p in enumerate(products))
+    plan: dict[tuple[str, str], list[int]] = {}
+    for i, p in enumerate(products):
+        left, right = PRODUCT_OPERANDS[p]
+        plan.setdefault((left, right), [-1, -1])[0] = i
+        plan.setdefault((right, left), [-1, -1])[1] = i
+    return tuple((lo, ro, d, m) for (lo, ro), (d, m) in plan.items())
+
+
 def _check_inputs(rows, cols) -> None:
     for name, t in (("packed_rows", rows), ("packed_cols", cols)):
         if not isinstance(t, torch.Tensor):
@@ -109,7 +143,8 @@ def _library():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.packed_gram_products.restype = ctypes.c_int
     lib.packed_gram_error_string.argtypes = [ctypes.c_int]
@@ -129,15 +164,20 @@ def _launch(rows: torch.Tensor, cols: torch.Tensor,
                       device=rows.device)
     if nr == 0 or nc == 0 or not products:
         return {p: out[i] for i, p in enumerate(products)}
-    codes = ctypes.c_int * len(products)
-    left = codes(*(_OPERAND_CODES[PRODUCT_OPERANDS[p][0]] for p in products))
-    right = codes(*(_OPERAND_CODES[PRODUCT_OPERANDS[p][1]] for p in products))
+    symmetric = rows.data_ptr() == cols.data_ptr() and rows.shape == cols.shape
+    plan = contraction_plan(products, symmetric)
+    codes = ctypes.c_int * len(plan)
+    left = codes(*(_OPERAND_CODES[q[0]] for q in plan))
+    right = codes(*(_OPERAND_CODES[q[1]] for q in plan))
+    direct = codes(*(q[2] for q in plan))
+    mirror = codes(*(q[3] for q in plan))
     lib = _library()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         rc = lib.packed_gram_products(
             rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
-            nr, nc, w, len(products), left, right, stream,
+            nr, nc, w, len(plan), left, right, direct, mirror,
+            int(symmetric), TILE, stream,
         )
     if rc != 0:
         msg = lib.packed_gram_error_string(rc).decode()
@@ -155,8 +195,9 @@ def fused_tile_products(packed_rows: torch.Tensor, packed_cols: torch.Tensor,
                         ) -> dict[str, torch.Tensor]:
     """``(tn, W) x (tm, W) uint8 -> {product: (tn, tm) int32}``: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors. Feeding
-    the same tensor for both sides gives the full symmetric update."""
-    products = tuple(products)
+    the same tensor for both sides gives the full symmetric update (the
+    kernel then computes only the tiles with I <= J)."""
+    products = tuple(dict.fromkeys(products))
     check_fusable(products)
     _check_inputs(packed_rows, packed_cols)
     if packed_rows.device.type == "cpu":

@@ -61,6 +61,58 @@ def test_cuda_kernel_matches_plain_bitwise(cuda_device, metric, nr, nc, w):
         assert torch.equal(got[p], want[p]), f"{metric}/{p}"
 
 
+_T = packed_gram.TILE
+_C = packed_gram.CHUNK_BYTES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", kernels.fused_names())
+@pytest.mark.parametrize("n", [_T - 1, _T, _T + 1, 2 * _T + 1])
+@pytest.mark.parametrize("w", [_C - 1, _C, _C + 1])
+def test_symmetric_and_asymmetric_launches_at_tile_edges(cuda_device, metric,
+                                                         n, w):
+    """One tensor on both sides takes the I <= J tiles and mirrors them;
+    a copy of it, and a column set of another size, take the full grid.
+    All three are bitwise the plain version."""
+    rng = np.random.default_rng(n * 1000 + w)
+    rows = _random_packed(rng, n, w, cuda_device)
+    cols = _random_packed(rng, n // 2 + 3, w, cuda_device)
+    pieces = kernels.get(metric).pieces
+    before = packed_gram.launches
+    sym = packed_gram.fused_tile_products(rows, rows, pieces)
+    full = packed_gram.fused_tile_products(rows, rows.clone(), pieces)
+    asym = packed_gram.fused_tile_products(rows, cols, pieces)
+    assert packed_gram.launches == before + 3
+    want_sym = packed_gram.fused_tile_products_plain(rows, rows, pieces)
+    want_asym = packed_gram.fused_tile_products_plain(rows, cols, pieces)
+    torch.cuda.synchronize()
+    for p in pieces:
+        assert torch.equal(sym[p], want_sym[p]), f"symmetric {metric}/{p}"
+        assert torch.equal(full[p], want_sym[p]), f"full grid {metric}/{p}"
+        assert torch.equal(asym[p], want_asym[p]), f"asymmetric {metric}/{p}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_cuda_kernel_on_an_unaligned_block(cuda_device, symmetric):
+    """A block that starts one byte into its buffer takes the byte-load
+    staging; the result is the same."""
+    rng = np.random.default_rng(11)
+    n, w = 2 * _T + 5, 2 * _C
+    buf = _random_packed(rng, n * w + 1, 1, cuda_device).view(-1)
+    rows = buf[1:].view(n, w)
+    assert rows.data_ptr() % 16 == 1
+    cols = rows if symmetric else _random_packed(rng, 70, w, cuda_device)
+    pieces = kernels.get("pc-invariant").pieces
+    before = packed_gram.launches
+    got = packed_gram.fused_tile_products(rows, cols, pieces)
+    assert packed_gram.launches == before + 1
+    want = packed_gram.fused_tile_products_plain(rows, cols, pieces)
+    torch.cuda.synchronize()
+    for p in pieces:
+        assert torch.equal(got[p], want[p]), p
+
+
 @pytest.mark.gpu
 def test_auto_lowering_runs_the_kernel_on_cuda(cuda_device):
     assert gram.resolve_gram_lowering("auto", True, cuda_device) == "fused"
@@ -104,6 +156,35 @@ def test_manhattan_kernel_matches_plain_bitwise(cuda_device, n, f):
     assert torch.equal(got, want)
     assert torch.equal(braycurtis_kernel.braycurtis_kernel(x),
                        distances.braycurtis(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [127, 128, 129, 257])
+@pytest.mark.parametrize("f", [128, 129, 131])
+def test_manhattan_kernel_at_tile_edges(cuda_device, n, f):
+    """N around the 128-sample tile, F % 4 in {0, 1, 3} (the last two take
+    the 4-byte staging): bitwise the plain version, both triangles."""
+    x = torch.from_numpy(_otu(n * 7 + f, n, f)).to(cuda_device)
+    before = braycurtis_kernel.launches
+    got = braycurtis_kernel.pairwise_manhattan_kernel(x)
+    assert braycurtis_kernel.launches == before + 1
+    want = distances.pairwise_manhattan(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.gpu
+def test_manhattan_kernel_on_an_unaligned_table(cuda_device):
+    n, f = 200, 64
+    buf = torch.from_numpy(_otu(3, n * f + 1, 1)).to(cuda_device).view(-1)
+    x = buf[1:].view(n, f)
+    assert x.data_ptr() % 16 == 4
+    before = braycurtis_kernel.launches
+    got = braycurtis_kernel.pairwise_manhattan_kernel(x)
+    assert braycurtis_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, distances.pairwise_manhattan(x))
 
 
 @pytest.mark.gpu

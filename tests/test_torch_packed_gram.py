@@ -17,6 +17,8 @@ from spark_examples_tpu import kernels as jkernels
 from spark_examples_tpu.ingest import bitpack as jbitpack
 from spark_examples_tpu.ops.pallas import packed_gram as jpacked
 from spark_examples_tpu_torch import kernels as tkernels
+from spark_examples_tpu_torch.ingest import bitpack as tbitpack
+from spark_examples_tpu_torch.ops import genotype as tgenotype
 from spark_examples_tpu_torch.ops import packed_gram as tpacked
 
 from conftest import random_genotypes
@@ -95,3 +97,70 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     # 0x24 = codes (0, 1, 2, 0): four valid calls, one hom-alt per byte.
     assert out["cc"].tolist() == [[8] * 3] * 3
     assert out["t2t2"].tolist() == [[2] * 3] * 3
+
+
+def _run_plan_tile_by_tile(packed: torch.Tensor, products, tile: int):
+    """The symmetric launch in plain torch: every contraction of the plan
+    on each tile with I <= J, its tile stored at [I, J] of ``direct`` and
+    its transpose at [J, I] of ``mirror`` (off the diagonal). Unwritten
+    elements keep a sentinel."""
+    plan = tpacked.contraction_plan(products, symmetric=True)
+    ops = tgenotype.operands(tbitpack.unpack_dosages(packed))
+    n = packed.shape[0]
+    out = torch.full((len(products), n, n), -(2 ** 31), dtype=torch.int32)
+    for i0 in range(0, n, tile):
+        for j0 in range(i0, n, tile):
+            ri, rj = slice(i0, i0 + tile), slice(j0, j0 + tile)
+            for left, right, direct, mirror in plan:
+                tile_sum = tgenotype.int_dot(ops[left][ri], ops[right][rj])
+                if direct >= 0:
+                    out[direct, ri, rj] = tile_sum
+                if mirror >= 0 and i0 != j0:
+                    out[mirror, rj, ri] = tile_sum.T
+    return {p: out[i] for i, p in enumerate(products)}
+
+
+@pytest.fixture(scope="module")
+def ragged_square():
+    """75 samples over 37 bytes (148 variants): off every tile and chunk."""
+    rng = np.random.default_rng(75)
+    return jbitpack.pack_dosages(random_genotypes(rng, 75, 147, 0.15))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("tile", [16, tpacked.TILE])
+def test_symmetric_plan_matches_plain_and_jax_bitwise(ragged_square, metric,
+                                                      tile):
+    pieces = tkernels.get(metric).pieces
+    packed = torch.from_numpy(ragged_square)
+    got = _run_plan_tile_by_tile(packed, pieces, tile)
+    plain = tpacked.fused_tile_products_plain(packed, packed, pieces)
+    want = jpacked.fused_tile_products(ragged_square, ragged_square, pieces)
+    for p in pieces:
+        assert torch.equal(got[p], plain[p]), f"{metric}/{p}"
+        np.testing.assert_array_equal(got[p].numpy(), np.asarray(want[p]),
+                                      err_msg=f"{metric}/{p}")
+
+
+@pytest.mark.parametrize("metric,count", [
+    ("ibs", 5), ("ibs2", 7), ("shared-alt", 1), ("king", 8), ("jaccard", 3),
+    ("pc-invariant", 9),
+])
+def test_symmetric_plan_contraction_counts(metric, count):
+    pieces = tkernels.get(metric).pieces
+    plan = tpacked.contraction_plan(pieces, symmetric=True)
+    assert len(plan) == count
+    # Every product is written at [I, J] once and mirrored once.
+    assert sorted(q[2] for q in plan if q[2] >= 0) == list(range(len(pieces)))
+    assert sorted(q[3] for q in plan if q[3] >= 0) == list(range(len(pieces)))
+    assert len({(q[0], q[1]) for q in plan}) == count
+
+
+def test_asymmetric_plan_is_one_contraction_per_product():
+    pieces = tkernels.get("ibs").pieces
+    assert tpacked.contraction_plan(pieces, symmetric=False) == (
+        ("c", "c", 0, -1), ("y", "c", 1, -1), ("t1", "t1", 2, -1),
+        ("t2", "t2", 3, -1))
+    assert tpacked.contraction_plan(pieces, symmetric=True) == (
+        ("c", "c", 0, 0), ("y", "c", 1, -1), ("c", "y", -1, 1),
+        ("t1", "t1", 2, 2), ("t2", "t2", 3, 3))
