@@ -18,9 +18,8 @@ Phases (any failure exits non-zero; none is caught and ignored):
    shapes and shapes at the tile and chunk edges, each as a symmetric
    launch (one tensor on both sides: I <= J tiles, mirrored) and an
    asymmetric one, and the main shape (2504 samples x 2048 bytes, ibs).
-4. Time K1 at the main shape with CUDA events for each output tile it
-   builds (64, 128), beside its bound (the work the output needs, and
-   the full square), the plain version and one library yardstick
+4. Time K1 at the main shape with CUDA events, beside its bound (the
+   work the output needs, and the full square), the plain version and one library yardstick
    (``torch._int_mm`` x4 on the pre-decoded int8 operands, which
    computes the full square). Then at the largest N on the dense route
    (16,384 samples x 2048 bytes, random bytes): K1 bitwise against
@@ -109,9 +108,6 @@ RAGGED_SHAPES = ((37, 21, 301), (1, 1, 1), (65, 130, 17), (64, 64, 16),
                  (129, 65, 65))
 # The largest N on the dense route (pipelines/jobs.py): K1 is timed there.
 LARGE_SAMPLES = 16_384
-# K1's output tiles timed at the main shape, and the one the port uses.
-K1_TILES = (64, 128)
-K1_TILE = 64
 
 
 def k1_bounds(n: int, w: int, products) -> dict:
@@ -119,8 +115,9 @@ def k1_bounds(n: int, w: int, products) -> dict:
     each (L, L) product needs the n(n+1)/2 pairs i <= j, each other
     product all n^2, at 2 int8 operations per pair and variant; the bytes
     are the block read once and every output written once. The
-    full-square bound counts n^2 pairs for every product (PR 1-2's
-    figure, and the work of the library yardstick)."""
+    full-square bound counts n^2 pairs for every product (the work of
+    a kernel that computes the whole square, and of the library
+    yardstick)."""
     from spark_examples_tpu_torch.ops.genotype import PRODUCT_OPERANDS
 
     variants = 4 * w
@@ -328,17 +325,9 @@ def main() -> int:
 
     # -- 4. timing at the main shape, then at N = 16,384 ------------------
     nr, w = packed.shape
-    k1_tile_ms = {}
-    for tile in K1_TILES:
-        packed_gram.TILE = tile
-        got_t = packed_gram.fused_tile_products(packed, packed, ibs)
-        if not all(torch.equal(got_t[p], want[p]) for p in ibs):
-            fail(f"K1 at tile {tile} != plain at the main shape")
-        k1_tile_ms[tile] = cuda_ms(
-            lambda: packed_gram.fused_tile_products(packed, packed, ibs),
-            reps=20, warmup=3)
-    packed_gram.TILE = K1_TILE
-    k1_ms = k1_tile_ms[K1_TILE]
+    k1_ms = cuda_ms(
+        lambda: packed_gram.fused_tile_products(packed, packed, ibs),
+        reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: packed_gram.fused_tile_products_plain(
         packed, packed, ibs), reps=5, warmup=1)
 
@@ -357,16 +346,14 @@ def main() -> int:
                          reps=20, warmup=3)
     k1_bound = k1_bounds(nr, w, ibs)
     print(f"K1 timing at ({nr}, {w}) uint8, ibs, symmetric [{card}]: "
-          f"{k1_ms:.4f} ms/launch at tile {K1_TILE} ("
-          + ", ".join(f"tile {t}: {v:.4f} ms" for t, v in k1_tile_ms.items())
-          + f"); bound {k1_bound['bound_ms']:.4f} ms "
+          f"{k1_ms:.4f} ms/launch; bound {k1_bound['bound_ms']:.4f} ms "
           f"({k1_bound['bound_by']}: {k1_bound['ops']:.4g} int8 ops the "
           f"output needs, {k1_bound['bytes']:.4g} bytes); full-square bound "
           f"{k1_bound['bound_full_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
           f"torch._int_mm x{len(ibs)} (full square) on pre-decoded int8 "
           f"operands {library_ms:.4f} ms; "
           f"{k1_bound['ops'] / (k1_ms * 1e-3) / 1e12:.2f} TOP/s achieved")
-    del pairs, lib, got, want, got_t
+    del pairs, lib, got, want
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -619,8 +606,6 @@ def main() -> int:
         "bound_by": k1_bound["bound_by"],
         "library_ms": library_ms,
         "bound_full_ms": k1_bound["bound_full_ms"],
-        "tile": K1_TILE,
-        "ms_by_tile": k1_tile_ms,
         f"ms_n{LARGE_SAMPLES}": k1_big_ms,
         f"library_ms_n{LARGE_SAMPLES}": library_big_ms,
         f"bound_ms_n{LARGE_SAMPLES}": k1_big_bound["bound_ms"],

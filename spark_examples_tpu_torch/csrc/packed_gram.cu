@@ -24,9 +24,9 @@
 // (0.13 ms at the card's 1,979 TOP/s int8 tensor-core peak).
 //
 // What this design does about it.
-// - Tensor cores through mma.sync.m16n8k32 (s8 x s8 -> s32), the floor of
-//   the issue's options: each 32-bit A or B fragment register holds four
-//   k values of one row, i.e. four variants. Shared memory holds only
+// - Tensor cores through mma.sync.m16n8k32 (s8 x s8 -> s32): each 32-bit
+//   A or B fragment register holds four k values of one row, i.e. four
+//   variants. Shared memory holds only
 //   packed bytes (4x fewer than int8 operands). Each lane reads one 32-bit
 //   word (16 variants) per row and 16-byte chunk and turns it into four
 //   PRMT selectors: nibble n of (word & 0x33333333) is the code of variant
@@ -57,7 +57,7 @@
 //   product takes its [J, I] tile from the partner contraction (R, L),
 //   since out[j][i] = sum L_j R_i. The diagonal tile is written once.
 //   Transposed stores go through a padded shared tile so they coalesce.
-// - Registers: each contraction holds TILE/2 int32 accumulators a thread.
+// - Registers: each contraction holds 32 int32 accumulators a thread.
 //   The contractions run in groups of G (a template parameter), one sweep
 //   over the bytes per group, so that ptxas spills nothing.
 
@@ -73,19 +73,20 @@ constexpr int N_OPERANDS = 4;        // c, t1, t2, y (the Python side's codes)
 constexpr int MAX_PRODUCTS = 7;
 constexpr int MAX_CONTRACTIONS = 2 * MAX_PRODUCTS;
 
-// A TILE x TILE output tile per block: 2 x (TILE / 32) warps, each owning
-// (TILE / 2) x 32 outputs as (TILE / 32) x 4 m16n8 fragments.
-template <int TILE>
-struct Shape {
-  static constexpr int WARPS_N = TILE / 32;
-  static constexpr int THREADS = 64 * WARPS_N;
-  static constexpr int WM = TILE / 2;
-  static constexpr int MT = WM / 16;
-  static constexpr int NT = 4;
-  static constexpr int STAGE_BYTES = 2 * TILE * KB;
-  static constexpr int SMEM = STAGES * STAGE_BYTES + TILE * (TILE + 1) * 4;
-  static_assert((2 * TILE * PIECES) % THREADS == 0, "whole copies a thread");
-};
+// A 64 x 64 output tile per block (820 blocks at 2504 samples; a 128 tile
+// ran ibs at the same speed on an H100, PERF.md): 2 x 2 warps, each owning
+// 32 x 32 outputs as 2 x 4 m16n8 fragments.
+constexpr int TILE = 64;
+constexpr int WARPS_N = 2;
+constexpr int THREADS = 128;
+constexpr int WM = 32;               // rows a warp
+constexpr int MT = WM / 16;          // m16 fragments a warp
+constexpr int NT = 4;                // n8 fragments a warp (32 columns)
+constexpr int STAGE_BYTES = 2 * TILE * KB;
+constexpr int SMEM = STAGES * STAGE_BYTES + TILE * (TILE + 1) * 4;
+static_assert(THREADS == 32 * 2 * WARPS_N && WARPS_N * 32 == TILE &&
+                  2 * WM == TILE, "2 x 2 warps of 32 x 32");
+static_assert((2 * TILE * PIECES) % THREADS == 0, "whole copies a thread");
 
 struct Plan {
   uint32_t lut_left[MAX_CONTRACTIONS];
@@ -133,15 +134,14 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 // One stage: TILE rows of `rows` and TILE rows of `cols`, bytes
 // kc*KB .. kc*KB + KB, stored as [side][piece][sample][16 bytes] so that
 // the fragment reads (8 samples x 4 words a warp) hit 32 distinct banks.
-template <int TILE, bool ALIGNED>
+template <bool ALIGNED>
 __device__ __forceinline__ void load_stage(uint8_t* dst, const uint8_t* rows,
                                            const uint8_t* cols, int row0,
                                            int col0, int nr, int nc, int w,
                                            int kc, int tid) {
-  using S = Shape<TILE>;
 #pragma unroll
-  for (int i = 0; i < 2 * TILE * PIECES / S::THREADS; ++i) {
-    const int idx = tid + i * S::THREADS;
+  for (int i = 0; i < 2 * TILE * PIECES / THREADS; ++i) {
+    const int idx = tid + i * THREADS;
     const int piece = idx % PIECES;
     const int r = (idx / PIECES) % TILE;
     const int side = idx / (PIECES * TILE);
@@ -183,14 +183,13 @@ __device__ __forceinline__ void selectors(uint32_t word, uint32_t m,
   s[3] = odd >> 16;
 }
 
-template <int TILE, int G, bool ALIGNED>
-__global__ void __launch_bounds__(Shape<TILE>::THREADS)
+template <int G, bool ALIGNED>
+__global__ void __launch_bounds__(THREADS)
 packed_gram_mma(const uint8_t* __restrict__ rows,
                 const uint8_t* __restrict__ cols, int32_t* __restrict__ out,
                 int nr, int nc, int w, int symmetric, Plan plan) {
-  using S = Shape<TILE>;
   extern __shared__ __align__(16) uint8_t smem[];
-  int32_t* tr = reinterpret_cast<int32_t*>(smem + STAGES * S::STAGE_BYTES);
+  int32_t* tr = reinterpret_cast<int32_t*>(smem + STAGES * STAGE_BYTES);
 
   // The block's tile: (I, J) with I <= J from a linear index when
   // symmetric, row-major over the grid otherwise.
@@ -215,23 +214,23 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wm = (tid >> 5) / S::WARPS_N;
-  const int wn = (tid >> 5) % S::WARPS_N;
+  const int wm = (tid >> 5) / WARPS_N;
+  const int wn = (tid >> 5) % WARPS_N;
 
   const int nk = w > 0 ? (w + KB - 1) / KB : 1;
   const int ngroups = (plan.n + G - 1) / G;
   const int total = nk * ngroups;
 
-  int acc[G][S::MT][S::NT][4];
+  int acc[G][MT][NT][4];
   uint32_t la[G], lb[G];
 #pragma unroll
   for (int q = 0; q < G; ++q) {
     la[q] = plan.lut_left[q];
     lb[q] = plan.lut_right[q];
 #pragma unroll
-    for (int mi = 0; mi < S::MT; ++mi)
+    for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < S::NT; ++ni)
+      for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[q][mi][ni][e] = 0;
   }
@@ -239,7 +238,7 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < total)
-      load_stage<TILE, ALIGNED>(smem + s * S::STAGE_BYTES, rows, cols, row0,
+      load_stage<ALIGNED>(smem + s * STAGE_BYTES, rows, cols, row0,
                                 col0, nr, nc, w, s % nk, tid);
     cp_async_commit();
   }
@@ -249,32 +248,32 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
     __syncthreads();
     const int next = step + STAGES - 1;
     if (next < total)
-      load_stage<TILE, ALIGNED>(smem + (next % STAGES) * S::STAGE_BYTES,
+      load_stage<ALIGNED>(smem + (next % STAGES) * STAGE_BYTES,
                                 rows, cols, row0, col0, nr, nc, w, next % nk,
                                 tid);
     cp_async_commit();
 
     const int kc = step % nk;
     const int grp = step / nk;
-    const uint8_t* sa = smem + (step % STAGES) * S::STAGE_BYTES;
+    const uint8_t* sa = smem + (step % STAGES) * STAGE_BYTES;
     const uint8_t* sb = sa + TILE * KB;
 #pragma unroll
     for (int p = 0; p < PIECES; ++p) {
       const int left = w - (kc * KB + p * 16 + 4 * t);  // bytes of w left
       const uint32_t m =
           left >= 4 ? 0u : (left <= 0 ? 0x44444444u : 0x44444444u << (8 * left));
-      uint32_t sel_a[S::MT][2][4];
-      uint32_t sel_b[S::NT][4];
+      uint32_t sel_a[MT][2][4];
+      uint32_t sel_b[NT][4];
 #pragma unroll
-      for (int mi = 0; mi < S::MT; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           selectors(*reinterpret_cast<const uint32_t*>(
-                        sa + (p * TILE + wm * S::WM + mi * 16 + 8 * h + g) * 16 +
+                        sa + (p * TILE + wm * WM + mi * 16 + 8 * h + g) * 16 +
                         4 * t),
                     m, sel_a[mi][h]);
 #pragma unroll
-      for (int ni = 0; ni < S::NT; ++ni)
+      for (int ni = 0; ni < NT; ++ni)
         selectors(*reinterpret_cast<const uint32_t*>(
                       sb + (p * TILE + wn * 32 + ni * 8 + g) * 16 + 4 * t),
                   m, sel_b[ni]);
@@ -283,20 +282,20 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
 #pragma unroll
         for (int q = 0; q < G; ++q) {
           if (grp * G + q >= plan.n) continue;
-          uint32_t a[S::MT][4];
+          uint32_t a[MT][4];
 #pragma unroll
-          for (int mi = 0; mi < S::MT; ++mi) {
+          for (int mi = 0; mi < MT; ++mi) {
             a[mi][0] = __byte_perm(la[q], 0, sel_a[mi][0][2 * k2]);
             a[mi][1] = __byte_perm(la[q], 0, sel_a[mi][1][2 * k2]);
             a[mi][2] = __byte_perm(la[q], 0, sel_a[mi][0][2 * k2 + 1]);
             a[mi][3] = __byte_perm(la[q], 0, sel_a[mi][1][2 * k2 + 1]);
           }
 #pragma unroll
-          for (int ni = 0; ni < S::NT; ++ni) {
+          for (int ni = 0; ni < NT; ++ni) {
             const uint32_t b0 = __byte_perm(lb[q], 0, sel_b[ni][2 * k2]);
             const uint32_t b1 = __byte_perm(lb[q], 0, sel_b[ni][2 * k2 + 1]);
 #pragma unroll
-            for (int mi = 0; mi < S::MT; ++mi)
+            for (int mi = 0; mi < MT; ++mi)
               mma_s8(acc[q][mi][ni], a[mi], b0, b1);
           }
         }
@@ -315,12 +314,12 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
         int32_t* base = out + static_cast<size_t>(dst) * nr * nc;
         const bool pair = (nc % 2) == 0;
 #pragma unroll
-        for (int mi = 0; mi < S::MT; ++mi)
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-          for (int ni = 0; ni < S::NT; ++ni)
+          for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int r = row0 + wm * S::WM + mi * 16 + 8 * h + g;
+              const int r = row0 + wm * WM + mi * 16 + 8 * h + g;
               const int c = col0 + wn * 32 + ni * 8 + 2 * t;
               if (r >= nr || c >= nc) continue;
               int32_t* o = base + static_cast<size_t>(r) * nc + c;
@@ -337,19 +336,19 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
       if (symmetric && mir >= 0 && ti != tj) {
         __syncthreads();  // the previous transpose's readers are done
 #pragma unroll
-        for (int mi = 0; mi < S::MT; ++mi)
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-          for (int ni = 0; ni < S::NT; ++ni)
+          for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int r = wm * S::WM + mi * 16 + 8 * h + g;
+              const int r = wm * WM + mi * 16 + 8 * h + g;
               const int c = wn * 32 + ni * 8 + 2 * t;
               tr[r * (TILE + 1) + c] = acc[q][mi][ni][2 * h];
               tr[r * (TILE + 1) + c + 1] = acc[q][mi][ni][2 * h + 1];
             }
         __syncthreads();
         int32_t* base = out + static_cast<size_t>(mir) * nr * nc;
-        for (int idx = tid; idx < TILE * TILE; idx += S::THREADS) {
+        for (int idx = tid; idx < TILE * TILE; idx += THREADS) {
           const int c = idx / TILE;
           const int r = idx % TILE;
           if (col0 + c < nr && row0 + r < nc)
@@ -358,9 +357,9 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
         }
       }
 #pragma unroll
-      for (int mi = 0; mi < S::MT; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < S::NT; ++ni)
+        for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[q][mi][ni][e] = 0;
       la[q] = pick(plan.lut_left, cq + G);
@@ -370,42 +369,35 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
   cp_async_wait<0>();
 }
 
-template <int TILE, int G, bool ALIGNED>
+template <int G, bool ALIGNED>
 cudaError_t launch(const uint8_t* rows, const uint8_t* cols, int32_t* out,
                    int nr, int nc, int w, int symmetric, const Plan& plan,
                    cudaStream_t stream) {
-  using S = Shape<TILE>;
-  auto kernel = packed_gram_mma<TILE, G, ALIGNED>;
+  auto kernel = packed_gram_mma<G, ALIGNED>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   const long long tr = (nr + TILE - 1) / TILE;
   const long long tc = (nc + TILE - 1) / TILE;
   const long long blocks = symmetric ? tr * (tr + 1) / 2 : tr * tc;
-  kernel<<<static_cast<unsigned>(blocks), S::THREADS, S::SMEM, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM, stream>>>(
       rows, cols, out, nr, nc, w, symmetric, plan);
   return cudaGetLastError();
 }
 
-template <int TILE, bool ALIGNED>
+template <bool ALIGNED>
 cudaError_t dispatch_groups(const uint8_t* r, const uint8_t* c, int32_t* o,
                             int nr, int nc, int w, int symmetric,
                             const Plan& plan, cudaStream_t s) {
-  // G * TILE / 2 accumulators a thread: G <= 3 at tile 64 and G <= 2 at
-  // tile 128 leave ptxas room (G = 4 at tile 64 takes 255 registers and
-  // spills). The groups are balanced: 5 contractions run as 3 + 2.
-  constexpr int G_MAX = TILE == 64 ? 3 : 2;
+  // 32 accumulators a thread per contraction: groups of at most 3 leave
+  // ptxas room (4 take 255 registers and spill). The groups are
+  // balanced: 5 contractions run as 3 + 2.
+  constexpr int G_MAX = 3;
   const int sweeps = (plan.n + G_MAX - 1) / G_MAX;
-  const int g = (plan.n + sweeps - 1) / sweeps;
-  if constexpr (TILE == 64) {
-    switch (g) {
-      case 1: return launch<64, 1, ALIGNED>(r, c, o, nr, nc, w, symmetric, plan, s);
-      case 2: return launch<64, 2, ALIGNED>(r, c, o, nr, nc, w, symmetric, plan, s);
-      default: return launch<64, 3, ALIGNED>(r, c, o, nr, nc, w, symmetric, plan, s);
-    }
-  } else {
-    if (g == 1) return launch<TILE, 1, ALIGNED>(r, c, o, nr, nc, w, symmetric, plan, s);
-    return launch<TILE, 2, ALIGNED>(r, c, o, nr, nc, w, symmetric, plan, s);
+  switch ((plan.n + sweeps - 1) / sweeps) {
+    case 1: return launch<1, ALIGNED>(r, c, o, nr, nc, w, symmetric, plan, s);
+    case 2: return launch<2, ALIGNED>(r, c, o, nr, nc, w, symmetric, plan, s);
+    default: return launch<3, ALIGNED>(r, c, o, nr, nc, w, symmetric, plan, s);
   }
 }
 
@@ -418,14 +410,13 @@ extern "C" {
 // 1 = t1, 2 = t2, 3 = y) and the product indices `direct` (tile written
 // at [I, J]) and `mirror` (written transposed at [J, I]; symmetric
 // launches only), -1 for none. `out` is (products, nr, nc) int32.
-// `symmetric` requires rows == cols; `tile` is 64 or 128.
+// `symmetric` requires rows == cols.
 int packed_gram_products(const void* rows, const void* cols, void* out,
                          int nr, int nc, int w, int nq, const int* left,
                          const int* right, const int* direct,
-                         const int* mirror, int symmetric, int tile,
-                         void* stream) {
+                         const int* mirror, int symmetric, void* stream) {
   if (nq < 1 || nq > MAX_CONTRACTIONS || nr < 1 || nc < 1 || w < 0 ||
-      (symmetric && (nr != nc || rows != cols)) || (tile != 64 && tile != 128))
+      (symmetric && (nr != nc || rows != cols)))
     return static_cast<int>(cudaErrorInvalidValue);
   // Byte k of an operand's lookup word is its value for code k: c, t1,
   // t2, y (code 3, missing, is 0 in every operand).
@@ -451,13 +442,9 @@ int packed_gram_products(const void* rows, const void* cols, void* out,
   const bool aligned = w % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(cols) % 16 == 0;
-  cudaError_t err;
-  if (tile == 64)
-    err = aligned ? dispatch_groups<64, true>(r, c, o, nr, nc, w, symmetric, plan, s)
-                  : dispatch_groups<64, false>(r, c, o, nr, nc, w, symmetric, plan, s);
-  else
-    err = aligned ? dispatch_groups<128, true>(r, c, o, nr, nc, w, symmetric, plan, s)
-                  : dispatch_groups<128, false>(r, c, o, nr, nc, w, symmetric, plan, s);
+  const cudaError_t err =
+      aligned ? dispatch_groups<true>(r, c, o, nr, nc, w, symmetric, plan, s)
+              : dispatch_groups<false>(r, c, o, nr, nc, w, symmetric, plan, s);
   return static_cast<int>(err);
 }
 

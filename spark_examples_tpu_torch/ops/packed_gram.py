@@ -32,8 +32,8 @@ from spark_examples_tpu_torch.ops.genotype import PRODUCT_OPERANDS, int_dot
 _OPERAND_CODES = {"c": 0, "t1": 1, "t2": 2, "y": 3}
 _PACKABLE_OPERANDS = frozenset(_OPERAND_CODES)
 MAX_PRODUCTS = 7
-# The kernel's square output tile (64 or 128) and the packed bytes it
-# stages per step.
+# The kernel's square output tile and the packed bytes it stages per step
+# (TILE and KB in csrc/packed_gram.cu): the edges the tests probe.
 TILE = 64
 CHUNK_BYTES = 64
 
@@ -144,7 +144,7 @@ def _library():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.packed_gram_products.restype = ctypes.c_int
     lib.packed_gram_error_string.argtypes = [ctypes.c_int]
@@ -177,7 +177,7 @@ def _launch(rows: torch.Tensor, cols: torch.Tensor,
         rc = lib.packed_gram_products(
             rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
             nr, nc, w, len(plan), left, right, direct, mirror,
-            int(symmetric), TILE, stream,
+            int(symmetric), stream,
         )
     if rc != 0:
         msg = lib.packed_gram_error_string(rc).decode()
