@@ -169,6 +169,17 @@ __device__ __forceinline__ void load_stage(uint8_t* dst, const uint8_t* rows,
   }
 }
 
+// The operand word for four variants: byte n is byte (nibble n of sel) of
+// the lookup word, or of zero for nibbles 4-7. Inline PTX, because
+// __byte_perm clears bit 3 of every nibble and the high half first (one
+// LOP3 per call); the selectors here never set bit 3, and prmt ignores
+// the high half.
+__device__ __forceinline__ uint32_t lookup(uint32_t lut, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(lut), "r"(0u), "r"(sel));
+  return d;
+}
+
 // Four PRMT selectors from one word of 16 packed variants, with the tail
 // mask `m` (0x4 in every nibble of a byte past w) applied: [0] and [1]
 // feed the first m16n8k32 step's k slots t and t + 4, [2] and [3] the
@@ -285,15 +296,15 @@ packed_gram_mma(const uint8_t* __restrict__ rows,
           uint32_t a[MT][4];
 #pragma unroll
           for (int mi = 0; mi < MT; ++mi) {
-            a[mi][0] = __byte_perm(la[q], 0, sel_a[mi][0][2 * k2]);
-            a[mi][1] = __byte_perm(la[q], 0, sel_a[mi][1][2 * k2]);
-            a[mi][2] = __byte_perm(la[q], 0, sel_a[mi][0][2 * k2 + 1]);
-            a[mi][3] = __byte_perm(la[q], 0, sel_a[mi][1][2 * k2 + 1]);
+            a[mi][0] = lookup(la[q], sel_a[mi][0][2 * k2]);
+            a[mi][1] = lookup(la[q], sel_a[mi][1][2 * k2]);
+            a[mi][2] = lookup(la[q], sel_a[mi][0][2 * k2 + 1]);
+            a[mi][3] = lookup(la[q], sel_a[mi][1][2 * k2 + 1]);
           }
 #pragma unroll
           for (int ni = 0; ni < NT; ++ni) {
-            const uint32_t b0 = __byte_perm(lb[q], 0, sel_b[ni][2 * k2]);
-            const uint32_t b1 = __byte_perm(lb[q], 0, sel_b[ni][2 * k2 + 1]);
+            const uint32_t b0 = lookup(lb[q], sel_b[ni][2 * k2]);
+            const uint32_t b1 = lookup(lb[q], sel_b[ni][2 * k2 + 1]);
 #pragma unroll
             for (int mi = 0; mi < MT; ++mi)
               mma_s8(acc[q][mi][ni], a[mi], b0, b1);
