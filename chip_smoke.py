@@ -55,7 +55,30 @@ Phases (any failure exits non-zero; none is caught and ignored):
 11. Run the ``pca`` job through the CLI at the Quickstart shape: K1 must
     launch 13 times, the coordinates must be finite and separate the
     populations.
-12. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
+12. Dense transport: a (2504, 16,384) int8 raw-value table (numpy seed
+    3, values 0..127, 10 % missing): the ``torch._int_mm`` lowering of
+    the euclidean and dot product sets bitwise against the plain
+    ``int_dot``, both timed. Then ``similarity --metric euclidean`` and
+    ``--metric dot`` through the CLI on the Quickstart cohort (dense
+    transport, 13 blocks): K1 launches 0 times.
+13. grm: ``pcoa --metric grm`` through the CLI at the Quickstart shape
+    (packed transport, bf16; K1 launches 0 times); coordinates finite
+    and separating the populations. The gram stage again in bf16 and
+    with ``--grm-precise``: ``nvar`` equal, max |bf16 - f32| / max |f32|
+    of ``zz`` printed.
+14. Packed store: ``pack`` the Quickstart cohort through the CLI, then
+    ``pcoa --source packed``: K1 launches 13 times; the store's gram
+    stage gives int32 accumulators bitwise equal to phase 6's.
+15. PLINK: the cohort written with ``write_plink`` (62.6 MB ``.bed``),
+    ``pcoa --source plink``: K1 launches 13 times; accumulators bitwise
+    equal to phase 6's.
+16. VCF: the cohort's first 4,096 variants written with ``write_vcf``;
+    the parsed blocks bitwise equal to the synthetic source's, the
+    parse timed; ``similarity --source vcf`` through the CLI.
+17. QC + LD: ``pcoa --source plink --maf 0.01 --max-missing 0.1
+    --ld-prune-r2 0.2`` on phase 15's fileset: the kept variant count
+    printed, the coordinates separating the populations.
+18. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
     the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -108,6 +131,9 @@ RAGGED_SHAPES = ((37, 21, 301), (1, 1, 1), (65, 130, 17), (64, 64, 16),
                  (129, 65, 65))
 # The largest N on the dense route (pipelines/jobs.py): K1 is timed there.
 LARGE_SAMPLES = 16_384
+# Phase 12's raw-value table and phase 16's VCF width.
+DENSE_VARIANTS = 16_384
+VCF_VARIANTS = 4096
 
 
 def k1_bounds(n: int, w: int, products) -> dict:
@@ -196,23 +222,31 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def run_job(cli_main, argv: list[str], counters: dict, output: str):
+    """One job through the CLI's ``main`` with ``--timings`` and
+    ``--output-path output``: every kernel's launch count set to 0 just
+    before, read just after. Returns (launches by kernel, phase timings,
+    the job's stdout, wall s)."""
+    err, out = io.StringIO(), io.StringIO()
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = cli_main(argv + ["--output-path", output, "--timings"])
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if rc != 0:
+        fail(f"{' '.join(argv)}: CLI returned {rc}")
+    timings = json.loads(err.getvalue().strip().splitlines()[-1])
+    return launches, timings, out.getvalue(), wall
+
+
 def run_cli(cli_main, argv: list[str], counters: dict, n_pc: int):
-    """One job through the CLI's ``main`` with ``--timings``: every
-    kernel's launch count set to 0 just before, read just after. Returns
+    """A coordinates job (pcoa, pca) through :func:`run_job`. Returns
     (launches by kernel, phase timings, coords from the TSV, wall s)."""
     with tempfile.TemporaryDirectory() as tmp:
         tsv = os.path.join(tmp, "coords.tsv")
-        err = io.StringIO()
-        for mod in counters.values():
-            mod.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stderr(err):
-            rc = cli_main(argv + ["--output-path", tsv, "--timings"])
-        wall = time.perf_counter() - t0
-        launches = {name: mod.launches for name, mod in counters.items()}
-        if rc != 0:
-            fail(f"{argv[0]} CLI returned {rc}")
-        timings = json.loads(err.getvalue().strip().splitlines()[-1])
+        launches, timings, _, wall = run_job(cli_main, argv, counters, tsv)
         with open(tsv) as f:
             header = f.readline().rstrip("\n").split("\t")
             rows_ = [line.rstrip("\n").split("\t") for line in f]
@@ -222,6 +256,286 @@ def run_cli(cli_main, argv: list[str], counters: dict, n_pc: int):
     if not np.isfinite(coords).all():
         fail(f"{' '.join(argv)}: non-finite coordinates")
     return launches, timings, coords, wall
+
+
+def run_similarity_cli(cli_main, argv: list[str], counters: dict, n: int):
+    """A similarity job through :func:`run_job`, its matrix saved as
+    ``.npy``: (launches by kernel, phase timings, wall s). The matrix
+    must be finite, (n, n) and symmetric."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "similarity.npy")
+        launches, timings, _, wall = run_job(cli_main, argv, counters, path)
+        sim = np.load(path)
+    if sim.shape != (n, n) or not np.isfinite(sim).all():
+        fail(f"{' '.join(argv)}: similarity {sim.shape}, finite "
+             f"{bool(np.isfinite(sim).all())}")
+    if not np.array_equal(sim, sim.T):
+        fail(f"{' '.join(argv)}: similarity not symmetric")
+    return launches, timings, wall
+
+
+def phases_line(timings: dict, names) -> str:
+    return ", ".join(f"{k} {timings[k]:.4f} s" for k in names if k in timings)
+
+
+def quickstart_args(metric: str | None = None) -> list[str]:
+    """The Quickstart cohort's flags (synthetic, 2504 x 100,000)."""
+    argv = ["--n-samples", str(N_SAMPLES), "--n-variants", str(N_VARIANTS),
+            "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
+    return argv + (["--metric", metric] if metric else [])
+
+
+def equal_accumulators(got: dict, want: dict) -> bool:
+    """Same leaves, bitwise; ``want`` lies on the CPU."""
+    import torch
+
+    return got.keys() == want.keys() and all(
+        torch.equal(got[k].cpu(), want[k]) for k in want)
+
+
+def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
+                          source, expected: int, quickstart_gram_s: float,
+                          synthetic_acc: dict) -> dict:
+    """Phases 12-17: the dense transport, grm and the file sources
+    (packed store, PLINK, VCF, QC + LD), each CLI job counted. Returns
+    the launches by kernel of each job, by path name."""
+    import torch
+
+    from spark_examples_tpu_torch import kernels
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+    )
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+    from spark_examples_tpu_torch.ingest.plink import PlinkSource, write_plink
+    from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+    from spark_examples_tpu_torch.ingest.vcf import VcfSource, write_vcf
+    from spark_examples_tpu_torch.ops import genotype
+    from spark_examples_tpu_torch.pipelines import runner
+
+    # -- 12. dense transport: the int8 library product, then the jobs ------
+    # The dense-transport kernels: euclidean and dot.
+    dense_metrics = tuple(m for m in kernels.gram_names()
+                          if not kernels.get(m).pack_auto)
+    rng = np.random.default_rng(3)
+    table = rng.integers(0, 128, (N_SAMPLES, DENSE_VARIANTS)).astype(np.int8)
+    table[rng.random(table.shape) < 0.1] = -1
+    x = torch.from_numpy(table).to(dev)
+    dense_ms = {}
+    for metric in dense_metrics:
+        pieces = kernels.get(metric).pieces
+        lib = genotype.gram_products(x, pieces, dot=genotype.int_mm)
+        plain = genotype.gram_products(x, pieces, dot=genotype.int_dot)
+        for p in pieces:
+            if not torch.equal(lib[p], plain[p]):
+                fail(f"torch._int_mm lowering != int_dot for {metric}/{p} "
+                     f"at {tuple(x.shape)}")
+        dense_ms[metric] = (
+            cuda_ms(lambda: genotype.gram_products(
+                x, pieces, dot=genotype.int_mm), reps=10, warmup=2),
+            cuda_ms(lambda: genotype.gram_products(
+                x, pieces, dot=genotype.int_dot), reps=3, warmup=1))
+    del x, lib, plain
+    print(f"dense products at {table.shape} int8, values 0..127 [{card}]: "
+          "torch._int_mm lowering bitwise equal to int_dot for "
+          + "; ".join(f"{m} ({', '.join(kernels.get(m).pieces)}) "
+                      f"{lib_ms:.4f} ms vs int_dot {plain_ms:.4f} ms"
+                      for m, (lib_ms, plain_ms) in dense_ms.items()))
+    dense_counts = {}
+    for metric in dense_metrics:
+        argv = ["similarity"] + quickstart_args(metric)
+        counts_m, timings, wall = run_similarity_cli(
+            cli_main, argv, launch_counters, N_SAMPLES)
+        if counts_m["packed_gram"] != 0:
+            fail(f"K1 launched {counts_m['packed_gram']} times on the dense "
+                 f"{metric} job, expected 0")
+        if timings["ingest_bytes"] != expected * N_SAMPLES * BLOCK_VARIANTS:
+            fail(f"{metric}: {timings['ingest_bytes']} bytes shipped, not "
+                 "the dense transport's")
+        dense_counts[metric] = counts_m
+        print(f"similarity {N_SAMPLES} x {N_VARIANTS} {metric}, dense "
+              f"transport [{card}]: wall {wall:.3f} s; phases: "
+              + phases_line(timings, ("ingest_setup", "gram", "finalize"))
+              + f"; launches {counts_m}")
+
+    # -- 13. grm -----------------------------------------------------------
+    argv = ["pcoa"] + quickstart_args("grm") + ["--num-pc", str(NUM_PC)]
+    grm_counts, timings, coords, wall = run_cli(cli_main, argv,
+                                                launch_counters, NUM_PC)
+    if grm_counts["packed_gram"] != 0:
+        fail(f"K1 launched {grm_counts['packed_gram']} times on the grm "
+             "job, expected 0")
+    sep = separation(coords, source.populations)
+    if not sep >= SEPARATION_MIN:
+        fail(f"grm PC1-2 population separation {sep:.3f} < "
+             f"{SEPARATION_MIN}")
+    print(f"pcoa {N_SAMPLES} x {N_VARIANTS} grm (bf16), {NUM_PC} PCs "
+          f"[{card}]: wall {wall:.3f} s; phases: "
+          + phases_line(timings, ("ingest_setup", "gram", "finalize", "eigh"))
+          + f"; launches {grm_counts}; coords finite; PC1-2 separation "
+          f"{sep:.2f} (min {SEPARATION_MIN})")
+    grm = {}
+    for precise in (False, True):
+        job = JobConfig(
+            ingest=IngestConfig(n_samples=N_SAMPLES, n_variants=N_VARIANTS,
+                                block_variants=BLOCK_VARIANTS),
+            compute=ComputeConfig(metric="grm", grm_precise=precise,
+                                  device=DEVICE))
+        t = PhaseTimer()
+        g = runner.run_gram(job, SyntheticSource(n_samples=N_SAMPLES,
+                                                 n_variants=N_VARIANTS), t)
+        grm[precise] = (g.acc, t.phases["gram"])
+    (bf, bf_s), (f32, f32_s) = grm[False], grm[True]
+    if not torch.equal(bf["nvar"], f32["nvar"]):
+        fail(f"grm nvar differs: bf16 {bf['nvar']} vs f32 {f32['nvar']}")
+    if not all(bool(torch.isfinite(a["zz"]).all()) for a in (bf, f32)):
+        fail("grm zz is not finite")
+    grm_rel = float((bf["zz"] - f32["zz"]).abs().max()
+                    / f32["zz"].abs().max())
+    print(f"grm gram stage [{card}]: bf16 {bf_s:.4f} s, --grm-precise "
+          f"{f32_s:.4f} s; nvar {float(f32['nvar']):.0f} equal; max |zz "
+          f"bf16 - f32| / max |zz f32| = {grm_rel:.3g}")
+    del grm, bf, f32, g
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 14. packed store ----------------------------------------------
+        store = os.path.join(tmp, "store")
+        _, timings, out, pack_wall = run_job(
+            cli_main, ["pack"] + quickstart_args(), launch_counters, store)
+        print(f"pack [{card}]: {out.strip()}; wall {pack_wall:.3f} s")
+        argv = ["pcoa", "--source", "packed", "--path", store,
+                "--num-pc", str(NUM_PC), "--block-variants",
+                str(BLOCK_VARIANTS), "--device", DEVICE]
+        store_counts, timings, coords, wall = run_cli(
+            cli_main, argv, launch_counters, NUM_PC)
+        if store_counts["packed_gram"] != expected:
+            fail(f"K1 launched {store_counts['packed_gram']} times on the "
+                 f"packed-store job, expected {expected}")
+        sep = separation(coords, source.populations)
+        if not sep >= SEPARATION_MIN:
+            fail(f"packed-store PC1-2 separation {sep:.3f}")
+        store_gram_s = timings["gram"]
+        job = JobConfig(
+            ingest=IngestConfig(source="packed", path=store,
+                                block_variants=BLOCK_VARIANTS),
+            compute=ComputeConfig(metric="ibs", device=DEVICE))
+        g = runner.run_gram(job, load_packed(store), PhaseTimer())
+        if not equal_accumulators(g.acc, synthetic_acc):
+            fail("packed-store accumulators differ from the synthetic "
+                 "run's")
+        print(f"pcoa --source packed {N_SAMPLES} x {N_VARIANTS} ibs "
+              f"[{card}]: wall {wall:.3f} s; phases: "
+              + phases_line(timings, ("ingest_setup", "gram", "finalize",
+                                      "eigh"))
+              + f"; gram {store_gram_s:.4f} s from the store vs "
+              f"{quickstart_gram_s:.4f} s synthetic (phase 5); launches "
+              f"{store_counts}; accumulators bitwise equal to phase 6's; "
+              f"PC1-2 separation {sep:.2f}")
+
+        # -- 15. PLINK ----------------------------------------------------
+        cohort = np.concatenate(
+            [b for b, _ in load_packed(store).blocks(16384)], axis=1)
+        prefix = os.path.join(tmp, "cohort")
+        t0 = time.perf_counter()
+        write_plink(prefix, cohort, sample_ids=source.sample_ids)
+        write_s = time.perf_counter() - t0
+        bed_mb = os.path.getsize(prefix + ".bed") / 1e6
+        argv = ["pcoa", "--source", "plink", "--path", prefix,
+                "--num-pc", str(NUM_PC), "--block-variants",
+                str(BLOCK_VARIANTS), "--device", DEVICE]
+        plink_counts, timings, coords, wall = run_cli(
+            cli_main, argv, launch_counters, NUM_PC)
+        if plink_counts["packed_gram"] != expected:
+            fail(f"K1 launched {plink_counts['packed_gram']} times on the "
+                 f"PLINK job, expected {expected}")
+        sep = separation(coords, source.populations)
+        if not sep >= SEPARATION_MIN:
+            fail(f"PLINK PC1-2 separation {sep:.3f}")
+        plink_gram_s = timings["gram"]
+        job = JobConfig(
+            ingest=IngestConfig(source="plink", path=prefix,
+                                block_variants=BLOCK_VARIANTS),
+            compute=ComputeConfig(metric="ibs", device=DEVICE))
+        g = runner.run_gram(job, PlinkSource(prefix), PhaseTimer())
+        if not equal_accumulators(g.acc, synthetic_acc):
+            fail("PLINK accumulators differ from the synthetic run's")
+        del g
+        print(f"pcoa --source plink {N_SAMPLES} x {N_VARIANTS} ibs "
+              f"[{card}]: .bed {bed_mb:.1f} MB written in {write_s:.3f} s; "
+              f"wall {wall:.3f} s; phases: "
+              + phases_line(timings, ("ingest_setup", "gram", "finalize",
+                                      "eigh"))
+              + f"; launches {plink_counts}; accumulators bitwise equal to "
+              f"phase 6's; PC1-2 separation {sep:.2f}")
+
+        # -- 16. VCF -------------------------------------------------------
+        vcf = os.path.join(tmp, "cohort.vcf")
+        t0 = time.perf_counter()
+        write_vcf(vcf, cohort[:, :VCF_VARIANTS], sample_ids=source.sample_ids)
+        vcf_write_s = time.perf_counter() - t0
+        want, _ = next(SyntheticSource(n_samples=N_SAMPLES,
+                                       n_variants=N_VARIANTS).blocks(
+                                           VCF_VARIANTS))
+        t0 = time.perf_counter()
+        parsed = list(VcfSource(vcf).blocks(BLOCK_VARIANTS))
+        parse_s = time.perf_counter() - t0
+        if len(parsed) != 1 or not np.array_equal(parsed[0][0], want):
+            fail("VCF blocks differ from the synthetic source's")
+        rate = N_SAMPLES * VCF_VARIANTS / parse_s
+        argv = ["similarity", "--source", "vcf", "--path", vcf,
+                "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
+        vcf_counts, timings, wall = run_similarity_cli(
+            cli_main, argv, launch_counters, N_SAMPLES)
+        if vcf_counts["packed_gram"] != 1:
+            fail(f"K1 launched {vcf_counts['packed_gram']} times on the VCF "
+                 "job, expected 1")
+        print(f"VCF {N_SAMPLES} x {VCF_VARIANTS} [{card}]: "
+              f"{os.path.getsize(vcf) / 1e6:.1f} MB written in "
+              f"{vcf_write_s:.3f} s; parse {parse_s:.3f} s "
+              f"({rate / 1e6:.3f} M genotypes/s), blocks bitwise equal to "
+              f"the synthetic source's; similarity --source vcf wall "
+              f"{wall:.3f} s; phases: "
+              + phases_line(timings, ("ingest_setup", "gram", "finalize"))
+              + f"; launches {vcf_counts}")
+        del cohort, parsed
+
+        # -- 17. QC + LD pruning -------------------------------------------
+        argv = ["pcoa", "--source", "plink", "--path", prefix, "--maf",
+                "0.01", "--max-missing", "0.1", "--ld-prune-r2", "0.2",
+                "--num-pc", str(NUM_PC), "--block-variants",
+                str(BLOCK_VARIANTS), "--device", DEVICE]
+        with tempfile.TemporaryDirectory() as tsv_dir:
+            qc_counts, timings, out, wall = run_job(
+                cli_main, argv, launch_counters,
+                os.path.join(tsv_dir, "coords.tsv"))
+            coords = np.loadtxt(os.path.join(tsv_dir, "coords.tsv"),
+                                skiprows=1, usecols=range(1, NUM_PC + 1))
+        kept = int(re.search(r"over (\d+) variants", out).group(1))
+        if not 0 < kept <= N_VARIANTS or not np.isfinite(coords).all():
+            fail(f"QC + LD job: kept {kept}, coords finite "
+                 f"{bool(np.isfinite(coords).all())}")
+        if qc_counts["packed_gram"] != math.ceil(kept / BLOCK_VARIANTS):
+            fail(f"K1 launched {qc_counts['packed_gram']} times on the QC + "
+                 f"LD job of {kept} variants")
+        sep = separation(coords, source.populations)
+        if not sep >= SEPARATION_MIN:
+            fail(f"QC + LD PC1-2 separation {sep:.3f}")
+        print(f"pcoa --source plink --maf 0.01 --max-missing 0.1 "
+              f"--ld-prune-r2 0.2 [{card}]: kept {kept} of {N_VARIANTS} "
+              f"variants; wall {wall:.3f} s; phases: "
+              + phases_line(timings, ("ingest_setup", "gram", "finalize",
+                                      "eigh"))
+              + f"; launches {qc_counts}; PC1-2 separation {sep:.2f}")
+
+    paths = {f"similarity {m}": c for m, c in dense_counts.items()}
+    paths.update({"pcoa grm": grm_counts,
+                  "pcoa packed store": store_counts,
+                  "pcoa plink": plink_counts,
+                  "similarity vcf": vcf_counts,
+                  "pcoa plink qc+ld": qc_counts})
+    return paths
 
 
 def main() -> int:
@@ -388,6 +702,7 @@ def main() -> int:
             "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
     counts, timings, coords, wall = run_cli(cli_main, argv, launch_counters,
                                             NUM_PC)
+    quickstart_gram_s = timings["gram"]
     launches = counts["packed_gram"]
     if launches != expected:
         fail(f"K1 launched {launches} times on the main path, "
@@ -428,6 +743,7 @@ def main() -> int:
         fail("ibs distances differ between lowerings")
     print("lowerings: reference and K1 accumulators "
           f"({', '.join(accs['auto'])}) and ibs distances bitwise equal")
+    synthetic_acc = {k: v.cpu() for k, v in accs["auto"].items()}
     del accs, dists, g
 
     # -- 7. K2 parity ------------------------------------------------------
@@ -589,7 +905,11 @@ def main() -> int:
           + f"; launches {pca_counts}; coords finite; PC1-2 separation "
           f"{sep:.2f} (min {SEPARATION_MIN})")
 
-    # -- 12. summary --------------------------------------------------------
+    new_paths = dense_and_file_phases(
+        cli_main, launch_counters, card, dev, source, expected,
+        quickstart_gram_s, synthetic_acc)
+
+    # -- 18. summary --------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
         "route": "cuda",
@@ -598,7 +918,9 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"pcoa ibs": launches,
                              "pcoa braycurtis": bc_counts["packed_gram"],
-                             "pca": pca_counts["packed_gram"]},
+                             "pca": pca_counts["packed_gram"],
+                             **{path: c["packed_gram"]
+                                for path, c in new_paths.items()}},
         "max_abs_err": max_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
@@ -620,7 +942,9 @@ def main() -> int:
         "launches": bc_counts["braycurtis"],
         "launches_by_path": {"pcoa ibs": counts["braycurtis"],
                              "pcoa braycurtis": bc_counts["braycurtis"],
-                             "pca": pca_counts["braycurtis"]},
+                             "pca": pca_counts["braycurtis"],
+                             **{path: c["braycurtis"]
+                                for path, c in new_paths.items()}},
         "max_abs_err": max(k2_err, k2_float_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

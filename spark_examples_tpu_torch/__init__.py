@@ -6,7 +6,7 @@ counterpart of ``spark_examples_tpu/ops/gram.py`` is
 numpy only: nothing of JAX and nothing of the JAX package, which stays
 the reference that the tests hold this package against.
 
-Entry point: ``python -m spark_examples_tpu_torch {pcoa,similarity}``.
+Entry point: ``python -m spark_examples_tpu_torch {pcoa,pca,similarity,pack}``.
 Every entry point runs on the CUDA device unless the caller asks for the
 CPU (``--device cpu`` / ``device="cpu"``).
 """

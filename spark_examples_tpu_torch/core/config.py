@@ -26,6 +26,11 @@ GRAM_LOWERINGS = ("auto", "reference", "fused")
 BRAYCURTIS_METHODS = ("auto", "exact", "matmul", "fused")
 EIGH_MODES = ("auto", "dense", "randomized")
 PACK_STREAMS = ("auto", "packed", "dense")
+# Genotype sources. parquet and the content-addressed store (also
+# spelled ``store:<dir>``) are accepted by the CLI only to be refused
+# with a message: they are not ported yet.
+SOURCES = ("synthetic", "vcf", "plink", "packed")
+UNPORTED_SOURCES = ("parquet", "store")
 # Accepted so that a config naming them is refused with a message: only
 # the exact rung on one device is ported.
 SOLVER_LADDER = ("exact", "sketch", "corrected")
@@ -52,11 +57,45 @@ def _check_enum(section, name, value, members, why):
         )
 
 
+@dataclass(frozen=True)
+class ReferenceRange:
+    """A genomic range ``contig:start:end`` (``--references``): the
+    half-open position interval ``[start, end)`` on ``contig``."""
+
+    contig: str
+    start: int
+    end: int
+
+    @classmethod
+    def parse(cls, spec: str) -> "ReferenceRange":
+        try:
+            contig, start, end = spec.split(":")
+            rng = cls(contig, int(start), int(end))
+        except ValueError:
+            raise ValueError(
+                f"bad reference range {spec!r}: expected CONTIG:START:END "
+                "(e.g. chr22:16050000:17000000)"
+            ) from None
+        if rng.end <= rng.start:
+            raise ValueError(
+                f"bad reference range {spec!r}: end must be > start"
+            )
+        return rng
+
+    def __str__(self) -> str:
+        return f"{self.contig}:{self.start}:{self.end}"
+
+
 @dataclass
 class IngestConfig:
     """Which variants to stream, from where, in what block shape."""
 
+    # synthetic | vcf | plink | packed (parquet and store are refused by
+    # runner.build_source). "store:<dir>" is normalized here into
+    # source="store", path="<dir>".
     source: str = "synthetic"
+    path: str | None = None  # file or directory of a vcf/plink/packed source
+    references: list[ReferenceRange] = field(default_factory=list)
     n_samples: int = 2504  # synthetic default: 1000 Genomes phase-3 cohort
     n_variants: int = 100_000
     n_populations: int = 5
@@ -65,6 +104,18 @@ class IngestConfig:
     # Host->device pipeline depth: produced blocks that may wait in the
     # prefetch queue while earlier copies and updates drain.
     prefetch_blocks: int = 2
+    # Variant QC (ingest/filters.py): drop variants with minor-allele
+    # frequency < maf or missing-call rate > max_missing. The defaults
+    # keep everything.
+    maf: float = 0.0
+    max_missing: float = 1.0
+    # LD pruning (ingest/ldprune.py, the PLINK --indep-pairwise
+    # analogue), applied after the QC filter: greedily drop variants
+    # whose within-window r^2 against a kept variant exceeds ld_r2
+    # (0 = off).
+    ld_r2: float = 0.0
+    ld_window: int = 256
+    ld_carry: int = 0  # 0 = auto (window // 4)
 
     def __post_init__(self):
         _check_int("ingest", "block_variants", self.block_variants, 1,
@@ -72,6 +123,34 @@ class IngestConfig:
         _check_int("ingest", "prefetch_blocks", self.prefetch_blocks, 1,
                    4096, "host->device pipeline depth; the stream cannot "
                    "run unbuffered, so at least 1")
+        _check_int("ingest", "--ld-window", self.ld_window, 2, 1 << 20,
+                   "LD pruning window, variants")
+        _check_int("ingest", "--ld-carry", self.ld_carry, 0,
+                   self.ld_window - 1, "kept variants carried across "
+                   "windows; 0 = window // 4, below the window")
+        for name, value, hi in (("--maf", self.maf, 0.5),
+                                ("--max-missing", self.max_missing, 1.0),
+                                ("--ld-prune-r2", self.ld_r2, 1.0)):
+            if not 0.0 <= value <= hi:
+                raise ValueError(
+                    f"bad ingest config: {name}={value!r} — expected a "
+                    f"number in [0, {hi}]"
+                )
+        if self.source.startswith("store:"):
+            spec_path = self.source.split(":", 1)[1]
+            if self.path:
+                raise ValueError(
+                    f"ambiguous ingest: source {self.source!r} names a "
+                    f"store directory AND path={self.path!r} is set — "
+                    "use one or the other"
+                )
+            if not spec_path:
+                raise ValueError(
+                    "bad source 'store:': expected store:<dir> (the "
+                    "compacted store directory)"
+                )
+            self.source = "store"
+            self.path = spec_path
 
 
 @dataclass
@@ -83,8 +162,13 @@ class ComputeConfig:
     braycurtis_method: str = "auto"
     braycurtis_levels: int = 256
     num_pc: int = 10
+    # grm only: standardized dosages in f32 instead of bf16 (~1e-3
+    # better relative accuracy; the count metrics are exact either way).
+    grm_precise: bool = False
     # Host->device transport: "packed" ships 2-bit packed blocks, "dense"
-    # int8; "auto" packs (every ported kernel takes dosage inputs).
+    # int8; "auto" packs the kernels that declare pack_auto (inputs that
+    # are dosages by definition) and keeps dot/euclidean dense: they take
+    # arbitrary int8 tables that the 2-bit codec cannot represent.
     pack_stream: str = "auto"
     gram_lowering: str = "auto"
     eigh_mode: str = "auto"
@@ -141,6 +225,13 @@ class ComputeConfig:
                 f"bad compute config: --metric={self.metric!r} — "
                 f"registered kernels: {' | '.join(kernels.finalizable_names())}"
             )
+        if self.gram_lowering == "fused":
+            # A metric/transport pair the packed kernel can never serve
+            # dies here, flag named, not inside the streaming job.
+            metric = self.metric or "ibs"
+            if kernels.get(metric).family != "table":
+                kernels.check_fused_lowering(
+                    metric, kernels.streams_packed(metric, self.pack_stream))
 
 
 @dataclass

@@ -2,13 +2,15 @@
 
 A producer thread builds each host block (source read, ragged-tail
 padding, 2-bit packing) into a bounded queue; the consumer copies it to
-the device and yields it. On a CUDA target the host blocks live in a
-ring of reusable **pinned** slabs, and each copy is ``non_blocking`` on
-a side stream, so block k+1's copy overlaps block k's update; the
-compute stream waits on the copy's event before it touches the block. A
-slab is recycled only after its copy's event has completed, and that
-wait lags :data:`TRANSFER_DEPTH` blocks behind the yield, so it is ~0 in
-a healthy pipeline. Pinning happens only for CUDA targets (a CPU-only
+the device and yields it. A source that stores 2-bit bytes
+(``packed_blocks``, the packed store) ships them as they are on the
+packed transport: no host unpack or repack. On a CUDA target the host
+blocks live in a ring of reusable **pinned** slabs, and each copy is
+``non_blocking`` on a side stream, so block k+1's copy overlaps block
+k's update; the compute stream waits on the copy's event before it
+touches the block. A slab is recycled only after its copy's event has
+completed, and that wait lags :data:`TRANSFER_DEPTH` blocks behind the
+yield, so it is ~0 in a healthy pipeline. Pinning happens only for CUDA targets (a CPU-only
 torch refuses ``pin_memory``); CPU targets get a fresh host buffer per
 block, wrapped without a copy.
 
@@ -47,6 +49,17 @@ def pad_block(block: np.ndarray, block_variants: int) -> np.ndarray:
         return block
     out = np.full((n, block_variants), MISSING, dtype=GENOTYPE_DTYPE)
     out[:, :v] = block
+    return out
+
+
+def pad_packed(packed: np.ndarray, width_bytes: int) -> np.ndarray:
+    """Right-pad a ragged 2-bit packed block to ``width_bytes`` columns
+    with four-missing bytes."""
+    n, w = packed.shape
+    if w == width_bytes:
+        return packed
+    out = np.full((n, width_bytes), PACKED_MISSING, dtype=np.uint8)
+    out[:, :w] = packed
     return out
 
 
@@ -99,11 +112,35 @@ class _PinnedRing:
         return None
 
 
-def _produce(source, block_variants, start_variant, prefetch, pack, ring):
+def _host_blocks(source, block_variants, start_variant, pack, stats):
+    """``(host array, meta)`` at the padded width: the source's own 2-bit
+    bytes when it has them and blocks fall on byte boundaries, else its
+    int8 blocks, packed on the host for the packed transport. On the
+    dense transport ``stats["max_value"]`` tracks the largest value
+    streamed (the value-scaled int32 budget reads it)."""
+    width = padded_width(block_variants, pack=pack)
+    if (pack and hasattr(source, "packed_blocks")
+            and block_variants % bitpack.VARIANTS_PER_BYTE == 0):
+        for pblock, meta in source.packed_blocks(block_variants,
+                                                 start_variant):
+            yield pad_packed(pblock, width), meta
+        return
+    for block, meta in source.blocks(block_variants, start_variant):
+        if pack:
+            yield bitpack.pack_dosages(
+                pad_block(block, width * bitpack.VARIANTS_PER_BYTE)), meta
+            continue
+        if stats is not None and block.size:
+            stats["max_value"] = max(stats.get("max_value", 0),
+                                     int(block.max()))
+        yield pad_block(block, width), meta
+
+
+def _produce(source, block_variants, start_variant, prefetch, pack, ring,
+             stats):
     """Run the producer thread; yields ``(host array, slab | None, meta)``."""
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
-    width = padded_width(block_variants, pack=pack)
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -116,12 +153,8 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring):
 
     def produce():
         try:
-            for block, meta in source.blocks(block_variants, start_variant):
-                if pack:
-                    host = bitpack.pack_dosages(
-                        pad_block(block, width * bitpack.VARIANTS_PER_BYTE))
-                else:
-                    host = pad_block(block, width)
+            for host, meta in _host_blocks(source, block_variants,
+                                           start_variant, pack, stats):
                 slab = None
                 if ring is not None:
                     slab = ring.acquire(stop)
@@ -158,11 +191,13 @@ def stream_to_device(
     start_variant: int = 0,
     prefetch: int = 2,
     pack: bool = False,
+    stats: dict | None = None,
 ) -> Iterator[tuple[torch.Tensor, BlockMeta]]:
     """Yield device-resident, shape-stable (N, padded_width) blocks:
-    uint8 packed codes when ``pack``, int8 dosages otherwise. Errors in
-    the producer propagate to the consumer; abandoning the generator
-    stops the producer."""
+    uint8 packed codes when ``pack``, int8 values otherwise. ``stats``:
+    a dict the producer updates in place (``max_value`` on the dense
+    transport). Errors in the producer propagate to the consumer;
+    abandoning the generator stops the producer."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     ring = None
@@ -175,7 +210,7 @@ def stream_to_device(
     # (copy event, slab) pairs whose copies may still be in flight.
     pending: deque = deque()
     producer = _produce(source, block_variants, start_variant,
-                        max(1, prefetch), pack, ring)
+                        max(1, prefetch), pack, ring, stats)
     try:
         for host, slab, meta in producer:
             if not cuda:

@@ -1,14 +1,19 @@
 """The kernel registry: one declarative object per metric.
 
-Two families, as in the JAX package's registry:
+Three families, as in the JAX package's registry:
 
-- ``count``: the 2-bit packable pair-count kernels. A kernel says which
-  raw int32 products it accumulates (``pieces``), which statistics its
-  finalize reads (``stats``, ``ops.genotype.combine_products`` names),
-  its finalize, and the worst per-variant accumulator increment feeding
-  the int32 exactness guard. All six stream packed under
-  ``pack_stream="auto"``, and the packed-gram CUDA kernel
-  (``ops/packed_gram.py``) serves every one of their product sets.
+- ``count``: the pair-count kernels. A kernel says which raw int32
+  products it accumulates (``pieces``), which statistics its finalize
+  reads (``stats``, ``ops.genotype.combine_products`` names), its
+  finalize, and the worst per-variant accumulator increment feeding
+  the int32 exactness guard. The six dosage kernels stream packed under
+  ``pack_stream="auto"`` and the packed-gram CUDA kernel
+  (``ops/packed_gram.py``) serves their product sets (``fused``).
+  ``euclidean`` and ``dot`` take arbitrary int8 tables (raw values up
+  to 127), which neither the 2-bit codec nor that kernel can carry:
+  they stream dense and contract through the int8 library product.
+- ``float``: kernels with their own f32 accumulators, init and update
+  (grm: VanRaden standardized dosages, ``Z Z^T`` in f32).
 - ``table``: a dense-table pipeline with its own ``table_runner``
   instead of the gram accumulator (braycurtis, whose Manhattan
   contraction is the CUDA kernel of ``ops/braycurtis_kernel.py``).
@@ -26,24 +31,40 @@ import torch
 
 from spark_examples_tpu_torch.ops import genotype
 
+
 @dataclass(frozen=True)
 class Kernel:
     name: str
-    family: str  # "count" | "table"
+    family: str  # "count" | "float" | "table"
     pieces: tuple[str, ...] = ()
     stats: tuple[str, ...] = ()
     max_increment: int | None = None
     finalize: Callable | None = None  # stats -> {"similarity", "distance"}
+    # Inputs are genotype dosages by definition, so pack_stream="auto"
+    # ships them 2-bit packed.
+    pack_auto: bool = True
+    # The int32 budget scales with the streamed table's largest value m
+    # (increment bound m^2) instead of max_increment alone.
+    value_scaled_budget: bool = False
+    # The packed-gram CUDA kernel serves the products
+    # (--gram-lowering fused).
+    fused: bool = False
+    # float family: (n, device) -> fresh accumulators, and
+    # (acc, int8 dosage block, precise) -> acc, updating in place.
+    init: Callable | None = None
+    update: Callable | None = None
     # (job, source, timer) -> the (N, N) distance on the job's device.
     table_runner: Callable | None = None
 
     def flops(self, n: int, v: int) -> float:
         """Operations one (n, v) block contributes. Count kernels: one
         ``2 n^2 v`` contraction per int8-split term of each product.
-        Table kernels: ``3 n^2 v`` elementwise (|a - b|, a + b, the
-        ratio's share) over all pairs."""
+        Float kernels: one ``Z Z^T``. Table kernels: ``3 n^2 v``
+        elementwise (|a - b|, a + b, the ratio's share) over all pairs."""
         if self.family == "table":
             return 3.0 * n * n * v
+        if self.family == "float":
+            return 2.0 * n * n * v
         n_matmuls = sum(
             len(genotype._INT8_SPLIT.get(p, (None,))) for p in self.pieces
         )
@@ -111,6 +132,39 @@ def _pc_invariant_finalize(stats):
     return {"similarity": sim, "distance": (1.0 - sim) / 2.0}
 
 
+def _euclidean_finalize(stats):
+    """Exact raw-value euclidean distance ``sqrt(max(e2, 0))``; the
+    similarity is its negative. The root is taken in float64 and rounded
+    once (the correctly rounded f32 root, as JAX's is)."""
+    e2 = torch.clamp(stats["e2"].to(torch.float32), min=0.0)
+    d = torch.sqrt(e2.to(torch.float64)).to(torch.float32)
+    return {"similarity": -d, "distance": d}
+
+
+def _dot_finalize(stats):
+    """Raw-value inner products, Gower distance."""
+    dot = stats["dot"].to(torch.float32)
+    return {"similarity": dot, "distance": _similarity_to_distance(dot)}
+
+
+def _grm_finalize(stats):
+    """VanRaden GRM ``zz / max(nvar, 1)``, Gower distance."""
+    g = stats["zz"] / torch.clamp(stats["nvar"], min=1.0)
+    return {"similarity": g, "distance": _similarity_to_distance(g)}
+
+
+def _grm_init(n, device):
+    from spark_examples_tpu_torch.ops import gram
+
+    return gram.grm_init(n, device)
+
+
+def _grm_update(acc, block, precise):
+    from spark_examples_tpu_torch.ops import gram
+
+    return gram.grm_update(acc, block, precise)
+
+
 def _braycurtis_runner(job, source, timer):
     from spark_examples_tpu_torch.pipelines import runner
 
@@ -127,6 +181,7 @@ def _register(kernel: Kernel) -> None:
 _register(Kernel(
     name="ibs",
     family="count",
+    fused=True,
     pieces=("cc", "yc", "t1t1", "t2t2"),
     stats=("m", "d1"),
     max_increment=2,  # yc with y <= 2
@@ -135,6 +190,7 @@ _register(Kernel(
 _register(Kernel(
     name="ibs2",
     family="count",
+    fused=True,
     pieces=("cc", "t1c", "t1t1", "t1t2", "t2t2"),
     stats=("m", "ibs2"),
     max_increment=2,
@@ -143,6 +199,7 @@ _register(Kernel(
 _register(Kernel(
     name="shared-alt",
     family="count",
+    fused=True,
     pieces=("t1t1",),
     stats=("s",),
     max_increment=1,
@@ -151,6 +208,7 @@ _register(Kernel(
 _register(Kernel(
     name="king",
     family="count",
+    fused=True,
     pieces=("t1c", "t2c", "t1t1", "t1t2", "t2t2"),
     stats=("hh", "opp", "hc"),
     max_increment=2,
@@ -159,6 +217,7 @@ _register(Kernel(
 _register(Kernel(
     name="jaccard",
     family="count",
+    fused=True,
     pieces=("t1c", "t1t1"),
     stats=("s", "sc"),
     max_increment=2,  # the finalize's union sc + sc^T - s in int32
@@ -167,14 +226,43 @@ _register(Kernel(
 _register(Kernel(
     name="pc-invariant",
     family="count",
+    fused=True,
     pieces=("cc", "t1c", "t2c", "t1t1", "t1t2", "t2t2"),
     stats=("m", "ibs2", "opp"),
     max_increment=2,
     finalize=_pc_invariant_finalize,
 ))
 _register(Kernel(
+    name="euclidean",
+    family="count",
+    pieces=("qc", "yy"),
+    stats=("e2",),
+    pack_auto=False,  # arbitrary int8 values, not 2-bit representable
+    max_increment=4,  # qc/yy at dosage values; m^2 in general
+    value_scaled_budget=True,
+    finalize=_euclidean_finalize,
+))
+_register(Kernel(
+    name="dot",
+    family="count",
+    pieces=("yy",),
+    stats=("dot",),
+    pack_auto=False,
+    max_increment=4,
+    value_scaled_budget=True,
+    finalize=_dot_finalize,
+))
+_register(Kernel(
+    name="grm",
+    family="float",
+    finalize=_grm_finalize,
+    init=_grm_init,
+    update=_grm_update,
+))
+_register(Kernel(
     name="braycurtis",
     family="table",
+    pack_auto=False,
     table_runner=_braycurtis_runner,
 ))
 
@@ -195,12 +283,47 @@ def names() -> tuple[str, ...]:
 
 
 def fused_names() -> tuple[str, ...]:
-    """The count kernels, every one served by the packed-gram CUDA kernel
-    (``--gram-lowering fused``)."""
-    return tuple(k.name for k in _REGISTRY.values() if k.family == "count")
+    """The count kernels the packed-gram CUDA kernel serves
+    (``--gram-lowering fused``): the six dosage kernels. euclidean and
+    dot (raw values up to 127) and grm (standardized floats) are not
+    among them."""
+    return tuple(k.name for k in _REGISTRY.values() if k.fused)
+
+
+def gram_names() -> tuple[str, ...]:
+    """The kernels that stream through the gram accumulators."""
+    return tuple(k.name for k in _REGISTRY.values()
+                 if k.family in ("count", "float"))
 
 
 def finalizable_names() -> tuple[str, ...]:
     """The metrics a job can run: a ported finalize or a table runner."""
     return tuple(k.name for k in _REGISTRY.values()
                  if k.finalize is not None or k.table_runner is not None)
+
+
+def streams_packed(metric: str, pack_stream: str) -> bool:
+    """Whether ``pack_stream`` ships ``metric``'s blocks 2-bit packed:
+    always for "packed", never for "dense", and for "auto" exactly when
+    the kernel declares ``pack_auto``."""
+    return pack_stream == "packed" or (
+        pack_stream == "auto" and get(metric).pack_auto)
+
+
+def check_fused_lowering(metric: str, packed: bool) -> None:
+    """Raise, naming ``--gram-lowering``, unless ``metric`` on this
+    transport can run the packed-gram CUDA kernel."""
+    if not get(metric).fused:
+        raise ValueError(
+            f"--gram-lowering fused does not support --metric {metric}: "
+            "the packed-gram CUDA kernel decodes 2-bit dosages and serves "
+            f"only {' | '.join(fused_names())}; use --gram-lowering "
+            "auto|reference for the others"
+        )
+    if not packed:
+        raise ValueError(
+            "--gram-lowering fused consumes the 2-bit packed transport "
+            f"directly, but --metric {metric} is resolving to a dense "
+            "stream — use pack_stream auto|packed (or --gram-lowering "
+            "auto|reference)"
+        )

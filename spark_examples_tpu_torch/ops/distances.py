@@ -20,7 +20,7 @@ def finalize(acc: dict, metric: str) -> dict[str, torch.Tensor]:
         raise ValueError(
             f"metric {metric!r} has no gram finalize (a {kern.family}-"
             "family kernel); gram-finalizable kernels: "
-            f"{' | '.join(kernels.fused_names())}"
+            f"{' | '.join(kernels.gram_names())}"
         )
     return kern.finalize(gram.combine(acc, metric))
 

@@ -14,10 +14,13 @@ the stream accumulates in int32, and the named statistics are assembled
 once, in :func:`combine_products`. Counts stay bit-exact while the
 worst per-variant increment times the stream length is below 2^31.
 
-Products are exact integers here: int8 operands are contracted in
-float64 (exact below 2^53) and cast back to int32, since PyTorch has no
-int32 matmul on CUDA. This is the plain lowering; the packed CUDA kernel
-(``ops/packed_gram.py``) is the fast one.
+Products are exact integers either way they are contracted:
+:func:`int_dot` (the plain version) contracts the int8 operands in
+float64 (exact below 2^53) and casts back to int32; :func:`int_mm` runs
+the int8 tensor-core library product ``torch._int_mm`` with int32
+accumulation on a CUDA device, the counterpart of the JAX package's
+int8 ``dot_general``. The packed CUDA kernel (``ops/packed_gram.py``)
+serves the six dosage kernels' products straight from 2-bit bytes.
 """
 
 from __future__ import annotations
@@ -73,11 +76,49 @@ def operands(block: torch.Tensor) -> dict[str, torch.Tensor]:
     return {"c": c, "t1": t1, "t2": t2, "y": t1 + t2, "yr": yr, "qr": qr}
 
 
+def af_stats(block: torch.Tensor):
+    """Missing-aware per-variant allele statistics of an int8 dosage
+    block: ``(p, cnt, y, valid)`` — alt-allele frequency over called
+    genotypes, call counts, zero-masked f32 dosages and the valid mask.
+    Every sum is of small integers, exact in f32 in any order."""
+    valid = block >= 0
+    y = torch.where(valid, block, 0).to(torch.float32)
+    cnt = valid.sum(dim=0).to(torch.float32)
+    p = torch.where(cnt > 0, y.sum(dim=0) / (2.0 * cnt), 0.0)
+    return p, cnt, y, valid
+
+
 def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact ``a @ b^T`` of integer operands, as int32: contracted in
     float64, exact while every partial sum stays below 2^53."""
     return torch.matmul(a.to(torch.float64), b.to(torch.float64).T).to(
         torch.int32)
+
+
+def _pad_to(n: int, multiple: int, least: int = 0) -> int:
+    return max(least, -(-n // multiple) * multiple)
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b^T`` of int8 operands through ``torch._int_mm`` (int32
+    accumulation on the tensor cores), bitwise :func:`int_dot`.
+
+    ``_int_mm`` on CUDA wants more than 16 rows and inner and outer sizes
+    that are multiples of 8: rows and the contracted axis are padded
+    with zero operands, which add nothing, and the result is sliced back.
+    Operands must fit int8 (``qh = qr >> 7`` reaches 126, ``ql`` 127).
+    """
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise ValueError(f"int_mm takes int8 operands, got {a.dtype} and "
+                         f"{b.dtype}")
+    (n, v), (m, v2) = a.shape, b.shape
+    if v != v2:
+        raise ValueError(f"int_mm: inner sizes differ ({v} vs {v2})")
+    vp = _pad_to(v, 8, least=8)
+    ap = torch.nn.functional.pad(a, (0, vp - v, 0, _pad_to(n, 8, 24) - n))
+    bp = torch.nn.functional.pad(b, (0, vp - v, 0, _pad_to(m, 8, 24) - m))
+    return torch._int_mm(ap, bp.t())[:n, :m]
+
 
 
 def _prepped_operands(block: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -97,25 +138,28 @@ def _product_spec(products: tuple[str, ...]):
     }
 
 
-def _weighted_products(spec, ops_l, ops_r) -> dict[str, torch.Tensor]:
-    """name -> sum_w w * (opL @ opR^T), in int32."""
+def _weighted_products(spec, ops_l, ops_r,
+                       dot=int_dot) -> dict[str, torch.Tensor]:
+    """name -> sum_w w * (opL @ opR^T), in int32, each term contracted
+    by ``dot``."""
     out = {}
     for p, terms in spec.items():
         acc = None
         for (left, right), w in terms:
-            prod = int_dot(ops_l[left], ops_r[right])
+            prod = dot(ops_l[left], ops_r[right])
             prod = prod * w if w != 1 else prod
             acc = prod if acc is None else acc + prod
         out[p] = acc
     return out
 
 
-def gram_products(block: torch.Tensor,
-                  products: tuple[str, ...]) -> dict[str, torch.Tensor]:
+def gram_products(block: torch.Tensor, products: tuple[str, ...],
+                  dot=int_dot) -> dict[str, torch.Tensor]:
     """Per-block raw products: int8 operands, int32 (N, N) outputs. Only
-    the requested products are contracted (ibs costs exactly four)."""
+    the requested products are contracted (ibs costs exactly four,
+    euclidean three); ``dot`` is :func:`int_dot` or :func:`int_mm`."""
     ops = _prepped_operands(block)
-    return _weighted_products(_product_spec(products), ops, ops)
+    return _weighted_products(_product_spec(products), ops, ops, dot)
 
 
 def tile_products(block_rows: torch.Tensor, block_cols: torch.Tensor,

@@ -3,8 +3,9 @@
 - :func:`similarity_matrix_job` — stream cohort -> persist N x N matrix.
 - :func:`pcoa_job` — cohort -> distance -> double-center -> eig ->
   coords, on the device (only the (N, k) coordinates come back to the
-  host). Count kernels stream through the gram accumulators; table
-  kernels (braycurtis) materialise the table and lower it.
+  host). Count and float kernels (the dosage metrics, euclidean, dot,
+  grm) stream through the gram accumulators; table kernels (braycurtis)
+  materialise the table and lower it.
 - :func:`variants_pca_job` — the flagship job: shared-alt similarity
   -> centered PCA, on the device.
 """
@@ -56,7 +57,7 @@ def pcoa_job(job: JobConfig, source=None) -> CoordsOutput:
     timer = PhaseTimer()
     if source is None:
         with timer.phase("ingest_setup"):
-            source = runner.build_source(job.ingest)
+            source = runner.build_source(job.ingest, job.compute.device)
     table = kernels.get(metric).table_runner
     if table is not None:
         dist = table(job, source, timer)
@@ -100,7 +101,7 @@ def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
     timer = PhaseTimer()
     if source is None:
         with timer.phase("ingest_setup"):
-            source = runner.build_source(job.ingest)
+            source = runner.build_source(job.ingest, job.compute.device)
     grun = runner.run_gram(job, source, timer)
     with timer.phase("finalize"):
         sim = hard_sync(runner.finalize_field(grun.acc, "shared-alt",

@@ -1,7 +1,7 @@
 """The job core: build the source, then either stream the cohort
-through the int32 gram accumulators on one device and finalize (count
-kernels), or materialise the whole table and lower it (table kernels:
-Bray-Curtis).
+through the gram accumulators on one device and finalize (count and
+float kernels), or materialise the whole table and lower it (table
+kernels: Bray-Curtis).
 
 Single process, single device: there is no mesh and no distribution
 plan. Checkpoint/resume is not ported yet and is refused.
@@ -16,11 +16,20 @@ import numpy as np
 import torch
 
 from spark_examples_tpu_torch import kernels
-from spark_examples_tpu_torch.core.config import IngestConfig, JobConfig
+from spark_examples_tpu_torch.core.config import (
+    UNPORTED_SOURCES,
+    IngestConfig,
+    JobConfig,
+)
 from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
+from spark_examples_tpu_torch.ingest.filters import FilteredSource
+from spark_examples_tpu_torch.ingest.ldprune import LdPruneSource
+from spark_examples_tpu_torch.ingest.packed import load_packed
+from spark_examples_tpu_torch.ingest.plink import PlinkSource
 from spark_examples_tpu_torch.ingest.prefetch import stream_to_device
 from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+from spark_examples_tpu_torch.ingest.vcf import VcfSource
 from spark_examples_tpu_torch.ops import braycurtis_kernel, distances, gram
 
 
@@ -30,9 +39,22 @@ def finalize_field(acc: dict, metric: str, field: str) -> torch.Tensor:
     return distances.finalize(acc, metric)[field]
 
 
-def build_source(cfg: IngestConfig):
-    """IngestConfig -> GenotypeSource. Only the synthetic source is
-    ported so far."""
+def build_source(cfg: IngestConfig, device: str = "cuda"):
+    """IngestConfig -> GenotypeSource, with the QC filter and then LD
+    pruning layered on as the config asks (QC first: monomorphic and
+    high-missing variants are its job). LD pruning's r^2 products run on
+    ``device``."""
+    src = _build_raw_source(cfg)
+    if cfg.maf > 0.0 or cfg.max_missing < 1.0:
+        src = FilteredSource(src, maf=cfg.maf, max_missing=cfg.max_missing)
+    if cfg.ld_r2 > 0.0:
+        carry = cfg.ld_carry or max(1, cfg.ld_window // 4)
+        src = LdPruneSource(src, r2=cfg.ld_r2, window=cfg.ld_window,
+                            carry=carry, device=device)
+    return src
+
+
+def _build_raw_source(cfg: IngestConfig):
     if cfg.source == "synthetic":
         return SyntheticSource(
             n_samples=cfg.n_samples,
@@ -40,9 +62,25 @@ def build_source(cfg: IngestConfig):
             n_populations=cfg.n_populations,
             seed=cfg.seed,
         )
-    raise ValueError(
-        f"--source {cfg.source}: not yet ported (ported sources: synthetic)"
-    )
+    if cfg.source in UNPORTED_SOURCES:
+        raise ValueError(
+            f"--source {cfg.source}: not yet ported to the PyTorch package "
+            "(ported sources: synthetic | vcf | plink | packed; `pack` a "
+            "cohort into a packed store to stream it)"
+        )
+    if not cfg.path:
+        raise ValueError(
+            f"{cfg.source} source requires --path (a .vcf/.vcf.gz file, "
+            "a PLINK fileset prefix or .bed path, or a packed store "
+            "directory)"
+        )
+    if cfg.source == "vcf":
+        return VcfSource(cfg.path, references=tuple(cfg.references))
+    if cfg.source == "plink":
+        return PlinkSource(cfg.path, references=tuple(cfg.references))
+    if cfg.source == "packed":
+        return load_packed(cfg.path)
+    raise ValueError(f"unknown source {cfg.source!r}")
 
 
 @dataclass
@@ -79,16 +117,20 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
     device = resolve_device(cfg.device)
     n = source.n_samples
     metric = cfg.metric or "ibs"
-    # Every ported kernel takes dosage inputs, so auto always packs.
-    packed = cfg.pack_stream in ("auto", "packed")
-    lowering = gram.resolve_gram_lowering(cfg.gram_lowering, packed, device)
-    update = gram.impl_for(metric, packed, lowering)
+    kern = kernels.get(metric)
+    packed = kernels.streams_packed(metric, cfg.pack_stream)
+    lowering = gram.resolve_gram_lowering(cfg.gram_lowering, packed, device,
+                                          metric)
+    update = gram.impl_for(metric, packed, cfg.grm_precise, lowering)
     acc = gram.init(n, metric, device)
+    # Only value-scaled kernels on a dense stream read the largest value.
+    stream_stats = ({} if kern.value_scaled_budget and not packed
+                    else None)
     bv = job.ingest.block_variants
     last_stop = 0
     with timer.phase("gram"):
         for block, meta in stream_to_device(
-            source, bv, device, pack=packed,
+            source, bv, device, pack=packed, stats=stream_stats,
             prefetch=job.ingest.prefetch_blocks,
         ):
             acc = update(acc, block)
@@ -99,7 +141,8 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
             last_stop = meta.stop
         acc = hard_sync(acc)
     n_variants = last_stop if last_stop > 0 else source.n_variants
-    _check_int32_budget(metric, n_variants)
+    _check_int32_budget(metric, n_variants,
+                        (stream_stats or {}).get("max_value", 2))
     return GramRun(acc, source.sample_ids, metric, timer, n_variants,
                    lowering)
 
@@ -110,7 +153,7 @@ def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
     timer = PhaseTimer()
     if source is None:
         with timer.phase("ingest_setup"):
-            source = build_source(job.ingest)
+            source = build_source(job.ingest, job.compute.device)
     metric = job.compute.metric or "ibs"
 
     # Table-family kernels (braycurtis) carry their own dense-table
@@ -162,11 +205,20 @@ def braycurtis_distance(job: JobConfig, source,
     return d
 
 
-def _check_int32_budget(metric: str, n_variants: int) -> None:
+def _check_int32_budget(metric: str, n_variants: int,
+                        max_value: int = 2) -> None:
     """Warn when a stream outruns the int32 accumulators' exactness bound:
     counts are bit-exact while the kernel's worst per-variant increment
-    times the variant count stays below 2^31."""
-    inc = kernels.get(metric).max_increment
+    times the variant count stays below 2^31. Value-scaled kernels
+    (dot/euclidean on arbitrary int8 tables) are bounded by
+    ``max_value^2`` (the feed tracks it); float kernels (grm) round
+    rather than wrap and are exempt."""
+    kern = kernels.get(metric)
+    if kern.max_increment is None:
+        return
+    inc = kern.max_increment
+    if kern.value_scaled_budget:
+        inc = max(inc, max(1, int(max_value)) ** 2)
     if inc * n_variants >= 2**31:
         warnings.warn(
             f"metric {metric!r}: {n_variants} variants with per-variant "

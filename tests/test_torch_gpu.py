@@ -19,10 +19,14 @@ from spark_examples_tpu_torch.core.config import (
     JobConfig,
 )
 from spark_examples_tpu_torch.core.profiling import PhaseTimer
+from spark_examples_tpu_torch.ingest import ldprune
+from spark_examples_tpu_torch.ingest.packed import load_packed, save_packed
+from spark_examples_tpu_torch.ingest.source import ArraySource
 from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
 from spark_examples_tpu_torch.ops import (
     braycurtis_kernel,
     distances,
+    genotype,
     gram,
     packed_gram,
 )
@@ -206,3 +210,104 @@ def test_auto_runs_the_manhattan_kernel_once_per_braycurtis_job(cuda_device):
     fused = runner.braycurtis_distance(
         job, SyntheticSource(n_samples=90, n_variants=700), PhaseTimer())
     assert torch.equal(exact, fused)
+
+
+def _raw_table(seed, n, v):
+    """Raw values 0..127 with 10 % missing; column 0 all 127 (qh = 126)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 128, (n, v)).astype(np.int8)
+    x[rng.random((n, v)) < 0.1] = -1
+    x[:, 0] = 127
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [17, 24, 2504])
+@pytest.mark.parametrize("v", [1, 13, 1000])
+def test_int_mm_lowering_matches_int_dot_bitwise(cuda_device, n, v):
+    """The dense products through torch._int_mm (rows and the inner axis
+    padded with zero operands) equal the plain float64 contraction, for
+    euclidean's and dot's product sets."""
+    block = torch.from_numpy(_raw_table(n * 7 + v, n, v)).to(cuda_device)
+    for metric in ("euclidean", "dot"):
+        pieces = kernels.get(metric).pieces
+        lib = genotype.gram_products(block, pieces, dot=genotype.int_mm)
+        plain = genotype.gram_products(block, pieces, dot=genotype.int_dot)
+        torch.cuda.synchronize()
+        for p in pieces:
+            assert lib[p].dtype == torch.int32
+            assert torch.equal(lib[p], plain[p]), f"{metric}/{p}"
+
+
+@pytest.mark.gpu
+def test_dense_job_on_cuda_matches_its_cpu_run(cuda_device):
+    table = _raw_table(3, 70, 2000)
+    accs = {}
+    for device in ("cuda", "cpu"):
+        job = JobConfig(
+            ingest=IngestConfig(block_variants=512),
+            compute=ComputeConfig(metric="euclidean", device=device))
+        before = packed_gram.launches
+        g = runner.run_gram(job, ArraySource(table), PhaseTimer())
+        assert packed_gram.launches == before  # dense: K1 never runs
+        accs[device] = g.acc
+    for leaf in accs["cpu"]:
+        assert torch.equal(accs["cuda"][leaf].cpu(), accs["cpu"][leaf]), leaf
+
+
+@pytest.mark.gpu
+def test_packed_store_stream_through_k1_matches_the_reference(cuda_device,
+                                                              tmp_path):
+    """A packed store's bytes stream to the card as stored and K1
+    contracts them: bitwise the reference lowering's accumulators."""
+    src = SyntheticSource(n_samples=90, n_variants=3000, seed=4)
+    g = np.concatenate([b for b, _ in src.blocks(4096)], axis=1)
+    save_packed(str(tmp_path / "store"), g)
+    accs = {}
+    for lowering in ("auto", "reference"):
+        job = JobConfig(
+            ingest=IngestConfig(block_variants=1024),
+            compute=ComputeConfig(metric="king", device="cuda",
+                                  gram_lowering=lowering))
+        before = packed_gram.launches
+        run = runner.run_gram(job, load_packed(str(tmp_path / "store")),
+                              PhaseTimer())
+        assert packed_gram.launches - before == (3 if lowering == "auto"
+                                                 else 0)
+        accs[lowering] = run.acc
+    for leaf in accs["auto"]:
+        assert torch.equal(accs["auto"][leaf], accs["reference"][leaf]), leaf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precise", [False, True])
+def test_grm_on_cuda_matches_its_cpu_run(cuda_device, precise):
+    """zz within 1e-5 of max|zz| (the f32 order tolerance of
+    tests/test_torch_grm.py), nvar equal."""
+    rng = np.random.default_rng(8)
+    blocks = []
+    for _ in range(3):
+        b = rng.integers(0, 3, (100, 700)).astype(np.int8)
+        b[rng.random(b.shape) < 0.1] = -1
+        blocks.append(b)
+    accs = {}
+    for device in ("cuda", "cpu"):
+        acc = gram.init(100, "grm", device)
+        for b in blocks:
+            gram.update(acc, torch.from_numpy(b).to(device), "grm", precise)
+        accs[device] = {k: v.cpu() for k, v in acc.items()}
+    assert torch.equal(accs["cuda"]["nvar"], accs["cpu"]["nvar"])
+    scale = float(accs["cpu"]["zz"].abs().max())
+    err = float((accs["cuda"]["zz"] - accs["cpu"]["zz"]).abs().max())
+    assert err <= 1e-5 * scale, err / scale
+
+
+@pytest.mark.gpu
+def test_ld_window_r2_on_cuda_matches_its_cpu_run(cuda_device):
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 3, (300, 80)).astype(np.int8)
+    x[:, 1::2] = x[:, ::2]  # planted LD
+    x[rng.random(x.shape) < 0.05] = -1
+    got = ldprune._window_r2(torch.from_numpy(x).to(cuda_device)).cpu()
+    want = ldprune._window_r2(torch.from_numpy(x))
+    assert float((got - want).abs().max()) <= 1e-5

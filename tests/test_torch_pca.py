@@ -171,7 +171,7 @@ def test_pca_cli_writes_the_coords_tsv(tmp_path, capsys):
     (["pca", "--save-model", "m.npz"], "--save-model"),
     (["pcoa", "--solver", "sketch"], "--solver"),
     (["pcoa", "--gram-mode", "tile2d"], "--gram-mode"),
-    (["pcoa", "--metric", "grm"], "invalid choice"),
+    (["pcoa", "--metric", "bogus"], "invalid choice"),
 ])
 def test_unported_and_bad_flags_are_usage_errors(argv, match, capsys):
     with pytest.raises(SystemExit):

@@ -138,7 +138,7 @@ def test_fused_lowering_on_cpu_raises_naming_the_flag():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--metric", "grm"], "invalid choice"),
+    (["--metric", "bogus"], "invalid choice"),
     (["--block-variants", "0"], "block_variants"),
 ])
 def test_bad_flags_are_usage_errors(argv, match, capsys):
@@ -160,8 +160,9 @@ def test_compute_config_validation(kw, match):
 
 
 def test_unported_source_and_checkpoints_are_refused():
-    with pytest.raises(ValueError, match="not yet ported"):
-        trunner.build_source(tconfig.IngestConfig(source="vcf"))
+    for source in ("parquet", "store", "store:some/dir"):
+        with pytest.raises(ValueError, match="not yet ported"):
+            trunner.build_source(tconfig.IngestConfig(source=source))
     _, tjob = _jobs()
     tjob.compute.checkpoint_dir = "ck"
     with pytest.raises(ValueError, match="not yet ported"):
@@ -257,3 +258,165 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 assert m.split(".")[0] not in ("jax", "jaxlib",
                                                "spark_examples_tpu"), \
                     f"{path}:{node.lineno} imports {m}"
+
+
+# -------------------------------------------------- file-source jobs
+
+FN, FV, FBV, FK = 32, 1200, 256, 3
+
+
+@pytest.fixture(scope="module")
+def cohort_files(tmp_path_factory):
+    """One synthetic cohort written as a PLINK fileset, a VCF and a
+    packed store by the JAX package's writers."""
+    from spark_examples_tpu.ingest import packed as jpacked
+    from spark_examples_tpu.ingest import plink as jplink
+    from spark_examples_tpu.ingest import vcf as jvcf
+
+    d = tmp_path_factory.mktemp("cohort")
+    src = JSyntheticSource(n_samples=FN, n_variants=FV, seed=3)
+    g = np.concatenate([b for b, _ in src.blocks(4096)], axis=1)
+    jplink.write_plink(str(d / "c"), g, sample_ids=src.sample_ids)
+    jvcf.write_vcf(str(d / "c.vcf.gz"), g, sample_ids=src.sample_ids)
+    jpacked.save_packed(str(d / "store"), g, sample_ids=src.sample_ids)
+    return {"plink": str(d / "c"), "vcf": str(d / "c.vcf.gz"),
+            "packed": str(d / "store"), "genotypes": g}
+
+
+def _file_jobs(source, path, metric, **ingest):
+    j = jconfig.JobConfig(
+        ingest=jconfig.IngestConfig(source=source, path=path,
+                                    block_variants=FBV, **ingest),
+        compute=jconfig.ComputeConfig(metric=metric, num_pc=FK))
+    t = tconfig.JobConfig(
+        ingest=tconfig.IngestConfig(source=source, path=path,
+                                    block_variants=FBV, **ingest),
+        compute=tconfig.ComputeConfig(metric=metric, num_pc=FK,
+                                      device="cpu"))
+    return j, t
+
+
+def _assert_coords_agree(jout, tout, k):
+    """Eigenvalues within 1e-4 of lambda_1; coordinate columns with an
+    eigengap above 2 % of lambda_1 agree up to sign within 2e-3 of their
+    scale (the tolerances of test_slice_eigenpairs_agree_with_jax)."""
+    jv, tv = np.asarray(jout.eigenvalues), tout.eigenvalues
+    np.testing.assert_allclose(tv, jv, atol=1e-4 * jv[0])
+    gaps = np.diff(jv)
+    checked = 0
+    for c in range(k):
+        left = abs(gaps[c - 1]) if c > 0 else np.inf
+        right = abs(gaps[c]) if c < k - 1 else np.inf
+        if min(left, right) <= 0.02 * jv[0]:
+            continue
+        jc, tc = np.asarray(jout.coords)[:, c], tout.coords[:, c]
+        s = np.sign(np.dot(jc, tc)) or 1.0
+        np.testing.assert_allclose(s * tc, jc,
+                                   atol=2e-3 * np.abs(jc).max(),
+                                   err_msg=f"pc{c + 1}")
+        checked += 1
+    assert checked >= 1
+    assert tout.sample_ids == list(jout.sample_ids)
+
+
+@pytest.mark.parametrize("source", ["plink", "vcf", "packed"])
+@pytest.mark.parametrize("metric", ["euclidean", "grm", "ibs"])
+def test_pcoa_from_cohort_files_matches_jax(cohort_files, source, metric):
+    """pcoa read from each file source, with a dense-transport kernel
+    (euclidean: accumulators bitwise), the float kernel (grm: zz within
+    the 1e-5 * max|zz| of tests/test_torch_grm.py, nvar equal) and a
+    packed one (ibs, the packed store's bytes streamed as stored)."""
+    jjob, tjob = _file_jobs(source, cohort_files[source], metric)
+    jg = jrunner.run_gram(jjob, jrunner.build_source(jjob.ingest),
+                          JPhaseTimer())
+    tg = trunner.run_gram(tjob, trunner.build_source(tjob.ingest, "cpu"),
+                          PhaseTimer())
+    assert tg.n_variants == jg.n_variants == FV
+    for leaf in jg.acc:
+        want = np.asarray(jg.acc[leaf])
+        if metric == "grm" and leaf == "zz":
+            np.testing.assert_allclose(tg.acc[leaf].numpy(), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+        else:
+            np.testing.assert_array_equal(tg.acc[leaf].numpy(), want,
+                                          err_msg=leaf)
+    tout = tjobs.pcoa_job(tjob)
+    jout = jjobs.pcoa_job(jjob)
+    assert tout.n_variants == FV and tout.coords.shape == (FN, FK)
+    _assert_coords_agree(jout, tout, FK)
+
+
+def test_qc_and_ld_pruned_pcoa_from_plink_matches_jax(cohort_files):
+    kw = dict(maf=0.05, max_missing=0.02, ld_r2=0.2, ld_window=64)
+    jjob, tjob = _file_jobs("plink", cohort_files["plink"], "ibs", **kw)
+    tsrc = trunner.build_source(tjob.ingest, "cpu")
+    jsrc = jrunner.build_source(jjob.ingest)
+    assert type(tsrc).__name__ == type(jsrc).__name__ == "LdPruneSource"
+    assert type(tsrc.inner).__name__ == "FilteredSource"
+    kept_t = np.concatenate([m.positions for _, m in tsrc.blocks(FBV)])
+    kept_j = np.concatenate([m.positions for _, m in jsrc.blocks(FBV)])
+    np.testing.assert_array_equal(kept_t, kept_j)
+    assert 0 < kept_t.size < FV
+    tout = tjobs.pcoa_job(tjob)
+    jout = jjobs.pcoa_job(jjob)
+    assert tout.n_variants == jout.n_variants == kept_t.size
+    _assert_coords_agree(jout, tout, FK)
+
+
+def test_pca_and_similarity_read_the_file_sources(cohort_files):
+    jjob, tjob = _file_jobs("vcf", cohort_files["vcf"], "king")
+    got = tjobs.similarity_matrix_job(tjob)
+    want = jrunner.run_similarity(jjob)
+    np.testing.assert_array_equal(got.similarity, want.similarity)
+    np.testing.assert_array_equal(got.distance, want.distance)
+    _, pjob = _file_jobs("packed", cohort_files["packed"], None)
+    out = tjobs.variants_pca_job(pjob)
+    assert out.coords.shape == (FN, FK) and np.isfinite(out.coords).all()
+
+
+def test_pack_cli_then_pcoa_from_the_store(cohort_files, tmp_path, capsys):
+    """``pack`` a PLINK fileset through the port's CLI; the store holds
+    the bytes the JAX package's pack_source writes, and a pcoa from it
+    equals the pcoa from the fileset."""
+    from spark_examples_tpu.ingest import packed as jpacked
+    from spark_examples_tpu.ingest import plink as jplink
+
+    store = str(tmp_path / "store")
+    rc = tmain(["pack", "--device", "cpu", "--source", "plink", "--path",
+                cohort_files["plink"], "--block-variants", "300",
+                "--output-path", store])
+    assert rc == 0
+    assert f"packed {FN} samples x {FV} variants" in capsys.readouterr().out
+    jstore = str(tmp_path / "jstore")
+    jpacked.pack_source(jstore, jplink.PlinkSource(cohort_files["plink"]),
+                        300)
+    for f in sorted(os.listdir(jstore)):
+        with open(os.path.join(store, f), "rb") as a, \
+                open(os.path.join(jstore, f), "rb") as b:
+            assert a.read() == b.read(), f
+    outs = {}
+    for source, path in (("packed", store), ("plink",
+                                             cohort_files["plink"])):
+        out = tmp_path / f"{source}.tsv"
+        assert tmain(["pcoa", "--device", "cpu", "--source", source,
+                      "--path", path, "--block-variants", "256",
+                      "--num-pc", "3", "--output-path", str(out)]) == 0
+        outs[source] = out.read_text()
+    assert outs["packed"] == outs["plink"]
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["pack", "--source", "synthetic"], "--output-path"),
+    (["pcoa", "--source", "vcf"], "requires --path"),
+    (["pcoa", "--source", "parquet", "--path", "x"], "not yet ported"),
+    (["pcoa", "--source", "store:st"], "not yet ported"),
+    (["pcoa", "--source", "csv"], "invalid source"),
+    (["pcoa", "--references", "chr1:9:3"], "end must be > start"),
+    (["pcoa", "--ld-window", "1"], "--ld-window"),
+    (["pcoa", "--maf", "0.7"], "--maf"),
+])
+def test_file_source_flags_are_checked(argv, match, capsys):
+    with pytest.raises((SystemExit, ValueError)) as err:
+        tmain(argv[:1] + ["--device", "cpu"] + argv[1:])
+    text = capsys.readouterr().err + str(err.value)
+    assert match in text
