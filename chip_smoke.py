@@ -78,7 +78,30 @@ Phases (any failure exits non-zero; none is caught and ignored):
 17. QC + LD: ``pcoa --source plink --maf 0.01 --max-missing 0.1
     --ld-prune-r2 0.2`` on phase 15's fileset: the kept variant count
     printed, the coordinates separating the populations.
-18. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
+18. Dataset store: ``ingest`` the Quickstart cohort (chunks of 16,384)
+    with ``--store-codec zlib`` (4 workers), ``raw`` and ``zlib-dict``,
+    printing compaction seconds, stored MB and the compression ratio;
+    the zlib store compacted again with ``--ingest-workers 1`` must be
+    identical to the 4-worker one, file for file.
+19. ``pcoa --source store:<dir>`` for each codec: K1 launches 13 times;
+    the store's gram stage gives int32 accumulators bitwise equal to
+    phase 6's; the gram phase is printed beside phase 14's.
+20. ``similarity --metric euclidean --source store:<dir>`` on the dense
+    transport (each block decoded into its pinned slab): K1 launches 0
+    times; accumulators bitwise equal to phase 12's.
+21. ``ingest`` phase 15's PLINK fileset, then ``pcoa --source
+    store:<dir> --references 1:30001:70001``: 40,000 variants answered
+    from the position index, 5 K1 launches, accumulators bitwise equal
+    to ``--source plink`` with the same range.
+22. Damage, then heal: a byte flipped in a zlib chunk heals inline from
+    the origin during ``pcoa`` (13 launches, accumulators bitwise); a
+    byte flipped in a copy of the raw store fails the read when
+    auto-heal is off (``StoreCorruptError`` with the cursor, quarantine
+    ledger written); ``store heal --replica <raw store>`` repairs it,
+    another flip is repaired by ``store heal --verify-all`` from the
+    origin; the healed store equals the raw store file for file, and
+    its job is bitwise again.
+23. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
     the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -134,6 +157,10 @@ LARGE_SAMPLES = 16_384
 # Phase 12's raw-value table and phase 16's VCF width.
 DENSE_VARIANTS = 16_384
 VCF_VARIANTS = 4096
+# The dataset store's chunk width (the JAX CLI's default) and phase 21's
+# position range on the PLINK fileset's contig 1 (positions 1..V).
+CHUNK_VARIANTS = 16_384
+REFERENCE_RANGE = (30_001, 70_001)
 
 
 def k1_bounds(n: int, w: int, products) -> dict:
@@ -295,10 +322,13 @@ def equal_accumulators(got: dict, want: dict) -> bool:
 
 def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
                           source, expected: int, quickstart_gram_s: float,
-                          synthetic_acc: dict) -> dict:
+                          synthetic_acc: dict, tmp: str):
     """Phases 12-17: the dense transport, grm and the file sources
-    (packed store, PLINK, VCF, QC + LD), each CLI job counted. Returns
-    the launches by kernel of each job, by path name."""
+    (packed store, PLINK, VCF, QC + LD), each CLI job counted; the files
+    go to ``tmp``. Returns the launches by kernel of each job, by path
+    name, and what the dataset-store phases reuse (the packed store's
+    gram phase, the PLINK fileset, phase 12's euclidean
+    accumulators)."""
     import torch
 
     from spark_examples_tpu_torch import kernels
@@ -338,6 +368,15 @@ def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
             cuda_ms(lambda: genotype.gram_products(
                 x, pieces, dot=genotype.int_dot), reps=3, warmup=1))
     del x, lib, plain
+    # Phase 12's euclidean accumulators, which phase 20 holds the dense
+    # store route against.
+    job = JobConfig(
+        ingest=IngestConfig(n_samples=N_SAMPLES, n_variants=N_VARIANTS,
+                            block_variants=BLOCK_VARIANTS),
+        compute=ComputeConfig(metric="euclidean", device=DEVICE))
+    euclidean_acc = {k: v.cpu() for k, v in runner.run_gram(
+        job, SyntheticSource(n_samples=N_SAMPLES, n_variants=N_VARIANTS),
+        PhaseTimer()).acc.items()}
     print(f"dense products at {table.shape} int8, values 0..127 [{card}]: "
           "torch._int_mm lowering bitwise equal to int_dot for "
           + "; ".join(f"{m} ({', '.join(kernels.get(m).pieces)}) "
@@ -399,135 +438,134 @@ def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
           f"bf16 - f32| / max |zz f32| = {grm_rel:.3g}")
     del grm, bf, f32, g
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # -- 14. packed store ----------------------------------------------
-        store = os.path.join(tmp, "store")
-        _, timings, out, pack_wall = run_job(
-            cli_main, ["pack"] + quickstart_args(), launch_counters, store)
-        print(f"pack [{card}]: {out.strip()}; wall {pack_wall:.3f} s")
-        argv = ["pcoa", "--source", "packed", "--path", store,
-                "--num-pc", str(NUM_PC), "--block-variants",
-                str(BLOCK_VARIANTS), "--device", DEVICE]
-        store_counts, timings, coords, wall = run_cli(
-            cli_main, argv, launch_counters, NUM_PC)
-        if store_counts["packed_gram"] != expected:
-            fail(f"K1 launched {store_counts['packed_gram']} times on the "
-                 f"packed-store job, expected {expected}")
-        sep = separation(coords, source.populations)
-        if not sep >= SEPARATION_MIN:
-            fail(f"packed-store PC1-2 separation {sep:.3f}")
-        store_gram_s = timings["gram"]
-        job = JobConfig(
-            ingest=IngestConfig(source="packed", path=store,
-                                block_variants=BLOCK_VARIANTS),
-            compute=ComputeConfig(metric="ibs", device=DEVICE))
-        g = runner.run_gram(job, load_packed(store), PhaseTimer())
-        if not equal_accumulators(g.acc, synthetic_acc):
-            fail("packed-store accumulators differ from the synthetic "
-                 "run's")
-        print(f"pcoa --source packed {N_SAMPLES} x {N_VARIANTS} ibs "
-              f"[{card}]: wall {wall:.3f} s; phases: "
-              + phases_line(timings, ("ingest_setup", "gram", "finalize",
-                                      "eigh"))
-              + f"; gram {store_gram_s:.4f} s from the store vs "
-              f"{quickstart_gram_s:.4f} s synthetic (phase 5); launches "
-              f"{store_counts}; accumulators bitwise equal to phase 6's; "
-              f"PC1-2 separation {sep:.2f}")
+    # -- 14. packed store ----------------------------------------------
+    store = os.path.join(tmp, "store")
+    _, timings, out, pack_wall = run_job(
+        cli_main, ["pack"] + quickstart_args(), launch_counters, store)
+    print(f"pack [{card}]: {out.strip()}; wall {pack_wall:.3f} s")
+    argv = ["pcoa", "--source", "packed", "--path", store,
+            "--num-pc", str(NUM_PC), "--block-variants",
+            str(BLOCK_VARIANTS), "--device", DEVICE]
+    store_counts, timings, coords, wall = run_cli(
+        cli_main, argv, launch_counters, NUM_PC)
+    if store_counts["packed_gram"] != expected:
+        fail(f"K1 launched {store_counts['packed_gram']} times on the "
+             f"packed-store job, expected {expected}")
+    sep = separation(coords, source.populations)
+    if not sep >= SEPARATION_MIN:
+        fail(f"packed-store PC1-2 separation {sep:.3f}")
+    store_gram_s = timings["gram"]
+    job = JobConfig(
+        ingest=IngestConfig(source="packed", path=store,
+                            block_variants=BLOCK_VARIANTS),
+        compute=ComputeConfig(metric="ibs", device=DEVICE))
+    g = runner.run_gram(job, load_packed(store), PhaseTimer())
+    if not equal_accumulators(g.acc, synthetic_acc):
+        fail("packed-store accumulators differ from the synthetic "
+             "run's")
+    print(f"pcoa --source packed {N_SAMPLES} x {N_VARIANTS} ibs "
+          f"[{card}]: wall {wall:.3f} s; phases: "
+          + phases_line(timings, ("ingest_setup", "gram", "finalize",
+                                  "eigh"))
+          + f"; gram {store_gram_s:.4f} s from the store vs "
+          f"{quickstart_gram_s:.4f} s synthetic (phase 5); launches "
+          f"{store_counts}; accumulators bitwise equal to phase 6's; "
+          f"PC1-2 separation {sep:.2f}")
 
-        # -- 15. PLINK ----------------------------------------------------
-        cohort = np.concatenate(
-            [b for b, _ in load_packed(store).blocks(16384)], axis=1)
-        prefix = os.path.join(tmp, "cohort")
-        t0 = time.perf_counter()
-        write_plink(prefix, cohort, sample_ids=source.sample_ids)
-        write_s = time.perf_counter() - t0
-        bed_mb = os.path.getsize(prefix + ".bed") / 1e6
-        argv = ["pcoa", "--source", "plink", "--path", prefix,
-                "--num-pc", str(NUM_PC), "--block-variants",
-                str(BLOCK_VARIANTS), "--device", DEVICE]
-        plink_counts, timings, coords, wall = run_cli(
-            cli_main, argv, launch_counters, NUM_PC)
-        if plink_counts["packed_gram"] != expected:
-            fail(f"K1 launched {plink_counts['packed_gram']} times on the "
-                 f"PLINK job, expected {expected}")
-        sep = separation(coords, source.populations)
-        if not sep >= SEPARATION_MIN:
-            fail(f"PLINK PC1-2 separation {sep:.3f}")
-        plink_gram_s = timings["gram"]
-        job = JobConfig(
-            ingest=IngestConfig(source="plink", path=prefix,
-                                block_variants=BLOCK_VARIANTS),
-            compute=ComputeConfig(metric="ibs", device=DEVICE))
-        g = runner.run_gram(job, PlinkSource(prefix), PhaseTimer())
-        if not equal_accumulators(g.acc, synthetic_acc):
-            fail("PLINK accumulators differ from the synthetic run's")
-        del g
-        print(f"pcoa --source plink {N_SAMPLES} x {N_VARIANTS} ibs "
-              f"[{card}]: .bed {bed_mb:.1f} MB written in {write_s:.3f} s; "
-              f"wall {wall:.3f} s; phases: "
-              + phases_line(timings, ("ingest_setup", "gram", "finalize",
-                                      "eigh"))
-              + f"; launches {plink_counts}; accumulators bitwise equal to "
-              f"phase 6's; PC1-2 separation {sep:.2f}")
+    # -- 15. PLINK ----------------------------------------------------
+    cohort = np.concatenate(
+        [b for b, _ in load_packed(store).blocks(16384)], axis=1)
+    prefix = os.path.join(tmp, "cohort")
+    t0 = time.perf_counter()
+    write_plink(prefix, cohort, sample_ids=source.sample_ids)
+    write_s = time.perf_counter() - t0
+    bed_mb = os.path.getsize(prefix + ".bed") / 1e6
+    argv = ["pcoa", "--source", "plink", "--path", prefix,
+            "--num-pc", str(NUM_PC), "--block-variants",
+            str(BLOCK_VARIANTS), "--device", DEVICE]
+    plink_counts, timings, coords, wall = run_cli(
+        cli_main, argv, launch_counters, NUM_PC)
+    if plink_counts["packed_gram"] != expected:
+        fail(f"K1 launched {plink_counts['packed_gram']} times on the "
+             f"PLINK job, expected {expected}")
+    sep = separation(coords, source.populations)
+    if not sep >= SEPARATION_MIN:
+        fail(f"PLINK PC1-2 separation {sep:.3f}")
+    plink_gram_s = timings["gram"]
+    job = JobConfig(
+        ingest=IngestConfig(source="plink", path=prefix,
+                            block_variants=BLOCK_VARIANTS),
+        compute=ComputeConfig(metric="ibs", device=DEVICE))
+    g = runner.run_gram(job, PlinkSource(prefix), PhaseTimer())
+    if not equal_accumulators(g.acc, synthetic_acc):
+        fail("PLINK accumulators differ from the synthetic run's")
+    del g
+    print(f"pcoa --source plink {N_SAMPLES} x {N_VARIANTS} ibs "
+          f"[{card}]: .bed {bed_mb:.1f} MB written in {write_s:.3f} s; "
+          f"wall {wall:.3f} s; phases: "
+          + phases_line(timings, ("ingest_setup", "gram", "finalize",
+                                  "eigh"))
+          + f"; launches {plink_counts}; accumulators bitwise equal to "
+          f"phase 6's; PC1-2 separation {sep:.2f}")
 
-        # -- 16. VCF -------------------------------------------------------
-        vcf = os.path.join(tmp, "cohort.vcf")
-        t0 = time.perf_counter()
-        write_vcf(vcf, cohort[:, :VCF_VARIANTS], sample_ids=source.sample_ids)
-        vcf_write_s = time.perf_counter() - t0
-        want, _ = next(SyntheticSource(n_samples=N_SAMPLES,
-                                       n_variants=N_VARIANTS).blocks(
-                                           VCF_VARIANTS))
-        t0 = time.perf_counter()
-        parsed = list(VcfSource(vcf).blocks(BLOCK_VARIANTS))
-        parse_s = time.perf_counter() - t0
-        if len(parsed) != 1 or not np.array_equal(parsed[0][0], want):
-            fail("VCF blocks differ from the synthetic source's")
-        rate = N_SAMPLES * VCF_VARIANTS / parse_s
-        argv = ["similarity", "--source", "vcf", "--path", vcf,
-                "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
-        vcf_counts, timings, wall = run_similarity_cli(
-            cli_main, argv, launch_counters, N_SAMPLES)
-        if vcf_counts["packed_gram"] != 1:
-            fail(f"K1 launched {vcf_counts['packed_gram']} times on the VCF "
-                 "job, expected 1")
-        print(f"VCF {N_SAMPLES} x {VCF_VARIANTS} [{card}]: "
-              f"{os.path.getsize(vcf) / 1e6:.1f} MB written in "
-              f"{vcf_write_s:.3f} s; parse {parse_s:.3f} s "
-              f"({rate / 1e6:.3f} M genotypes/s), blocks bitwise equal to "
-              f"the synthetic source's; similarity --source vcf wall "
-              f"{wall:.3f} s; phases: "
-              + phases_line(timings, ("ingest_setup", "gram", "finalize"))
-              + f"; launches {vcf_counts}")
-        del cohort, parsed
+    # -- 16. VCF -------------------------------------------------------
+    vcf = os.path.join(tmp, "cohort.vcf")
+    t0 = time.perf_counter()
+    write_vcf(vcf, cohort[:, :VCF_VARIANTS], sample_ids=source.sample_ids)
+    vcf_write_s = time.perf_counter() - t0
+    want, _ = next(SyntheticSource(n_samples=N_SAMPLES,
+                                   n_variants=N_VARIANTS).blocks(
+                                       VCF_VARIANTS))
+    t0 = time.perf_counter()
+    parsed = list(VcfSource(vcf).blocks(BLOCK_VARIANTS))
+    parse_s = time.perf_counter() - t0
+    if len(parsed) != 1 or not np.array_equal(parsed[0][0], want):
+        fail("VCF blocks differ from the synthetic source's")
+    rate = N_SAMPLES * VCF_VARIANTS / parse_s
+    argv = ["similarity", "--source", "vcf", "--path", vcf,
+            "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
+    vcf_counts, timings, wall = run_similarity_cli(
+        cli_main, argv, launch_counters, N_SAMPLES)
+    if vcf_counts["packed_gram"] != 1:
+        fail(f"K1 launched {vcf_counts['packed_gram']} times on the VCF "
+             "job, expected 1")
+    print(f"VCF {N_SAMPLES} x {VCF_VARIANTS} [{card}]: "
+          f"{os.path.getsize(vcf) / 1e6:.1f} MB written in "
+          f"{vcf_write_s:.3f} s; parse {parse_s:.3f} s "
+          f"({rate / 1e6:.3f} M genotypes/s), blocks bitwise equal to "
+          f"the synthetic source's; similarity --source vcf wall "
+          f"{wall:.3f} s; phases: "
+          + phases_line(timings, ("ingest_setup", "gram", "finalize"))
+          + f"; launches {vcf_counts}")
+    del cohort, parsed
 
-        # -- 17. QC + LD pruning -------------------------------------------
-        argv = ["pcoa", "--source", "plink", "--path", prefix, "--maf",
-                "0.01", "--max-missing", "0.1", "--ld-prune-r2", "0.2",
-                "--num-pc", str(NUM_PC), "--block-variants",
-                str(BLOCK_VARIANTS), "--device", DEVICE]
-        with tempfile.TemporaryDirectory() as tsv_dir:
-            qc_counts, timings, out, wall = run_job(
-                cli_main, argv, launch_counters,
-                os.path.join(tsv_dir, "coords.tsv"))
-            coords = np.loadtxt(os.path.join(tsv_dir, "coords.tsv"),
-                                skiprows=1, usecols=range(1, NUM_PC + 1))
-        kept = int(re.search(r"over (\d+) variants", out).group(1))
-        if not 0 < kept <= N_VARIANTS or not np.isfinite(coords).all():
-            fail(f"QC + LD job: kept {kept}, coords finite "
-                 f"{bool(np.isfinite(coords).all())}")
-        if qc_counts["packed_gram"] != math.ceil(kept / BLOCK_VARIANTS):
-            fail(f"K1 launched {qc_counts['packed_gram']} times on the QC + "
-                 f"LD job of {kept} variants")
-        sep = separation(coords, source.populations)
-        if not sep >= SEPARATION_MIN:
-            fail(f"QC + LD PC1-2 separation {sep:.3f}")
-        print(f"pcoa --source plink --maf 0.01 --max-missing 0.1 "
-              f"--ld-prune-r2 0.2 [{card}]: kept {kept} of {N_VARIANTS} "
-              f"variants; wall {wall:.3f} s; phases: "
-              + phases_line(timings, ("ingest_setup", "gram", "finalize",
-                                      "eigh"))
-              + f"; launches {qc_counts}; PC1-2 separation {sep:.2f}")
+    # -- 17. QC + LD pruning -------------------------------------------
+    argv = ["pcoa", "--source", "plink", "--path", prefix, "--maf",
+            "0.01", "--max-missing", "0.1", "--ld-prune-r2", "0.2",
+            "--num-pc", str(NUM_PC), "--block-variants",
+            str(BLOCK_VARIANTS), "--device", DEVICE]
+    with tempfile.TemporaryDirectory() as tsv_dir:
+        qc_counts, timings, out, wall = run_job(
+            cli_main, argv, launch_counters,
+            os.path.join(tsv_dir, "coords.tsv"))
+        coords = np.loadtxt(os.path.join(tsv_dir, "coords.tsv"),
+                            skiprows=1, usecols=range(1, NUM_PC + 1))
+    kept = int(re.search(r"over (\d+) variants", out).group(1))
+    if not 0 < kept <= N_VARIANTS or not np.isfinite(coords).all():
+        fail(f"QC + LD job: kept {kept}, coords finite "
+             f"{bool(np.isfinite(coords).all())}")
+    if qc_counts["packed_gram"] != math.ceil(kept / BLOCK_VARIANTS):
+        fail(f"K1 launched {qc_counts['packed_gram']} times on the QC + "
+             f"LD job of {kept} variants")
+    sep = separation(coords, source.populations)
+    if not sep >= SEPARATION_MIN:
+        fail(f"QC + LD PC1-2 separation {sep:.3f}")
+    print(f"pcoa --source plink --maf 0.01 --max-missing 0.1 "
+          f"--ld-prune-r2 0.2 [{card}]: kept {kept} of {N_VARIANTS} "
+          f"variants; wall {wall:.3f} s; phases: "
+          + phases_line(timings, ("ingest_setup", "gram", "finalize",
+                                  "eigh"))
+          + f"; launches {qc_counts}; PC1-2 separation {sep:.2f}")
 
     paths = {f"similarity {m}": c for m, c in dense_counts.items()}
     paths.update({"pcoa grm": grm_counts,
@@ -535,6 +573,260 @@ def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
                   "pcoa plink": plink_counts,
                   "similarity vcf": vcf_counts,
                   "pcoa plink qc+ld": qc_counts})
+    return paths, {"packed_store_gram_s": store_gram_s, "plink": prefix,
+                   "euclidean_acc": euclidean_acc}
+
+
+def tree_bytes(root: str) -> dict:
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def flip_byte(store: str, chunk: int) -> str:
+    """Flip one bit of one byte in the middle of chunk ``chunk``'s file
+    (same size, different content); returns the file's path."""
+    with open(os.path.join(store, "manifest.json")) as f:
+        digest = json.load(f)["chunks"][chunk][3]
+    path = os.path.join(store, "chunks", f"{digest}.bin")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0x10]))
+    return path
+
+
+def dataset_store_phases(cli_main, launch_counters: dict, card: str, source,
+                         expected: int, synthetic_acc: dict, files: dict,
+                         tmp: str) -> dict:
+    """Phases 18-22: the content-addressed dataset store. Returns the
+    launches by kernel of each CLI job, by path name."""
+    import torch
+
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+        ReferenceRange,
+    )
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ingest.plink import PlinkSource
+    from spark_examples_tpu_torch.pipelines import runner
+    from spark_examples_tpu_torch.store import StoreCorruptError, StoreManifest
+
+    def store_gram(path: str, metric: str = "ibs", auto_heal: bool = True,
+                   **ingest) -> dict:
+        """The gram stage of a job reading the store at ``path`` (the
+        library route the CLI runs), accumulators on the CPU."""
+        job = JobConfig(
+            ingest=IngestConfig(source=f"store:{path}",
+                                block_variants=BLOCK_VARIANTS, **ingest),
+            compute=ComputeConfig(metric=metric, device=DEVICE))
+        src = runner.build_source(job.ingest, DEVICE)
+        src.inner.auto_heal = auto_heal
+        try:
+            g = runner.run_gram(job, src, PhaseTimer())
+        finally:
+            src.close()
+        return {k: v.cpu() for k, v in g.acc.items()}
+
+    paths = {}
+    # -- 18. ingest the Quickstart cohort with each codec -----------------
+    stores = {}
+    ingest_lines = []
+    for codec, workers in (("zlib", 4), ("raw", 4), ("zlib-dict", 4),
+                           ("zlib", 1)):
+        d = os.path.join(tmp, f"ds_{codec}_w{workers}")
+        argv = (["ingest"] + quickstart_args() + [
+            "--chunk-variants", str(CHUNK_VARIANTS), "--store-codec", codec,
+            "--ingest-workers", str(workers)])
+        counts, timings, out, wall = run_job(cli_main, argv, launch_counters,
+                                             d)
+        if any(counts.values()):
+            fail(f"ingest launched kernels: {counts}")
+        m = StoreManifest.load(d)
+        n = m.n_samples
+        raw_b = sum(c.payload_size(n) for c in m.chunks)
+        stored_b = sum(c.disk_size(n) for c in m.chunks)
+        if len(m.chunks) != math.ceil(N_VARIANTS / CHUNK_VARIANTS) or \
+                m.n_variants != N_VARIANTS:
+            fail(f"ingest {codec}: {len(m.chunks)} chunks, "
+                 f"{m.n_variants} variants")
+        stores[(codec, workers)] = d
+        ingest_lines.append(
+            f"{codec} ({workers} workers): compact {timings['compact']:.4f} "
+            f"s, ingest_setup {timings['ingest_setup']:.4f} s, wall "
+            f"{wall:.3f} s; {raw_b / 1e6:.1f} MB 2-bit -> "
+            f"{stored_b / 1e6:.2f} MB stored, ratio {raw_b / stored_b:.4f}; "
+            f"{len(m.chunks)} chunks")
+    one, four = tree_bytes(stores[("zlib", 1)]), tree_bytes(
+        stores[("zlib", 4)])
+    if one != four:
+        fail("the 1-worker and 4-worker zlib stores differ: "
+             + ", ".join(sorted(k for k in set(one) | set(four)
+                                if one.get(k) != four.get(k))[:5]))
+    print(f"ingest {N_SAMPLES} x {N_VARIANTS}, chunks of {CHUNK_VARIANTS} "
+          f"[{card}]: " + "; ".join(ingest_lines) + f"; the zlib stores of 1 "
+          f"and 4 workers are identical file for file ({len(one)} files)")
+    del one, four
+
+    # -- 19. pcoa --source store:<dir> per codec ---------------------------
+    for codec in ("zlib", "raw", "zlib-dict"):
+        d = stores[(codec, 4)]
+        argv = ["pcoa", "--source", f"store:{d}", "--num-pc", str(NUM_PC),
+                "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
+        counts, timings, coords, wall = run_cli(cli_main, argv,
+                                                launch_counters, NUM_PC)
+        if counts["packed_gram"] != expected:
+            fail(f"K1 launched {counts['packed_gram']} times on pcoa "
+                 f"--source store ({codec}), expected {expected}")
+        sep = separation(coords, source.populations)
+        if not sep >= SEPARATION_MIN:
+            fail(f"store ({codec}) PC1-2 separation {sep:.3f}")
+        if not equal_accumulators(store_gram(d), synthetic_acc):
+            fail(f"store ({codec}) accumulators differ from phase 6's")
+        paths[f"pcoa store {codec}"] = counts
+        print(f"pcoa --source store ({codec}) {N_SAMPLES} x {N_VARIANTS} "
+              f"ibs [{card}]: wall {wall:.3f} s; phases: "
+              + phases_line(timings, ("ingest_setup", "gram", "finalize",
+                                      "eigh"))
+              + f"; gram {timings['gram']:.4f} s vs the packed store's "
+              f"{files['packed_store_gram_s']:.4f} s (phase 14); launches "
+              f"{counts}; accumulators bitwise equal to phase 6's; PC1-2 "
+              f"separation {sep:.2f}")
+
+    # -- 20. the dense route: euclidean from the store -----------------------
+    d = stores[("zlib", 4)]
+    argv = ["similarity", "--metric", "euclidean", "--source", f"store:{d}",
+            "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
+    counts, timings, wall = run_similarity_cli(cli_main, argv,
+                                               launch_counters, N_SAMPLES)
+    if counts["packed_gram"] != 0:
+        fail(f"K1 launched {counts['packed_gram']} times on the dense "
+             "store job, expected 0")
+    if timings["ingest_bytes"] != expected * N_SAMPLES * BLOCK_VARIANTS:
+        fail(f"dense store job shipped {timings['ingest_bytes']} bytes")
+    if not equal_accumulators(store_gram(d, "euclidean"),
+                              files["euclidean_acc"]):
+        fail("euclidean accumulators from the store differ from phase 12's")
+    paths["similarity euclidean store"] = counts
+    print(f"similarity --metric euclidean --source store (zlib) [{card}]: "
+          f"wall {wall:.3f} s; phases: "
+          + phases_line(timings, ("ingest_setup", "gram", "finalize"))
+          + f"; launches {counts}; blocks decoded into the pinned slabs "
+          "(decode_range_into); accumulators bitwise equal to phase 12's")
+
+    # -- 21. a --references range job from the store's position index -------
+    plink_ds = os.path.join(tmp, "ds_plink")
+    _, timings, out, wall = run_job(
+        cli_main, ["ingest", "--source", "plink", "--path", files["plink"],
+                   "--chunk-variants", str(CHUNK_VARIANTS), "--device",
+                   DEVICE], launch_counters, plink_ds)
+    lo, hi = REFERENCE_RANGE
+    ref = f"1:{lo}:{hi}"
+    want_v = hi - lo  # PLINK positions are 1..V
+    argv = ["pcoa", "--source", f"store:{plink_ds}", "--references", ref,
+            "--num-pc", str(NUM_PC), "--block-variants", str(BLOCK_VARIANTS),
+            "--device", DEVICE]
+    with tempfile.TemporaryDirectory() as tsv_dir:
+        counts, rtimings, rout, rwall = run_job(
+            cli_main, argv, launch_counters,
+            os.path.join(tsv_dir, "coords.tsv"))
+    got_v = int(re.search(r"over (\d+) variants", rout).group(1))
+    if got_v != want_v or counts["packed_gram"] != math.ceil(
+            want_v / BLOCK_VARIANTS):
+        fail(f"--references {ref}: {got_v} variants, launches {counts}")
+    job = JobConfig(
+        ingest=IngestConfig(source="plink", path=files["plink"],
+                            block_variants=BLOCK_VARIANTS,
+                            references=[ReferenceRange.parse(ref)]),
+        compute=ComputeConfig(metric="ibs", device=DEVICE))
+    want_acc = {k: v.cpu() for k, v in runner.run_gram(
+        job, PlinkSource(files["plink"], references=(
+            ReferenceRange.parse(ref),)), PhaseTimer()).acc.items()}
+    if not equal_accumulators(
+            store_gram(plink_ds, references=[ReferenceRange.parse(ref)]),
+            want_acc):
+        fail("the store's --references accumulators differ from PLINK's")
+    paths["pcoa store references"] = counts
+    print(f"ingest --source plink [{card}]: {out.strip()}; pcoa --source "
+          f"store --references {ref} [{card}]: {got_v} variants from the "
+          f"position index, wall {rwall:.3f} s; phases: "
+          + phases_line(rtimings, ("ingest_setup", "gram", "finalize",
+                                   "eigh"))
+          + f"; launches {counts}; accumulators bitwise equal to "
+          "--source plink --references")
+
+    # -- 22. damage, then heal ---------------------------------------------
+    zlib_d = stores[("zlib", 4)]
+    flip_byte(zlib_d, 3)
+    healed0 = telemetry.counter_value("store.healed")
+    argv = ["pcoa", "--source", f"store:{zlib_d}", "--num-pc", str(NUM_PC),
+            "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
+    counts, timings, coords, wall = run_cli(cli_main, argv, launch_counters,
+                                            NUM_PC)
+    inline = telemetry.counter_value("store.healed") - healed0
+    if inline != 1 or counts["packed_gram"] != expected or \
+            os.path.exists(os.path.join(zlib_d, "quarantine.json")):
+        fail(f"inline heal from origin: healed {inline}, launches {counts}")
+    if not equal_accumulators(store_gram(zlib_d), synthetic_acc):
+        fail("accumulators after the inline heal differ from phase 6's")
+    paths["pcoa store healed inline"] = counts
+
+    raw_d = stores[("raw", 4)]
+    victim = os.path.join(tmp, "ds_raw_victim")
+    shutil.copytree(raw_d, victim)
+    flip_byte(victim, 2)
+    try:
+        store_gram(victim, auto_heal=False)
+    except StoreCorruptError as e:
+        cursor = e.cursor
+    else:
+        fail("a flipped byte read without auto-heal did not fail")
+    if cursor != 2 * CHUNK_VARIANTS or not os.path.exists(
+            os.path.join(victim, "quarantine.json")):
+        fail(f"the failed read's cursor {cursor} / no quarantine ledger")
+    reports = []
+    for how, extra in (("replica", ["--replica", raw_d]), ("origin", [])):
+        if how == "origin":
+            flip_byte(victim, 4)
+            extra = ["--verify-all"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(["store", "heal", "--path", victim] + extra)
+        report = json.loads(buf.getvalue().strip().splitlines()[0])
+        hows = [h["how"].split(":")[0] for h in report["healed"]]
+        if rc != 0 or report["failed"] or hows != [how]:
+            fail(f"store heal ({how}): rc {rc}, report {report}")
+        reports.append(f"{how}: {report['damaged']} damaged of "
+                       f"{report['checked']} checked, healed {hows}")
+    if tree_bytes(victim) != tree_bytes(raw_d):
+        fail("the healed store's files differ from the raw store's")
+    argv = ["pcoa", "--source", f"store:{victim}", "--num-pc", str(NUM_PC),
+            "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
+    hcounts, htimings, coords, hwall = run_cli(cli_main, argv,
+                                               launch_counters, NUM_PC)
+    if hcounts["packed_gram"] != expected or not equal_accumulators(
+            store_gram(victim), synthetic_acc):
+        fail(f"the healed store's job: launches {hcounts}, or accumulators "
+             "differ from phase 6's")
+    paths["pcoa store after heal"] = hcounts
+    print(f"damage and heal [{card}]: a flipped byte in chunk 3 of the zlib "
+          f"store healed inline from the origin during pcoa (wall "
+          f"{wall:.3f} s, gram {timings['gram']:.4f} s, launches {counts}); "
+          f"a flipped byte in a raw copy failed the read without auto-heal "
+          f"(StoreCorruptError at cursor {cursor}, quarantined); store heal "
+          + "; ".join(reports) + "; the healed store equals the raw store "
+          f"file for file; its pcoa (wall {hwall:.3f} s, launches {hcounts}) "
+          "bitwise equal to phase 6's accumulators")
     return paths
 
 
@@ -905,11 +1197,15 @@ def main() -> int:
           + f"; launches {pca_counts}; coords finite; PC1-2 separation "
           f"{sep:.2f} (min {SEPARATION_MIN})")
 
-    new_paths = dense_and_file_phases(
-        cli_main, launch_counters, card, dev, source, expected,
-        quickstart_gram_s, synthetic_acc)
+    with tempfile.TemporaryDirectory() as tmp:
+        new_paths, files = dense_and_file_phases(
+            cli_main, launch_counters, card, dev, source, expected,
+            quickstart_gram_s, synthetic_acc, tmp)
+        new_paths.update(dataset_store_phases(
+            cli_main, launch_counters, card, source, expected,
+            synthetic_acc, files, tmp))
 
-    # -- 18. summary --------------------------------------------------------
+    # -- 23. summary --------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
         "route": "cuda",

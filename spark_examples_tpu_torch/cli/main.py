@@ -1,5 +1,5 @@
-"""Command-line entry:
-``python -m spark_examples_tpu_torch {pcoa,pca,similarity,pack}``.
+"""Command-line entry: ``python -m spark_examples_tpu_torch
+{pcoa,pca,similarity,pack,ingest,store}``.
 
 Flag names and defaults follow the JAX package's CLI for the flags the
 ported paths read, plus ``--device {cuda,cpu}`` (default cuda; a missing
@@ -13,6 +13,10 @@ card raises).
         --output-path store/
     python -m spark_examples_tpu_torch similarity --source packed \\
         --path store/ --metric king --output-path king.npy
+    python -m spark_examples_tpu_torch ingest --source vcf --path c.vcf \\
+        --output-path ds/ --store-codec zlib
+    python -m spark_examples_tpu_torch pcoa --source store:ds/ --metric ibs
+    python -m spark_examples_tpu_torch store heal --path ds/ --verify-all
     python -m spark_examples_tpu_torch pca --n-samples 2504 \\
         --n-variants 100000 --num-pc 10
 """
@@ -35,14 +39,15 @@ from spark_examples_tpu_torch.core.config import (
 )
 from spark_examples_tpu_torch.core.device import DEVICES
 from spark_examples_tpu_torch.core.profiling import PhaseTimer
+from spark_examples_tpu_torch.ingest.source import close_source
 
 _SOURCES = config.SOURCES + config.UNPORTED_SOURCES
 
 
 def _source_arg(value: str) -> str:
-    """``--source``: a source name, or ``store:<dir>``. parquet and the
-    store are accepted here and refused when the job builds its source,
-    with a message saying they are not ported yet."""
+    """``--source``: a source name, or ``store:<dir>`` (the dataset
+    store at <dir>). parquet is accepted here and refused when the job
+    builds its source, with a message saying it is not ported yet."""
     base, sep, rest = value.partition(":")
     if base not in _SOURCES or (sep and base != "store"):
         raise argparse.ArgumentTypeError(
@@ -62,15 +67,18 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("ingest")
     g.add_argument("--source", default="synthetic", type=_source_arg,
                    metavar="{" + ",".join(_SOURCES) + "}",
-                   help="genotype source (parquet and store are not "
-                   "ported yet and are refused)")
+                   help="genotype source; store:<dir> reads the dataset "
+                   "store at <dir> (parquet is not ported yet and is "
+                   "refused)")
     g.add_argument("--path", default=None,
                    help="input for vcf (.vcf/.vcf.gz), plink (fileset "
-                   "prefix or .bed path) or packed (store directory) "
+                   "prefix or .bed path), packed (packed store "
+                   "directory) or store (dataset store directory) "
                    "sources")
     g.add_argument("--references", nargs="*", default=[],
                    metavar="CONTIG:START:END",
-                   help="genomic ranges to ingest (vcf and plink)")
+                   help="genomic ranges to ingest (vcf, plink and store; "
+                   "a store answers them from its position index)")
     g.add_argument("--n-samples", type=int, default=2504)
     g.add_argument("--n-variants", type=int, default=100_000)
     g.add_argument("--n-populations", type=int, default=5)
@@ -94,6 +102,45 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     g.add_argument("--ld-carry", type=int, default=0,
                    help="kept variants carried across window boundaries "
                    "(0 = auto: window/4)")
+    g.add_argument("--ingest-workers", type=int, default=4,
+                   help="parse/pack/hash/write worker threads of `ingest` "
+                   "compaction (ordered reassembly keeps the store byte "
+                   "for byte the 1-worker one)")
+    g.add_argument("--io-retries", type=int, default=3,
+                   help="transient-IO retries per incident (consecutive "
+                   "failures without a successfully read block) for "
+                   "file-backed sources: a failed block read re-opens "
+                   "the source and seeks back to the cursor (0 "
+                   "disables; corrupt blocks always fail fast)")
+    g.add_argument("--io-retry-backoff", type=float, default=0.05,
+                   help="initial retry backoff in seconds (exponential "
+                   "with jitter)")
+    g.add_argument("--store-cache-mb", type=int, default=256,
+                   help="host-RAM budget of the dataset store's decode "
+                   "cache (LRU with hit/miss accounting; 0 disables)")
+    g.add_argument("--readahead-chunks", type=int, default=2,
+                   help="dataset-store readahead depth floor: chunks "
+                   "verified and decoded ahead of the streaming cursor "
+                   "by a background pool (0 disables)")
+    g.add_argument("--readahead-chunks-max", type=int, default=16,
+                   help="adaptive readahead ceiling: the pool deepens "
+                   "from --readahead-chunks toward this while the "
+                   "consumer outruns the decode (0 pins the depth at "
+                   "the floor)")
+    g.add_argument("--store-codec", default="zlib",
+                   choices=list(config.STORE_CODEC_SPECS),
+                   help="chunk payload codec for `ingest` compactions: "
+                   "raw = uncompressed 2-bit payload, zlib = per-chunk "
+                   "deflate, zlib-dict = deflate with a per-contig "
+                   "dictionary trained during compaction; reads take "
+                   "each chunk's codec from the manifest")
+    g.add_argument("--store-replicas", nargs="*", default=[],
+                   metavar="DIR",
+                   help="peer store directories holding content-"
+                   "addressed copies of the chunks: a chunk that fails "
+                   "its digest verify is healed in place from a "
+                   "replica (else from the manifest's recorded origin) "
+                   "instead of failing the run")
     c = p.add_argument_group("compute")
     c.add_argument("--device", default="cuda", choices=list(DEVICES),
                    help="where the job runs; cuda raises when no card is "
@@ -159,6 +206,14 @@ def _job_from_args(args) -> JobConfig:
             ld_r2=args.ld_prune_r2,
             ld_window=args.ld_window,
             ld_carry=args.ld_carry,
+            ingest_workers=args.ingest_workers,
+            io_retries=args.io_retries,
+            io_retry_backoff_s=args.io_retry_backoff,
+            store_cache_mb=args.store_cache_mb,
+            readahead_chunks=args.readahead_chunks,
+            readahead_chunks_max=args.readahead_chunks_max,
+            store_codec=args.store_codec,
+            store_replicas=list(args.store_replicas),
         ),
         compute=ComputeConfig(
             metric=args.metric,
@@ -184,7 +239,8 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="spark_examples_tpu_torch",
         description="population-genomics pipelines on PyTorch/CUDA "
-        "(similarity / PCoA / PCA, and the pack ETL)",
+        "(similarity / PCoA / PCA, the pack and ingest ETL, and store "
+        "maintenance)",
     )
     parser.add_argument("--version", action="version",
                         version=f"%(prog)s {__version__}")
@@ -201,10 +257,49 @@ def main(argv: list[str] | None = None) -> int:
         "pack", help="ETL: stream any source (QC and LD pruning "
         "included) into the 2-bit packed store at --output-path; later "
         "jobs read it with --source packed --path <dir>"))
+    p_ing = sub.add_parser(
+        "ingest",
+        help="compact any source ONCE into the content-addressed "
+        "dataset store: 2-bit packed sha256-named chunk files + a JSON "
+        "manifest (catalog: sample ids, contig/position index, "
+        "per-chunk digests). Every later job reads it with "
+        "--source store:<dir> — mmap zero-copy, range queries, "
+        "verified reads",
+    )
+    _add_common(p_ing)
+    p_ing.add_argument("--chunk-variants", type=int, default=16384,
+                       help="catalog granularity: variants per chunk "
+                       "file (the unit of range addressing, integrity "
+                       "verification, and decode caching; must be a "
+                       "multiple of 4)")
+    p_store = sub.add_parser(
+        "store",
+        help="dataset-store maintenance. `store heal --path <dir>`: "
+        "repair every quarantined chunk in place — a verified copy "
+        "from a --replica dir, else a re-compaction of the chunk's "
+        "origin span recorded in the manifest — re-verify against the "
+        "content address, and clear the quarantine ledger entries that "
+        "healed",
+    )
+    p_store.add_argument("verb", choices=["heal"],
+                         help="maintenance action")
+    p_store.add_argument("--path", required=True,
+                         help="the store directory")
+    p_store.add_argument("--replica", action="append", default=[],
+                         metavar="DIR",
+                         help="peer store directory to copy verified "
+                         "chunks from (repeatable; tried before origin "
+                         "re-compaction)")
+    p_store.add_argument("--verify-all", action="store_true",
+                         help="re-hash EVERY chunk against its content "
+                         "address (not just the quarantine ledger) and "
+                         "heal whatever fails")
     # The pca job is defined on the shared-alt similarity; any other
     # --metric would be silently ignored, so it is rejected instead.
     sub.choices["pca"].set_defaults(metric="shared-alt")
     args = parser.parse_args(argv)
+    if args.command == "store":
+        return _run_store_admin(args)
     if args.command == "pca" and args.metric != "shared-alt":
         parser.error(
             "pca computes the shared-alt similarity by definition; "
@@ -220,6 +315,8 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.command == "pack":
         timer = _pack(job, parser)
+    elif args.command == "ingest":
+        timer = _ingest(job, args.chunk_variants, parser)
     elif args.command == "similarity":
         res = jobs.similarity_matrix_job(job)
         print(
@@ -248,15 +345,83 @@ def _pack(job: JobConfig, parser: argparse.ArgumentParser) -> PhaseTimer:
     timer = PhaseTimer()
     with timer.phase("ingest_setup"):
         src = build_source(job.ingest, job.compute.device)
-    with timer.phase("pack"):
-        written = pack_source(job.output_path, src,
-                              job.ingest.block_variants)
+    try:
+        with timer.phase("pack"):
+            written = pack_source(job.output_path, src,
+                                  job.ingest.block_variants)
+    finally:
+        close_source(src)
     print(
         f"packed {src.n_samples} samples x {written} variants "
         f"({src.n_samples * written / 4 / 1e6:.1f} MB 2-bit) -> "
         f"{job.output_path} in {timer.phases['pack']:.1f}s"
     )
     return timer
+
+
+def _ingest(job: JobConfig, chunk_variants: int,
+            parser: argparse.ArgumentParser) -> PhaseTimer:
+    """The ``ingest`` command: compact the source into a dataset store,
+    recording the origin (the self-healing recipe) in its manifest."""
+    from spark_examples_tpu_torch.pipelines.runner import build_source
+    from spark_examples_tpu_torch.store import compact, origin_from_ingest
+
+    if not job.output_path:
+        parser.error("ingest requires --output-path (the store "
+                     "directory to compact into)")
+    timer = PhaseTimer()
+    with timer.phase("ingest_setup"):
+        src = build_source(job.ingest, job.compute.device)
+    try:
+        with timer.phase("compact"):
+            manifest = compact(
+                job.output_path, src, chunk_variants=chunk_variants,
+                workers=job.ingest.ingest_workers,
+                codec=job.ingest.store_codec,
+                origin=origin_from_ingest(job.ingest, chunk_variants))
+    finally:
+        close_source(src)
+    dt = timer.phases["compact"]
+    dense_mb = manifest.n_samples * manifest.n_variants / 1e6
+    n = manifest.n_samples
+    raw_b = sum(c.payload_size(n) for c in manifest.chunks)
+    stored_b = sum(c.disk_size(n) for c in manifest.chunks)
+    print(
+        f"compacted {manifest.n_samples} samples x "
+        f"{manifest.n_variants} variants into {len(manifest.chunks)} "
+        f"content-addressed chunks ({dense_mb / 4:.1f} MB 2-bit -> "
+        f"{stored_b / 1e6:.1f} MB stored, "
+        f"{raw_b / max(stored_b, 1):.2f}x {job.ingest.store_codec}) "
+        f"-> {job.output_path} in {dt:.1f}s "
+        f"({dense_mb / max(dt, 1e-9):.0f} MB/s dense-equivalent, "
+        f"{stored_b / 1e6 / max(dt, 1e-9):.0f} MB/s written, "
+        f"{job.ingest.ingest_workers} workers); "
+        f"read it back with --source store:{job.output_path}"
+    )
+    return timer
+
+
+def _run_store_admin(args) -> int:
+    """The ``store`` maintenance subcommand (``heal``). Prints the heal
+    report as JSON; exit 0 iff nothing is left damaged."""
+    from spark_examples_tpu_torch.store.heal import heal
+
+    report = heal(args.path, replicas=tuple(args.replica),
+                  verify_all=args.verify_all)
+    print(json.dumps(report, sort_keys=True))
+    if report["failed"]:
+        print(
+            f"store heal: {len(report['failed'])} chunk(s) could not be "
+            "healed (no replica holds them and the origin no longer "
+            "reproduces them) — restore the files or re-run the "
+            "compaction",
+            file=sys.stderr,
+        )
+        return 1
+    if report["healed"]:
+        print(f"store heal: {len(report['healed'])} chunk(s) healed and "
+              "re-verified; quarantine ledger cleared", file=sys.stderr)
+    return 0
 
 
 def _print_coords(out, job: JobConfig) -> None:

@@ -26,11 +26,16 @@ GRAM_LOWERINGS = ("auto", "reference", "fused")
 BRAYCURTIS_METHODS = ("auto", "exact", "matmul", "fused")
 EIGH_MODES = ("auto", "dense", "randomized")
 PACK_STREAMS = ("auto", "packed", "dense")
-# Genotype sources. parquet and the content-addressed store (also
-# spelled ``store:<dir>``) are accepted by the CLI only to be refused
-# with a message: they are not ported yet.
-SOURCES = ("synthetic", "vcf", "plink", "packed")
-UNPORTED_SOURCES = ("parquet", "store")
+# Genotype sources. ``store`` is the content-addressed dataset store
+# (also spelled ``store:<dir>``). parquet is accepted by the CLI only to
+# be refused with a message: it is not ported yet.
+SOURCES = ("synthetic", "vcf", "plink", "packed", "store")
+UNPORTED_SOURCES = ("parquet",)
+# Chunk-payload codecs of the store's --store-codec flag (store/codec.py
+# reads this tuple): "raw" = no compression, "zlib" = per-chunk deflate
+# at a fixed level, "zlib-dict" = deflate with a per-contig preset
+# dictionary trained during compaction.
+STORE_CODEC_SPECS = ("raw", "zlib", "zlib-dict")
 # Accepted so that a config naming them is refused with a message: only
 # the exact rung on one device is ported.
 SOLVER_LADDER = ("exact", "sketch", "corrected")
@@ -90,11 +95,12 @@ class ReferenceRange:
 class IngestConfig:
     """Which variants to stream, from where, in what block shape."""
 
-    # synthetic | vcf | plink | packed (parquet and store are refused by
+    # synthetic | vcf | plink | packed | store (parquet is refused by
     # runner.build_source). "store:<dir>" is normalized here into
     # source="store", path="<dir>".
     source: str = "synthetic"
-    path: str | None = None  # file or directory of a vcf/plink/packed source
+    # file or directory of a vcf/plink/packed/store source
+    path: str | None = None
     references: list[ReferenceRange] = field(default_factory=list)
     n_samples: int = 2504  # synthetic default: 1000 Genomes phase-3 cohort
     n_variants: int = 100_000
@@ -116,6 +122,31 @@ class IngestConfig:
     ld_r2: float = 0.0
     ld_window: int = 256
     ld_carry: int = 0  # 0 = auto (window // 4)
+    # Parse/pack/hash/write worker threads of the `ingest` compaction
+    # (ingest/parallel.py); ordered reassembly keeps the store byte for
+    # byte the 1-worker one.
+    ingest_workers: int = 4
+    # Transient-IO retries per incident for file-backed sources
+    # (ingest/resilient.py): a failed read re-opens the source and seeks
+    # back to the cursor, with exponential backoff and jitter from
+    # io_retry_backoff_s. 0 disables the wrapper. Corrupt blocks are
+    # never retried.
+    io_retries: int = 3
+    io_retry_backoff_s: float = 0.05
+    # Dataset-store reads: the decode cache's host-RAM budget (0 = no
+    # cache), and the readahead pool's depth floor and adaptive ceiling
+    # (chunks verified and decoded ahead of the cursor; 0 = off / pinned
+    # at the floor).
+    store_cache_mb: int = 256
+    readahead_chunks: int = 2
+    readahead_chunks_max: int = 16
+    # Chunk codec of `ingest` compactions (STORE_CODEC_SPECS); reads
+    # take each chunk's codec from the manifest.
+    store_codec: str = "zlib"
+    # Peer store directories holding content-addressed chunk copies: a
+    # chunk failing its verify is healed from a replica, else from the
+    # manifest's recorded origin.
+    store_replicas: list[str] = field(default_factory=list)
 
     def __post_init__(self):
         _check_int("ingest", "block_variants", self.block_variants, 1,
@@ -128,6 +159,36 @@ class IngestConfig:
         _check_int("ingest", "--ld-carry", self.ld_carry, 0,
                    self.ld_window - 1, "kept variants carried across "
                    "windows; 0 = window // 4, below the window")
+        _check_int("ingest", "--ingest-workers", self.ingest_workers, 1,
+                   256, "parse/pack worker threads; 1 = serial")
+        _check_int("ingest", "--io-retries", self.io_retries, 0, 1000,
+                   "transient-IO retries per incident; 0 = no retry")
+        _check_int("ingest", "--store-cache-mb", self.store_cache_mb, 0,
+                   1 << 20, "decode-cache budget in MB; 0 = no cache")
+        _check_int("ingest", "--readahead-chunks", self.readahead_chunks,
+                   0, 65536, "store chunks decoded ahead of the cursor; "
+                   "0 = off")
+        _check_int("ingest", "--readahead-chunks-max",
+                   self.readahead_chunks_max, 0, 65536,
+                   "adaptive readahead ceiling; 0 = pin the depth at "
+                   "--readahead-chunks")
+        if 0 < self.readahead_chunks_max < self.readahead_chunks:
+            raise ValueError(
+                f"bad ingest config: --readahead-chunks-max="
+                f"{self.readahead_chunks_max} sits under "
+                f"--readahead-chunks={self.readahead_chunks} — the "
+                "adaptive ceiling cannot be below the floor (raise it, "
+                "or set it to 0 to pin the depth)"
+            )
+        _check_enum("ingest", "--store-codec", self.store_codec,
+                    STORE_CODEC_SPECS, "raw = no compression, zlib = "
+                    "per-chunk deflate, zlib-dict = deflate with a "
+                    "per-contig dictionary trained during compaction")
+        if not self.io_retry_backoff_s >= 0.0:
+            raise ValueError(
+                f"bad ingest config: --io-retry-backoff="
+                f"{self.io_retry_backoff_s!r} — expected seconds >= 0"
+            )
         for name, value, hi in (("--maf", self.maf, 0.5),
                                 ("--max-missing", self.max_missing, 1.0),
                                 ("--ld-prune-r2", self.ld_r2, 1.0)):

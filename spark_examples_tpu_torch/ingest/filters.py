@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spark_examples_tpu_torch.ingest.source import rechunk
+from spark_examples_tpu_torch.ingest.source import close_source, rechunk
 
 
 def qc_mask(block: np.ndarray, maf: float, max_missing: float) -> np.ndarray:
@@ -77,6 +77,9 @@ class FilteredSource:
                  if meta.positions is not None else None),
                 meta.contig,
             )
+
+    def close(self) -> None:
+        close_source(self.inner)
 
     def blocks(self, block_variants: int, start_variant: int = 0):
         emitted = 0

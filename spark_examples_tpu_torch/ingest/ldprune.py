@@ -22,7 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from spark_examples_tpu_torch.ingest.source import rechunk
+from spark_examples_tpu_torch.ingest.source import close_source, rechunk
 from spark_examples_tpu_torch.ops.gram import f32_xxt
 
 
@@ -147,6 +147,9 @@ class LdPruneSource:
                 if meta.positions is not None else None
             )
             yield kept, kp, meta.contig
+
+    def close(self) -> None:
+        close_source(self.inner)
 
     def blocks(self, block_variants: int, start_variant: int = 0):
         """Re-chunk pruned windows into (N, <=block_variants) blocks,

@@ -119,6 +119,13 @@ class Packed2BitSource:
             return self.ids
         return [f"S{i:06d}" for i in range(self.n_samples)]
 
+    @property
+    def exact_n_variants(self) -> bool:
+        """Single-run stores stream exactly ceil(v/bv) blocks on both
+        transports; a multi-contig store's dense blocks flush at each
+        chromosome run, so it declines."""
+        return self.contig_runs is None or len(self.contig_runs) <= 1
+
     def _contig_of(self, lo: int, hi: int) -> str | None:
         """Contig of the variant range [lo, hi) — None when the range
         spans a run boundary (multi-contig stores pack continuously, so

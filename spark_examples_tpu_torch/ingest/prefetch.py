@@ -3,9 +3,12 @@
 A producer thread builds each host block (source read, ragged-tail
 padding, 2-bit packing) into a bounded queue; the consumer copies it to
 the device and yields it. A source that stores 2-bit bytes
-(``packed_blocks``, the packed store) ships them as they are on the
-packed transport: no host unpack or repack. On a CUDA target the host
-blocks live in a ring of reusable **pinned** slabs, and each copy is
+(``packed_blocks``: the packed and dataset stores) ships them as they
+are on the packed transport: no host unpack or repack. On the dense
+transport a dataset store decodes each block straight into the feed's
+buffer (``block_spans`` + ``decode_range_into``), with no intermediate
+block. On a CUDA target the host blocks live in a ring of reusable
+**pinned** slabs, and each copy is
 ``non_blocking`` on a side stream, so block k+1's copy overlaps block
 k's update; the compute stream waits on the copy's event before it
 touches the block. A slab is recycled only after its copy's event has
@@ -136,6 +139,14 @@ def _host_blocks(source, block_variants, start_variant, pack, stats):
         yield pad_block(block, width), meta
 
 
+def decode_direct(source, pack: bool) -> bool:
+    """True when the dense feed drives the source's own decode into its
+    buffers: a dataset store (or a range or retry wrapper of one) on the
+    dense transport."""
+    return (not pack and hasattr(source, "decode_range_into")
+            and hasattr(source, "block_spans"))
+
+
 def _produce(source, block_variants, start_variant, prefetch, pack, ring,
              stats):
     """Run the producer thread; yields ``(host array, slab | None, meta)``."""
@@ -151,8 +162,36 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
                 continue
         return False
 
+    def direct():
+        """The store's dense drive: each block decoded straight into the
+        pinned slab (CUDA) or a fresh MISSING-filled buffer the consumer
+        owns (CPU), with no intermediate block."""
+        width = padded_width(block_variants)
+        if stats is not None:
+            stats["max_value"] = 2  # store payloads are 2-bit dosages
+        for lo, hi, meta in source.block_spans(block_variants,
+                                               start_variant):
+            slab = None
+            if ring is not None:
+                slab = ring.acquire(stop)
+                if slab is None:
+                    return
+                host = slab.array
+            else:
+                host = np.full((source.n_samples, width), MISSING,
+                               GENOTYPE_DTYPE)
+            source.decode_range_into(lo, hi, host)
+            if slab is not None and hi - lo < width:
+                host[:, hi - lo:] = MISSING
+            if not put((host, slab, meta)):
+                return
+        put(_END)
+
     def produce():
         try:
+            if decode_direct(source, pack):
+                direct()
+                return
             for host, meta in _host_blocks(source, block_variants,
                                            start_variant, pack, stats):
                 slab = None
@@ -214,6 +253,10 @@ def stream_to_device(
     try:
         for host, slab, meta in producer:
             if not cuda:
+                if not host.flags.writeable:
+                    # A store's read-only mapping or cached payload: the
+                    # tensor gets its own bytes.
+                    host = host.copy()
                 yield torch.from_numpy(host), meta
                 continue
             compute_stream = torch.cuda.current_stream(device)

@@ -3,6 +3,7 @@ fixed sample cohort, streamed along the variant axis."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Iterator, Protocol, runtime_checkable
 
@@ -111,6 +112,8 @@ class ArraySource:
     contig: str | None = None
     positions: np.ndarray | None = None
 
+    exact_n_variants = True  # the array's shape is the count
+
     @property
     def n_samples(self) -> int:
         return int(self.genotypes.shape[0])
@@ -138,3 +141,86 @@ class ArraySource:
             if self.positions is not None:
                 pos = self.positions[lo:hi]
             yield block, BlockMeta(idx, lo, hi, self.contig, pos)
+
+
+def close_source(source) -> None:
+    """Stop the background work a source holds (a store's readahead
+    pool), through any wrapper that forwards ``close``; a no-op for
+    sources that hold none."""
+    close = getattr(source, "close", None)
+    if close is not None:
+        close()
+
+
+@dataclass
+class EmptyShare:
+    """A zero-variant source that still answers cohort metadata (a
+    ``--references`` filter that matched nothing)."""
+
+    inner: GenotypeSource
+
+    exact_n_variants = True  # zero, exactly
+
+    @property
+    def n_samples(self) -> int:
+        return self.inner.n_samples
+
+    @property
+    def n_variants(self) -> int:
+        return 0
+
+    @property
+    def sample_ids(self) -> list[str]:
+        return self.inner.sample_ids
+
+    def blocks(self, block_variants: int, start_variant: int = 0):
+        return iter(())
+
+    def close(self) -> None:
+        close_source(self.inner)
+
+
+@dataclass
+class ChainSource:
+    """Sources concatenated along the variant axis (one per reference
+    range). Not ``exact_n_variants``: the block grid restarts at every
+    part boundary."""
+
+    parts: list
+
+    def __post_init__(self):
+        ns = {p.n_samples for p in self.parts}
+        if len(ns) != 1:
+            raise ValueError(f"sources disagree on n_samples: {ns}")
+
+    @property
+    def n_samples(self) -> int:
+        return self.parts[0].n_samples
+
+    @property
+    def n_variants(self) -> int:
+        return sum(p.n_variants for p in self.parts)
+
+    @property
+    def sample_ids(self) -> list[str]:
+        return self.parts[0].sample_ids
+
+    def blocks(self, block_variants: int, start_variant: int = 0):
+        offset = 0
+        idx = 0
+        for part in self.parts:
+            pv = part.n_variants
+            if start_variant >= offset + pv:
+                offset += pv
+                continue
+            local_start = max(0, start_variant - offset)
+            for block, meta in part.blocks(block_variants, local_start):
+                yield block, dataclasses.replace(
+                    meta, index=idx, start=meta.start + offset,
+                    stop=meta.stop + offset)
+                idx += 1
+            offset += pv
+
+    def close(self) -> None:
+        for part in self.parts:
+            close_source(part)

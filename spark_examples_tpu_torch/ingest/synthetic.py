@@ -33,6 +33,8 @@ class SyntheticSource:
     seed: int = 0
     _pops: np.ndarray = field(init=False, repr=False)
 
+    exact_n_variants = True  # ceil(V / bv) blocks, no flushes
+
     def __post_init__(self):
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0xC0]))
         self._pops = rng.integers(0, self.n_populations, self.n_samples)

@@ -55,19 +55,18 @@ def pcoa_job(job: JobConfig, source=None) -> CoordsOutput:
     cfg = job.compute
     metric = cfg.metric or "ibs"
     timer = PhaseTimer()
-    if source is None:
-        with timer.phase("ingest_setup"):
-            source = runner.build_source(job.ingest, job.compute.device)
     table = kernels.get(metric).table_runner
-    if table is not None:
-        dist = table(job, source, timer)
-        sample_ids, n_variants = source.sample_ids, source.n_variants
-    else:
-        grun = runner.run_gram(job, source, timer)
+    with runner.job_source(job, source, timer) as source:
+        if table is not None:
+            dist = table(job, source, timer)
+            sample_ids, n_variants = source.sample_ids, source.n_variants
+        else:
+            grun = runner.run_gram(job, source, timer)
+            sample_ids, n_variants = grun.sample_ids, grun.n_variants
+    if table is None:
         with timer.phase("finalize"):
             dist = hard_sync(runner.finalize_field(grun.acc, metric,
                                                    "distance"))
-        sample_ids, n_variants = grun.sample_ids, grun.n_variants
     method = _eigh_method(cfg.eigh_mode, dist.shape[0])
     with timer.phase("eigh"):
         res = hard_sync(fit_pcoa(dist, k=cfg.num_pc, method=method,
@@ -99,10 +98,8 @@ def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
     job = job.replace(
         compute=dataclasses.replace(job.compute, metric="shared-alt"))
     timer = PhaseTimer()
-    if source is None:
-        with timer.phase("ingest_setup"):
-            source = runner.build_source(job.ingest, job.compute.device)
-    grun = runner.run_gram(job, source, timer)
+    with runner.job_source(job, source, timer) as source:
+        grun = runner.run_gram(job, source, timer)
     with timer.phase("finalize"):
         sim = hard_sync(runner.finalize_field(grun.acc, "shared-alt",
                                               "similarity"))

@@ -10,6 +10,7 @@ plan. Checkpoint/resume is not ported yet and is refused.
 from __future__ import annotations
 
 import warnings
+from contextlib import closing, contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,9 +29,15 @@ from spark_examples_tpu_torch.ingest.ldprune import LdPruneSource
 from spark_examples_tpu_torch.ingest.packed import load_packed
 from spark_examples_tpu_torch.ingest.plink import PlinkSource
 from spark_examples_tpu_torch.ingest.prefetch import stream_to_device
+from spark_examples_tpu_torch.ingest.resilient import (
+    RetryingSource,
+    RetryPolicy,
+)
+from spark_examples_tpu_torch.ingest.source import close_source
 from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
 from spark_examples_tpu_torch.ingest.vcf import VcfSource
 from spark_examples_tpu_torch.ops import braycurtis_kernel, distances, gram
+from spark_examples_tpu_torch.store import open_store
 
 
 def finalize_field(acc: dict, metric: str, field: str) -> torch.Tensor:
@@ -54,6 +61,37 @@ def build_source(cfg: IngestConfig, device: str = "cuda"):
     return src
 
 
+def _maybe_retrying(src, cfg: IngestConfig, reopen=None):
+    """Wrap a file-backed source in the transient-IO retry boundary
+    (ingest/resilient.py): a flaky read re-opens the source and seeks
+    back to the cursor instead of killing the job. ``io_retries = 0``
+    disables it. ``reopen`` (a fresh-source factory) is required for
+    sources whose mapping lives on the object (the packed and dataset
+    stores): without it a retry would re-slice the same dead mapping."""
+    if cfg.io_retries <= 0:
+        return src
+    return RetryingSource(
+        src,
+        policy=RetryPolicy(max_retries=cfg.io_retries,
+                           backoff_s=cfg.io_retry_backoff_s),
+        seed=cfg.seed,
+        reopen=reopen,
+    )
+
+
+def _open_store(cfg: IngestConfig):
+    """The dataset store at ``cfg.path``, restricted to
+    ``--references`` through its position index (no chunk touched)."""
+    src = open_store(cfg.path,
+                     cache_bytes=cfg.store_cache_mb << 20,
+                     readahead_chunks=cfg.readahead_chunks,
+                     readahead_chunks_max=cfg.readahead_chunks_max,
+                     replicas=tuple(cfg.store_replicas))
+    if cfg.references:
+        return src.restrict(cfg.references)
+    return src
+
+
 def _build_raw_source(cfg: IngestConfig):
     if cfg.source == "synthetic":
         return SyntheticSource(
@@ -65,21 +103,28 @@ def _build_raw_source(cfg: IngestConfig):
     if cfg.source in UNPORTED_SOURCES:
         raise ValueError(
             f"--source {cfg.source}: not yet ported to the PyTorch package "
-            "(ported sources: synthetic | vcf | plink | packed; `pack` a "
-            "cohort into a packed store to stream it)"
+            "(ported sources: synthetic | vcf | plink | packed | store; "
+            "`ingest` a cohort into a dataset store to stream it)"
         )
     if not cfg.path:
         raise ValueError(
             f"{cfg.source} source requires --path (a .vcf/.vcf.gz file, "
-            "a PLINK fileset prefix or .bed path, or a packed store "
-            "directory)"
+            "a PLINK fileset prefix or .bed path, a packed store "
+            "directory, or a dataset store directory — also spelled "
+            "--source store:<dir>)"
         )
     if cfg.source == "vcf":
-        return VcfSource(cfg.path, references=tuple(cfg.references))
+        return _maybe_retrying(
+            VcfSource(cfg.path, references=tuple(cfg.references)), cfg)
     if cfg.source == "plink":
-        return PlinkSource(cfg.path, references=tuple(cfg.references))
+        return _maybe_retrying(
+            PlinkSource(cfg.path, references=tuple(cfg.references)), cfg)
     if cfg.source == "packed":
-        return load_packed(cfg.path)
+        return _maybe_retrying(load_packed(cfg.path), cfg,
+                               reopen=lambda: load_packed(cfg.path))
+    if cfg.source == "store":
+        return _maybe_retrying(_open_store(cfg), cfg,
+                               reopen=lambda: _open_store(cfg))
     raise ValueError(f"unknown source {cfg.source!r}")
 
 
@@ -128,11 +173,14 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
                     else None)
     bv = job.ingest.block_variants
     last_stop = 0
-    with timer.phase("gram"):
-        for block, meta in stream_to_device(
-            source, bv, device, pack=packed, stats=stream_stats,
-            prefetch=job.ingest.prefetch_blocks,
-        ):
+    # closing(): a failed update stops the feed's producer at once, not
+    # when the traceback lets go of the generator.
+    feed = closing(stream_to_device(
+        source, bv, device, pack=packed, stats=stream_stats,
+        prefetch=job.ingest.prefetch_blocks,
+    ))
+    with timer.phase("gram"), feed as blocks:
+        for block, meta in blocks:
             acc = update(acc, block)
             # Credit the true streamed variant span, not the padded width.
             timer.add("gram_flops",
@@ -147,24 +195,37 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
                    lowering)
 
 
+@contextmanager
+def job_source(job: JobConfig, source, timer: PhaseTimer):
+    """The job's source: ``source`` itself when given (its caller owns
+    it), else one built from ``job.ingest`` under the ``ingest_setup``
+    phase and closed when the job ends, so a store's readahead threads
+    end with the job."""
+    if source is not None:
+        yield source
+        return
+    with timer.phase("ingest_setup"):
+        source = build_source(job.ingest, job.compute.device)
+    try:
+        yield source
+    finally:
+        close_source(source)
+
+
 def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
     """Stream the cohort and produce the pairwise similarity + distance
     matrices on the host."""
     timer = PhaseTimer()
-    if source is None:
-        with timer.phase("ingest_setup"):
-            source = build_source(job.ingest, job.compute.device)
     metric = job.compute.metric or "ibs"
-
-    # Table-family kernels (braycurtis) carry their own dense-table
-    # runner instead of riding the gram accumulator.
-    table = kernels.get(metric).table_runner
-    if table is not None:
-        dist = table(job, source, timer).cpu().numpy()
-        return SimilarityResult(1.0 - dist, dist, source.sample_ids, metric,
-                                timer, source.n_variants)
-
-    g = run_gram(job, source, timer)
+    with job_source(job, source, timer) as source:
+        # Table-family kernels (braycurtis) carry their own dense-table
+        # runner instead of riding the gram accumulator.
+        table = kernels.get(metric).table_runner
+        if table is not None:
+            dist = table(job, source, timer).cpu().numpy()
+            return SimilarityResult(1.0 - dist, dist, source.sample_ids,
+                                    metric, timer, source.n_variants)
+        g = run_gram(job, source, timer)
     with timer.phase("finalize"):
         out = hard_sync(distances.finalize(g.acc, metric))
         sim = out["similarity"].cpu().numpy()

@@ -31,6 +31,7 @@ from spark_examples_tpu_torch.ops import (
     packed_gram,
 )
 from spark_examples_tpu_torch.pipelines import jobs, runner
+from spark_examples_tpu_torch.store import compact
 
 
 @pytest.fixture
@@ -277,6 +278,74 @@ def test_packed_store_stream_through_k1_matches_the_reference(cuda_device,
         accs[lowering] = run.acc
     for leaf in accs["auto"]:
         assert torch.equal(accs["auto"][leaf], accs["reference"][leaf]), leaf
+
+
+# Samples at K1's 64-sample tile edges; chunk widths that put block
+# boundaries inside a chunk, on it, and across a ragged tail chunk.
+STORE_EDGES = [(63, 512, 256), (64, 1024, 1024), (65, 640, 256),
+               (129, 2048, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["raw", "zlib", "zlib-dict"])
+@pytest.mark.parametrize("readahead", [0, 2])
+@pytest.mark.parametrize("n,chunk,bv", STORE_EDGES)
+def test_dataset_store_feeds_k1_like_the_packed_store(cuda_device, tmp_path,
+                                                      codec, readahead, n,
+                                                      chunk, bv):
+    """A dataset store's blocks (raw chunks zero-copy, compressed ones
+    from the inflated payload, readahead off and at its default) reach
+    K1 on the card: one launch per block, accumulators bitwise the
+    packed store's, and no readahead thread outlives the job."""
+    import threading
+
+    others = set(threading.enumerate())
+    src = SyntheticSource(n_samples=n, n_variants=3000, seed=n)
+    g = np.concatenate([b for b, _ in src.blocks(4096)], axis=1)
+    save_packed(str(tmp_path / "packed"), g)
+    compact(str(tmp_path / "ds"), ArraySource(g), chunk_variants=chunk,
+            codec=codec)
+    accs = {}
+    for source in ("packed", "store"):
+        job = JobConfig(
+            ingest=IngestConfig(source=source,
+                                path=str(tmp_path / {"packed": "packed",
+                                                     "store": "ds"}[source]),
+                                block_variants=bv,
+                                readahead_chunks=readahead),
+            compute=ComputeConfig(metric="ibs", device="cuda"))
+        timer = PhaseTimer()
+        before = packed_gram.launches
+        with runner.job_source(job, None, timer) as s:
+            run = runner.run_gram(job, s, timer)
+        assert run.lowering == "fused"
+        assert packed_gram.launches - before == -(-3000 // bv)
+        accs[source] = run.acc
+    for leaf in accs["packed"]:
+        assert torch.equal(accs["store"][leaf], accs["packed"][leaf]), leaf
+    assert not [t for t in threading.enumerate()
+                if t not in others and t.name.startswith("store-readahead")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("readahead", [0, 2])
+def test_dataset_store_dense_feed_on_cuda(cuda_device, tmp_path, readahead):
+    """euclidean reads a store on the dense transport: each block decoded
+    straight into a pinned slab; accumulators equal the CPU run's."""
+    src = SyntheticSource(n_samples=70, n_variants=2500, seed=9)
+    compact(str(tmp_path / "ds"), src, chunk_variants=1024)
+    accs = {}
+    for device in ("cuda", "cpu"):
+        job = JobConfig(
+            ingest=IngestConfig(source=f"store:{tmp_path / 'ds'}",
+                                block_variants=600,
+                                readahead_chunks=readahead),
+            compute=ComputeConfig(metric="euclidean", device=device))
+        before = packed_gram.launches
+        res = jobs.similarity_matrix_job(job)
+        assert packed_gram.launches == before
+        accs[device] = res.similarity
+    np.testing.assert_array_equal(accs["cuda"], accs["cpu"])
 
 
 @pytest.mark.gpu

@@ -160,9 +160,13 @@ def test_compute_config_validation(kw, match):
 
 
 def test_unported_source_and_checkpoints_are_refused():
-    for source in ("parquet", "store", "store:some/dir"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            trunner.build_source(tconfig.IngestConfig(source=source))
+    with pytest.raises(ValueError, match="not yet ported"):
+        trunner.build_source(tconfig.IngestConfig(source="parquet"))
+    # The dataset store is ported: it is opened, not refused.
+    with pytest.raises(ValueError, match="requires --path"):
+        trunner.build_source(tconfig.IngestConfig(source="store"))
+    with pytest.raises(ValueError, match="not a dataset store"):
+        trunner.build_source(tconfig.IngestConfig(source="store:some/dir"))
     _, tjob = _jobs()
     tjob.compute.checkpoint_dir = "ck"
     with pytest.raises(ValueError, match="not yet ported"):
@@ -218,12 +222,21 @@ def test_hard_sync_returns_its_argument_and_timer_reports():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of the port (and chip_smoke.py) in a fresh
-    interpreter: neither jax nor spark_examples_tpu may be loaded."""
+    interpreter: neither jax nor spark_examples_tpu may be loaded. The
+    store, telemetry, faults, hashing, sidecar, parallel and resilient
+    modules must be among them."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import spark_examples_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.') if not m.name.endswith('__main__')]\n"
+        "need = ['store', 'store.cache', 'store.codec', 'store.heal', "
+        "'store.manifest', 'store.quarantine', 'store.readahead', "
+        "'store.reader', 'store.writer', 'core.telemetry', 'core.faults', "
+        "'core.hashing', 'core.sidecar', 'ingest.parallel', "
+        "'ingest.resilient']\n"
+        "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
+        "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_imported')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -409,7 +422,7 @@ def test_pack_cli_then_pcoa_from_the_store(cohort_files, tmp_path, capsys):
     (["pack", "--source", "synthetic"], "--output-path"),
     (["pcoa", "--source", "vcf"], "requires --path"),
     (["pcoa", "--source", "parquet", "--path", "x"], "not yet ported"),
-    (["pcoa", "--source", "store:st"], "not yet ported"),
+    (["pcoa", "--source", "store:st"], "not a dataset store"),
     (["pcoa", "--source", "csv"], "invalid source"),
     (["pcoa", "--references", "chr1:9:3"], "end must be > start"),
     (["pcoa", "--ld-window", "1"], "--ld-window"),
