@@ -101,7 +101,39 @@ Phases (any failure exits non-zero; none is caught and ignored):
     another flip is repaired by ``store heal --verify-all`` from the
     origin; the healed store equals the raw store file for file, and
     its job is bitwise again.
-23. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
+23. Checkpoint kill and resume at the Quickstart shape: the ibs gram
+    stage through the library with ``--checkpoint-every-blocks 4`` and a
+    wrapping source that dies when asked for block 11 (generations at
+    variants 32,768 in ``.old`` and 65,536); ``pcoa --checkpoint-dir``
+    through the CLI resumes with 5 K1 launches (coordinates as phase
+    5's), and through the library with int32 accumulators bitwise equal
+    to phase 6's; then a byte flipped in the latest generation's leaf:
+    the reruns fall back to ``.old`` with 9 launches, bitwise again, and
+    the corrupt generation is set aside as ``.corrupt``.
+24. ``similarity --output-path d.npy`` (13 launches) then ``pcoa
+    --matrix-path d.npy`` (0 launches): the handoff Gower-transforms the
+    similarity (the JAX package's rule), so its coordinates are held
+    against the PCoA of the Gower distance of phase 6's accumulators,
+    per column up to sign, and must separate the populations.
+25. The accuracy ladder, ``pcoa --metric grm`` from phase 14's packed
+    store through the CLI at exact, sketch and corrected with 1 and 3
+    iterations (rank 64; the eigenvalues and proportions are read from
+    the job's output at full precision): K1 launches 0 times on
+    the sketch rungs; the JAX package's accuracy contract (corrected(3)
+    within 1e-2 on the top 4 eigenvalues and 0.15 on all 10, sketch
+    within 0.5, the ladder monotone, proportions within 5 %).
+26. ``pcoa --metric ibs --solver corrected`` and ``pca --solver
+    corrected`` from the packed store through the CLI: 0 launches,
+    coordinates separating the populations; a corrected-rung job killed
+    6 blocks into its second pass (checkpoint every 4 blocks) resumes
+    to coordinates bitwise equal to phase 25's uninterrupted run.
+27. ``ingest`` 100,000 synthetic samples x 16,384 variants into a raw
+    store, then ``pcoa --metric ibs --solver corrected --sketch-iters 2
+    --source store:<dir>``: ``torch.cuda.max_memory_allocated()`` is
+    printed beside ``sketch.nxn_bytes`` (160 GB) and must stay below one
+    N x N leaf (40 GB); the coordinates must be finite and separate the
+    populations.
+28. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
     the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -161,6 +193,20 @@ VCF_VARIANTS = 4096
 # position range on the PLINK fileset's contig 1 (positions 1..V).
 CHUNK_VARIANTS = 16_384
 REFERENCE_RANGE = (30_001, 70_001)
+# Phase 23: a checkpoint every 4 blocks; the source dies when asked for
+# block 11, so generations stand at variants 32,768 and 65,536.
+CKPT_EVERY_BLOCKS = 4
+KILL_AT_BLOCK = 10
+# The planted structure's principal coordinates (5 populations).
+NUM_POP_PCS = 4
+# Phase 26: the corrected run dies 6 blocks into its second pass.
+SKETCH_KILL_IN_PASS1 = 6
+# Phase 27: the width the exact route cannot hold on one card (its four
+# int32 ibs leaves would take 160 GB), at a depth of two blocks in one
+# chunk of the store (a block across two chunks would be decoded and
+# re-packed on the host).
+BIG_SAMPLES = 100_000
+BIG_VARIANTS = 16_384
 
 
 def k1_bounds(n: int, w: int, products) -> dict:
@@ -574,7 +620,7 @@ def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
                   "similarity vcf": vcf_counts,
                   "pcoa plink qc+ld": qc_counts})
     return paths, {"packed_store_gram_s": store_gram_s, "plink": prefix,
-                   "euclidean_acc": euclidean_acc}
+                   "euclidean_acc": euclidean_acc, "packed_store": store}
 
 
 def tree_bytes(root: str) -> dict:
@@ -830,6 +876,410 @@ def dataset_store_phases(cli_main, launch_counters: dict, card: str, source,
     return paths
 
 
+class DyingSource:
+    """A source that raises once ``die_after`` blocks were yielded over
+    all its passes: a preempted job, through the library. It streams
+    its inner source's 2-bit bytes when that source has them."""
+
+    def __init__(self, inner, die_after: int):
+        self.inner, self.die_after, self.yielded = inner, die_after, 0
+        if hasattr(inner, "packed_blocks"):
+            self.packed_blocks = lambda bv, start_variant=0: self._guard(
+                inner.packed_blocks(bv, start_variant))
+
+    n_samples = property(lambda self: self.inner.n_samples)
+    n_variants = property(lambda self: self.inner.n_variants)
+    sample_ids = property(lambda self: self.inner.sample_ids)
+
+    def _guard(self, items):
+        for item in items:
+            if self.yielded == self.die_after:
+                raise RuntimeError("simulated preemption")
+            self.yielded += 1
+            yield item
+
+    def blocks(self, block_variants: int, start_variant: int = 0):
+        return self._guard(self.inner.blocks(block_variants, start_variant))
+
+
+def manifest_cursor(path: str) -> int:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)["next_variant"]
+
+
+def same_columns(got: np.ndarray, want: np.ndarray, cols: int,
+                 tol: float) -> float:
+    """The largest per-column deviation, up to sign, over the first
+    ``cols`` columns, relative to each column's largest entry; fails
+    above ``tol``."""
+    worst = 0.0
+    for c in range(cols):
+        w = want[:, c]
+        s = 1.0 if float(got[:, c] @ w) >= 0 else -1.0
+        worst = max(worst, float(np.abs(s * got[:, c] - w).max()
+                                 / np.abs(w).max()))
+    if not worst <= tol:
+        fail(f"coordinates differ by {worst:.3g} of the column scale "
+             f"(tolerance {tol})")
+    return worst
+
+
+def span_totals(names) -> dict:
+    """{span: (count, seconds)} of the port's telemetry histograms."""
+    from spark_examples_tpu_torch.core import telemetry
+
+    hists = telemetry.metrics_snapshot()["histograms"]
+    return {n: (hists.get(n, {}).get("count", 0),
+                hists.get(n, {}).get("sum", 0.0)) for n in names}
+
+
+def span_line(before: dict, after: dict) -> str:
+    """The spans recorded between two :func:`span_totals`."""
+    parts = []
+    for n in after:
+        c = after[n][0] - before[n][0]
+        if c:
+            parts.append(f"{n} {c} x, {after[n][1] - before[n][1]:.4f} s")
+    return ", ".join(parts)
+
+
+def relerr(got, want) -> np.ndarray:
+    want = np.asarray(want, np.float64)
+    return np.abs(np.asarray(got, np.float64) - want) / np.maximum(
+        np.abs(want), 1e-12)
+
+
+def checkpoint_and_solver_phases(cli_main, launch_counters: dict, card: str,
+                                 dev, source, expected: int,
+                                 synthetic_acc: dict,
+                                 quickstart_coords: np.ndarray, files: dict,
+                                 tmp: str) -> dict:
+    """Phases 23-27: checkpoint kill and resume, the matrix handoff, the
+    sketch ladder and the 100,000-sample corrected run. Returns the
+    launches by kernel of each run, by path name."""
+    import gc
+
+    import torch
+
+    from spark_examples_tpu_torch.core.config import (
+        SKETCH_RANK_DEFAULT,
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+    )
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+    from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+    from spark_examples_tpu_torch.models.pcoa import fit_pcoa
+    from spark_examples_tpu_torch.ops import distances
+    from spark_examples_tpu_torch.pipelines import jobs, runner
+    from spark_examples_tpu_torch.solvers import sketch
+
+    paths = {}
+
+    def counted(fn):
+        """``fn()`` with every launch count set to 0 just before and
+        read just after: (result, launches by kernel, wall s)."""
+        for mod in launch_counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        return out, {k: m.launches for k, m in launch_counters.items()}, wall
+
+    def quickstart_job(**compute) -> JobConfig:
+        return JobConfig(
+            ingest=IngestConfig(n_samples=N_SAMPLES, n_variants=N_VARIANTS,
+                                block_variants=BLOCK_VARIANTS),
+            compute=ComputeConfig(metric="ibs", device=DEVICE, **compute))
+
+    # -- 23. checkpoint kill and resume -----------------------------------
+    ck = os.path.join(tmp, "ck")
+    killed = quickstart_job(checkpoint_dir=ck,
+                            checkpoint_every_blocks=CKPT_EVERY_BLOCKS)
+    ck_spans = ("checkpoint.save", "checkpoint.write", "checkpoint.rotate",
+                "checkpoint.load", "checkpoint.verify")
+    spans0 = span_totals(ck_spans)
+
+    def kill():
+        try:
+            runner.run_gram(killed, DyingSource(SyntheticSource(
+                n_samples=N_SAMPLES, n_variants=N_VARIANTS), KILL_AT_BLOCK),
+                PhaseTimer())
+        except RuntimeError as e:
+            if "simulated preemption" not in str(e):
+                raise
+        else:
+            fail("the dying source did not stop the gram stage")
+
+    _, kill_counts, kill_wall = counted(kill)
+    spans1 = span_totals(ck_spans)
+    gens = (manifest_cursor(ck + ".old"), manifest_cursor(ck))
+    want_gens = (CKPT_EVERY_BLOCKS * BLOCK_VARIANTS,
+                 2 * CKPT_EVERY_BLOCKS * BLOCK_VARIANTS)
+    if kill_counts["packed_gram"] != KILL_AT_BLOCK or gens != want_gens:
+        fail(f"killed run: launches {kill_counts}, generations {gens}")
+    lib_ck = os.path.join(tmp, "ck_lib")
+    shutil.copytree(ck, lib_ck)
+    shutil.copytree(ck + ".old", lib_ck + ".old")
+    resume_job = quickstart_job(checkpoint_dir=lib_ck)
+    resume_argv = (["pcoa"] + quickstart_args("ibs")
+                   + ["--num-pc", str(NUM_PC), "--checkpoint-dir", ck])
+    lines = []
+    for label, want_launches in (("latest", 5), ("fallback", 9)):
+        if label == "fallback":
+            flip_file(os.path.join(ck, "yc.npy"))
+            flip_file(os.path.join(lib_ck, "yc.npy"))
+        counts, timings, coords, wall = run_cli(cli_main, resume_argv,
+                                                launch_counters, NUM_PC)
+        if counts["packed_gram"] != want_launches:
+            fail(f"resume ({label}): K1 launched {counts['packed_gram']} "
+                 f"times, expected {want_launches}")
+        dev_cols = same_columns(coords, quickstart_coords, NUM_POP_PCS,
+                                1e-4)
+        g, lib_counts, lib_wall = counted(lambda: runner.run_gram(
+            resume_job, SyntheticSource(n_samples=N_SAMPLES,
+                                        n_variants=N_VARIANTS),
+            PhaseTimer()))
+        if lib_counts["packed_gram"] != want_launches or \
+                not equal_accumulators(g.acc, synthetic_acc):
+            fail(f"resume ({label}) through the library: launches "
+                 f"{lib_counts}, or accumulators differ from phase 6's")
+        del g
+        paths[f"pcoa resumed ({label})"] = counts
+        lines.append(
+            f"{label}: wall {wall:.3f} s, "
+            + phases_line(timings, ("gram", "finalize", "eigh"))
+            + f", launches {counts}; coords within {dev_cols:.2g} of phase "
+            f"5's (structure PCs); library resume {lib_wall:.3f} s, "
+            f"{lib_counts['packed_gram']} launches, accumulators bitwise")
+    if not os.path.isdir(ck + ".corrupt"):
+        fail("the corrupt generation was not set aside")
+    print(f"checkpoint kill and resume, ibs {N_SAMPLES} x {N_VARIANTS} "
+          f"[{card}]: a wrapping source died when asked for block "
+          f"{KILL_AT_BLOCK + 1} (library run_gram, every "
+          f"{CKPT_EVERY_BLOCKS} blocks; {kill_counts['packed_gram']} "
+          f"launches, wall {kill_wall:.3f} s; {span_line(spans0, spans1)}); "
+          f"generations at variants {gens[0]} (.old) and {gens[1]}; "
+          "reruns: " + "; ".join(lines) + "; the flipped generation set "
+          f"aside as .corrupt; the four resumes' "
+          f"{span_line(spans1, span_totals(ck_spans))}")
+
+    # -- 24. similarity --output-path d.npy, then pcoa --matrix-path -------
+    mat = os.path.join(tmp, "ibs_similarity.npy")
+    s_counts, s_timings, _, s_wall = run_job(
+        cli_main, ["similarity"] + quickstart_args("ibs"), launch_counters,
+        mat)
+    m_counts, m_timings, m_coords, m_wall = run_cli(
+        cli_main, ["pcoa", "--matrix-path", mat, "--num-pc", str(NUM_PC),
+                   "--device", DEVICE], launch_counters, NUM_PC)
+    if s_counts["packed_gram"] != expected or m_counts["packed_gram"]:
+        fail(f"similarity launches {s_counts}, pcoa --matrix-path "
+             f"launches {m_counts}")
+    # The handoff Gower-transforms the written similarity (JAX's rule):
+    # for ibs that embeds sqrt(2 d), so the reference is the PCoA of
+    # that distance from phase 6's accumulators, not phase 5's.
+    acc = {k: v.to(dev) for k, v in synthetic_acc.items()}
+    sim = distances.finalize(acc, "ibs")["similarity"]
+    ref = fit_pcoa(distances.similarity_to_distance(sim), k=NUM_PC)
+    ref_coords = ref.coords.cpu().numpy()
+    del acc, sim, ref
+    mat_err = same_columns(m_coords, ref_coords, NUM_POP_PCS, 1e-4)
+    sep = separation(m_coords, source.populations)
+    if not sep >= SEPARATION_MIN:
+        fail(f"pcoa --matrix-path separation {sep:.3f}")
+    paths["similarity ibs (to .npy)"] = s_counts
+    paths["pcoa --matrix-path"] = m_counts
+    print(f"similarity -> pcoa --matrix-path [{card}]: similarity wall "
+          f"{s_wall:.3f} s ({phases_line(s_timings, ('gram', 'finalize'))}"
+          f", launches {s_counts}); pcoa --matrix-path wall {m_wall:.3f} s "
+          f"({phases_line(m_timings, ('eigh',))}, launches {m_counts}); "
+          f"coords within {mat_err:.2g} of the PCoA of phase 6's Gower "
+          f"distance (structure PCs); PC1-2 separation {sep:.2f}")
+
+    # -- 25. the ladder: pcoa --metric grm at exact, sketch, corrected ----
+    store = files["packed_store"]
+
+    def ladder_job(solver: str, **compute) -> JobConfig:
+        return JobConfig(
+            ingest=IngestConfig(source="packed", path=store,
+                                block_variants=BLOCK_VARIANTS),
+            compute=ComputeConfig(metric="grm", num_pc=NUM_PC, solver=solver,
+                                  device=DEVICE, **compute))
+
+    # Each rung runs through the CLI; the job's full-precision output
+    # (eigenvalues, proportions) is kept from the pcoa_job it calls.
+    outputs = []
+    cli_pcoa_job = jobs.pcoa_job
+
+    def keeping_pcoa_job(*args, **kwargs):
+        outputs.append(cli_pcoa_job(*args, **kwargs))
+        return outputs[-1]
+
+    ladder = {}
+    ladder_lines = []
+    jobs.pcoa_job = keeping_pcoa_job
+    try:
+        for name, solver, iters in (("exact", "exact", 0),
+                                    ("sketch", "sketch", 0),
+                                    ("corrected1", "corrected", 1),
+                                    ("corrected3", "corrected", 3)):
+            argv = ["pcoa", "--source", "packed", "--path", store,
+                    "--metric", "grm", "--solver", solver, "--num-pc",
+                    str(NUM_PC), "--block-variants", str(BLOCK_VARIANTS),
+                    "--device", DEVICE]
+            if iters:
+                argv += ["--sketch-iters", str(iters)]
+            counts, timings, _, wall = run_cli(cli_main, argv,
+                                               launch_counters, NUM_PC)
+            if solver != "exact" and counts["packed_gram"]:
+                fail(f"the {name} rung launched K1: {counts}")
+            ladder[name] = outputs.pop()
+            paths[f"pcoa grm {name}"] = counts
+            ladder_lines.append(
+                f"{name}: wall {wall:.3f} s, "
+                + phases_line(timings, ("gram", "finalize", "eigh"))
+                + f", launches {counts}")
+    finally:
+        jobs.pcoa_job = cli_pcoa_job
+    ev = ladder["exact"].eigenvalues
+    rel = {k: relerr(ladder[k].eigenvalues, ev)
+           for k in ("sketch", "corrected1", "corrected3")}
+    prop = relerr(ladder["corrected3"].proportion[:4],
+                  ladder["exact"].proportion[:4])
+    checks = {
+        "corrected(3) top-4 relerr < 1e-2": rel["corrected3"][:4].max() < 1e-2,
+        "corrected(3) relerr < 0.15": rel["corrected3"].max() < 0.15,
+        "sketch relerr < 0.5": rel["sketch"].max() < 0.5,
+        "corrected(1) < sketch": rel["corrected1"].max()
+        < rel["sketch"].max(),
+        "corrected(3) <= 1.05 corrected(1)": rel["corrected3"].max()
+        <= rel["corrected1"].max() * 1.05 + 1e-6,
+        "proportions within 5 %": prop.max() < 0.05,
+    }
+    print(f"ladder, pcoa --metric grm from the packed store ({N_SAMPLES} x "
+          f"{N_VARIANTS}, rank {SKETCH_RANK_DEFAULT}) [{card}]: "
+          + "; ".join(ladder_lines) + "; max relerr of the "
+          f"{NUM_PC} eigenvalues vs exact: sketch "
+          f"{rel['sketch'].max():.4g}, corrected(1) "
+          f"{rel['corrected1'].max():.4g}, corrected(3) "
+          f"{rel['corrected3'].max():.4g} (top 4 "
+          f"{rel['corrected3'][:4].max():.3g}); proportions (top 4) within "
+          f"{prop.max():.3g}; " + ", ".join(
+              f"{k}: {'ok' if v else 'FAILED'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        fail("the ladder's accuracy contract: "
+             + ", ".join(k for k, v in checks.items() if not v))
+
+    # -- 26. corrected ibs and pca; a corrected-rung kill and resume -------
+    for cmd, metric in (("pcoa", "ibs"), ("pca", None)):
+        argv = [cmd, "--source", "packed", "--path", store, "--solver",
+                "corrected", "--num-pc", str(NUM_PC), "--block-variants",
+                str(BLOCK_VARIANTS), "--device", DEVICE]
+        if metric:
+            argv += ["--metric", metric]
+        counts, timings, coords, wall = run_cli(cli_main, argv,
+                                                launch_counters, NUM_PC)
+        sep = separation(coords, source.populations)
+        if counts["packed_gram"] or not sep >= SEPARATION_MIN:
+            fail(f"{cmd} --solver corrected: launches {counts}, PC1-2 "
+                 f"separation {sep:.3f}")
+        paths[f"{cmd} {metric or 'shared-alt'} corrected"] = counts
+        print(f"{cmd} --solver corrected{' --metric ' + metric if metric else ''}"
+              f" from the packed store [{card}]: wall {wall:.3f} s; phases: "
+              + phases_line(timings, ("ingest_setup", "gram", "eigh"))
+              + f"; launches {counts}; PC1-2 separation {sep:.2f}")
+    sk = os.path.join(tmp, "ck_sketch")
+    per_pass = expected
+    kill_at = per_pass + SKETCH_KILL_IN_PASS1
+    killed = ladder_job("corrected", sketch_iters=1, checkpoint_dir=sk,
+                        checkpoint_every_blocks=CKPT_EVERY_BLOCKS)
+
+    def kill_sketch():
+        try:
+            jobs.pcoa_job(killed, source=DyingSource(load_packed(store),
+                                                     kill_at))
+        except RuntimeError as e:
+            if "simulated preemption" not in str(e):
+                raise
+        else:
+            fail("the dying source did not stop the corrected run")
+
+    _, counts, kill_wall = counted(kill_sketch)
+    cursor = manifest_cursor(sk)
+    resumed, r_counts, r_wall = counted(lambda: jobs.pcoa_job(
+        ladder_job("corrected", sketch_iters=1, checkpoint_dir=sk)))
+    if counts["packed_gram"] or r_counts["packed_gram"]:
+        fail(f"the corrected-rung kill and resume launched K1: {counts}, "
+             f"{r_counts}")
+    want = ladder["corrected1"]
+    if not (np.array_equal(resumed.coords, want.coords)
+            and np.array_equal(resumed.eigenvalues, want.eigenvalues)):
+        fail("the resumed corrected run's coordinates differ from the "
+             "uninterrupted run's")
+    print(f"corrected-rung kill and resume, grm, sketch-iters 1 [{card}]: "
+          f"the source died {SKETCH_KILL_IN_PASS1} blocks into pass 1 "
+          f"(wall {kill_wall:.3f} s), the checkpoint held pass 1 at variant "
+          f"{cursor}; the rerun (wall {r_wall:.3f} s, gram "
+          f"{resumed.timer.phases['gram']:.4f} s) gave coordinates and "
+          "eigenvalues bitwise equal to the uninterrupted run's (phase 25)")
+
+    # -- 27. 100,000 samples: the width the exact route cannot hold --------
+    big = os.path.join(tmp, "ds_100k")
+    argv = ["ingest", "--n-samples", str(BIG_SAMPLES), "--n-variants",
+            str(BIG_VARIANTS), "--block-variants", str(BLOCK_VARIANTS),
+            "--chunk-variants", str(CHUNK_VARIANTS), "--store-codec", "raw",
+            "--device", DEVICE]
+    i_counts, i_timings, _, i_wall = run_job(cli_main, argv, launch_counters,
+                                             big)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["pcoa", "--metric", "ibs", "--solver", "corrected",
+            "--sketch-iters", "2", "--source", f"store:{big}", "--num-pc",
+            str(NUM_PC), "--block-variants", str(BLOCK_VARIANTS), "--device",
+            DEVICE]
+    passes0 = span_totals(("solver.pass", "solver.solve"))
+    counts, timings, coords, wall = run_cli(cli_main, argv, launch_counters,
+                                            NUM_PC)
+    peak = torch.cuda.max_memory_allocated()
+    passes = span_line(passes0, span_totals(("solver.pass",
+                                             "solver.solve")))
+    nxn = sketch.nxn_bytes(BIG_SAMPLES, "ibs")
+    sep = separation(coords, SyntheticSource(
+        n_samples=BIG_SAMPLES, n_variants=BIG_VARIANTS).populations)
+    print(f"pcoa --metric ibs --solver corrected --sketch-iters 2, "
+          f"{BIG_SAMPLES} x {BIG_VARIANTS} from a raw store [{card}]: "
+          f"ingest wall {i_wall:.3f} s (compact "
+          f"{i_timings['compact']:.4f} s, launches {i_counts}); pcoa wall "
+          f"{wall:.3f} s; phases: "
+          + phases_line(timings, ("ingest_setup", "gram", "eigh"))
+          + f" ({passes}); launches {counts}; "
+          "torch.cuda.max_memory_allocated() "
+          f"{peak / 1e9:.3f} GB against sketch.nxn_bytes {nxn / 1e9:.1f} GB "
+          f"(one N x N leaf {nxn / 4e9:.1f} GB); PC1-2 separation "
+          f"{sep:.2f}")
+    if counts["packed_gram"] or any(i_counts.values()):
+        fail(f"the 100,000-sample run launched kernels: {counts}")
+    if not peak < nxn / 4:
+        fail(f"peak device memory {peak / 1e9:.3f} GB is not below one "
+             f"N x N leaf ({nxn / 4e9:.1f} GB)")
+    if coords.shape != (BIG_SAMPLES, NUM_PC) or not sep >= SEPARATION_MIN:
+        fail(f"100,000-sample coords {coords.shape}, separation {sep:.3f}")
+    paths["ingest 100k"] = i_counts
+    paths["pcoa ibs corrected 100k"] = counts
+    return paths
+
+
+def flip_file(path: str) -> None:
+    """Flip one bit of the last byte of a file (same size)."""
+    with open(path, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([b[0] ^ 0x10]))
+
+
 def main() -> int:
     import torch
 
@@ -995,6 +1445,7 @@ def main() -> int:
     counts, timings, coords, wall = run_cli(cli_main, argv, launch_counters,
                                             NUM_PC)
     quickstart_gram_s = timings["gram"]
+    quickstart_coords = coords
     launches = counts["packed_gram"]
     if launches != expected:
         fail(f"K1 launched {launches} times on the main path, "
@@ -1204,8 +1655,11 @@ def main() -> int:
         new_paths.update(dataset_store_phases(
             cli_main, launch_counters, card, source, expected,
             synthetic_acc, files, tmp))
+        new_paths.update(checkpoint_and_solver_phases(
+            cli_main, launch_counters, card, dev, source, expected,
+            synthetic_acc, quickstart_coords, files, tmp))
 
-    # -- 23. summary --------------------------------------------------------
+    # -- 28. summary --------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
         "route": "cuda",

@@ -19,6 +19,12 @@ card raises).
     python -m spark_examples_tpu_torch store heal --path ds/ --verify-all
     python -m spark_examples_tpu_torch pca --n-samples 2504 \\
         --n-variants 100000 --num-pc 10
+    python -m spark_examples_tpu_torch pcoa --checkpoint-dir ck \\
+        --checkpoint-every-blocks 4      # killed? the rerun resumes
+    python -m spark_examples_tpu_torch similarity --output-path d.npy
+    python -m spark_examples_tpu_torch pcoa --matrix-path d.npy
+    python -m spark_examples_tpu_torch pcoa --solver corrected \\
+        --sketch-rank 64 --sketch-iters 2 --source store:ds/
 """
 
 from __future__ import annotations
@@ -174,12 +180,36 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    default=config.EIGH_OVERSAMPLE_DEFAULT,
                    help="randomized solver subspace oversample (k+p "
                    "probe columns)")
-    c.add_argument("--checkpoint-dir", default=None,
-                   help="not yet ported: refused")
     c.add_argument("--solver", default="exact",
                    choices=list(config.SOLVER_LADDER),
-                   help="eigensolve accuracy ladder; only 'exact' is "
-                   "ported (the sketch rungs are refused)")
+                   help="pcoa/pca eigensolve accuracy ladder: 'exact' "
+                   "materializes the N x N matrix; 'sketch' folds a "
+                   "low-rank range sketch into (N, rank) state during "
+                   "the single variant pass and solves from the Nystrom "
+                   "core — no N x N anywhere, the route for cohorts past "
+                   "one card's memory; 'corrected' adds --sketch-iters "
+                   "extra streamed power-iteration passes before a "
+                   "Rayleigh solve")
+    c.add_argument("--sketch-rank", type=int,
+                   default=config.SKETCH_RANK_DEFAULT,
+                   help="sketch probe columns (>= --num-pc; clamped to "
+                   "N): the r of the O(N*r) solver state")
+    c.add_argument("--sketch-iters", type=int,
+                   default=config.SKETCH_ITERS_DEFAULT,
+                   help="extra streamed passes of the corrected rung "
+                   "(each one full pass over the cohort)")
+    c.add_argument("--sketch-seed", type=int, default=0,
+                   help="probe RNG seed — a resumed job must keep it (the "
+                   "checkpoint records it and refuses a mismatch); the "
+                   "probes differ from the JAX package's for one seed")
+    c.add_argument("--checkpoint-dir", default=None,
+                   help="directory for accumulator checkpoints: a job "
+                   "finding one there resumes from its cursor (the JAX "
+                   "package's layout; either package resumes the "
+                   "other's)")
+    c.add_argument("--checkpoint-every-blocks", type=int, default=0,
+                   help="save a checkpoint every this many blocks (0 = "
+                   "never save, only resume)")
     c.add_argument("--gram-mode", default="auto",
                    choices=list(config.GRAM_MODES),
                    help="gram accumulation plan; one device holds the "
@@ -227,7 +257,11 @@ def _job_from_args(args) -> JobConfig:
             eigh_oversample=args.eigh_oversample,
             device=args.device,
             checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every_blocks=args.checkpoint_every_blocks,
             solver=args.solver,
+            sketch_rank=args.sketch_rank,
+            sketch_iters=args.sketch_iters,
+            sketch_seed=args.sketch_seed,
             gram_mode=args.gram_mode,
         ),
         output_path=args.output_path,
@@ -253,6 +287,15 @@ def main(argv: list[str] | None = None) -> int:
         _add_common(p)
         p.add_argument("--save-model", default=None,
                        help="not yet ported: refused")
+    p_pcoa = sub.choices["pcoa"]
+    p_pcoa.add_argument("--matrix-path", default=None,
+                        help="consume a persisted similarity/distance "
+                        "matrix (the similarity job's --output-path, .npy "
+                        "or TSV) instead of streaming a cohort")
+    p_pcoa.add_argument("--matrix-kind", default="auto",
+                        choices=["auto", "distance", "similarity"],
+                        help="what the persisted matrix holds (auto: trust "
+                        "the file's sidecar, else assume distance)")
     _add_common(sub.add_parser(
         "pack", help="ETL: stream any source (QC and LD pruning "
         "included) into the 2-bit packed store at --output-path; later "
@@ -294,6 +337,10 @@ def main(argv: list[str] | None = None) -> int:
                          help="re-hash EVERY chunk against its content "
                          "address (not just the quarantine ledger) and "
                          "heal whatever fails")
+    p_store.add_argument("--device", default="cuda", choices=list(DEVICES),
+                         help="where an origin re-compaction runs (LD "
+                         "pruning's r^2); cuda raises when no card is "
+                         "visible")
     # The pca job is defined on the shared-alt similarity; any other
     # --metric would be silently ignored, so it is rejected instead.
     sub.choices["pca"].set_defaults(metric="shared-alt")
@@ -326,8 +373,11 @@ def main(argv: list[str] | None = None) -> int:
         )
         timer = res.timer
     else:
-        run = jobs.pcoa_job if args.command == "pcoa" else jobs.variants_pca_job
-        out = run(job)
+        if args.command == "pcoa":
+            out = jobs.pcoa_job(job, matrix_path=args.matrix_path,
+                                matrix_kind=args.matrix_kind)
+        else:
+            out = jobs.variants_pca_job(job)
         _print_coords(out, job)
         timer = out.timer
     if args.timings:
@@ -407,7 +457,7 @@ def _run_store_admin(args) -> int:
     from spark_examples_tpu_torch.store.heal import heal
 
     report = heal(args.path, replicas=tuple(args.replica),
-                  verify_all=args.verify_all)
+                  verify_all=args.verify_all, device=args.device)
     print(json.dumps(report, sort_keys=True))
     if report["failed"]:
         print(

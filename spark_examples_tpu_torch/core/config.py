@@ -36,9 +36,20 @@ UNPORTED_SOURCES = ("parquet",)
 # at a fixed level, "zlib-dict" = deflate with a per-contig preset
 # dictionary trained during compaction.
 STORE_CODEC_SPECS = ("raw", "zlib", "zlib-dict")
-# Accepted so that a config naming them is refused with a message: only
-# the exact rung on one device is ported.
-SOLVER_LADDER = ("exact", "sketch", "corrected")
+# Accuracy ladder of the PCoA/PCA eigensolve (solvers/): "exact" is the
+# dense route (materialized N x N -> dense or randomized eigh); "sketch"
+# folds a low-rank range sketch Y = B @ Omega into (N, rank) state during
+# the single variant pass and solves from the Nystrom core, with no N x N
+# anywhere; "corrected" re-streams the cohort sketch_iters more times as
+# subspace-iteration power steps before a Rayleigh solve.
+SOLVER_LADDER = ("sketch", "corrected", "exact")
+# Numeric twin of the ladder for the solver.rung gauge (0 sketch,
+# 1 corrected, 2 exact).
+SOLVER_RUNG_ID = {rung: i for i, rung in enumerate(SOLVER_LADDER)}
+SKETCH_RANK_DEFAULT = 64
+SKETCH_ITERS_DEFAULT = 2
+# tile2d is accepted so that a config naming it is refused with a
+# message: one device holds the whole matrix.
 GRAM_MODES = ("auto", "replicated", "variant", "tile2d")
 
 # Randomized-eigh defaults (power iterations / subspace oversample).
@@ -236,9 +247,16 @@ class ComputeConfig:
     eigh_iters: int = EIGH_ITERS_DEFAULT
     eigh_oversample: int = EIGH_OVERSAMPLE_DEFAULT
     device: str = "cuda"
-    # Not ported yet; set only to be refused with a message.
+    # Accumulator checkpoints (core/checkpoint.py): a job finding one in
+    # checkpoint_dir resumes from its cursor; with
+    # checkpoint_every_blocks > 0 it saves every that many blocks
+    # (0 = resume only, never save).
     checkpoint_dir: str | None = None
+    checkpoint_every_blocks: int = 0
     solver: str = "exact"
+    sketch_rank: int = SKETCH_RANK_DEFAULT  # probe columns (>= num_pc)
+    sketch_iters: int = SKETCH_ITERS_DEFAULT  # extra passes (corrected)
+    sketch_seed: int = 0  # probe RNG seed (a resume must keep it)
     gram_mode: str = "auto"
 
     def __post_init__(self):
@@ -252,13 +270,20 @@ class ComputeConfig:
         _check_int("compute", "--braycurtis-levels", self.braycurtis_levels,
                    1, 1 << 16, "threshold grid of the matmul lowering")
         _check_enum("compute", "--solver", self.solver, SOLVER_LADDER,
-                    "eigensolve accuracy ladder")
-        if self.solver != "exact":
-            raise ValueError(
-                f"bad compute config: --solver={self.solver!r} — the sketch "
-                "rungs are not yet ported to the PyTorch package; use "
-                "--solver exact"
-            )
+                    "the accuracy ladder: sketch = one-pass range sketch, "
+                    "corrected = +power-iteration passes, exact = dense "
+                    "N x N route")
+        _check_int("compute", "--checkpoint-every-blocks",
+                   self.checkpoint_every_blocks, 0, 1 << 40,
+                   "blocks between checkpoint saves; 0 = never save")
+        _check_int("compute", "--sketch-rank", self.sketch_rank, 1, 65536,
+                   "range-sketch probe columns; clamped to N at run time")
+        _check_int("compute", "--sketch-iters", self.sketch_iters, 0, 1000,
+                   "extra streamed power-iteration passes of the "
+                   "corrected rung; each is one full pass over the cohort")
+        _check_int("compute", "--sketch-seed", self.sketch_seed,
+                   -(2 ** 63), 2 ** 63 - 1,
+                   "probe RNG seed; a resumed job must keep it")
         _check_enum("compute", "--gram-mode", self.gram_mode, GRAM_MODES,
                     "gram accumulation plan")
         if self.gram_mode == "tile2d":
@@ -293,6 +318,26 @@ class ComputeConfig:
             if kernels.get(metric).family != "table":
                 kernels.check_fused_lowering(
                     metric, kernels.streams_packed(metric, self.pack_stream))
+        if self.solver != "exact":
+            if self.sketch_rank < self.num_pc:
+                raise ValueError(
+                    f"bad compute config: --sketch-rank={self.sketch_rank} "
+                    f"< --num-pc={self.num_pc} — the sketch cannot recover "
+                    "more eigenpairs than it has probe columns; raise "
+                    "--sketch-rank (components + ~32 oversample is the "
+                    "usual shape)"
+                )
+            if self.solver == "corrected" and self.sketch_iters < 1:
+                raise ValueError(
+                    "bad compute config: --solver=corrected with "
+                    "--sketch-iters=0 is the plain sketch rung — ask for "
+                    "--solver=sketch, or give corrected >= 1 extra pass"
+                )
+            if self.metric is not None:
+                try:
+                    kernels.check_sketchable(self.metric, self.solver)
+                except ValueError as e:
+                    raise ValueError(f"bad compute config: {e}") from None
 
 
 @dataclass

@@ -19,6 +19,11 @@ more; only the ones the ported modules cross are here):
                             path, before the bytes are mapped
 ``store.readahead.decode``  per background chunk warm, inside the
                             readahead pool worker (``store/readahead.py``)
+``checkpoint.tile_write``   per checkpoint file, AFTER its sha256 was
+                            recorded, so a truncation corrupts it against
+                            the manifest (``core/checkpoint.py``)
+``checkpoint.tile_read``    per checkpoint file during verification on
+                            load, before it is hashed
 ==========================  ================================================
 
 Env grammar (``;``-separated specs, ``:``-separated fields), read
@@ -54,6 +59,8 @@ SITES = (
     "ingest.block_read",
     "store.read",
     "store.readahead.decode",
+    "checkpoint.tile_write",
+    "checkpoint.tile_read",
 )
 
 # Exit code of the "kill" kind, so a test can tell an injected kill from

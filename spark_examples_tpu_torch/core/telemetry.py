@@ -45,7 +45,41 @@ NAMES: dict[str, tuple[str, str]] = {
         "one in-place chunk repair: verified copy from a replica dir, "
         "else re-compaction of the chunk's origin span",
     ),
+    "checkpoint.save": ("span", "one checkpoint save (write + rotate)"),
+    "checkpoint.write": (
+        "span", "one checkpoint data file (hash-tee + np.save)"),
+    "checkpoint.verify": (
+        "span", "sha256 re-hash of a generation's files on load"),
+    "checkpoint.rotate": ("span", "atomic generation rotation"),
+    "checkpoint.load": (
+        "span", "one checkpoint load (verify + fall back + place)"),
+    "solver.pass": (
+        "span",
+        "one streamed pass of the sketch solver (solvers/): the range "
+        "sketch Y = B@Q folded block by block over the whole cohort — "
+        "pass 0 against the random probes, later passes the corrected "
+        "rung's subspace-iteration power steps",
+    ),
+    "solver.solve": (
+        "span",
+        "the sketch solver's terminal solve: Nystrom eigenpairs "
+        "(single-pass rung) or Rayleigh Ritz pairs (corrected) from the "
+        "(N, rank) sketch state — never an N x N eigh",
+    ),
     # -- counters ---------------------------------------------------------
+    "checkpoint.fallback": (
+        "counter",
+        "loads that resumed from the .old generation (latest corrupt or "
+        "missing), promoted back to the latest slot",
+    ),
+    "checkpoint.bytes_written": (
+        "counter", "checkpoint data bytes written"),
+    "solver.passes": (
+        "counter",
+        "streamed sketch-solver passes completed (1 for the sketch "
+        "rung, 1 + --sketch-iters for corrected; each is one full "
+        "variant pass over the cohort)",
+    ),
     "ingest.retries": (
         "counter", "transient-IO retries absorbed by RetryingSource"),
     "ingest.reopens": (
@@ -108,6 +142,36 @@ NAMES: dict[str, tuple[str, str]] = {
     "telemetry.unknown_names": (
         "counter", "instrumentation calls naming an undeclared metric"),
     # -- gauges -----------------------------------------------------------
+    "solver.rung": (
+        "gauge",
+        "the accuracy-ladder rung this job's eigensolve ran "
+        "(0 sketch, 1 corrected, 2 exact)",
+    ),
+    "solver.rank": (
+        "gauge",
+        "sketch probe columns actually used (--sketch-rank clamped to "
+        "N) — the r of the (N, r) solver state",
+    ),
+    "solver.state_bytes": (
+        "gauge",
+        "sketch-solver state residency (the (N, r) f32 leaves and the "
+        "(N,) vectors); compare solver.nxn_bytes_avoided",
+    ),
+    "solver.nxn_bytes_avoided": (
+        "gauge",
+        "bytes of N x N accumulator the exact route would have "
+        "allocated for this cohort and metric",
+    ),
+    "solver.dual": (
+        "gauge",
+        "1 when the job streamed a ratio metric's dual (numerator + "
+        "pair-count denominator) sketches, 0 for a single factor",
+    ),
+    "solver.dual_den_defect": (
+        "gauge",
+        "measured rank-1 residual of the ratio denominator from the "
+        "pass-0 dual sketches — 0 means the scaled operator is exact",
+    ),
     "store.cache_bytes": (
         "gauge", "decoded bytes resident in the store's decode cache"),
     "store.readahead.depth": (

@@ -168,7 +168,9 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
         owns (CPU), with no intermediate block."""
         width = padded_width(block_variants)
         if stats is not None:
-            stats["max_value"] = 2  # store payloads are 2-bit dosages
+            # Store payloads are 2-bit dosages; a resumed job keeps the
+            # largest value of the blocks before its cursor.
+            stats["max_value"] = max(stats.get("max_value", 0), 2)
         for lo, hi, meta in source.block_spans(block_variants,
                                                start_variant):
             slab = None

@@ -18,6 +18,12 @@ Three families, as in the JAX package's registry:
   instead of the gram accumulator (braycurtis, whose Manhattan
   contraction is the CUDA kernel of ``ops/braycurtis_kernel.py``).
 
+A kernel may also declare how the sketch solver (``solvers/``) streams
+it without any N x N state: a :class:`FactorSketch` when the centered
+solve operator is an exact Gram of per-block features, or a
+:class:`DualSketch` for a ratio metric whose numerator and pair-count
+denominator stream as two sketches in the same pass.
+
 Each finalize is the counterpart of the JAX package's registration
 (``kernels/builtin.py``), whose ``np_finalize`` twins are the spec.
 """
@@ -30,6 +36,39 @@ from typing import Callable
 import torch
 
 from spark_examples_tpu_torch.ops import genotype
+
+
+@dataclass(frozen=True)
+class FactorSketch:
+    """Single-factor streamability: the metric's centered solve operator
+    is ``B = (J A)(J A)^T / denom`` for per-block features
+    ``A_b = features(block)``.
+
+    ``features(block, precise) -> (a, kept)``: the (N, v) f32 feature
+    columns of one int8 dosage block and the kept-variant count feeding
+    the denominator (0 when unused). ``uses_nvar``: divide the finalized
+    operator by the accumulated kept count (grm). ``pca_family``: the
+    factor is the pca job's similarity (shared-alt, no denominator).
+    """
+
+    features: Callable
+    uses_nvar: bool = False
+    pca_family: bool = False
+
+
+@dataclass(frozen=True)
+class DualSketch:
+    """Ratio-metric streamability: similarity ``S = NUM ⊘ DEN`` with NUM
+    and the pair-count denominator DEN both sums of cross-products of
+    per-block feature columns. ``operands(block) -> {name: (N, v) f32}``;
+    ``num_terms`` / ``den_terms`` are ``(left, right, weight)`` triples
+    meaning ``sum_b w * L_b R_b^T``. ``num_psd``: NUM is positive
+    semi-definite, which the single-pass Nystrom rung needs."""
+
+    operands: Callable
+    num_terms: tuple[tuple[str, str, float], ...]
+    den_terms: tuple[tuple[str, str, float], ...]
+    num_psd: bool = True
 
 
 @dataclass(frozen=True)
@@ -55,6 +94,8 @@ class Kernel:
     update: Callable | None = None
     # (job, source, timer) -> the (N, N) distance on the job's device.
     table_runner: Callable | None = None
+    # How the sketch solver streams the metric (None: exact rung only).
+    sketch: FactorSketch | DualSketch | None = None
 
     def flops(self, n: int, v: int) -> float:
         """Operations one (n, v) block contributes. Count kernels: one
@@ -165,6 +206,40 @@ def _grm_update(acc, block, precise):
     return gram.grm_update(acc, block, precise)
 
 
+def _ibs_dual_operands(block):
+    """Validity, carrier and hom-alt indicators and the dosage of the
+    called genotypes, as f32 (N, v) operands."""
+    t1 = (block >= 1).to(torch.float32)
+    t2 = (block >= 2).to(torch.float32)
+    return {"c": (block >= 0).to(torch.float32), "t1": t1, "t2": t2,
+            "y": t1 + t2}
+
+
+def _jaccard_dual_operands(block):
+    return {"c": (block >= 0).to(torch.float32),
+            "t1": (block >= 1).to(torch.float32)}
+
+
+def _shared_alt_features(block, precise):
+    return (block >= 1).to(torch.float32), 0.0  # denominator unused
+
+
+def _raw_value_features(block, precise):
+    """Raw values with missing calls as 0 (euclidean is exact when no
+    call is missing; with missingness the sketch models zero-imputed
+    values)."""
+    return torch.clamp(block, min=0).to(torch.float32), 0.0
+
+
+def _grm_features(block, precise):
+    """The exact route's VanRaden standardization; the sketch's products
+    run in f32 whatever ``precise`` says."""
+    from spark_examples_tpu_torch.ops import gram
+
+    z, keep = gram.grm_standardize(block, precise)
+    return z.to(torch.float32), keep.sum().to(torch.float32)
+
+
 def _braycurtis_runner(job, source, timer):
     from spark_examples_tpu_torch.pipelines import runner
 
@@ -186,6 +261,14 @@ _register(Kernel(
     stats=("m", "d1"),
     max_increment=2,  # yc with y <= 2
     finalize=_ibs_finalize,
+    # NUM = 2m - d1 = sum_v c_i c_j (2 - |a - b|), a PSD kernel per
+    # variant, over DEN = 2m (exactly rank-1 when no call is missing).
+    sketch=DualSketch(
+        operands=_ibs_dual_operands,
+        num_terms=(("c", "c", 2.0), ("y", "c", -1.0), ("c", "y", -1.0),
+                   ("t1", "t1", 2.0), ("t2", "t2", 2.0)),
+        den_terms=(("c", "c", 2.0),),
+    ),
 ))
 _register(Kernel(
     name="ibs2",
@@ -204,6 +287,7 @@ _register(Kernel(
     stats=("s",),
     max_increment=1,
     finalize=_shared_alt_finalize,
+    sketch=FactorSketch(features=_shared_alt_features, pca_family=True),
 ))
 _register(Kernel(
     name="king",
@@ -222,6 +306,12 @@ _register(Kernel(
     stats=("s", "sc"),
     max_increment=2,  # the finalize's union sc + sc^T - s in int32
     finalize=_jaccard_finalize,
+    # NUM = intersection counts T1 T1^T (PSD); DEN = the union counts.
+    sketch=DualSketch(
+        operands=_jaccard_dual_operands,
+        num_terms=(("t1", "t1", 1.0),),
+        den_terms=(("t1", "c", 1.0), ("c", "t1", 1.0), ("t1", "t1", -1.0)),
+    ),
 ))
 _register(Kernel(
     name="pc-invariant",
@@ -241,6 +331,7 @@ _register(Kernel(
     max_increment=4,  # qc/yy at dosage values; m^2 in general
     value_scaled_budget=True,
     finalize=_euclidean_finalize,
+    sketch=FactorSketch(features=_raw_value_features),
 ))
 _register(Kernel(
     name="dot",
@@ -251,6 +342,7 @@ _register(Kernel(
     max_increment=4,
     value_scaled_budget=True,
     finalize=_dot_finalize,
+    sketch=FactorSketch(features=_raw_value_features),
 ))
 _register(Kernel(
     name="grm",
@@ -258,6 +350,7 @@ _register(Kernel(
     finalize=_grm_finalize,
     init=_grm_init,
     update=_grm_update,
+    sketch=FactorSketch(features=_grm_features, uses_nvar=True),
 ))
 _register(Kernel(
     name="braycurtis",
@@ -300,6 +393,60 @@ def finalizable_names() -> tuple[str, ...]:
     """The metrics a job can run: a ported finalize or a table runner."""
     return tuple(k.name for k in _REGISTRY.values()
                  if k.finalize is not None or k.table_runner is not None)
+
+
+def factor_sketch_names() -> tuple[str, ...]:
+    """Kernels streamable as a single-factor sketch."""
+    return tuple(k.name for k in _REGISTRY.values()
+                 if isinstance(k.sketch, FactorSketch))
+
+
+def dual_sketch_names() -> tuple[str, ...]:
+    """Ratio kernels streamable as a numerator/denominator dual sketch."""
+    return tuple(k.name for k in _REGISTRY.values()
+                 if isinstance(k.sketch, DualSketch))
+
+
+def unsketchable_names() -> tuple[str, ...]:
+    """Gram kernels with no declared streamability (exact rung only)."""
+    return tuple(k.name for k in _REGISTRY.values()
+                 if k.family in ("count", "float") and k.sketch is None)
+
+
+def unsketchable_metric_error(metric: str, solver: str) -> str:
+    """The refusal text for a metric the sketch ladder cannot run (the
+    JAX package's words, its names derived from the registry)."""
+    kern = _REGISTRY.get(metric)
+    if kern is not None and isinstance(kern.sketch, DualSketch):
+        # Only a dual kernel whose numerator is not PSD lands here.
+        return (
+            f"--solver {solver} does not support --metric {metric}: its "
+            "dual-sketch numerator is not PSD, so the single-pass "
+            "Nystrom rung is unavailable — use --solver corrected "
+            "(streamed subspace iteration handles indefinite operators)"
+        )
+    return (
+        f"--solver {solver} does not support --metric {metric}: the "
+        "sketch streams an exact Gram factor per block, which exists "
+        f"for {' | '.join(factor_sketch_names())}; ratio metrics "
+        f"({' | '.join(dual_sketch_names())}) stream numerator + "
+        "pair-count denominator as a dual sketch; metrics declaring "
+        f"neither ({' | '.join(unsketchable_names())}) require the "
+        "materialized N x N — use --solver exact for them"
+    )
+
+
+def check_sketchable(metric: str, solver: str) -> None:
+    """Raise, naming ``--solver`` and ``--metric``, unless ``metric``
+    can run the ``solver`` rung: the one gate of config-time validation
+    and the solver driver."""
+    kern = _REGISTRY.get(metric)
+    spec = kern.sketch if kern is not None else None
+    if spec is None:
+        raise ValueError(unsketchable_metric_error(metric, solver))
+    if (isinstance(spec, DualSketch) and solver == "sketch"
+            and not spec.num_psd):
+        raise ValueError(unsketchable_metric_error(metric, solver))
 
 
 def streams_packed(metric: str, pack_stream: str) -> bool:

@@ -79,8 +79,15 @@ def eigh_flops(n: int, method: str = "dense", k: int = 0,
                iters: int = EIGH_ITERS_DEFAULT) -> float:
     """Operation estimate matching the solver actually run: ~9 n^3 for
     the dense solve; for the randomized one, (iters + 2) B @ Q products at
-    2 n^2 p each plus (iters + 1) QR factorisations at ~4 n p^2."""
+    2 n^2 p each plus (iters + 1) QR factorisations at ~4 n p^2. For the
+    sketch solver (``iters`` = its passes, ``k + oversample`` = its rank)
+    only the solve stage's residue: a CholeskyQR2 (~6 n p^2) between
+    passes and the terminal Nystrom or Rayleigh solve (~4 n p^2); its
+    B @ Q products streamed with the passes and are credited there."""
     if method == "randomized":
         p = k + oversample
         return (iters + 2) * 2.0 * n * n * p + (iters + 1) * 4.0 * n * p * p
+    if method == "sketch":
+        p = k + oversample
+        return max(iters - 1, 0) * 6.0 * n * p * p + 4.0 * n * p * p
     return 9.0 * float(n) ** 3

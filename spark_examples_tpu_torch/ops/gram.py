@@ -43,6 +43,15 @@ def _check_metric(metric: str) -> kernels.Kernel:
     return kern
 
 
+def acc_leaves(metric: str) -> tuple[str, ...]:
+    """Accumulator leaf names for a gram metric: the checkpoint schema,
+    the JAX package's ``ops/gram.py::acc_leaves``."""
+    kern = _check_metric(metric)
+    if kern.family == "float":
+        return tuple(_FLOAT_LEAVES)
+    return kern.pieces
+
+
 def init(n: int, metric: str, device) -> dict[str, torch.Tensor]:
     """Fresh zero accumulators for ``metric`` on ``device``: int32 (N, N)
     per product for count kernels, the kernel's own for float ones."""

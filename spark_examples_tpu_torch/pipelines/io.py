@@ -1,7 +1,9 @@
-"""Output writers: coordinate TSVs and self-describing matrices (a
-``<path>.meta.json`` sidecar records the sample ids and whether the
-matrix holds similarities or distances). Same formats as the JAX
-package's writers."""
+"""Output writers and the matrix reader: coordinate TSVs and
+self-describing matrices (a ``<path>.meta.json`` sidecar records the
+sample ids and whether the matrix holds similarities or distances), so
+the similarity -> ``pcoa --matrix-path`` handoff cannot center a
+similarity matrix as if it held distances. Same formats as the JAX
+package's."""
 
 from __future__ import annotations
 
@@ -36,3 +38,39 @@ def write_matrix(path: str, sample_ids: list[str], matrix: np.ndarray,
                 f.write(sid + "\t" + "\t".join(f"{v:.6g}" for v in row) + "\n")
     with open(path + ".meta.json", "w") as f:
         json.dump({"kind": kind, "sample_ids": list(sample_ids)}, f)
+
+
+def read_matrix(path: str) -> tuple[list[str], np.ndarray, str | None]:
+    """Inverse of :func:`write_matrix` for square matrices: (sample ids,
+    matrix, kind or None). A ``.npy`` file without a sidecar gets the ids
+    ``S000000, ...``; a TSV reads its header row. A rectangular
+    cross-cohort matrix (its sidecar names ``col_ids``) is refused: rows
+    and columns must index one cohort."""
+    kind = None
+    sidecar_ids = None
+    meta_path = path + ".meta.json"
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        kind = meta.get("kind")
+        sidecar_ids = meta.get("sample_ids")
+        if meta.get("col_ids") is not None:
+            raise ValueError(
+                f"{path}: rectangular cross-cohort matrix (rows and "
+                "columns index different cohorts) — not consumable by "
+                "the square-matrix jobs (pcoa --matrix-path)"
+            )
+    if path.endswith(".npy"):
+        m = np.load(path)
+        ids = sidecar_ids or [f"S{i:06d}" for i in range(m.shape[0])]
+        return ids, m, kind
+    with open(path) as f:
+        header = f.readline().rstrip("\n").split("\t")[1:]
+        rows = [line.rstrip("\n").split("\t")[1:] for line in f]
+    m = np.asarray(rows, dtype=np.float64)
+    if m.shape[0] != m.shape[1]:
+        raise ValueError(
+            f"{path}: matrix is {m.shape[0]}x{m.shape[1]} — read_matrix "
+            "serves the square similarity/distance handoff only"
+        )
+    return header, m, kind

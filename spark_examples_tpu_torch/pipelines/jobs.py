@@ -5,9 +5,14 @@
   coords, on the device (only the (N, k) coordinates come back to the
   host). Count and float kernels (the dosage metrics, euclidean, dot,
   grm) stream through the gram accumulators; table kernels (braycurtis)
-  materialise the table and lower it.
+  materialise the table and lower it. Or from a persisted matrix
+  (``--matrix-path``: the similarity job's output, the two-job handoff).
 - :func:`variants_pca_job` — the flagship job: shared-alt similarity
   -> centered PCA, on the device.
+
+Both coordinates jobs take the sketch rungs of the accuracy ladder
+(``--solver sketch|corrected``, ``solvers/``): streamed (N, rank) state
+and a Nystrom or Rayleigh solve, no N x N anywhere.
 """
 
 from __future__ import annotations
@@ -17,12 +22,20 @@ import warnings
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from spark_examples_tpu_torch import kernels
-from spark_examples_tpu_torch.core.config import EIGH_ITERS_DEFAULT, JobConfig
+from spark_examples_tpu_torch.core import telemetry
+from spark_examples_tpu_torch.core.config import (
+    EIGH_ITERS_DEFAULT,
+    SOLVER_RUNG_ID,
+    JobConfig,
+)
+from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
 from spark_examples_tpu_torch.models.pca import fit_pca
 from spark_examples_tpu_torch.models.pcoa import fit_pcoa
+from spark_examples_tpu_torch.ops.distances import similarity_to_distance
 from spark_examples_tpu_torch.ops.eigh import eigh_flops
 from spark_examples_tpu_torch.pipelines import io as pio
 from spark_examples_tpu_torch.pipelines import runner
@@ -48,15 +61,24 @@ def similarity_matrix_job(job: JobConfig, source=None
     return result
 
 
-def pcoa_job(job: JobConfig, source=None) -> CoordsOutput:
+def pcoa_job(job: JobConfig, source=None, matrix_path: str | None = None,
+             matrix_kind: str = "auto") -> CoordsOutput:
     """Cohort -> PCoA coordinates: gram accumulators -> finalize (or a
     table kernel's runner) -> center -> eigh -> coords, without the N x N
-    matrix leaving the device."""
+    matrix leaving the device. With ``matrix_path``, from a persisted
+    matrix instead (the two-job handoff): ``matrix_kind`` says whether
+    it holds distances or similarities (similarities are
+    Gower-transformed first); ``auto`` trusts the file's sidecar and
+    falls back to distance."""
     cfg = job.compute
+    if matrix_path is not None:
+        return _pcoa_from_matrix(job, matrix_path, matrix_kind)
     metric = cfg.metric or "ibs"
     timer = PhaseTimer()
     table = kernels.get(metric).table_runner
     with runner.job_source(job, source, timer) as source:
+        if cfg.solver != "exact":
+            return _sketch_route(job, source, timer, kind="pcoa")
         if table is not None:
             dist = table(job, source, timer)
             sample_ids, n_variants = source.sample_ids, source.n_variants
@@ -76,6 +98,57 @@ def pcoa_job(job: JobConfig, source=None) -> CoordsOutput:
                         res.eigenvalues.cpu().numpy(), timer, n_variants,
                         method=method, eigh_iters=cfg.eigh_iters,
                         proportion=res.proportion_explained.cpu().numpy())
+
+
+def _pcoa_from_matrix(job: JobConfig, matrix_path: str,
+                      matrix_kind: str) -> CoordsOutput:
+    """PCoA of a persisted square matrix, on the job's device."""
+    cfg = job.compute
+    if job.model_path:
+        raise ValueError(
+            "--save-model cannot be combined with --matrix-path: the "
+            "persisted matrix does not record which metric built it, "
+            "and a model stamped with the wrong metric would project "
+            "silently wrong coordinates — fit the model from a cohort "
+            "stream instead"
+        )
+    if cfg.solver != "exact":
+        raise ValueError(
+            "--solver sketch/corrected streams the cohort to avoid "
+            "materializing N x N; a persisted --matrix-path IS the "
+            "materialized matrix — consume it with --solver exact"
+        )
+    device = resolve_device(cfg.device)
+    sample_ids, m, file_kind = pio.read_matrix(matrix_path)
+    kind = matrix_kind if matrix_kind != "auto" else (file_kind or "distance")
+    if kind not in ("distance", "similarity"):
+        raise ValueError(
+            f"matrix_kind must be distance|similarity, got {kind!r}")
+    mat = torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(device)
+    dist = mat if kind == "distance" else similarity_to_distance(mat)
+    timer = PhaseTimer()
+    method = _eigh_method(cfg.eigh_mode, dist.shape[0])
+    with timer.phase("eigh"):
+        res = hard_sync(fit_pcoa(dist, k=cfg.num_pc, method=method,
+                                 iters=cfg.eigh_iters,
+                                 oversample=cfg.eigh_oversample))
+    return _emit_coords(job, sample_ids, res.coords.cpu().numpy(),
+                        res.eigenvalues.cpu().numpy(), timer, 0,
+                        method=method, eigh_iters=cfg.eigh_iters,
+                        proportion=res.proportion_explained.cpu().numpy())
+
+
+def _sketch_route(job: JobConfig, source, timer, kind: str) -> CoordsOutput:
+    """The sketch and corrected rungs: streamed passes and a Nystrom or
+    Rayleigh solve (solvers/). ``method="sketch"`` gives the output tail
+    the solve stage's operation credit (the passes' products were
+    credited to ``gram_flops`` as they streamed)."""
+    from spark_examples_tpu_torch.solvers import run_sketch_solve
+
+    res = run_sketch_solve(job, source, timer, kind=kind)
+    return _emit_coords(job, res.sample_ids, res.coords, res.eigenvalues,
+                        timer, res.n_variants, method="sketch",
+                        eigh_iters=res.passes, proportion=res.proportion)
 
 
 def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
@@ -99,6 +172,8 @@ def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
         compute=dataclasses.replace(job.compute, metric="shared-alt"))
     timer = PhaseTimer()
     with runner.job_source(job, source, timer) as source:
+        if job.compute.solver != "exact":
+            return _sketch_route(job, source, timer, kind="pca")
         grun = runner.run_gram(job, source, timer)
     with timer.phase("finalize"):
         sim = hard_sync(runner.finalize_field(grun.acc, "shared-alt",
@@ -114,12 +189,17 @@ def _emit_coords(job: JobConfig, sample_ids, coords, vals, timer,
                  n_variants: int, method: str,
                  eigh_iters: int = EIGH_ITERS_DEFAULT,
                  proportion=None) -> CoordsOutput:
-    """Shared output tail: solver-matched operation credit, result
-    assembly, optional TSV persistence."""
+    """Shared output tail: solver-matched operation credit, the ladder
+    rung gauge, result assembly, optional TSV persistence. The sketch's
+    probe width is ``--sketch-rank``, so its oversample is rank - k and
+    ``eigh_iters`` carries its pass count."""
+    cfg = job.compute
+    oversample = (cfg.sketch_rank - cfg.num_pc if method == "sketch"
+                  else cfg.eigh_oversample)
     timer.add("eigh_flops", eigh_flops(len(sample_ids), method=method,
-                                       k=job.compute.num_pc,
-                                       oversample=job.compute.eigh_oversample,
+                                       k=cfg.num_pc, oversample=oversample,
                                        iters=eigh_iters))
+    telemetry.gauge_set("solver.rung", float(SOLVER_RUNG_ID[cfg.solver]))
     out = CoordsOutput(sample_ids, coords, vals, timer, n_variants,
                        proportion=proportion)
     if job.output_path:

@@ -4,7 +4,12 @@ float kernels), or materialise the whole table and lower it (table
 kernels: Bray-Curtis).
 
 Single process, single device: there is no mesh and no distribution
-plan. Checkpoint/resume is not ported yet and is refused.
+plan. A job with ``--checkpoint-dir`` resumes from the checkpoint it
+finds there and, with ``--checkpoint-every-blocks``, saves one every
+that many blocks (core/checkpoint.py). The gram accumulation and each
+pass of the sketch solver stream through one loop, :func:`run_pass`
+(the JAX package's ``run_gram`` loop and ``run_sketch_pass``), so they
+share the feed, the cursor and the checkpoint cadence.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from spark_examples_tpu_torch import kernels
+from spark_examples_tpu_torch.core import checkpoint as ckpt
 from spark_examples_tpu_torch.core.config import (
     UNPORTED_SOURCES,
     IngestConfig,
@@ -51,7 +57,7 @@ def build_source(cfg: IngestConfig, device: str = "cuda"):
     pruning layered on as the config asks (QC first: monomorphic and
     high-missing variants are its job). LD pruning's r^2 products run on
     ``device``."""
-    src = _build_raw_source(cfg)
+    src = _build_raw_source(cfg, device)
     if cfg.maf > 0.0 or cfg.max_missing < 1.0:
         src = FilteredSource(src, maf=cfg.maf, max_missing=cfg.max_missing)
     if cfg.ld_r2 > 0.0:
@@ -79,20 +85,22 @@ def _maybe_retrying(src, cfg: IngestConfig, reopen=None):
     )
 
 
-def _open_store(cfg: IngestConfig):
+def _open_store(cfg: IngestConfig, device: str):
     """The dataset store at ``cfg.path``, restricted to
-    ``--references`` through its position index (no chunk touched)."""
+    ``--references`` through its position index (no chunk touched).
+    An inline heal from the origin runs on ``device``."""
     src = open_store(cfg.path,
                      cache_bytes=cfg.store_cache_mb << 20,
                      readahead_chunks=cfg.readahead_chunks,
                      readahead_chunks_max=cfg.readahead_chunks_max,
-                     replicas=tuple(cfg.store_replicas))
+                     replicas=tuple(cfg.store_replicas),
+                     device=device)
     if cfg.references:
         return src.restrict(cfg.references)
     return src
 
 
-def _build_raw_source(cfg: IngestConfig):
+def _build_raw_source(cfg: IngestConfig, device: str):
     if cfg.source == "synthetic":
         return SyntheticSource(
             n_samples=cfg.n_samples,
@@ -123,8 +131,8 @@ def _build_raw_source(cfg: IngestConfig):
         return _maybe_retrying(load_packed(cfg.path), cfg,
                                reopen=lambda: load_packed(cfg.path))
     if cfg.source == "store":
-        return _maybe_retrying(_open_store(cfg), cfg,
-                               reopen=lambda: _open_store(cfg))
+        return _maybe_retrying(_open_store(cfg, device), cfg,
+                               reopen=lambda: _open_store(cfg, device))
     raise ValueError(f"unknown source {cfg.source!r}")
 
 
@@ -152,13 +160,12 @@ class GramRun:
 
 def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
     """Stream the cohort through the accumulators: one update per block,
-    on the job's device, through the resolved lowering."""
+    on the job's device, through the resolved lowering. With
+    ``--checkpoint-dir`` the stream starts at the cursor of the
+    checkpoint found there, from its accumulators and stream
+    statistics, and a checkpoint is saved every
+    ``--checkpoint-every-blocks`` blocks after a device sync."""
     cfg = job.compute
-    if cfg.checkpoint_dir:
-        raise ValueError(
-            "--checkpoint-dir: checkpoint/resume is not yet ported to the "
-            "PyTorch package — run without it"
-        )
     device = resolve_device(cfg.device)
     n = source.n_samples
     metric = cfg.metric or "ibs"
@@ -167,32 +174,76 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
     lowering = gram.resolve_gram_lowering(cfg.gram_lowering, packed, device,
                                           metric)
     update = gram.impl_for(metric, packed, cfg.grm_precise, lowering)
-    acc = gram.init(n, metric, device)
-    # Only value-scaled kernels on a dense stream read the largest value.
+    # Only value-scaled kernels on a dense stream read the largest value;
+    # a resumed job starts from the saved one, so the int32 guard sees
+    # the whole stream's.
     stream_stats = ({} if kern.value_scaled_budget and not packed
                     else None)
     bv = job.ingest.block_variants
-    last_stop = 0
-    # closing(): a failed update stops the feed's producer at once, not
-    # when the traceback lets go of the generator.
-    feed = closing(stream_to_device(
-        source, bv, device, pack=packed, stats=stream_stats,
-        prefetch=job.ingest.prefetch_blocks,
-    ))
-    with timer.phase("gram"), feed as blocks:
-        for block, meta in blocks:
-            acc = update(acc, block)
-            # Credit the true streamed variant span, not the padded width.
-            timer.add("gram_flops",
-                      gram.flops_per_block(n, meta.stop - meta.start, metric))
-            timer.add("ingest_bytes", block.numel())
-            last_stop = meta.stop
-        acc = hard_sync(acc)
-    n_variants = last_stop if last_stop > 0 else source.n_variants
+    acc, start_variant = None, 0
+    if cfg.checkpoint_dir:
+        restored = ckpt.load(cfg.checkpoint_dir, metric, source.sample_ids,
+                             block_variants=bv, device=device)
+        if restored is not None:
+            acc, start_variant, saved_stats = restored
+            if stream_stats is not None:
+                stream_stats.update(saved_stats)
+    if acc is None:
+        acc = gram.init(n, metric, device)
+
+    def save(state, cursor):
+        ckpt.save(cfg.checkpoint_dir, state, cursor, metric, bv,
+                  source.sample_ids, stream_stats=stream_stats)
+
+    acc, n_variants = run_pass(
+        job, source, timer, device, update, acc, start_variant, packed,
+        block_flops=lambda v: gram.flops_per_block(n, v, metric),
+        save_cb=save if cfg.checkpoint_dir else None, stats=stream_stats)
     _check_int32_budget(metric, n_variants,
                         (stream_stats or {}).get("max_value", 2))
     return GramRun(acc, source.sample_ids, metric, timer, n_variants,
                    lowering)
+
+
+def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
+             state: dict, start_variant: int = 0, packed: bool = False,
+             block_flops=None, save_cb=None, stats: dict | None = None):
+    """One streamed pass over the cohort from ``start_variant``, under
+    the ``gram`` phase: ``state = update(state, block)`` for each block
+    (the gram accumulators, or the sketch solver's (N, r) state).
+
+    ``block_flops(v)``: the operation credit of a block spanning ``v``
+    variants (the true span, not the padded width). ``save_cb(state,
+    cursor)``: the checkpoint hook, called every
+    ``--checkpoint-every-blocks`` blocks after a device sync.
+    ``stats``: the feed's stream statistics (``max_value``), updated in
+    place. Returns ``(state, n_variants)`` with the state synced.
+    """
+    cfg = job.compute
+    blocks_done = 0
+    last_stop = start_variant
+    # closing(): a failed update stops the feed's producer at once, not
+    # when the traceback lets go of the generator.
+    feed = closing(stream_to_device(
+        source, job.ingest.block_variants, device,
+        start_variant=start_variant, pack=packed, stats=stats,
+        prefetch=job.ingest.prefetch_blocks,
+    ))
+    with timer.phase("gram"), feed as blocks:
+        for block, meta in blocks:
+            state = update(state, block)
+            if block_flops is not None:
+                timer.add("gram_flops", block_flops(meta.stop - meta.start))
+            timer.add("ingest_bytes", block.numel())
+            blocks_done += 1
+            last_stop = meta.stop
+            if (save_cb is not None and cfg.checkpoint_every_blocks
+                    and blocks_done % cfg.checkpoint_every_blocks == 0):
+                hard_sync(state)
+                save_cb(state, meta.stop)
+        state = hard_sync(state)
+    n_variants = last_stop if last_stop > 0 else source.n_variants
+    return state, n_variants
 
 
 @contextmanager

@@ -67,28 +67,26 @@ def origin_from_ingest(cfg, chunk_variants: int) -> dict:
     return rec
 
 
-def build_origin_source(origin: dict):
+def build_origin_source(origin: dict, device: str = "cuda"):
     """Rebuild the origin GenotypeSource from a manifest record, through
-    the port's own ``build_source`` (LD pruning's r^2 on the card when
-    one is visible, as the compaction's default ``--device cuda`` ran
-    it; the digest check refuses any span that does not reproduce)."""
-    import torch
-
+    the port's own ``build_source`` on ``device`` (where LD pruning's
+    r^2 runs; ``cuda`` raises when no card is visible, as every job
+    does). The digest check refuses any span that does not reproduce."""
     from spark_examples_tpu_torch.core.config import (
         IngestConfig,
         ReferenceRange,
     )
+    from spark_examples_tpu_torch.core.device import resolve_device
     from spark_examples_tpu_torch.pipelines.runner import build_source
 
     kw = {k: origin[k] for k in _ORIGIN_FIELDS if k in origin}
     kw["references"] = [ReferenceRange.parse(r)
                         for r in origin.get("references", [])]
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    return build_source(IngestConfig(**kw), device)
+    return build_source(IngestConfig(**kw), str(resolve_device(device)))
 
 
 def _raw_span_from_origin(rec: ChunkRecord, origin: dict,
-                          source=None) -> bytes:
+                          source=None, device: str = "cuda") -> bytes:
     """Re-compact one chunk span from the origin stream into its RAW
     packed payload (pre-compression); the caller re-compresses with the
     chunk's recorded codec and verifies the digest before installing."""
@@ -97,7 +95,7 @@ def _raw_span_from_origin(rec: ChunkRecord, origin: dict,
     from spark_examples_tpu_torch.ingest import bitpack
 
     if source is None:
-        source = build_origin_source(origin)
+        source = build_origin_source(origin, device)
         try:
             return _raw_span_from_origin(rec, origin, source)
         finally:
@@ -134,7 +132,8 @@ def _dict_trainer_record(manifest: StoreManifest,
 
 
 def recover_dict(root: str, manifest: StoreManifest, dict_digest: str,
-                 replicas=(), origin_source=None) -> bytes:
+                 replicas=(), origin_source=None,
+                 device: str = "cuda") -> bytes:
     """Recover a missing/corrupt ``dicts/<digest>.zdict`` file in
     place: a digest-verified copy from a replica, else re-derivation
     from the origin (the dictionary is a pure function of its trainer
@@ -165,7 +164,7 @@ def recover_dict(root: str, manifest: StoreManifest, dict_digest: str,
         trainer = _dict_trainer_record(manifest, dict_digest)
         try:
             raw = _raw_span_from_origin(trainer, manifest.origin,
-                                        source=origin_source)
+                                        source=origin_source, device=device)
         except (OSError, ValueError) as e:
             raise HealError(
                 f"origin re-derivation of the dictionary failed: {e}"
@@ -189,7 +188,8 @@ def recover_dict(root: str, manifest: StoreManifest, dict_digest: str,
 
 def _dict_bytes_for_heal(root: str, manifest: StoreManifest,
                          rec: ChunkRecord, replicas=(),
-                         origin_source=None) -> bytes | None:
+                         origin_source=None,
+                         device: str = "cuda") -> bytes | None:
     """The dictionary an origin re-compression of ``rec`` needs —
     loaded from the store (digest-verified), else recovered through
     :func:`recover_dict`."""
@@ -204,7 +204,8 @@ def _dict_bytes_for_heal(root: str, manifest: StoreManifest,
     except OSError:
         pass
     return recover_dict(root, manifest, rec.dict_digest,
-                        replicas=replicas, origin_source=origin_source)
+                        replicas=replicas, origin_source=origin_source,
+                        device=device)
 
 
 def _install(root: str, rec: ChunkRecord, data: bytes, how: str) -> None:
@@ -224,11 +225,12 @@ def _install(root: str, rec: ChunkRecord, data: bytes, how: str) -> None:
 
 
 def heal_chunk(root: str, manifest: StoreManifest, rec: ChunkRecord,
-               replicas=(), origin_source=None) -> str:
+               replicas=(), origin_source=None, device: str = "cuda") -> str:
     """Repair one chunk in place; returns how ("replica:<dir>" or
     "origin"). Raises :class:`HealError` when no route works. On
     success the chunk's quarantine entry (if any) is dropped and
-    ``store.healed`` is counted."""
+    ``store.healed`` is counted. ``device``: where an origin rebuilt
+    here runs (``origin_source`` not given)."""
     with telemetry.span("store.heal"):
         errors: list[str] = []
         for rep in replicas:
@@ -252,7 +254,8 @@ def heal_chunk(root: str, manifest: StoreManifest, rec: ChunkRecord,
                 )
             try:
                 raw = _raw_span_from_origin(rec, manifest.origin,
-                                            source=origin_source)
+                                            source=origin_source,
+                                            device=device)
                 # Re-compression with the chunk's recorded codec and
                 # dictionary: the codec is byte-deterministic by
                 # contract, so the stored bytes — and therefore the
@@ -261,7 +264,8 @@ def heal_chunk(root: str, manifest: StoreManifest, rec: ChunkRecord,
                     rec.codec, raw,
                     _dict_bytes_for_heal(root, manifest, rec,
                                          replicas=replicas,
-                                         origin_source=origin_source))
+                                         origin_source=origin_source,
+                                         device=device))
                 _install(root, rec, data, how="origin re-compaction")
             except (OSError, ValueError) as e:
                 raise HealError(
@@ -274,7 +278,8 @@ def heal_chunk(root: str, manifest: StoreManifest, rec: ChunkRecord,
     return how
 
 
-def heal(root: str, replicas=(), verify_all: bool = False) -> dict:
+def heal(root: str, replicas=(), verify_all: bool = False,
+         device: str = "cuda") -> dict:
     """Repair every damaged chunk in the store at ``root`` — the
     ``store heal`` CLI verb.
 
@@ -293,7 +298,7 @@ def heal(root: str, replicas=(), verify_all: bool = False) -> dict:
     ``stale_cleared`` — leaving either would alarm on phantom chunks
     forever. A chunk healed from origin is re-compacted through ONE
     origin source shared across chunks (the origin stream is opened
-    once).
+    once), built on ``device``.
     """
     manifest = StoreManifest.load(root)
     by_digest: dict[str, ChunkRecord] = {}
@@ -342,7 +347,7 @@ def heal(root: str, replicas=(), verify_all: bool = False) -> dict:
     origin_source = None
     if manifest.origin is not None and damaged:
         try:
-            origin_source = build_origin_source(manifest.origin)
+            origin_source = build_origin_source(manifest.origin, device)
         except (OSError, ValueError):
             origin_source = None  # per-chunk heals will name the error
 
@@ -352,7 +357,7 @@ def heal(root: str, replicas=(), verify_all: bool = False) -> dict:
                                   key=lambda kv: kv[1].start):
             try:
                 how = heal_chunk(root, manifest, rec, replicas=replicas,
-                                 origin_source=origin_source)
+                                 origin_source=origin_source, device=device)
                 healed.append({"digest": digest, "start": rec.start,
                                "stop": rec.stop, "how": how})
             except HealError as e:

@@ -67,7 +67,8 @@ def open_store(path: str, cache_bytes: int = DEFAULT_CACHE_BYTES,
                verify: bool = True,
                readahead_chunks: int = 0,
                readahead_chunks_max: int = DEFAULT_READAHEAD_MAX,
-               replicas=(), auto_heal: bool = True) -> "StoreSource":
+               replicas=(), auto_heal: bool = True,
+               device: str = "cuda") -> "StoreSource":
     """Open a compacted store (manifest load + lazy chunk mapping).
 
     ``readahead_chunks > 0`` arms the background readahead pool
@@ -85,12 +86,15 @@ def open_store(path: str, cache_bytes: int = DEFAULT_CACHE_BYTES,
     chunk that fails its digest verify is repaired in place — from a
     replica, else by re-compacting its origin span when the manifest
     records one — instead of failing the read (store/heal.py).
+    ``device``: where an origin rebuilt for such a heal runs (the job's
+    ``--device``).
     """
     return StoreSource(path, StoreManifest.load(path),
                        cache_bytes=cache_bytes, verify=verify,
                        readahead_chunks=readahead_chunks,
                        readahead_chunks_max=readahead_chunks_max,
-                       replicas=replicas, auto_heal=auto_heal)
+                       replicas=replicas, auto_heal=auto_heal,
+                       device=device)
 
 
 class StoreSource:
@@ -101,12 +105,14 @@ class StoreSource:
                  cache_bytes: int = DEFAULT_CACHE_BYTES,
                  verify: bool = True, readahead_chunks: int = 0,
                  readahead_chunks_max: int = DEFAULT_READAHEAD_MAX,
-                 replicas=(), auto_heal: bool = True):
+                 replicas=(), auto_heal: bool = True,
+                 device: str = "cuda"):
         self.root = root
         self.manifest = manifest
         self.verify = bool(verify)
         self.replicas = tuple(replicas)
         self.auto_heal = bool(auto_heal)
+        self.device = device
         self.cache = DecodeCache(cache_bytes)
         self._verified: set[int] = set()
         self._positions: np.ndarray | None = None
@@ -193,7 +199,8 @@ class StoreSource:
         ):
             try:
                 how = heal_chunk(self.root, self.manifest, rec,
-                                 replicas=self.replicas)
+                                 replicas=self.replicas,
+                                 device=self.device)
             except HealError as e:
                 reason = f"{reason}; heal failed ({e})"
             else:
@@ -315,7 +322,8 @@ class StoreSource:
                 )
             try:
                 data = recover_dict(self.root, self.manifest, dd,
-                                    replicas=self.replicas)
+                                    replicas=self.replicas,
+                                    device=self.device)
             except HealError as e:
                 raise StoreCorruptError(
                     f"store dictionary {path!r} is missing or corrupt "

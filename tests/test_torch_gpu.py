@@ -380,3 +380,87 @@ def test_ld_window_r2_on_cuda_matches_its_cpu_run(cuda_device):
     got = ldprune._window_r2(torch.from_numpy(x).to(cuda_device)).cpu()
     want = ldprune._window_r2(torch.from_numpy(x))
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["shared-alt", "euclidean", "dot", "grm",
+                                    "ibs", "jaccard"])
+def test_sketch_update_on_cuda_matches_its_cpu_run(cuda_device, metric):
+    """Three blocks through the sketch update on the card and on the CPU
+    from one state: each leaf within 1e-5 of its largest entry (f32 sums
+    in another order; TF32 is off inside the update), and the card's
+    TF32 setting is left as it was."""
+    from spark_examples_tpu_torch.solvers import sketch
+
+    rng = np.random.default_rng(12)
+    blocks = []
+    for _ in range(3):
+        b = rng.integers(0, 3, (300, 512)).astype(np.int8)
+        b[rng.random(b.shape) < 0.1] = -1
+        blocks.append(b)
+    dual = isinstance(kernels.get(metric).sketch, kernels.DualSketch)
+    init = sketch.init_dual_state if dual else sketch.init_state
+    states = {}
+    before = torch.backends.cuda.matmul.allow_tf32
+    for device in ("cuda", "cpu"):
+        state = init(300, 32, 5, device)
+        upd = (sketch.make_dual_update(metric) if dual
+               else sketch.make_update(metric))
+        for b in blocks:
+            state = upd(state, torch.from_numpy(b).to(device))
+        states[device] = {k: v.cpu() for k, v in state.items()}
+    assert torch.backends.cuda.matmul.allow_tf32 == before
+    assert torch.equal(states["cuda"]["qc"], states["cpu"]["qc"])
+    for k, want in states["cpu"].items():
+        scale = max(float(want.abs().max()), 1.0)
+        err = float((states["cuda"][k] - want).abs().max())
+        assert err <= 1e-5 * scale, (k, err / scale)
+
+
+@pytest.mark.gpu
+def test_checkpoint_saved_from_cuda_loads_on_the_cpu(cuda_device, tmp_path):
+    """Leaves saved from card tensors are the files the CPU copies give,
+    and load back on the CPU bitwise."""
+    from spark_examples_tpu_torch.core import checkpoint as ckpt
+
+    rng = np.random.default_rng(3)
+    host = {"cc": torch.from_numpy(rng.integers(0, 99, (40, 40),
+                                                dtype=np.int32)),
+            "nvar": torch.tensor(7.0),
+            "y": torch.from_numpy(rng.standard_normal((40, 8),
+                                                      dtype=np.float32))}
+    ids = [f"S{i:06d}" for i in range(40)]
+    card, cpu = str(tmp_path / "card"), str(tmp_path / "cpu")
+    ckpt.save(card, {k: v.to(cuda_device) for k, v in host.items()}, 512,
+              "t", 256, ids)
+    ckpt.save(cpu, host, 512, "t", 256, ids)
+    for k in host:
+        with open(f"{card}/{k}.npy", "rb") as a, \
+                open(f"{cpu}/{k}.npy", "rb") as b:
+            assert a.read() == b.read(), k
+    acc, cursor, _ = ckpt.load(card, "t", ids, leaves=list(host))
+    assert cursor == 512
+    for k, v in host.items():
+        assert acc[k].device.type == "cpu" and torch.equal(acc[k], v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,solver", [("grm", "corrected"),
+                                           ("ibs", "corrected"),
+                                           ("shared-alt", "sketch")])
+def test_sketch_job_on_cuda_matches_its_cpu_run(cuda_device, metric, solver):
+    """The same seed draws the same probes on both devices, so the job's
+    eigenvalues agree within 1e-4 relative (f32 sums in another order
+    through every pass)."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        job = JobConfig(
+            ingest=IngestConfig(n_samples=300, n_variants=4096,
+                                block_variants=1024, seed=2),
+            compute=ComputeConfig(metric=metric, num_pc=4, solver=solver,
+                                  sketch_rank=24, device=device))
+        out[device] = jobs.pcoa_job(job)
+    rel = (np.abs(out["cuda"].eigenvalues - out["cpu"].eigenvalues)
+           / np.abs(out["cpu"].eigenvalues))
+    assert rel.max() <= 1e-4, rel
+    assert np.isfinite(out["cuda"].coords).all()

@@ -126,7 +126,7 @@ def test_damage_gives_jax_ledger_report_and_bytes(twin_stores, how):
     assert str(want.value).startswith(str(got.value))
     assert got.value.cursor == want.value.cursor == 2 * CHUNK
     assert tree(tdir)["quarantine.json"] == tree(jdir)["quarantine.json"]
-    assert heal(tdir) == jheal.heal(jdir)
+    assert heal(tdir, device="cpu") == jheal.heal(jdir)
     assert tree(tdir) == tree(jdir) == tree(base)
 
 
@@ -144,7 +144,7 @@ def test_fault_site_truncate_gives_jax_ledger(twin_stores):
     assert got.value.cursor == 2 * CHUNK
     assert "start_variant=1024" in str(got.value)
     assert tree(tdir)["quarantine.json"] == tree(jdir)["quarantine.json"]
-    report = heal(tdir, verify_all=True)
+    report = heal(tdir, verify_all=True, device="cpu")
     assert report == jheal.heal(jdir, verify_all=True)
     assert [h["how"] for h in report["healed"]] == ["origin"]
     assert tree(tdir) == tree(jdir) == tree(base)
@@ -170,7 +170,7 @@ def test_origin_roundtrip_and_absolute_path(origin_cfg):
                              seed=3, block_variants=CHUNK), CHUNK)
     assert list(rec) == list(jstore.origin_from_ingest(
         jconfig.IngestConfig(), CHUNK))
-    src = build_origin_source(rec)
+    src = build_origin_source(rec, "cpu")
     assert (src.n_samples, src.n_variants) == (N, V)
     rel = origin_from_ingest(IngestConfig(source="packed",
                                           path="rel/cohort"), CHUNK)
@@ -178,12 +178,45 @@ def test_origin_roundtrip_and_absolute_path(origin_cfg):
     assert rel["path"].endswith(os.path.join("rel", "cohort"))
 
 
+def test_origin_source_runs_on_the_device_it_is_given(origin_cfg,
+                                                      monkeypatch):
+    """No probe for a card: the origin is rebuilt on the caller's device
+    (LD pruning's r^2 runs there), even where a card is visible, and the
+    default (cuda) fails without one instead of moving to the CPU."""
+    import torch
+
+    rec = origin_from_ingest(
+        IngestConfig(source="synthetic", n_samples=N, n_variants=V, seed=3,
+                     ld_r2=0.5), CHUNK)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        src = build_origin_source(rec, "cpu")
+    assert src.device == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cuda"):
+            build_origin_source(rec)
+
+
+def test_store_heal_device_defaults_to_cuda(healable_store):
+    """``store heal`` takes ``--device`` like every job; an origin heal
+    without a card fails through the device check."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("the refusal needs a host without a card")
+    _truncate_chunk(healable_store, 2)
+    with pytest.raises(RuntimeError, match="--device cuda"):
+        tmain(["store", "heal", "--path", healable_store, "--verify-all"])
+    with pytest.raises(RuntimeError, match="--device cuda"):
+        open_store(healable_store).read_range(0, V)
+
+
 def test_corrupt_chunk_heals_from_origin_in_stream(healable_store):
     want = _clean(healable_store)
     _truncate_chunk(healable_store, 1)
     before = telemetry.counter_value("store.healed")
     with pytest.warns(RuntimeWarning, match="healed in place from origin"):
-        got = open_store(healable_store).read_range(0, V)
+        got = open_store(healable_store, device="cpu").read_range(0, V)
     np.testing.assert_array_equal(got, want)
     assert telemetry.counter_value("store.healed") == before + 1
     assert qledger.load(healable_store) == []
@@ -196,7 +229,7 @@ def test_injected_truncate_heals_under_fault_harness(healable_store):
     want = _clean(healable_store)
     with faults.armed(["store.read:truncate:after=2:max=1:keep=4"]):
         with pytest.warns(RuntimeWarning, match="healed in place"):
-            got = open_store(healable_store).read_range(0, V)
+            got = open_store(healable_store, device="cpu").read_range(0, V)
     np.testing.assert_array_equal(got, want)
 
 
@@ -247,7 +280,7 @@ def test_changed_origin_refuses_wrong_bytes(healable_store):
     with pytest.raises(StoreCorruptError, match="heal failed"):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
-            open_store(healable_store).read_range(0, V)
+            open_store(healable_store, device="cpu").read_range(0, V)
     assert len(qledger.load(healable_store)) == 1
 
 
@@ -265,7 +298,7 @@ def test_heal_verb_repairs_ledger_and_verify_all(healable_store):
         open_store(healable_store, auto_heal=False).read_range(0, V)
     assert len(qledger.load(healable_store)) == 1
     _truncate_chunk(healable_store, 3)
-    report = heal(healable_store, verify_all=True)
+    report = heal(healable_store, verify_all=True, device="cpu")
     assert report["damaged"] == 2 and not report["failed"]
     assert sorted(h["how"] for h in report["healed"]) == ["origin", "origin"]
     assert qledger.load(healable_store) == []
@@ -298,7 +331,8 @@ def test_store_heal_cli(healable_store, capsys):
     _truncate_chunk(healable_store, 2)
     with pytest.raises(StoreCorruptError):
         open_store(healable_store, auto_heal=False).read_range(0, V)
-    assert tmain(["store", "heal", "--path", healable_store]) == 0
+    assert tmain(["store", "heal", "--path", healable_store,
+                  "--device", "cpu"]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[0])
     assert report["healed"] and not report["failed"]
     np.testing.assert_array_equal(

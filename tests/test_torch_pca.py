@@ -169,7 +169,8 @@ def test_pca_cli_writes_the_coords_tsv(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["pca", "--metric", "ibs"], "shared-alt similarity by definition"),
     (["pca", "--save-model", "m.npz"], "--save-model"),
-    (["pcoa", "--solver", "sketch"], "--solver"),
+    (["pcoa", "--solver", "corrected", "--sketch-iters", "0"],
+     "--sketch-iters=0"),
     (["pcoa", "--gram-mode", "tile2d"], "--gram-mode"),
     (["pcoa", "--metric", "bogus"], "invalid choice"),
 ])
@@ -180,7 +181,8 @@ def test_unported_and_bad_flags_are_usage_errors(argv, match, capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(solver="corrected"), "not yet ported"),
+    (dict(solver="corrected", metric="king"),
+     "--solver corrected does not support --metric king"),
     (dict(solver="bogus"), "--solver"),
     (dict(gram_mode="tile2d"), "not yet ported"),
     (dict(braycurtis_method="pallas"), "--braycurtis-method"),

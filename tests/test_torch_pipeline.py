@@ -3,6 +3,7 @@ CPU: the same SyntheticSource seed through both ``pcoa_job`` routes, the
 CLI, the feed, its error cases, and the import boundary."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -148,7 +149,7 @@ def test_bad_flags_are_usage_errors(argv, match, capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(solver="sketch"), "not yet ported"),
+    (dict(solver="sketch", sketch_rank=4), "--sketch-rank=4 < --num-pc"),
     (dict(metric="bogus"), "registered kernels"),
     (dict(pack_stream="zip"), "pack_stream"),
     (dict(device="tpu"), "--device"),
@@ -159,7 +160,7 @@ def test_compute_config_validation(kw, match):
         tconfig.ComputeConfig(**kw)
 
 
-def test_unported_source_and_checkpoints_are_refused():
+def test_unported_source_and_checkpoints_are_refused(tmp_path):
     with pytest.raises(ValueError, match="not yet ported"):
         trunner.build_source(tconfig.IngestConfig(source="parquet"))
     # The dataset store is ported: it is opened, not refused.
@@ -167,11 +168,21 @@ def test_unported_source_and_checkpoints_are_refused():
         trunner.build_source(tconfig.IngestConfig(source="store"))
     with pytest.raises(ValueError, match="not a dataset store"):
         trunner.build_source(tconfig.IngestConfig(source="store:some/dir"))
+    # Checkpoints are ported; a tiled one (the tile2d plan's layout) is
+    # refused.
     _, tjob = _jobs()
-    tjob.compute.checkpoint_dir = "ck"
+    ck = str(tmp_path / "ck")
+    tjob.compute.checkpoint_dir = ck
+    tjob.compute.checkpoint_every_blocks = 1
+    src = SyntheticSource(n_samples=4, n_variants=8)
+    trunner.run_gram(tjob, src, PhaseTimer())
+    with open(os.path.join(ck, "manifest.json")) as f:
+        manifest = json.load(f)
+    manifest["layout"]["cc"] = "tiles"
+    with open(os.path.join(ck, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
     with pytest.raises(ValueError, match="not yet ported"):
-        trunner.run_gram(tjob, SyntheticSource(n_samples=4, n_variants=8),
-                         PhaseTimer())
+        trunner.run_gram(tjob, src, PhaseTimer())
 
 
 @pytest.mark.parametrize("pack", [False, True])
@@ -234,7 +245,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'store.manifest', 'store.quarantine', 'store.readahead', "
         "'store.reader', 'store.writer', 'core.telemetry', 'core.faults', "
         "'core.hashing', 'core.sidecar', 'ingest.parallel', "
-        "'ingest.resilient']\n"
+        "'ingest.resilient', 'core.checkpoint', 'solvers.sketch', "
+        "'solvers.solve', 'solvers.driver']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"

@@ -326,7 +326,7 @@ def test_compressed_chunk_heals_from_origin_byte_identically(zstore):
     healed0 = telemetry.counter_value("store.healed")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
-        got = _materialize(open_store(d), 512)
+        got = _materialize(open_store(d, device="cpu"), 512)
     np.testing.assert_array_equal(got, want)
     assert telemetry.counter_value("store.healed") == healed0 + 1
     assert open(victim, "rb").read() == original
@@ -338,7 +338,8 @@ def test_store_heal_cli_repairs_compressed_store(zstore, capsys):
     victim = os.path.join(d, StoreManifest.load(d).chunks[0].filename())
     original = open(victim, "rb").read()
     open(victim, "wb").write(original[:-2])
-    assert tmain(["store", "heal", "--path", d, "--verify-all"]) == 0
+    assert tmain(["store", "heal", "--path", d, "--verify-all",
+                  "--device", "cpu"]) == 0
     capsys.readouterr()
     assert open(victim, "rb").read() == original
     np.testing.assert_array_equal(_materialize(open_store(d), 512), want)
@@ -353,7 +354,8 @@ def test_dict_file_recovered_from_origin(tmp_path):
     want = _materialize(build_source(cfg, "cpu"), 64)
     dd = StoreManifest.load(d).chunks[0].dict_digest
     os.remove(codecmod.dict_path(d, dd))
-    np.testing.assert_array_equal(_materialize(open_store(d), 64), want)
+    np.testing.assert_array_equal(
+        _materialize(open_store(d, device="cpu"), 64), want)
     assert hashing.sha256_file(codecmod.dict_path(d, dd)) == dd
 
 
