@@ -133,7 +133,36 @@ Phases (any failure exits non-zero; none is caught and ignored):
     printed beside ``sketch.nxn_bytes`` (160 GB) and must stay below one
     N x N leaf (40 GB); the coordinates must be finite and separate the
     populations.
-28. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
+28. The native host codec (built in phase 2 beside the CUDA kernels,
+    with g++ into ``spark_examples_tpu_torch/_build/``): the library
+    must be there and export all five entries. Phase 16's VCF parsed
+    native and Python, timed, blocks identical; a Quickstart block packed
+    and unpacked both ways, bytes identical. The zlib store's ibs job,
+    its euclidean dense route and phase 21's ``--references`` job run
+    through the CLI natively and with the Python decode forced:
+    ``store.codec.fallback`` 0 on the native runs and 1 on the forced
+    runs of the two routes that decode chunks (the packed route inflates
+    whole chunks with Python's zlib either way), K1 launches as before
+    (13, 0, 5), accumulators bitwise equal to phases 6, 12 and 21, gram
+    phases printed side by side.
+29. Fit, then project: phase 14's packed cohort split into a 2,004-
+    sample panel and 500 new samples (two packed stores).
+    ``pcoa --metric ibs --save-model`` (13 K1 launches), ``pca
+    --save-model`` (13) and ``pcoa --solver corrected --save-model`` (a
+    factorized model, 0) on the panel; ``project`` of the 500 and of the
+    panel itself under each model (0 launches): every held-out sample
+    must lie nearest its own population's centroid (PC1-4), and the
+    panel must land on its fitted coordinates (top 4 components within
+    1e-3 of max|coords|) for the exact models. The cross products of one
+    block timed, bitwise equal to the CPU's.
+30. ``cross-kinship`` of the 500 new samples, 10 of them replaced by
+    copies of panel samples, against the panel: phi >= 0.45 on exactly
+    those 10 pairs; 0 launches.
+31. Parquet: whether pyarrow is present. If it is, the cohort's first
+    4,096 variants written with ``write_parquet`` read back bitwise and
+    ``similarity --source parquet`` runs (1 K1 launch); if not, the CLI
+    must refuse ``--source parquet`` with its ImportError.
+32. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
     the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -154,6 +183,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -207,6 +237,16 @@ SKETCH_KILL_IN_PASS1 = 6
 # re-packed on the host).
 BIG_SAMPLES = 100_000
 BIG_VARIANTS = 16_384
+# Phases 29-30: the Quickstart cohort split into a 2,004-sample panel and
+# 500 new samples; 10 panel samples planted among the new ones for
+# cross-kinship (a duplicate's phi is 0.5; unrelated samples sit near 0).
+PANEL_SAMPLES = 2004
+PLANTED_COPIES = 10
+PLANTED_MIN_PHI = 0.45
+# Panel samples projected through an exact model land on their fitted
+# coordinates: the top NUM_POP_PCS components within this fraction of
+# max|coords| (f32 centering in another order than the fit's).
+SELF_PROJECTION_RTOL = 1e-3
 
 
 def k1_bounds(n: int, w: int, products) -> dict:
@@ -620,7 +660,8 @@ def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
                   "similarity vcf": vcf_counts,
                   "pcoa plink qc+ld": qc_counts})
     return paths, {"packed_store_gram_s": store_gram_s, "plink": prefix,
-                   "euclidean_acc": euclidean_acc, "packed_store": store}
+                   "euclidean_acc": euclidean_acc, "packed_store": store,
+                   "vcf": vcf}
 
 
 def tree_bytes(root: str) -> dict:
@@ -1271,6 +1312,375 @@ def checkpoint_and_solver_phases(cli_main, launch_counters: dict, card: str,
     return paths
 
 
+@contextlib.contextmanager
+def python_codec():
+    """Run the block with the native codec's loader state stubbed out,
+    so every host loop takes its Python path (the tests' idiom); the
+    loaded library is restored after."""
+    from spark_examples_tpu_torch import native
+    from spark_examples_tpu_torch.store import codec as codecmod
+
+    saved = (native._lib, native._tried, codecmod._fallback_warned)
+    native._lib, native._tried = None, True
+    codecmod._fallback_warned = True  # the forced fallback is no news
+    try:
+        yield
+    finally:
+        native._lib, native._tried, codecmod._fallback_warned = saved
+
+
+def nearest_centroid_hits(coords: np.ndarray, pops: np.ndarray,
+                          fit: np.ndarray, fit_pops: np.ndarray) -> int:
+    """How many rows of ``coords`` lie nearest, in the planted
+    structure's NUM_POP_PCS components, to the centroid of their own
+    population among the fitted panel's centroids."""
+    d_pc = NUM_POP_PCS
+    labels_u = np.unique(fit_pops)
+    cents = np.stack([fit[fit_pops == k, :d_pc].mean(0) for k in labels_u])
+    d = np.linalg.norm(coords[:, None, :d_pc] - cents[None], axis=2)
+    return int((labels_u[d.argmin(axis=1)] == pops).sum())
+
+
+def native_projection_parquet_phases(cli_main, launch_counters: dict,
+                                     card: str, dev, source, expected: int,
+                                     synthetic_acc: dict, files: dict,
+                                     tmp: str) -> dict:
+    """Phases 28-31: the native host codec, fit-then-project at the
+    Quickstart width (exact pcoa, pca and the factorized model),
+    cross-kinship, and the parquet source. Returns the launches by
+    kernel of each CLI run, by path name."""
+    import torch
+
+    from spark_examples_tpu_torch import native
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+        ReferenceRange,
+    )
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ingest import bitpack
+    from spark_examples_tpu_torch.ingest.packed import (
+        load_packed,
+        save_packed,
+    )
+    from spark_examples_tpu_torch.ingest.plink import PlinkSource
+    from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+    from spark_examples_tpu_torch.ingest.vcf import VcfSource
+    from spark_examples_tpu_torch.ops import genotype
+    from spark_examples_tpu_torch.pipelines import runner
+    from spark_examples_tpu_torch.pipelines.project import load_model
+
+    paths = {}
+
+    # -- 28. the native host codec -----------------------------------------
+    lib = native.load()
+    if lib is None:
+        fail(f"the native codec did not build: {native.build_error}")
+    lib_path = native.library_path()
+    if lib_path.parent != native.BUILD_DIR or not lib_path.exists():
+        fail(f"the native codec is not in the build directory: {lib_path}")
+    missing = [e for e in native.ENTRIES if not hasattr(lib, e)]
+    if missing:
+        fail(f"the native codec lacks {missing}")
+    print(f"native codec: {lib_path.relative_to(native.BUILD_DIR.parent)} "
+          f"exports {', '.join(native.ENTRIES)}")
+
+    vcf = files["vcf"]
+    t0 = time.perf_counter()
+    nat = list(VcfSource(vcf).blocks(BLOCK_VARIANTS))
+    vcf_native_s = time.perf_counter() - t0
+    with python_codec():
+        t0 = time.perf_counter()
+        py = list(VcfSource(vcf).blocks(BLOCK_VARIANTS))
+        vcf_python_s = time.perf_counter() - t0
+    if len(nat) != len(py) or not all(
+            np.array_equal(a, b) for (a, _), (b, _) in zip(nat, py)):
+        fail("the native VCF parse differs from the Python parse")
+    genotypes = N_SAMPLES * sum(b.shape[1] for b, _ in nat)
+    block = nat[0][0]
+    del nat, py
+    t0 = time.perf_counter()
+    packed = bitpack.pack_dosages(block)
+    unpacked = bitpack.unpack_dosages_np(packed)
+    pack_native_s = time.perf_counter() - t0
+    with python_codec():
+        t0 = time.perf_counter()
+        packed_py = bitpack.pack_dosages(block)
+        unpacked_py = bitpack.unpack_dosages_np(packed_py)
+        pack_python_s = time.perf_counter() - t0
+    if not (np.array_equal(packed, packed_py)
+            and np.array_equal(unpacked, unpacked_py)):
+        fail("the native 2-bit pack/unpack differs from numpy's")
+    print(f"native vs Python, host loops [{card}]: VCF parse of "
+          f"{N_SAMPLES} x {genotypes // N_SAMPLES} ({genotypes} genotypes) "
+          f"{vcf_native_s:.4f} s native ({genotypes / vcf_native_s / 1e6:.3f}"
+          f" M genotypes/s) vs {vcf_python_s:.4f} s Python "
+          f"({genotypes / vcf_python_s / 1e6:.3f} M/s), blocks identical; "
+          f"pack + unpack of a {block.shape} block {pack_native_s:.4f} s "
+          f"native vs {pack_python_s:.4f} s numpy, bytes identical")
+
+    def store_gram(job) -> dict:
+        src = runner.build_source(job.ingest, DEVICE)
+        try:
+            g = runner.run_gram(job, src, PhaseTimer())
+        finally:
+            src.close()
+        return {k: v.cpu() for k, v in g.acc.items()}
+
+    zlib_d = os.path.join(tmp, "ds_zlib_w4")
+    plink_ds = os.path.join(tmp, "ds_plink")
+    lo, hi = REFERENCE_RANGE
+    ref = f"1:{lo}:{hi}"
+    ref_acc = {k: v.cpu() for k, v in runner.run_gram(
+        JobConfig(ingest=IngestConfig(block_variants=BLOCK_VARIANTS),
+                  compute=ComputeConfig(metric="ibs", device=DEVICE)),
+        PlinkSource(files["plink"], references=(ReferenceRange.parse(ref),)),
+        PhaseTimer()).acc.items()}
+    # (name, argv, ingest, metric, accumulators, K1 launches, whether the
+    # route decodes chunks into dense dosages: the packed route ships
+    # whole chunks' 2-bit bytes, inflated by Python's zlib either way, so
+    # only the dense and range routes reach the native decode and count
+    # a forced fallback).
+    cases = (
+        ("pcoa store zlib", ["pcoa", "--source", f"store:{zlib_d}",
+                             "--num-pc", str(NUM_PC)],
+         dict(source=f"store:{zlib_d}"), "ibs", synthetic_acc, expected,
+         False),
+        ("similarity euclidean store", [
+            "similarity", "--metric", "euclidean", "--source",
+            f"store:{zlib_d}"], dict(source=f"store:{zlib_d}"),
+         "euclidean", files["euclidean_acc"], 0, True),
+        ("pcoa store references", [
+            "pcoa", "--source", f"store:{plink_ds}", "--references", ref,
+            "--num-pc", str(NUM_PC)],
+         dict(source=f"store:{plink_ds}",
+              references=[ReferenceRange.parse(ref)]), "ibs", ref_acc,
+         math.ceil((hi - lo) / BLOCK_VARIANTS), True),
+    )
+    lines = []
+    for name, argv, ingest, metric, want, launches, decodes in cases:
+        argv = argv + ["--block-variants", str(BLOCK_VARIANTS),
+                       "--device", DEVICE]
+        job = JobConfig(
+            ingest=IngestConfig(block_variants=BLOCK_VARIANTS, **ingest),
+            compute=ComputeConfig(metric=metric, device=DEVICE))
+        grams = {}
+        for how in ("native", "python"):
+            telemetry.reset()
+            ctx = python_codec() if how == "python" else \
+                contextlib.nullcontext()
+            with ctx, tempfile.TemporaryDirectory() as out_dir:
+                out = os.path.join(out_dir, "out.npy" if argv[0] ==
+                                   "similarity" else "out.tsv")
+                counts, timings, _, _ = run_job(cli_main, argv,
+                                                launch_counters, out)
+                acc = store_gram(job)
+            fallback = telemetry.counter_value("store.codec.fallback")
+            if fallback != (1.0 if how == "python" and decodes else 0.0):
+                fail(f"{name} ({how} codec): store.codec.fallback "
+                     f"{fallback}")
+            if counts["packed_gram"] != launches:
+                fail(f"{name} ({how} codec): launches {counts}")
+            if not equal_accumulators(acc, want):
+                fail(f"{name} ({how} codec): accumulators differ from the "
+                     "earlier phase's")
+            grams[how] = timings["gram"]
+            if how == "native":
+                paths[f"{name} native"] = counts
+        lines.append(f"{name}: gram {grams['native']:.4f} s native vs "
+                     f"{grams['python']:.4f} s Python")
+    print(f"store reads, native vs Python decode [{card}]: "
+          + "; ".join(lines) + "; store.codec.fallback 0 on the native "
+          "runs, 1 on the forced-Python runs of the decoding routes (the "
+          "packed route inflates whole chunks with Python's zlib either "
+          "way); accumulators bitwise equal to phases 6, 12 and 21")
+
+    # -- 29. fit a panel, then project new samples -------------------------
+    store = load_packed(files["packed_store"])
+    cohort = np.concatenate(
+        [b for b, _ in store.blocks(CHUNK_VARIANTS)], axis=1)
+    ids = store.sample_ids
+    pops = source.populations
+    panel_d = os.path.join(tmp, "panel")
+    new_d = os.path.join(tmp, "new")
+    save_packed(panel_d, cohort[:PANEL_SAMPLES], ids[:PANEL_SAMPLES])
+    save_packed(new_d, cohort[PANEL_SAMPLES:], ids[PANEL_SAMPLES:])
+    panel_pops, new_pops = pops[:PANEL_SAMPLES], pops[PANEL_SAMPLES:]
+    n_new = N_SAMPLES - PANEL_SAMPLES
+    panel_args = ["--source", "packed", "--path", panel_d,
+                  "--block-variants", str(BLOCK_VARIANTS), "--device",
+                  DEVICE, "--num-pc", str(NUM_PC)]
+    fits = (
+        ("pcoa", ["pcoa", "--metric", "ibs"], expected, "pcoa"),
+        ("pca", ["pca"], expected, "pca"),
+        ("pcoa corrected", ["pcoa", "--metric", "ibs", "--solver",
+                            "corrected", "--sketch-iters", "2"], 0,
+         "factorized"),
+    )
+    proj_lines = []
+    for name, fit_argv, fit_launches, kind in fits:
+        model = os.path.join(tmp, f"{name.replace(' ', '_')}.npz")
+        counts, timings, fit_coords, wall = run_cli(
+            cli_main, fit_argv + panel_args + ["--save-model", model],
+            launch_counters, NUM_PC)
+        if counts["packed_gram"] != fit_launches:
+            fail(f"{name} --save-model: launches {counts}, expected "
+                 f"{fit_launches}")
+        mdl = load_model(model)
+        if mdl.kind != kind or mdl.n_ref != PANEL_SAMPLES:
+            fail(f"{name} --save-model wrote kind {mdl.kind}, "
+                 f"{mdl.n_ref} samples")
+        paths[f"{name} --save-model"] = counts
+        k = mdl.n_components
+        results = {}
+        for side, path in (("new", new_d), ("panel", panel_d)):
+            pcounts, ptimings, coords, pwall = run_cli(
+                cli_main, ["project", "--model", model, "--source",
+                           "packed", "--path", path, "--ref-source",
+                           "packed", "--ref-path", panel_d,
+                           "--block-variants", str(BLOCK_VARIANTS),
+                           "--device", DEVICE], launch_counters, k)
+            if any(pcounts.values()):
+                fail(f"project ({name} model, {side}): launches {pcounts}")
+            results[side] = (coords, ptimings, pwall)
+            paths[f"project {name} {side}"] = pcounts
+        new_coords, ptimings, pwall = results["new"]
+        hits = nearest_centroid_hits(new_coords, new_pops, fit_coords[:, :k],
+                                     panel_pops)
+        if new_coords.shape != (n_new, k) or hits != n_new:
+            fail(f"project ({name} model): shape {new_coords.shape}, "
+                 f"{hits} of {n_new} held-out samples nearest their own "
+                 "population's centroid")
+        self_err = np.abs(results["panel"][0] - fit_coords[:, :k]).max(
+            axis=0) / np.abs(fit_coords[:, :k]).max()
+        if kind != "factorized" and not (
+                self_err[:NUM_POP_PCS] <= SELF_PROJECTION_RTOL).all():
+            fail(f"project ({name} model): panel samples land "
+                 f"{self_err[:NUM_POP_PCS]} (of max|coords|) from their "
+                 f"fitted coordinates, above {SELF_PROJECTION_RTOL}")
+        proj_lines.append(
+            f"{name} --save-model (wall {wall:.3f} s, gram "
+            f"{timings['gram']:.4f} s, launches {counts}) -> {kind} model "
+            f"of {k} components; project {n_new} new samples: wall "
+            f"{pwall:.3f} s, "
+            + phases_line(ptimings, ("ingest_setup", "gram", "eigh"))
+            + f", 0 launches, {hits}/{n_new} nearest their own "
+            f"population's centroid (PC1-{NUM_POP_PCS}); the panel projected onto its fit: "
+            f"max |diff| / max|coords| per PC "
+            + " ".join(f"{e:.2e}" for e in self_err)
+            + (" (not gated: the corrected rung's basis is approximate)"
+               if kind == "factorized" else
+               f" (top {NUM_POP_PCS} within {SELF_PROJECTION_RTOL})"))
+    print(f"fit {PANEL_SAMPLES} panel samples, project {n_new} new "
+          f"[{card}]: " + "; ".join(proj_lines))
+
+    # The cross products of one block, timed (int8 tensor cores through
+    # torch._int_mm; the JAX package has no Pallas kernel here).
+    bn = torch.from_numpy(cohort[PANEL_SAMPLES:, :BLOCK_VARIANTS]).to(dev)
+    br = torch.from_numpy(cohort[:PANEL_SAMPLES, :BLOCK_VARIANTS]).to(dev)
+    cross_lines = []
+    for stats in (("m", "d1"), ("s",), ("hh", "opp", "hcn", "hcr")):
+        got = genotype.cross_stats(bn, br, stats)
+        want = genotype.cross_stats(bn.cpu(), br.cpu(), stats)
+        if not all(torch.equal(got[s].cpu(), want[s]) for s in stats):
+            fail(f"cross_stats {stats} on the card differ from the CPU's")
+        ms = cuda_ms(lambda: genotype.cross_stats(bn, br, stats), reps=10,
+                     warmup=2)
+        terms = sum(len(genotype.CROSS_STATS[s]) for s in stats)
+        ops = 2.0 * n_new * PANEL_SAMPLES * BLOCK_VARIANTS * terms
+        cross_lines.append(
+            f"{'+'.join(stats)} ({terms} int8 products) {ms:.4f} ms "
+            f"({ops / (ms * 1e-3) / 1e12:.2f} TOP/s; bound "
+            f"{ops / PEAK_INT8_OPS * 1e3:.4f} ms)")
+    print(f"cross products per block ({n_new} x {PANEL_SAMPLES} x "
+          f"{BLOCK_VARIANTS}) [{card}]: " + "; ".join(cross_lines)
+          + "; bitwise equal to the CPU's")
+    del bn, br
+
+    # -- 30. cross-kinship with planted duplicates ---------------------------
+    planted = np.arange(PLANTED_COPIES) * (PANEL_SAMPLES // PLANTED_COPIES)
+    dup = cohort[PANEL_SAMPLES:].copy()
+    dup[:PLANTED_COPIES] = cohort[planted]
+    dup_d = os.path.join(tmp, "new_dup")
+    save_packed(dup_d, dup, [f"DUP{i}" for i in range(n_new)])
+    del dup
+    with tempfile.TemporaryDirectory() as out_dir:
+        phi_path = os.path.join(out_dir, "phi.npy")
+        ck_counts, ck_timings, ck_out, ck_wall = run_job(
+            cli_main, ["cross-kinship", "--source", "packed", "--path",
+                       dup_d, "--ref-source", "packed", "--ref-path",
+                       panel_d, "--block-variants", str(BLOCK_VARIANTS),
+                       "--device", DEVICE, "--min-phi",
+                       str(PLANTED_MIN_PHI)], launch_counters, phi_path)
+        phi = np.load(phi_path)
+    hits = set(zip(*np.nonzero(phi >= PLANTED_MIN_PHI)))
+    want_hits = {(i, int(planted[i])) for i in range(PLANTED_COPIES)}
+    if phi.shape != (n_new, PANEL_SAMPLES) or hits != want_hits or any(
+            ck_counts.values()):
+        fail(f"cross-kinship: shape {phi.shape}, pairs with phi >= "
+             f"{PLANTED_MIN_PHI} {sorted(hits)[:12]}, launches {ck_counts}")
+    others = phi.copy()
+    others[tuple(np.array(sorted(want_hits)).T)] = np.nan
+    paths["cross-kinship"] = ck_counts
+    print(f"cross-kinship {n_new} x {PANEL_SAMPLES} with {PLANTED_COPIES} "
+          f"planted copies [{card}]: wall {ck_wall:.3f} s; phases: "
+          + phases_line(ck_timings, ("gram", "finalize"))
+          + f"; phi >= {PLANTED_MIN_PHI} on exactly the planted pairs "
+          f"(min {min(phi[i, j] for i, j in want_hits):.4f}); max phi "
+          f"elsewhere {np.nanmax(others):.4f}; launches {ck_counts}")
+    del cohort, others, phi
+
+    # -- 31. parquet -------------------------------------------------------
+    try:
+        import pyarrow
+    except ImportError:
+        print("parquet: pyarrow is absent on this machine")
+        try:
+            cli_main(["pcoa", "--source", "parquet", "--path", "x.parquet",
+                      "--device", DEVICE])
+        except ImportError as e:
+            if "needs pyarrow" not in str(e):
+                fail(f"--source parquet without pyarrow: {e}")
+            print(f"parquet: the CLI refuses --source parquet: {e}")
+        else:
+            fail("--source parquet ran without pyarrow")
+        return paths
+    from spark_examples_tpu_torch.ingest.parquet import (
+        ParquetSource,
+        write_parquet,
+    )
+
+    want, _ = next(SyntheticSource(n_samples=N_SAMPLES,
+                                   n_variants=N_VARIANTS).blocks(
+                                       VCF_VARIANTS))
+    pq_path = os.path.join(tmp, "cohort.parquet")
+    t0 = time.perf_counter()
+    write_parquet(pq_path, want, sample_ids=source.sample_ids,
+                  row_group_rows=1024)
+    write_s = time.perf_counter() - t0
+    got = np.concatenate(
+        [b for b, _ in ParquetSource(pq_path).blocks(BLOCK_VARIANTS)], axis=1)
+    if not np.array_equal(got, want):
+        fail("parquet blocks differ from the synthetic source's")
+    pq_counts, pq_timings, pq_wall = run_similarity_cli(
+        cli_main, ["similarity", "--source", "parquet", "--path", pq_path,
+                   "--block-variants", str(BLOCK_VARIANTS), "--device",
+                   DEVICE], launch_counters, N_SAMPLES)
+    if pq_counts["packed_gram"] != 1:
+        fail(f"similarity --source parquet: launches {pq_counts}")
+    paths["similarity parquet"] = pq_counts
+    print(f"parquet: pyarrow {pyarrow.__version__} is present; "
+          f"{N_SAMPLES} x {VCF_VARIANTS} written in {write_s:.3f} s "
+          f"({os.path.getsize(pq_path) / 1e6:.1f} MB), blocks bitwise equal "
+          f"to the synthetic source's; similarity --source parquet [{card}]:"
+          f" wall {pq_wall:.3f} s; phases: "
+          + phases_line(pq_timings, ("ingest_setup", "gram", "finalize"))
+          + f"; launches {pq_counts}")
+    return paths
+
+
 def flip_file(path: str) -> None:
     """Flip one bit of the last byte of a file (same size)."""
     with open(path, "r+b") as f:
@@ -1312,9 +1722,26 @@ def main() -> int:
     dev = torch.device(DEVICE)
 
     # -- 2. build ---------------------------------------------------------
+    # The host codec (g++) builds in a thread beside the nvcc processes.
+    from spark_examples_tpu_torch import native
+
     t0 = time.perf_counter()
+    codec_s = {}
+
+    def build_codec():
+        native.load()
+        codec_s["s"] = time.perf_counter() - t0
+
+    codec_thread = threading.Thread(target=build_codec, name="codec-build",
+                                    daemon=True)
+    codec_thread.start()
     reports = cuda_build.build_all()
-    print(f"build: {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
+    cuda_s = time.perf_counter() - t0
+    codec_thread.join()
+    if native.load() is None:
+        fail(f"the native host codec did not build: {native.build_error}")
+    print(f"build: {sorted(reports)} in {cuda_s:.1f} s; the native host "
+          f"codec ({native.library_path().name}) in {codec_s['s']:.1f} s")
     for name, rep in reports.items():
         print(f"--- ptxas report, csrc/{name}.cu ---\n{rep.strip()}")
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill", rep)]
@@ -1658,8 +2085,11 @@ def main() -> int:
         new_paths.update(checkpoint_and_solver_phases(
             cli_main, launch_counters, card, dev, source, expected,
             synthetic_acc, quickstart_coords, files, tmp))
+        new_paths.update(native_projection_parquet_phases(
+            cli_main, launch_counters, card, dev, source, expected,
+            synthetic_acc, files, tmp))
 
-    # -- 28. summary --------------------------------------------------------
+    # -- 32. summary --------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
         "route": "cuda",

@@ -1,5 +1,5 @@
 """Command-line entry: ``python -m spark_examples_tpu_torch
-{pcoa,pca,similarity,pack,ingest,store}``.
+{pcoa,pca,similarity,project,cross-kinship,pack,ingest,store}``.
 
 Flag names and defaults follow the JAX package's CLI for the flags the
 ported paths read, plus ``--device {cuda,cpu}`` (default cuda; a missing
@@ -25,11 +25,20 @@ card raises).
     python -m spark_examples_tpu_torch pcoa --matrix-path d.npy
     python -m spark_examples_tpu_torch pcoa --solver corrected \\
         --sketch-rank 64 --sketch-iters 2 --source store:ds/
+    python -m spark_examples_tpu_torch pcoa --source store:panel/ \\
+        --save-model m.npz              # fit the panel once, then:
+    python -m spark_examples_tpu_torch project --model m.npz \\
+        --ref-source store:panel/ --source vcf --path new.vcf.gz
+    python -m spark_examples_tpu_torch cross-kinship --source plink \\
+        --path new --ref-source store:panel/ --output-path phi.tsv
+    python -m spark_examples_tpu_torch pcoa --source parquet \\
+        --path cohort.parquet
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -47,13 +56,12 @@ from spark_examples_tpu_torch.core.device import DEVICES
 from spark_examples_tpu_torch.core.profiling import PhaseTimer
 from spark_examples_tpu_torch.ingest.source import close_source
 
-_SOURCES = config.SOURCES + config.UNPORTED_SOURCES
+_SOURCES = config.SOURCES
 
 
 def _source_arg(value: str) -> str:
-    """``--source``: a source name, or ``store:<dir>`` (the dataset
-    store at <dir>). parquet is accepted here and refused when the job
-    builds its source, with a message saying it is not ported yet."""
+    """``--source`` and ``--ref-source``: a source name, or
+    ``store:<dir>`` (the dataset store at <dir>)."""
     base, sep, rest = value.partition(":")
     if base not in _SOURCES or (sep and base != "store"):
         raise argparse.ArgumentTypeError(
@@ -74,17 +82,19 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     g.add_argument("--source", default="synthetic", type=_source_arg,
                    metavar="{" + ",".join(_SOURCES) + "}",
                    help="genotype source; store:<dir> reads the dataset "
-                   "store at <dir> (parquet is not ported yet and is "
-                   "refused)")
+                   "store at <dir>; parquet reads a wide variant-by-"
+                   "sample table (needs pyarrow)")
     g.add_argument("--path", default=None,
                    help="input for vcf (.vcf/.vcf.gz), plink (fileset "
                    "prefix or .bed path), packed (packed store "
-                   "directory) or store (dataset store directory) "
-                   "sources")
+                   "directory), parquet (.parquet variant table) or "
+                   "store (dataset store directory) sources")
     g.add_argument("--references", nargs="*", default=[],
                    metavar="CONTIG:START:END",
-                   help="genomic ranges to ingest (vcf, plink and store; "
-                   "a store answers them from its position index)")
+                   help="genomic ranges to ingest (vcf, plink, parquet "
+                   "and store; a store answers them from its position "
+                   "index, parquet prunes row groups by their column "
+                   "statistics)")
     g.add_argument("--n-samples", type=int, default=2504)
     g.add_argument("--n-variants", type=int, default=100_000)
     g.add_argument("--n-populations", type=int, default=5)
@@ -219,6 +229,21 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="print per-phase timing JSON to stderr")
 
 
+def _add_ref_source(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--ref-source", default="plink", type=_source_arg,
+                   metavar="{" + ",".join(_SOURCES) + "}",
+                   help="reference cohort genotypes (the panel the model "
+                   "was fitted on); store:<dir> works here too")
+    p.add_argument("--ref-path", default=None)
+
+
+def _needs_ref_path(args) -> bool:
+    """Whether --ref-path is still required: synthetic generates its
+    panel and store:<dir> carries the path in the source spec."""
+    return (not args.ref_path and args.ref_source != "synthetic"
+            and not args.ref_source.startswith("store:"))
+
+
 def _job_from_args(args) -> JobConfig:
     return JobConfig(
         ingest=IngestConfig(
@@ -273,7 +298,8 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="spark_examples_tpu_torch",
         description="population-genomics pipelines on PyTorch/CUDA "
-        "(similarity / PCoA / PCA, the pack and ingest ETL, and store "
+        "(similarity / PCoA / PCA, fit-then-project and cross-kinship, "
+        "the pack and ingest ETL, and store "
         "maintenance)",
     )
     parser.add_argument("--version", action="version",
@@ -281,13 +307,18 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     _add_common(sub.add_parser("similarity", help="pairwise similarity "
                                "matrix"))
-    for name, helptext in (("pcoa", "principal coordinates analysis"),
-                           ("pca", "flagship variants-PCA job")):
-        p = sub.add_parser(name, help=helptext)
-        _add_common(p)
-        p.add_argument("--save-model", default=None,
-                       help="not yet ported: refused")
-    p_pcoa = sub.choices["pcoa"]
+    p_pcoa = sub.add_parser("pcoa", help="principal coordinates analysis")
+    _add_common(p_pcoa)
+    p_pcoa.add_argument("--save-model", default=None,
+                        help="persist the fitted embedding (.npz) so "
+                        "`project` can later place new samples into "
+                        "this coordinate space")
+    p_pca = sub.add_parser("pca", help="flagship variants-PCA job")
+    _add_common(p_pca)
+    p_pca.add_argument("--save-model", default=None,
+                       help="persist the fitted PCA embedding (.npz) so "
+                       "`project` can later place new samples into this "
+                       "coordinate space")
     p_pcoa.add_argument("--matrix-path", default=None,
                         help="consume a persisted similarity/distance "
                         "matrix (the similarity job's --output-path, .npy "
@@ -296,6 +327,28 @@ def main(argv: list[str] | None = None) -> int:
                         choices=["auto", "distance", "similarity"],
                         help="what the persisted matrix holds (auto: trust "
                         "the file's sidecar, else assume distance)")
+    p_proj = sub.add_parser(
+        "project",
+        help="place NEW samples into a fitted reference PCoA/PCA space "
+        "(out-of-sample Nystrom extension; fit with pcoa|pca "
+        "--save-model)",
+    )
+    _add_common(p_proj)  # --source/--path describe the NEW cohort
+    p_proj.add_argument("--model", required=True,
+                        help=".npz from pcoa|pca --save-model")
+    _add_ref_source(p_proj)
+    p_ck = sub.add_parser(
+        "cross-kinship",
+        help="KING-robust kinship BETWEEN two cohorts (same variant "
+        "set): phi ~ 0.5 flags the same individual in both, ~0.25 "
+        "first-degree relatives — the cross-dataset dedupe/QC screen",
+    )
+    _add_common(p_ck)  # --source/--path describe the NEW cohort
+    _add_ref_source(p_ck)
+    p_ck.add_argument("--min-phi", type=float, default=0.177,
+                      help="console report threshold (0.177 ~ the "
+                      "KING 2nd-degree cutoff); the full matrix goes "
+                      "to --output-path")
     _add_common(sub.add_parser(
         "pack", help="ETL: stream any source (QC and LD pruning "
         "included) into the 2-bit packed store at --output-path; later "
@@ -364,6 +417,8 @@ def main(argv: list[str] | None = None) -> int:
         timer = _pack(job, parser)
     elif args.command == "ingest":
         timer = _ingest(job, args.chunk_variants, parser)
+    elif args.command in ("project", "cross-kinship"):
+        timer = _cross(args, job, parser)
     elif args.command == "similarity":
         res = jobs.similarity_matrix_job(job)
         print(
@@ -383,6 +438,73 @@ def main(argv: list[str] | None = None) -> int:
     if args.timings:
         print(json.dumps(timer.report(), sort_keys=True), file=sys.stderr)
     return 0
+
+
+def _cross(args, job: JobConfig,
+           parser: argparse.ArgumentParser) -> PhaseTimer:
+    """The ``project`` and ``cross-kinship`` commands: the new cohort
+    (--source/--path) against the reference panel (--ref-source/
+    --ref-path), streamed in lockstep. Both sources are built here and
+    closed when the job ends."""
+    from spark_examples_tpu_torch.pipelines import project
+    from spark_examples_tpu_torch.pipelines.runner import build_source
+
+    if _needs_ref_path(args):
+        parser.error(
+            "project requires --ref-path (the panel genotypes the model "
+            "was fitted on)" if args.command == "project"
+            else "cross-kinship requires --ref-path")
+    if args.maf > 0.0 or args.max_missing < 1.0 or args.ld_prune_r2 > 0.0:
+        if args.command == "project":
+            parser.error(
+                "--maf/--max-missing/--ld-prune-r2 cannot apply during "
+                "project: these masks are data-dependent, so each cohort "
+                "would keep a DIFFERENT variant subset and cross-"
+                "statistics would mix misaligned variants. Filter/prune "
+                "the panel once (pack --maf/--ld-prune-r2 ... into a "
+                "store), fit the model on that store, and supply a new "
+                "cohort genotyped at the same sites"
+            )
+        parser.error(
+            "--maf/--max-missing/--ld-prune-r2 cannot apply during "
+            "cross-kinship (data-dependent masks would keep "
+            "different variant subsets per cohort); filter both "
+            "cohorts to the same sites beforehand"
+        )
+    try:
+        ref_cfg = dataclasses.replace(job.ingest, source=args.ref_source,
+                                      path=args.ref_path)
+    except ValueError as e:
+        parser.error(str(e))
+    device = job.compute.device
+    src_new = build_source(job.ingest, device)
+    try:
+        src_ref = build_source(ref_cfg, device)
+        try:
+            if args.command == "project":
+                out = project.pcoa_project_job(
+                    job, model_path=args.model, source_new=src_new,
+                    source_ref=src_ref)
+                _print_coords(out, job)
+                return out.timer
+            res = project.cross_kinship_job(job, src_new, src_ref)
+            ref_ids = src_ref.sample_ids
+        finally:
+            close_source(src_ref)
+    finally:
+        close_source(src_new)
+    phi = res.similarity
+    hits = [(res.sample_ids[i], ref_ids[j], float(phi[i, j]))
+            for i, j in zip(*np.nonzero(phi >= args.min_phi))]
+    print(
+        f"cross-kinship {phi.shape[0]}x{phi.shape[1]} over "
+        f"{res.n_variants} variants; {len(hits)} pairs with "
+        f"phi >= {args.min_phi}"
+        + (f" -> {job.output_path}" if job.output_path else "")
+    )
+    for a, b, p in sorted(hits, key=lambda t: -t[2])[:50]:
+        print(f"{a}\t{b}\tphi={p:.4f}")
+    return res.timer
 
 
 def _pack(job: JobConfig, parser: argparse.ArgumentParser) -> PhaseTimer:

@@ -27,10 +27,9 @@ BRAYCURTIS_METHODS = ("auto", "exact", "matmul", "fused")
 EIGH_MODES = ("auto", "dense", "randomized")
 PACK_STREAMS = ("auto", "packed", "dense")
 # Genotype sources. ``store`` is the content-addressed dataset store
-# (also spelled ``store:<dir>``). parquet is accepted by the CLI only to
-# be refused with a message: it is not ported yet.
-SOURCES = ("synthetic", "vcf", "plink", "packed", "store")
-UNPORTED_SOURCES = ("parquet",)
+# (also spelled ``store:<dir>``); ``parquet`` a wide variant-by-sample
+# table (ingest/parquet.py, needs pyarrow).
+SOURCES = ("synthetic", "vcf", "plink", "packed", "parquet", "store")
 # Chunk-payload codecs of the store's --store-codec flag (store/codec.py
 # reads this tuple): "raw" = no compression, "zlib" = per-chunk deflate
 # at a fixed level, "zlib-dict" = deflate with a per-contig preset
@@ -106,11 +105,10 @@ class ReferenceRange:
 class IngestConfig:
     """Which variants to stream, from where, in what block shape."""
 
-    # synthetic | vcf | plink | packed | store (parquet is refused by
-    # runner.build_source). "store:<dir>" is normalized here into
-    # source="store", path="<dir>".
+    # synthetic | vcf | plink | packed | parquet | store. "store:<dir>" is
+    # normalized here into source="store", path="<dir>".
     source: str = "synthetic"
-    # file or directory of a vcf/plink/packed/store source
+    # file or directory of a vcf/plink/packed/parquet/store source
     path: str | None = None
     references: list[ReferenceRange] = field(default_factory=list)
     n_samples: int = 2504  # synthetic default: 1000 Genomes phase-3 cohort
@@ -345,16 +343,24 @@ class JobConfig:
     ingest: IngestConfig = field(default_factory=IngestConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
     output_path: str | None = None
-    # Not ported yet; set only to be refused with a message.
+    # pcoa/pca: persist the fitted embedding (eigenpairs + centering
+    # statistics) so `project` can place new samples into the same
+    # coordinates without refitting (pipelines/project.py). The sketch
+    # rungs save the factorized model (models/factorized.py) where the
+    # metric has a factorized projection path, validated below.
     model_path: str | None = None
 
     def __post_init__(self):
-        if self.model_path:
-            raise ValueError(
-                "bad job config: --save-model — persisted models (and the "
-                "projection that reads them) are not yet ported to the "
-                "PyTorch package; run without it"
-            )
+        # --save-model x --solver x --metric crosses the two configs, so
+        # it is checked here. Only combinations invalid for every job
+        # kind are refused: one JobConfig serves pcoa, pca and
+        # similarity, and the kind-specific rows resolve in the job.
+        if self.model_path and self.compute.solver != "exact":
+            try:
+                kernels.check_factorized_savable(self.compute.metric,
+                                                 self.compute.solver)
+            except ValueError as e:
+                raise ValueError(f"bad job config: {e}") from None
 
     def replace(self, **kw) -> "JobConfig":
         return dataclasses.replace(self, **kw)

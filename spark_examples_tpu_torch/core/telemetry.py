@@ -116,6 +116,12 @@ NAMES: dict[str, tuple[str, str]] = {
     "store.codec.stored_bytes": (
         "counter", "chunk bytes after compression (what is hashed and "
         "written)"),
+    "store.codec.fallback": (
+        "counter",
+        "the native decode entry (store_decode_chunk) was unavailable and "
+        "the Python chunk decode was selected (counted once per process: "
+        "a selection flag, not a rate)",
+    ),
     "store.compact_bytes": (
         "counter",
         "chunk bytes written by the compaction writer (a chunk "

@@ -6,12 +6,19 @@
 Variant ``v`` lives in byte ``v // 4`` at bit offset ``2 * (v % 4)``.
 Ragged widths are padded with code 3 (missing), which contributes zero
 to every gram product.
+
+The host-side pack and unpack run in the feed's producer thread and the
+ingest's workers, so they take the native single-pass loops
+(``native/codec.cpp``) when the library is available; the numpy code
+below is the byte-identical fallback and the tests' oracle.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from spark_examples_tpu_torch import native
 
 CODE_MISSING = 3
 VARIANTS_PER_BYTE = 4
@@ -29,6 +36,9 @@ def pack_dosages(g: np.ndarray) -> np.ndarray:
     g = np.asarray(g)
     if g.ndim != 2:
         raise ValueError(f"expected (N, V) matrix, got shape {g.shape}")
+    out = native.pack_dosages(g)
+    if out is not None:
+        return out
     lo, hi = int(g.min(initial=0)), int(g.max(initial=0))
     if lo < -1 or hi > 2:
         raise ValueError(
@@ -50,6 +60,9 @@ def unpack_dosages_np(packed: np.ndarray) -> np.ndarray:
     """Host-side inverse of :func:`pack_dosages`: the full (N, 4 * W) int8
     matrix, pad columns coming back as missing (-1)."""
     packed = np.asarray(packed, np.uint8)
+    out = native.unpack_dosages(packed)
+    if out is not None:
+        return out
     shifts = np.array([0, 2, 4, 6], np.uint8)
     codes = (packed[:, :, None] >> shifts) & np.uint8(3)
     codes = codes.reshape(packed.shape[0], -1)

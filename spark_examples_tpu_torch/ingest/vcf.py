@@ -7,9 +7,10 @@ int8 dosage blocks. Any non-reference allele counts toward the dosage
 its called allele, and ``.`` genotypes are missing. ``--references
 chr:start:end`` keeps only the records inside one of the ranges.
 
-The per-sample GT parse is pure Python with a cache keyed by the GT
-string (a cohort has few distinct GT strings), the same semantics as the
-JAX package's Python fallback of its native parser.
+The per-sample GT parse, the loop that runs N times per record, is one
+GIL-released native call (``native/codec.cpp::vcf_parse_gt``) when the
+library is available; its fallback is pure Python with a cache keyed by
+the GT string (a cohort has few distinct GT strings), byte-identical.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from spark_examples_tpu_torch import native
 from spark_examples_tpu_torch.ingest.source import BlockMeta
 
 
@@ -65,6 +67,7 @@ def parse_record_lines(lines, n_samples: int, in_range, path: str,
     n = n_samples
     gt_cache: dict[bytes, int] = {}
     short_records = 0
+    use_native = native.load() is not None
     for line in lines:
         if line.startswith(b"#"):
             continue
@@ -80,6 +83,11 @@ def parse_record_lines(lines, n_samples: int, in_range, path: str,
             gt_idx = fmt.index(b"GT")
         except ValueError:
             continue  # no genotypes at this site
+        if use_native:
+            col = np.empty(n, dtype=np.int8)
+            if native.vcf_parse_gt(line, gt_idx, n, col):
+                yield contig, pos, col
+                continue
         gts = prefix[9].split(b"\t")
         if len(gts) < n:
             # A truncated or malformed record: computing on reduced data

@@ -22,7 +22,10 @@ A kernel may also declare how the sketch solver (``solvers/``) streams
 it without any N x N state: a :class:`FactorSketch` when the centered
 solve operator is an exact Gram of per-block features, or a
 :class:`DualSketch` for a ratio metric whose numerator and pair-count
-denominator stream as two sketches in the same pass.
+denominator stream as two sketches in the same pass. A
+:class:`CrossSpec` makes a fitted PCoA model of the metric projectable
+(``pipelines/project.py``): which cross statistics to stream between a
+new cohort and the panel, and how they finalize.
 
 Each finalize is the counterpart of the JAX package's registration
 (``kernels/builtin.py``), whose ``np_finalize`` twins are the spec.
@@ -72,6 +75,21 @@ class DualSketch:
 
 
 @dataclass(frozen=True)
+class CrossSpec:
+    """Out-of-sample projectability of a fitted PCoA model: ``stats``
+    are the ``ops.genotype.CROSS_STATS`` names streamed between the new
+    cohort and the reference panel; ``d2(acc)`` finalizes the (A, N_ref)
+    int32 statistics into squared cross distances in the kernel's own
+    distance convention (f32). ``num(acc)``: for ratio kernels, the
+    similarity numerator a factorized dual model scales by
+    ``1 / (a_q a_j)`` (None: no factorized projection)."""
+
+    stats: tuple[str, ...]
+    d2: Callable
+    num: Callable | None = None
+
+
+@dataclass(frozen=True)
 class Kernel:
     name: str
     family: str  # "count" | "float" | "table"
@@ -96,6 +114,8 @@ class Kernel:
     table_runner: Callable | None = None
     # How the sketch solver streams the metric (None: exact rung only).
     sketch: FactorSketch | DualSketch | None = None
+    # How a fitted PCoA model of the metric projects (None: it does not).
+    cross: CrossSpec | None = None
 
     def flops(self, n: int, v: int) -> float:
         """Operations one (n, v) block contributes. Count kernels: one
@@ -206,6 +226,36 @@ def _grm_update(acc, block, precise):
     return gram.grm_update(acc, block, precise)
 
 
+def _ibs_cross_d2(acc):
+    """Squared ibs cross distance ``(d1 / 2m)^2``; 0 where no variant is
+    complete for the pair."""
+    m = acc["m"]
+    dist = torch.where(m > 0, acc["d1"].to(torch.float32) / (2.0 * m), 0.0)
+    return dist * dist
+
+
+def _ibs_cross_num(acc):
+    """The dual sketch's numerator ``2m - d1`` between a query row and
+    each panel sample (what the fit streamed as sum_v c_i c_j (2 -
+    |a - b|))."""
+    return (2.0 * acc["m"] - acc["d1"]).to(torch.float32)
+
+
+def _jaccard_cross_d2(acc):
+    """Gower squared cross distance ``2 - 2J``: the union is each side's
+    carrier count over pairwise-complete variants minus the shared
+    carriers; an empty union scores J = 1."""
+    s = acc["s"].to(torch.float32)
+    union = (acc["sn"] + acc["sr"]).to(torch.float32) - s
+    sim = torch.where(union > 0, s / union, 1.0)
+    return torch.clamp(2.0 - 2.0 * sim, min=0.0)
+
+
+def _jaccard_cross_num(acc):
+    """The dual numerator: the raw intersection count ``s``."""
+    return acc["s"].to(torch.float32)
+
+
 def _ibs_dual_operands(block):
     """Validity, carrier and hom-alt indicators and the dosage of the
     called genotypes, as f32 (N, v) operands."""
@@ -269,6 +319,8 @@ _register(Kernel(
                    ("t1", "t1", 2.0), ("t2", "t2", 2.0)),
         den_terms=(("c", "c", 2.0),),
     ),
+    cross=CrossSpec(stats=("m", "d1"), d2=_ibs_cross_d2,
+                    num=_ibs_cross_num),
 ))
 _register(Kernel(
     name="ibs2",
@@ -312,6 +364,8 @@ _register(Kernel(
         num_terms=(("t1", "t1", 1.0),),
         den_terms=(("t1", "c", 1.0), ("c", "t1", 1.0), ("t1", "t1", -1.0)),
     ),
+    cross=CrossSpec(stats=("s", "sn", "sr"), d2=_jaccard_cross_d2,
+                    num=_jaccard_cross_num),
 ))
 _register(Kernel(
     name="pc-invariant",
@@ -447,6 +501,79 @@ def check_sketchable(metric: str, solver: str) -> None:
     if (isinstance(spec, DualSketch) and solver == "sketch"
             and not spec.num_psd):
         raise ValueError(unsketchable_metric_error(metric, solver))
+
+
+def maybe_get(name: str) -> Kernel | None:
+    return _REGISTRY.get(name)
+
+
+def factorized_savable_names() -> tuple[str, ...]:
+    """Metrics whose sketch-rung fits save as a factorized model:
+    pca-family factor kernels on either rung, dual kernels with a cross
+    numerator on the corrected rung."""
+    return tuple(
+        k.name for k in _REGISTRY.values()
+        if (isinstance(k.sketch, FactorSketch) and k.sketch.pca_family)
+        or (isinstance(k.sketch, DualSketch) and k.cross is not None
+            and k.cross.num is not None)
+    )
+
+
+def check_factorized_savable(metric: str | None, solver: str,
+                             kind: str | None = None) -> None:
+    """Raise unless a ``--save-model`` fit of ``metric`` on the sketch
+    rung ``solver`` can give a projectable factorized model. Config-time
+    validation passes no ``kind`` (one JobConfig serves every job kind,
+    so only combinations invalid for all of them are refused); the job
+    passes it and the kind-specific rows resolve. ``exact`` never takes
+    the factorized path and always passes. The JAX package's gate, word
+    for word."""
+    if solver == "exact":
+        return
+    if metric is None:
+        if kind is None:
+            return  # the job's default metric resolves at run time
+        metric = "shared-alt" if kind == "pca" else "ibs"
+    kern = _REGISTRY.get(metric)
+    spec = kern.sketch if kern is not None else None
+    savable = " | ".join(factorized_savable_names())
+    if isinstance(spec, DualSketch):
+        if kern.cross is None or kern.cross.num is None:
+            raise ValueError(
+                f"--save-model with --solver {solver}: --metric {metric} "
+                "declares no cross numerator, so a factorized model of "
+                f"it cannot project queries — savable sketch metrics: "
+                f"{savable}, or fit with --solver exact"
+            )
+        if solver != "corrected":
+            raise ValueError(
+                f"--save-model with --metric {metric}: the dual "
+                "centering statistics stream only in the corrected "
+                "rung's scaled power passes (the denominator scale "
+                "does not exist during pass 0) — use --solver "
+                "corrected, or fit with --solver exact"
+            )
+        return
+    if isinstance(spec, FactorSketch):
+        if not spec.pca_family:
+            raise ValueError(
+                f"--save-model with --solver {solver}: --metric {metric} "
+                "has no factorized projection path (its factor is not "
+                "the PCA similarity and it declares no cross spec) — "
+                f"savable sketch metrics: {savable}, or fit with "
+                "--solver exact"
+            )
+        if kind == "pcoa":
+            raise ValueError(
+                f"--save-model with --solver {solver}: a pcoa fit of "
+                f"--metric {metric} serves the Gower geometry, which "
+                "the factorized artifact stores only for ratio "
+                f"metrics ({' | '.join(dual_sketch_names())}) — save "
+                "the pca fit instead, or fit with --solver exact"
+            )
+        return
+    # No sketch spec: the rung itself is refused, with the same text.
+    raise ValueError(unsketchable_metric_error(metric, solver))
 
 
 def streams_packed(metric: str, pack_stream: str) -> bool:

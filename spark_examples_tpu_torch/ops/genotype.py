@@ -174,6 +174,48 @@ def tile_products(block_rows: torch.Tensor, block_cols: torch.Tensor,
     )
 
 
+# Cross-cohort statistics (out-of-sample projection, cross-kinship): each
+# statistic as weighted operand pairs (NEW-cohort operand, REFERENCE
+# operand). Unlike the symmetric products, the mirrored pairs (C_n Y_r^T
+# and Y_n C_r^T) are not each other's transposes, so each orientation is
+# its own contraction. The KING pieces expand H = T1 - T2 and
+# X0 = C - T1 with both orientations explicit:
+#   hh   = H_n H_r^T                 (het-het co-occurrence)
+#   opp  = X0_n T2_r^T + T2_n X0_r^T (opposite homozygotes, both ways)
+#   hcn  = H_n C_r^T                 (new-side het over complete pairs)
+#   hcr  = C_n H_r^T                 (ref-side het over complete pairs)
+# sn / sr are each side's carrier count over pairwise-complete variants
+# (the jaccard union is sn + sr - s).
+CROSS_STATS: dict[str, tuple[tuple[tuple[str, str], int], ...]] = {
+    "m": ((("c", "c"), 1),),
+    "d1": ((("y", "c"), 1), (("c", "y"), 1),
+           (("t1", "t1"), -2), (("t2", "t2"), -2)),
+    "s": ((("t1", "t1"), 1),),
+    "hh": ((("t1", "t1"), 1), (("t1", "t2"), -1),
+           (("t2", "t1"), -1), (("t2", "t2"), 1)),
+    "opp": ((("c", "t2"), 1), (("t1", "t2"), -1),
+            (("t2", "c"), 1), (("t2", "t1"), -1)),
+    "hcn": ((("t1", "c"), 1), (("t2", "c"), -1)),
+    "hcr": ((("c", "t1"), 1), (("c", "t2"), -1)),
+    "sn": ((("t1", "c"), 1),),
+    "sr": ((("c", "t1"), 1),),
+}
+
+
+def cross_stats(block_new: torch.Tensor, block_ref: torch.Tensor,
+                stats: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """Cross-cohort pair statistics over one shared variant block:
+    ``block_new`` (A, V) against ``block_ref`` (N, V), the same variants
+    in the same order, giving (A, N) int32 statistics that add across
+    blocks like the symmetric ones. Every operand is a 0/1 indicator or
+    the clipped dosage, so each term is an int8 contraction: the tensor
+    cores' :func:`int_mm` on a CUDA device, :func:`int_dot` elsewhere."""
+    dot = int_mm if block_new.device.type == "cuda" else int_dot
+    return _weighted_products(
+        {s: CROSS_STATS[s] for s in stats},
+        operands(block_new), operands(block_ref), dot)
+
+
 def combine_products(prod: dict[str, torch.Tensor],
                      pieces: tuple[str, ...]) -> dict[str, torch.Tensor]:
     """Accumulated raw products -> named pairwise statistics, in integer

@@ -25,19 +25,26 @@ def write_coords_tsv(path: str, sample_ids: list[str],
 
 
 def write_matrix(path: str, sample_ids: list[str], matrix: np.ndarray,
-                 kind: str | None = None) -> None:
-    """Square matrix as TSV (header row of sample ids) or ``.npy``, plus
-    the sidecar. ``kind``: similarity | distance."""
+                 kind: str | None = None,
+                 col_ids: list[str] | None = None) -> None:
+    """Matrix as TSV (header row of column ids) or ``.npy``, plus the
+    sidecar. ``kind``: similarity | distance. ``col_ids``: for a
+    rectangular matrix whose columns index another cohort than its rows
+    (cross-kinship); a square matrix leaves it None (columns = rows)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    cols = col_ids if col_ids is not None else sample_ids
     if path.endswith(".npy"):
         np.save(path, matrix)
     else:
         with open(path, "w") as f:
-            f.write("sample\t" + "\t".join(sample_ids) + "\n")
+            f.write("sample\t" + "\t".join(cols) + "\n")
             for sid, row in zip(sample_ids, np.asarray(matrix)):
                 f.write(sid + "\t" + "\t".join(f"{v:.6g}" for v in row) + "\n")
+    meta = {"kind": kind, "sample_ids": list(sample_ids)}
+    if col_ids is not None:
+        meta["col_ids"] = list(col_ids)
     with open(path + ".meta.json", "w") as f:
-        json.dump({"kind": kind, "sample_ids": list(sample_ids)}, f)
+        json.dump(meta, f)
 
 
 def read_matrix(path: str) -> tuple[list[str], np.ndarray, str | None]:

@@ -12,7 +12,10 @@
 
 Both coordinates jobs take the sketch rungs of the accuracy ladder
 (``--solver sketch|corrected``, ``solvers/``): streamed (N, rank) state
-and a Nystrom or Rayleigh solve, no N x N anywhere.
+and a Nystrom or Rayleigh solve, no N x N anywhere. With
+``--save-model`` they persist the fitted embedding for ``project``
+(``pipelines/project.py``): the exact model from the dense matrix, the
+factorized model (``models/factorized.py``) from a sketch rung.
 """
 
 from __future__ import annotations
@@ -94,10 +97,66 @@ def pcoa_job(job: JobConfig, source=None, matrix_path: str | None = None,
         res = hard_sync(fit_pcoa(dist, k=cfg.num_pc, method=method,
                                  iters=cfg.eigh_iters,
                                  oversample=cfg.eigh_oversample))
-    return _emit_coords(job, sample_ids, res.coords.cpu().numpy(),
-                        res.eigenvalues.cpu().numpy(), timer, n_variants,
+    coords = res.coords.cpu().numpy()
+    vals = res.eigenvalues.cpu().numpy()
+    _maybe_save_model(job, dist, coords, vals, sample_ids)
+    return _emit_coords(job, sample_ids, coords, vals, timer, n_variants,
                         method=method, eigh_iters=cfg.eigh_iters,
                         proportion=res.proportion_explained.cpu().numpy())
+
+
+def _maybe_save_model(job: JobConfig, dist, coords, vals,
+                      sample_ids) -> None:
+    """Persist the fitted PCoA embedding when the job asks for it; the
+    (N, N) distance comes to the host only then."""
+    if not job.model_path:
+        return
+    from spark_examples_tpu_torch.pipelines.project import save_model
+
+    save_model(job.model_path, coords, vals, dist.cpu().numpy(),
+               sample_ids, job.compute.metric or "ibs",
+               solver=job.compute.solver)
+
+
+def _maybe_save_pca_model(job: JobConfig, sim, coords, vals,
+                          sample_ids) -> None:
+    """Persist the fitted PCA embedding when the job asks for it."""
+    if not job.model_path:
+        return
+    from spark_examples_tpu_torch.pipelines.project import save_pca_model
+
+    save_pca_model(job.model_path, coords, vals, sim.cpu().numpy(),
+                   sample_ids, solver=job.compute.solver)
+
+
+def _maybe_save_factorized_model(job: JobConfig, kind: str, res) -> None:
+    """Persist a sketch-rung fit as a factorized model when the job asks
+    for it (the config and the solver driver checked that the rung and
+    metric can; ``res`` carries the basis and the streamed centering
+    statistics)."""
+    if not job.model_path:
+        return
+    from spark_examples_tpu_torch.models.factorized import (
+        save_factorized_model,
+    )
+
+    metric = ("shared-alt" if kind == "pca"
+              else (job.compute.metric or "ibs"))
+    save_factorized_model(
+        job.model_path,
+        family="pca" if kind == "pca" else "pcoa",
+        metric=metric,
+        eigenvectors=res.eigvecs,
+        eigenvalues=res.eigenvalues,
+        colmean=res.colmean,
+        grand=res.grand,
+        sample_ids=res.sample_ids,
+        solver=res.rung,
+        rank=res.rank,
+        seed=res.seed,
+        scale=res.scale,
+        scale_floor=res.scale_floor,
+    )
 
 
 def _pcoa_from_matrix(job: JobConfig, matrix_path: str,
@@ -146,6 +205,7 @@ def _sketch_route(job: JobConfig, source, timer, kind: str) -> CoordsOutput:
     from spark_examples_tpu_torch.solvers import run_sketch_solve
 
     res = run_sketch_solve(job, source, timer, kind=kind)
+    _maybe_save_factorized_model(job, kind, res)
     return _emit_coords(job, res.sample_ids, res.coords, res.eigenvalues,
                         timer, res.n_variants, method="sketch",
                         eigh_iters=res.passes, proportion=res.proportion)
@@ -180,8 +240,10 @@ def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
                                               "similarity"))
     with timer.phase("eigh"):
         res = hard_sync(fit_pca(sim, k=job.compute.num_pc))
-    return _emit_coords(job, grun.sample_ids, res.coords.cpu().numpy(),
-                        res.eigenvalues.cpu().numpy(), timer,
+    coords = res.coords.cpu().numpy()
+    vals = res.eigenvalues.cpu().numpy()
+    _maybe_save_pca_model(job, sim, coords, vals, grun.sample_ids)
+    return _emit_coords(job, grun.sample_ids, coords, vals, timer,
                         grun.n_variants, method="dense")
 
 

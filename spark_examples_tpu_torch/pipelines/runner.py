@@ -23,11 +23,7 @@ import torch
 
 from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.core import checkpoint as ckpt
-from spark_examples_tpu_torch.core.config import (
-    UNPORTED_SOURCES,
-    IngestConfig,
-    JobConfig,
-)
+from spark_examples_tpu_torch.core.config import IngestConfig, JobConfig
 from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
 from spark_examples_tpu_torch.ingest.filters import FilteredSource
@@ -108,18 +104,12 @@ def _build_raw_source(cfg: IngestConfig, device: str):
             n_populations=cfg.n_populations,
             seed=cfg.seed,
         )
-    if cfg.source in UNPORTED_SOURCES:
-        raise ValueError(
-            f"--source {cfg.source}: not yet ported to the PyTorch package "
-            "(ported sources: synthetic | vcf | plink | packed | store; "
-            "`ingest` a cohort into a dataset store to stream it)"
-        )
     if not cfg.path:
         raise ValueError(
             f"{cfg.source} source requires --path (a .vcf/.vcf.gz file, "
             "a PLINK fileset prefix or .bed path, a packed store "
-            "directory, or a dataset store directory — also spelled "
-            "--source store:<dir>)"
+            "directory, a .parquet variant table, or a dataset store "
+            "directory — also spelled --source store:<dir>)"
         )
     if cfg.source == "vcf":
         return _maybe_retrying(
@@ -133,6 +123,11 @@ def _build_raw_source(cfg: IngestConfig, device: str):
     if cfg.source == "store":
         return _maybe_retrying(_open_store(cfg, device), cfg,
                                reopen=lambda: _open_store(cfg, device))
+    if cfg.source == "parquet":
+        from spark_examples_tpu_torch.ingest.parquet import ParquetSource
+
+        return _maybe_retrying(
+            ParquetSource(cfg.path, references=tuple(cfg.references)), cfg)
     raise ValueError(f"unknown source {cfg.source!r}")
 
 

@@ -43,14 +43,27 @@ _DUAL_CKPT_LEAVES = sketch.DUAL_STATE_LEAVES + ("passno",)
 
 @dataclass
 class SketchSolveResult:
-    """Host-resident eigenpairs and coordinates."""
+    """Host-resident eigenpairs and coordinates, and the provenance a
+    saved model records."""
 
     sample_ids: list[str]
     eigenvalues: np.ndarray  # (k,) descending
     coords: np.ndarray  # (N, k)
     proportion: np.ndarray | None  # PCoA, factor sketch only
     n_variants: int
+    rung: str
+    rank: int
     passes: int
+    # The factorized model's payload, filled only when the job saves one
+    # (--save-model): the raw Ritz basis and the streamed centering
+    # statistics, and for dual metrics the denominator scale diagonal
+    # and its floor.
+    eigvecs: np.ndarray | None = None
+    colmean: np.ndarray | None = None
+    grand: float | None = None
+    scale: np.ndarray | None = None
+    scale_floor: float = 0.0
+    seed: int = 0
 
 
 def _gauges(cfg, rank: int, dual: bool, state_bytes: int,
@@ -112,6 +125,10 @@ def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
     cfg = job.compute
     metric = "shared-alt" if kind == "pca" else (cfg.metric or "ibs")
     kernels.check_sketchable(metric, cfg.solver)
+    if job.model_path:
+        # The config checked what it could; the job also knows its kind,
+        # so a pcoa fit of a pca-family metric is refused here.
+        kernels.check_factorized_savable(metric, cfg.solver, kind)
     device = resolve_device(cfg.device)
     if isinstance(kernels.get(metric).sketch, kernels.DualSketch):
         return _run_dual_solve(job, source, timer, kind, metric, device)
@@ -172,8 +189,17 @@ def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
     else:
         coords = coords_from_eigpairs(vals, vecs).cpu().numpy()
         prop = np.maximum(vals_np, 0.0) / max(float(tr), 1e-30)
-    return SketchSolveResult(source.sample_ids, vals_np, coords, prop,
-                             n_variants, passes)
+    colmean = grand = None
+    if job.model_path:
+        # The streamed column mass, finalized into the centering
+        # statistics the factorized model persists.
+        colmean, grand = sketch.factor_centering(state)
+    return SketchSolveResult(
+        sample_ids=source.sample_ids, eigenvalues=vals_np, coords=coords,
+        proportion=prop, n_variants=n_variants, rung=cfg.solver,
+        rank=int(rank), passes=passes,
+        eigvecs=vecs.cpu().numpy() if job.model_path else None,
+        colmean=colmean, grand=grand, seed=int(cfg.sketch_seed))
 
 
 def _run_dual_solve(job: JobConfig, source, timer: PhaseTimer, kind: str,
@@ -248,5 +274,20 @@ def _run_dual_solve(job: JobConfig, source, timer: PhaseTimer, kind: str,
         vals, vecs = hard_sync((vals, vecs))
 
     coords = coords_from_eigpairs(vals, vecs).cpu().numpy()
-    return SketchSolveResult(source.sample_ids, vals.cpu().numpy(), coords,
-                             None, n_variants, passes)
+    save = bool(job.model_path) and cfg.solver == "corrected"
+    colmean = grand = scale = None
+    floor = 0.0
+    if save:
+        # The dual column mass streams only in the scaled power passes
+        # (the scale does not exist during pass 0), so only the
+        # corrected rung persists a model; the config and job gates
+        # already refuse the others.
+        colmean, grand, floor = sketch.dual_centering(state)
+        scale = state["scale"].cpu().numpy().astype(np.float64)
+    return SketchSolveResult(
+        sample_ids=source.sample_ids, eigenvalues=vals.cpu().numpy(),
+        coords=coords, proportion=None, n_variants=n_variants,
+        rung=cfg.solver, rank=int(rank), passes=passes,
+        eigvecs=vecs.cpu().numpy() if save else None, colmean=colmean,
+        grand=grand, scale=scale, scale_floor=floor,
+        seed=int(cfg.sketch_seed))

@@ -18,20 +18,27 @@ package's ``store/codec.py`` byte for byte:
   trained from the first chunk of each contig, is shared by that
   contig's chunks and stored as ``dicts/<sha256>.zdict``.
 
-Decoding is Python's ``zlib`` and the numpy 2-bit unpack; the JAX
-package's native decode-to-slab entry is not ported. Corrupt stored
-bytes that get past a disabled verify raise :class:`StoreDecodeError`,
-which the reader handles like a digest mismatch (heal, else
-quarantine).
+Decoding (:func:`decode_into`) is one GIL-released native call from
+the stored bytes to dense dosages in the caller's buffer
+(``native/codec.cpp::store_decode_chunk``: inflate + 2-bit unpack), and
+Python's ``zlib`` with the numpy unpack where the library is missing or
+stale: bit-identical, slower, and loud (one ``RuntimeWarning`` and the
+``store.codec.fallback`` counter). Corrupt stored bytes that get past a
+disabled verify raise :class:`StoreDecodeError`, which the reader
+handles like a digest mismatch (heal, else quarantine).
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import warnings
 import zlib
 
 import numpy as np
 
+from spark_examples_tpu_torch import native
+from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.core.config import STORE_CODEC_SPECS
 from spark_examples_tpu_torch.ingest import bitpack
 
@@ -40,6 +47,8 @@ ZLIB = "zlib"
 #: Codecs a chunk record may name; a manifest naming another is refused
 #: at load time (store/manifest.py).
 CODECS = (RAW, ZLIB)
+# Codec ids of the native decode entry.
+CODEC_IDS = {RAW: 0, ZLIB: 1}
 #: --store-codec spellings ("zlib-dict" = zlib + per-contig dictionary).
 SPECS = STORE_CODEC_SPECS
 DEFAULT_SPEC = ZLIB
@@ -134,6 +143,48 @@ def decompress(codec: str, stored, raw_size: int,
     raise ValueError(f"unknown store codec {codec!r}")
 
 
+_fallback_lock = threading.Lock()
+_fallback_warned = False
+
+
+def _note_fallback() -> None:
+    """The Python decode was selected because the native entry is
+    unavailable: count ``store.codec.fallback`` once per process (a
+    selection flag, not a rate) and warn once, except under
+    ``SPARK_TPU_NO_NATIVE``, where the fallback is asked for."""
+    global _fallback_warned
+    with _fallback_lock:
+        # Check-then-count under the lock: the readahead workers' first
+        # decodes arrive here together.
+        if telemetry.counter_value("store.codec.fallback") == 0:
+            telemetry.count("store.codec.fallback")
+        if os.environ.get("SPARK_TPU_NO_NATIVE") or _fallback_warned:
+            return
+        _fallback_warned = True
+    warnings.warn(
+        "store: native decode-to-slab entry (store_decode_chunk) is "
+        "unavailable — a stale native build or no g++; store reads run "
+        "the pure-Python decode path (bit-identical, measurably slower). "
+        f"Rebuild the native library to restore the fast path "
+        f"({native.build_error or 'no build error recorded'}).",
+        RuntimeWarning, stacklevel=3,
+    )
+
+
+def native_decode_available() -> bool:
+    return native.has_store_decode()
+
+
+_NATIVE_ERRORS = {
+    1: "native decode: unknown codec id",
+    2: "native decode: zlib inflate failed — stored bytes are not a "
+       "valid deflate stream for this chunk",
+    3: "native decode: decompressed size contradicts the catalog "
+       "geometry",
+    4: "native decode: payload buffer allocation failed",
+}
+
+
 def decode_into(stored, codec: str, zdict: bytes | None, n: int,
                 w_bytes: int, v0: int, v1: int, out: np.ndarray,
                 col_off: int = 0) -> None:
@@ -142,15 +193,33 @@ def decode_into(stored, codec: str, zdict: bytes | None, n: int,
 
     ``stored`` is the chunk file's bytes (the verified mmap); ``n`` x
     ``w_bytes`` is the packed payload's geometry from the catalog;
-    ``out`` is int8 (a decode-cache entry, a ``read_range`` result or a
-    feed slab). A raw chunk unpacks only the bytes covering the span.
-    Raises :class:`StoreDecodeError` on undecodable bytes."""
+    ``out`` is C-contiguous int8 (a decode-cache entry, a ``read_range``
+    result or a feed slab). Native when available, Python otherwise,
+    bit-identical either way. Raises :class:`StoreDecodeError` on
+    undecodable bytes."""
+    if codec == RAW and len(stored) != n * w_bytes:
+        raise StoreDecodeError(
+            f"raw chunk payload is {len(stored)} bytes, catalog says "
+            f"{n * w_bytes}"
+        )
+    if codec not in CODEC_IDS:
+        raise ValueError(f"unknown store codec {codec!r}")
+    rc = native.store_decode_chunk(stored, CODEC_IDS[codec], zdict, n,
+                                   w_bytes, v0, v1, out, col_off)
+    if rc is None:
+        _note_fallback()
+        _decode_into_py(stored, codec, zdict, n, w_bytes, v0, v1, out,
+                        col_off)
+    elif rc:
+        raise StoreDecodeError(_NATIVE_ERRORS.get(
+            rc, f"native decode failed (rc={rc})"))
+
+
+def _decode_into_py(stored, codec, zdict, n, w_bytes, v0, v1, out,
+                    col_off) -> None:
+    """The Python decode: a raw chunk unpacks only the bytes covering
+    the span."""
     if codec == RAW:
-        if len(stored) != n * w_bytes:
-            raise StoreDecodeError(
-                f"raw chunk payload is {len(stored)} bytes, catalog says "
-                f"{n * w_bytes}"
-            )
         payload = np.asarray(stored, np.uint8).reshape(n, w_bytes)
     else:
         payload = np.frombuffer(

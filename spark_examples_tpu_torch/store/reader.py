@@ -16,8 +16,9 @@ The read path is tiered:
    cursors resume deterministically — the drop-in contract every job
    surface (the runner's jobs) already assumes.
 
-Decoding (store/codec.py ``decode_into``) inflates and 2-bit unpacks
-into the destination buffer: a fresh cache entry, a ``read_range``
+Decoding (store/codec.py ``decode_into``, one native call where the
+library is built) inflates and 2-bit unpacks into the destination
+buffer: a fresh cache entry, a ``read_range``
 output, or (through ``decode_range_into`` / ``block_spans``, the feed's
 direct drive) a reusable staging slab.
 
@@ -340,7 +341,7 @@ class StoreSource:
                           out: np.ndarray, col_off: int,
                           _healed: bool = False) -> None:
         """Decode variants [v0, v1) of chunk ``idx`` into ``out`` at
-        ``col_off`` — the codec's decode with the same
+        ``col_off`` — the native (or fallback) decode with the same
         one-heal-then-quarantine damage contract as the byte reads."""
         rec = self.manifest.chunks[idx]
         m = self._stored_bytes(idx, _healed)
@@ -491,7 +492,7 @@ class StoreSource:
         — the zero-copy drive the prefetch staging ring uses
         (ingest/prefetch.py): cached/warmed chunks are block-copied,
         everything else decodes STRAIGHT into the destination slab
-        with no intermediate dense buffer."""
+        through the native entry, with no intermediate dense buffer."""
         if not 0 <= lo <= hi <= self.n_variants:
             raise ValueError(
                 f"variant range [{lo}, {hi}) out of bounds for a "

@@ -464,3 +464,60 @@ def test_sketch_job_on_cuda_matches_its_cpu_run(cuda_device, metric, solver):
            / np.abs(out["cpu"].eigenvalues))
     assert rel.max() <= 1e-4, rel
     assert np.isfinite(out["cuda"].coords).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stat", sorted(genotype.CROSS_STATS))
+@pytest.mark.parametrize("a", [1, 7, 33])
+def test_cross_stats_on_cuda_bitwise_equal_to_the_cpu(cuda_device, stat, a):
+    """The cross products on the card (``torch._int_mm``, rows padded to
+    its minimum, a single new sample included) equal the CPU's exact
+    ``int_dot`` bit for bit."""
+    rng = np.random.default_rng(a * 31 + len(stat))
+    bn = rng.integers(-1, 3, (a, 1000), dtype=np.int8)
+    br = rng.integers(-1, 3, (45, 1000), dtype=np.int8)
+    want = genotype.cross_stats(torch.from_numpy(bn), torch.from_numpy(br),
+                                (stat,))[stat]
+    got = genotype.cross_stats(torch.from_numpy(bn).to(cuda_device),
+                               torch.from_numpy(br).to(cuda_device),
+                               (stat,))[stat]
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_native_codec_is_built_on_the_card_s_host(cuda_device):
+    """The host codec builds on the machine that holds the card (g++ and
+    zlib), into the package's _build directory, with all five entries."""
+    from spark_examples_tpu_torch import native
+
+    lib = native.load()
+    assert lib is not None, native.build_error
+    assert native.library_path().parent == native.BUILD_DIR
+    for entry in native.ENTRIES:
+        assert hasattr(lib, entry), entry
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pcoa", "pca"])
+def test_project_on_cuda_matches_its_cpu_run(cuda_device, tmp_path, kind):
+    """One model file projected on the card and on the CPU: the int32
+    cross accumulators are bitwise equal, so the coordinates agree
+    within f32 rounding (1e-5 of max|coords|)."""
+    from spark_examples_tpu_torch.pipelines.project import pcoa_project_job
+
+    panel = SyntheticSource(n_samples=120, n_variants=3000, seed=4)
+    new = SyntheticSource(n_samples=9, n_variants=3000, seed=4)
+    model = str(tmp_path / "m.npz")
+    fit = JobConfig(ingest=IngestConfig(block_variants=1024),
+                    compute=ComputeConfig(num_pc=4, device="cpu"),
+                    model_path=model)
+    (jobs.pcoa_job if kind == "pcoa" else jobs.variants_pca_job)(
+        fit, source=panel)
+    out = {}
+    for device in ("cuda", "cpu"):
+        job = JobConfig(ingest=IngestConfig(block_variants=1024),
+                        compute=ComputeConfig(device=device))
+        out[device] = pcoa_project_job(job, model, new, panel).coords
+    scale = np.abs(out["cpu"]).max()
+    assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-5 * scale

@@ -152,8 +152,7 @@ def test_the_two_refusals_are_jax_s(jax_matrices):
         jjobs.pcoa_job(_jjob().replace(compute=jconfig.ComputeConfig(
             metric="ibs", num_pc=K, solver="corrected", sketch_rank=16)),
             matrix_path=path)
-    # --save-model is refused at config time in the port; a job that
-    # carries one anyway is refused by the matrix route itself.
+    # --save-model with --matrix-path is refused by the matrix route.
     job = _tjob()
     job.model_path = "m.npz"
     with pytest.raises(ValueError, match="--save-model cannot be combined"):

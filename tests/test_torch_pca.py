@@ -168,7 +168,8 @@ def test_pca_cli_writes_the_coords_tsv(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["pca", "--metric", "ibs"], "shared-alt similarity by definition"),
-    (["pca", "--save-model", "m.npz"], "--save-model"),
+    (["pcoa", "--save-model", "m.npz", "--solver", "sketch", "--metric",
+      "grm"], "--save-model"),
     (["pcoa", "--solver", "corrected", "--sketch-iters", "0"],
      "--sketch-iters=0"),
     (["pcoa", "--gram-mode", "tile2d"], "--gram-mode"),

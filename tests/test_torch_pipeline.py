@@ -161,7 +161,8 @@ def test_compute_config_validation(kw, match):
 
 
 def test_unported_source_and_checkpoints_are_refused(tmp_path):
-    with pytest.raises(ValueError, match="not yet ported"):
+    # parquet is ported: it needs its --path like every file source.
+    with pytest.raises(ValueError, match="parquet source requires --path"):
         trunner.build_source(tconfig.IngestConfig(source="parquet"))
     # The dataset store is ported: it is opened, not refused.
     with pytest.raises(ValueError, match="requires --path"):
@@ -235,7 +236,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of the port (and chip_smoke.py) in a fresh
     interpreter: neither jax nor spark_examples_tpu may be loaded. The
     store, telemetry, faults, hashing, sidecar, parallel and resilient
-    modules must be among them."""
+    modules must be among them, and since the fit-then-project slice the
+    native codec, the parquet source, projection and the factorized
+    model."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import spark_examples_tpu_torch as p\n"
@@ -246,7 +249,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'store.reader', 'store.writer', 'core.telemetry', 'core.faults', "
         "'core.hashing', 'core.sidecar', 'ingest.parallel', "
         "'ingest.resilient', 'core.checkpoint', 'solvers.sketch', "
-        "'solvers.solve', 'solvers.driver']\n"
+        "'solvers.solve', 'solvers.driver', 'native', 'ingest.parquet', "
+        "'pipelines.project', 'models.factorized']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"
@@ -433,7 +437,7 @@ def test_pack_cli_then_pcoa_from_the_store(cohort_files, tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["pack", "--source", "synthetic"], "--output-path"),
     (["pcoa", "--source", "vcf"], "requires --path"),
-    (["pcoa", "--source", "parquet", "--path", "x"], "not yet ported"),
+    (["pcoa", "--source", "parquet"], "requires --path"),
     (["pcoa", "--source", "store:st"], "not a dataset store"),
     (["pcoa", "--source", "csv"], "invalid source"),
     (["pcoa", "--references", "chr1:9:3"], "end must be > start"),

@@ -4,8 +4,8 @@ JAX package's, round trips on both transports, v1/v2 manifests,
 mixed-codec stores, damage to compressed chunks and dictionaries, the
 dense feed's decode straight into its buffer (retry-wrapped too), the
 adaptive readahead depth, and the cache's accounting — the JAX cases of
-tests/test_store_codec.py whose features are ported. The native
-decode-to-slab cases there are not: the port has no native codec."""
+tests/test_store_codec.py. Its native decode-to-slab cases are in
+tests/test_torch_native.py."""
 
 import json
 import os
