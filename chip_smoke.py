@@ -162,8 +162,38 @@ Phases (any failure exits non-zero; none is caught and ignored):
     4,096 variants written with ``write_parquet`` read back bitwise and
     ``similarity --source parquet`` runs (1 K1 launch); if not, the CLI
     must refuse ``--source parquet`` with its ImportError.
-32. Print the ``kernels`` JSON line (K1 and K2), the card line, and as
-    the last line ``{"ok": true, "device": {...}}``.
+32. Streaming PCoA: ``pcoa --source packed --stream-refresh-blocks 4
+    --metric ibs --num-pc 10`` on phase 14's store through the CLI: K1
+    launches 13 times, snapshots at 32,768, 65,536 and 98,304 variants;
+    the 4 structure eigenvalues within rtol 1e-2 (atol 1e-4) of phase
+    14's dense job (rerun through the library) and |coords| on PC1-2
+    within rtol 1e-2, atol 1e-3 (the JAX package's own tolerances), all
+    10 within 1e-2 of the top eigenvalue (the 6 bulk ones converge only
+    to a few percent, in the JAX package's route too); the first
+    snapshot's top eigenvalue within 25 % of the final one, the later
+    ones within 10 %; the populations separate. The gram phase with
+    refreshes is printed beside phase 14's without them.
+33. The example tier on phase 14's store through the CLI:
+    ``search-variants`` (a full scan, then ``--positions`` with 5
+    positions that are there and 1 that is not) and ``sample-stats``;
+    the TSVs must equal counts NumPy computes from the unpacked cohort,
+    exactly; K1 launches 0 times.
+34. ``coverage`` of chr22:16050000:51050000 (35 Mb) with 7,000,000
+    synthetic reads of 150 bp (30x): the depth must equal a NumPy
+    ``bincount``/``cumsum`` of the same reads, bitwise; a SAM file of
+    200,000 of those reads on its first 1 Mb, written here, gives the
+    same depth as the reads themselves.
+35. ``neighbors --metric ibs`` on phase 14's store with the JAX
+    package's defaults (128 hashes, 32 bands, k 10): K1 launches 0
+    times; the candidate-pair count and the sha256 of the top-k file
+    equal the JAX package's CPU run of the same job (constants below,
+    with the command that produced them); every evaluated similarity is
+    bitwise equal to the float64 finalize of phase 6's accumulators at
+    that pair and within 1e-6 of phase 6's f32 similarity; the job
+    killed in its MinHash pass under ``--checkpoint-dir`` (through the
+    library) resumes through the CLI to a byte-identical file.
+36. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+    card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
 them just after. A ptxas report with spills fails phase 2.
@@ -1681,6 +1711,414 @@ def native_projection_parquet_phases(cli_main, launch_counters: dict,
     return paths
 
 
+# The JAX package's CPU run of the neighbors job on the Quickstart cohort
+# (the same genotypes, sample ids and block grid as phase 14's store),
+# with its defaults (128 hashes, 32 bands, k 10, bucket cap 64):
+#   JAX_PLATFORMS=cpu python -c "from spark_examples_tpu.cli.main import \
+#     main; from spark_examples_tpu.core import telemetry; main(['neighbors',\
+#     '--n-samples','2504','--n-variants','100000','--metric','ibs',\
+#     '--output-path','nb.topk']); \
+#     print(telemetry.counter_value('neighbors.candidate_pairs'))"
+#   sha256sum nb.topk
+JAX_CANDIDATE_PAIRS = 490220
+JAX_TOPK_SHA256 = ("a4e1f43663fbfcdc46f2945ac75359de"
+                   "923bb7918a15ec088512fb1c09757c35")
+STREAM_REFRESH_BLOCKS = 4
+# JAX's own tolerances for the streaming job against the dense one
+# (tests/test_streaming.py), and for its snapshots against the final.
+STREAM_EIG_RTOL, STREAM_EIG_ATOL = 1e-2, 1e-4
+STREAM_COORD_RTOL, STREAM_COORD_ATOL = 1e-2, 1e-3
+# The coverage job: 35 Mb of chr22 at 30x (7,000,000 reads of 150 bp);
+# the SAM check on its first 1 Mb with 200,000 reads.
+COVERAGE_RANGE = "chr22:16050000:51050000"
+COVERAGE_READS = 7_000_000
+SAM_RANGE = "chr22:16050000:17050000"
+SAM_READS = 200_000
+NEIGHBORS_KILL_AT_BLOCK = 10
+
+
+def sha256_of(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def run_counted(cli_main, argv: list[str], counters: dict):
+    """One CLI run without ``--timings`` (the ``coverage`` command has
+    none): every kernel's launch count set to 0 just before, read just
+    after. Returns (launches by kernel, the run's stdout, wall s)."""
+    out = io.StringIO()
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{' '.join(argv)}: CLI returned {rc}")
+    return ({name: mod.launches for name, mod in counters.items()},
+            out.getvalue(), wall)
+
+
+def keeping(module, name: str, kept: list):
+    """Replace ``module.name`` with a wrapper that appends each result to
+    ``kept``; returns the original (restore it with setattr)."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        kept.append(fn(*args, **kwargs))
+        return kept[-1]
+
+    setattr(module, name, wrapper)
+    return fn
+
+
+def streaming_example_neighbors_phases(cli_main, launch_counters: dict,
+                                       card: str, source, expected: int,
+                                       synthetic_acc: dict, files: dict,
+                                       tmp: str) -> dict:
+    """Phases 32-35: streaming PCoA snapshots, the example tier
+    (search-variants, sample-stats), coverage and the neighbors job, on
+    phase 14's packed store. Returns the launches by kernel of each CLI
+    run, by path name."""
+    import torch
+
+    from spark_examples_tpu_torch import kernels
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+    )
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+    from spark_examples_tpu_torch.ingest.reads import SyntheticReadsSource
+    from spark_examples_tpu_torch.core.config import ReferenceRange
+    from spark_examples_tpu_torch.neighbors import engine, load_result
+    from spark_examples_tpu_torch.ops import distances, gram
+    from spark_examples_tpu_torch.pipelines import coverage, jobs, streaming
+
+    paths = {}
+    store = files["packed_store"]
+    phases_t0 = time.perf_counter()
+    store_args = ["--source", "packed", "--path", store, "--block-variants",
+                  str(BLOCK_VARIANTS), "--device", DEVICE]
+
+    # -- 32. streaming PCoA snapshots ---------------------------------------
+    kept: list = []
+    original = keeping(streaming, "incremental_pcoa_job", kept)
+    try:
+        argv = (["pcoa"] + store_args
+                + ["--metric", "ibs", "--num-pc", str(NUM_PC),
+                   "--stream-refresh-blocks", str(STREAM_REFRESH_BLOCKS)])
+        counts, timings, coords, wall = run_cli(cli_main, argv,
+                                                launch_counters, NUM_PC)
+    finally:
+        streaming.incremental_pcoa_job = original
+    out, snaps = kept.pop()
+    dense = jobs.pcoa_job(JobConfig(
+        ingest=IngestConfig(source="packed", path=store,
+                            block_variants=BLOCK_VARIANTS),
+        compute=ComputeConfig(metric="ibs", num_pc=NUM_PC, device=DEVICE)))
+    want_snaps = [BLOCK_VARIANTS * STREAM_REFRESH_BLOCKS * i
+                  for i in range(1, expected // STREAM_REFRESH_BLOCKS + 1)]
+    final = out.eigenvalues[0]
+    errs = [abs(s.eigenvalues[0] - final) / final for s in snaps]
+    sep = separation(coords, source.populations)
+    # The structure eigenvalues (one fewer than the populations) are held
+    # to JAX's tolerance; the bulk ones converge only to a few percent in
+    # the JAX package's streaming route too (1 warm step a refresh, 4
+    # terminal steps: tests/test_torch_streaming.py), so every eigenvalue
+    # is held to 1e-2 of the top one, the scale that moves coordinates.
+    n_struct = len(np.unique(source.populations)) - 1
+    eig_ok = np.allclose(out.eigenvalues[:n_struct],
+                         dense.eigenvalues[:n_struct],
+                         rtol=STREAM_EIG_RTOL, atol=STREAM_EIG_ATOL)
+    bulk_ok = np.abs(out.eigenvalues - dense.eigenvalues).max() <= \
+        STREAM_EIG_RTOL * dense.eigenvalues[0]
+    coord_ok = np.allclose(np.abs(out.coords[:, :2]),
+                           np.abs(dense.coords[:, :2]),
+                           rtol=STREAM_COORD_RTOL, atol=STREAM_COORD_ATOL)
+    checks = {
+        f"K1 launches == {expected}": counts["packed_gram"] == expected,
+        f"snapshots at {want_snaps}": [s.n_variants for s in snaps]
+        == want_snaps,
+        f"top {n_struct} eigenvalues within rtol 1e-2 of the dense job":
+            eig_ok,
+        "all within 1e-2 of the top eigenvalue": bulk_ok,
+        "|coords| PC1-2 within rtol 1e-2, atol 1e-3": coord_ok,
+        "first snapshot within 25 %": errs[0] < 0.25,
+        "later snapshots within 10 %": all(e < 0.10 for e in errs[1:]),
+        f"separation >= {SEPARATION_MIN}": sep >= SEPARATION_MIN,
+    }
+    paths["pcoa stream-refresh"] = counts
+    eig_rel = np.abs(out.eigenvalues - dense.eigenvalues) / np.abs(
+        dense.eigenvalues)
+    print(f"streaming pcoa --stream-refresh-blocks {STREAM_REFRESH_BLOCKS} "
+          f"from the packed store, ibs {N_SAMPLES} x {N_VARIANTS}, "
+          f"{NUM_PC} PCs [{card}]: wall {wall:.3f} s; phases: "
+          + phases_line(timings, ("ingest_setup", "gram", "stream_refresh",
+                                  "stream_drain", "eigh"))
+          + f"; gram {timings['gram']:.4f} s with {len(snaps)} refreshes vs "
+          f"{files['packed_store_gram_s']:.4f} s without (phase 14); "
+          f"launches {counts}; snapshots at "
+          f"{[s.n_variants for s in snaps]}, top eigenvalue "
+          + ", ".join(f"{s.eigenvalues[0]:.6g}" for s in snaps)
+          + f" (final {final:.6g}; relerr "
+          + ", ".join(f"{e:.3g}" for e in errs)
+          + "); eigenvalues vs the dense job (phase 14's, rerun): relerr "
+          + ", ".join(f"{e:.3g}" for e in eig_rel)
+          + f"; PC1-2 separation {sep:.2f}; "
+          + ", ".join(f"{k}: {'ok' if v else 'FAILED'}"
+                      for k, v in checks.items()))
+    if not all(checks.values()):
+        fail("streaming pcoa: " + ", ".join(k for k, v in checks.items()
+                                              if not v))
+    del dense, out, snaps
+
+    # -- 33. the example tier: search-variants and sample-stats --------------
+    t0 = time.perf_counter()
+    g = np.concatenate([b for b, _ in load_packed(store).blocks(
+        BLOCK_VARIANTS)], axis=1)
+    hom_ref, het, hom_alt, missing = ((g == v).sum(axis=0)
+                                      for v in (0, 1, 2, -1))
+    called = (g >= 0).sum(axis=1)
+    s_het, s_hom = (g == 1).sum(axis=1), (g == 2).sum(axis=1)
+    ref_s = time.perf_counter() - t0
+    del g
+
+    def af(h0, h1, h2):
+        c = h0 + h1 + h2
+        return (h1 + 2 * h2) / (2 * c) if c else 0.0
+
+    def tsv_rows(path):
+        with open(path) as f:
+            return [line.rstrip("\n").split("\t") for line in f]
+
+    lines = []
+    with tempfile.TemporaryDirectory() as d:
+        sv = os.path.join(d, "sv.tsv")
+        sv_counts, sv_t, _, sv_wall = run_job(
+            cli_main, ["search-variants"] + store_args, launch_counters, sv)
+        rows = tsv_rows(sv)
+        want = [[r[0], r[1], str(hom_ref[i]), str(het[i]), str(hom_alt[i]),
+                 str(missing[i]),
+                 f"{af(int(hom_ref[i]), int(het[i]), int(hom_alt[i])):.6f}"]
+                for i, r in enumerate(rows[1:])]
+        if len(rows) != N_VARIANTS + 1 or rows[1:] != want:
+            fail("search-variants: the histogram TSV differs from NumPy's "
+                 "counts of the unpacked cohort")
+        picks = [0, N_VARIANTS // 8 + 3, N_VARIANTS // 2, 7 * N_VARIANTS // 9,
+                 N_VARIANTS - 1]
+        absent = max(int(r[1]) for r in rows[1:]) + 1000
+        pos = [rows[1 + i][1] for i in picks] + [str(absent)]
+        svp = os.path.join(d, "svp.tsv")
+        svp_counts, _, _, svp_wall = run_job(
+            cli_main, ["search-variants"] + store_args + ["--positions"]
+            + pos, launch_counters, svp)
+        if tsv_rows(svp) != [rows[0]] + [rows[1 + i] for i in picks]:
+            fail("search-variants --positions: rows differ from the full "
+                 "scan's at those positions")
+        ss = os.path.join(d, "ss.tsv")
+        ss_counts, ss_t, _, ss_wall = run_job(
+            cli_main, ["sample-stats"] + store_args, launch_counters, ss)
+        want_ss = [["sample", "n_called", "call_rate", "n_het", "het_rate",
+                    "n_hom_alt"]] + [
+            [sid, str(called[i]), f"{called[i] / N_VARIANTS:.6f}",
+             str(s_het[i]),
+             f"{(s_het[i] / called[i] if called[i] else 0.0):.6f}",
+             str(s_hom[i])] for i, sid in enumerate(source.sample_ids)]
+        if tsv_rows(ss) != want_ss:
+            fail("sample-stats: the TSV differs from NumPy's counts")
+    for name, c in (("search-variants", sv_counts),
+                    ("search-variants --positions", svp_counts),
+                    ("sample-stats", ss_counts)):
+        if c["packed_gram"] or c["braycurtis"]:
+            fail(f"{name} launched a kernel: {c}")
+        paths[name] = c
+    print(f"example tier from the packed store, {N_SAMPLES} x {N_VARIANTS} "
+          f"[{card}]: search-variants full scan wall {sv_wall:.3f} s (scan "
+          f"{sv_t['scan']:.4f} s), {N_VARIANTS} rows equal to NumPy's "
+          f"counts; --positions (5 present, 1 absent) wall {svp_wall:.3f} s, "
+          f"5 rows equal to the full scan's; sample-stats wall "
+          f"{ss_wall:.3f} s (scan {ss_t['scan']:.4f} s), {N_SAMPLES} rows "
+          f"equal to NumPy's; NumPy reference {ref_s:.3f} s; launches "
+          f"{sv_counts}, {svp_counts}, {ss_counts}")
+
+    # -- 34. coverage: 35 Mb at 30x, then a SAM file --------------------------
+    kept = []
+    original = keeping(coverage, "coverage", kept)
+    try:
+        cov_counts, cov_out, cov_wall = run_counted(
+            cli_main, ["coverage", "--references", COVERAGE_RANGE,
+                       "--reads-per-range", str(COVERAGE_READS),
+                       "--device", DEVICE], launch_counters)
+    finally:
+        coverage.coverage = original
+    (res,) = kept.pop()
+    ref = ReferenceRange.parse(COVERAGE_RANGE)
+    t0 = time.perf_counter()
+    starts, lengths = (np.concatenate(x) for x in zip(
+        *SyntheticReadsSource([ref], reads_per_range=COVERAGE_READS)
+        .read_batches(ref, 1 << 20)))
+    span = ref.end - ref.start
+    s = np.clip(starts - ref.start, 0, span - 1)
+    e = np.clip(starts + lengths - ref.start, 0, span)
+    want_depth = np.cumsum(np.bincount(s, minlength=span + 1)
+                           - np.bincount(e, minlength=span + 1))[:-1]
+    oracle_s = time.perf_counter() - t0
+    del starts, lengths, s, e
+    if res.depth.shape != (span,) or res.n_reads != COVERAGE_READS or \
+            not np.array_equal(res.depth.astype(np.int64), want_depth) or \
+            not np.array_equal(res.depth, want_depth.astype(np.float32)):
+        fail("coverage: the depth differs from NumPy's bincount/cumsum")
+    mean_depth, max_depth = res.mean, int(res.depth.max())
+    del res, want_depth
+    sam_ref = ReferenceRange.parse(SAM_RANGE)
+    sam = os.path.join(tmp, "reads.sam")
+    t0 = time.perf_counter()
+    with open(sam, "w") as f:
+        f.write(f"@HD\tVN:1.6\n@SQ\tSN:{sam_ref.contig}\tLN:{sam_ref.end}\n")
+        n = 0
+        for st, ln in SyntheticReadsSource(
+                [sam_ref], reads_per_range=SAM_READS).read_batches(sam_ref):
+            f.writelines(
+                f"r{n + i}\t0\t{sam_ref.contig}\t{a + 1}\t60\t{b}M\t*\t0\t0\t"
+                f"{'A' * b}\t*\n" for i, (a, b) in enumerate(
+                    zip(st.tolist(), ln.tolist())))
+            n += len(st)
+    sam_write_s = time.perf_counter() - t0
+    for label, extra in (("synthetic", ["--reads-per-range",
+                                        str(SAM_READS)]),
+                         ("sam", ["--reads-source", "sam", "--path", sam])):
+        keeping(coverage, "coverage", kept)
+        try:
+            c, _, _ = run_counted(cli_main, ["coverage", "--references",
+                                             SAM_RANGE, "--device", DEVICE]
+                                  + extra, launch_counters)
+        finally:
+            coverage.coverage = original
+        if c["packed_gram"] or c["braycurtis"]:
+            fail(f"coverage ({label}) launched a kernel: {c}")
+    sam_res, syn_res = kept.pop()[0], kept.pop()[0]
+    if sam_res.depth.tobytes() != syn_res.depth.tobytes() or \
+            sam_res.n_reads != SAM_READS:
+        fail("coverage: the SAM file's depth differs from its reads'")
+    if cov_counts["packed_gram"] or cov_counts["braycurtis"]:
+        fail(f"coverage launched a kernel: {cov_counts}")
+    paths["coverage"] = cov_counts
+    print(f"coverage {COVERAGE_RANGE} ({span / 1e6:.0f} Mb), "
+          f"{COVERAGE_READS} synthetic reads of 150 bp [{card}]: wall "
+          f"{cov_wall:.3f} s; mean depth {mean_depth:.2f}, max {max_depth}; "
+          f"depth bitwise equal to NumPy's bincount/cumsum "
+          f"({oracle_s:.3f} s); a SAM file of {SAM_READS} reads on "
+          f"{SAM_RANGE} (written in {sam_write_s:.3f} s, "
+          f"{os.path.getsize(sam) / 1e6:.1f} MB) gives the same depth as its "
+          f"reads; launches {cov_counts}; {cov_out.strip().splitlines()[0]}")
+    os.remove(sam)
+
+    # -- 35. neighbors: MinHash pass, LSH, exact evaluation ------------------
+    captured = []
+    stream = engine._pair_stats_stream
+
+    def keeping_stream(job, src, timer, pairs, stats):
+        acc = stream(job, src, timer, pairs, stats)
+        captured.append((pairs, acc))
+        return acc
+
+    nb = os.path.join(tmp, "nb.topk")
+    telemetry.reset()
+    engine._pair_stats_stream = keeping_stream
+    try:
+        nb_counts, nb_t, nb_out, nb_wall = run_job(
+            cli_main, ["neighbors"] + store_args + ["--metric", "ibs"],
+            launch_counters, nb)
+    finally:
+        engine._pair_stats_stream = stream
+    n_cand = int(telemetry.counter_value("neighbors.candidate_pairs"))
+    frac = telemetry.metrics_snapshot()["gauges"]["neighbors.filter_frac"][
+        "last"]
+    pairs, acc = captured.pop()
+    sims = np.asarray(kernels.get("ibs").pair.sim(acc), np.float64)
+    stats = gram.combine(synthetic_acc, "ibs")
+    ii, jj = pairs[:, 0], pairs[:, 1]
+    want_sims = kernels.get("ibs").pair.sim(
+        {k: stats[k].numpy()[ii, jj].astype(np.int64) for k in ("m", "d1")})
+    f32 = distances.finalize(synthetic_acc, "ibs")["similarity"].numpy()
+    f32_err = float(np.abs(sims - f32[ii, jj]).max())
+    digest = sha256_of(nb)
+    res = load_result(nb, expect_kind="topk")
+    checks = {
+        "K1 launches == 0": nb_counts["packed_gram"] == 0,
+        f"candidate pairs == {JAX_CANDIDATE_PAIRS} (JAX)":
+            n_cand == len(pairs) == JAX_CANDIDATE_PAIRS,
+        "top-k file sha256 == JAX's": digest == JAX_TOPK_SHA256,
+        "evaluated sims bitwise == f64 finalize of phase 6's accumulators":
+            sims.tobytes() == np.asarray(want_sims, np.float64).tobytes(),
+        "within 1e-6 of phase 6's f32 similarity": f32_err <= 1e-6,
+        "k 10": res.k == 10 and res.ids.shape == (N_SAMPLES, 10),
+    }
+    short_rows = int((res.ids < 0).any(axis=1).sum())
+    del stats, f32, acc
+    # A kill during the MinHash pass, then a resume through the CLI.
+    ck = os.path.join(tmp, "ck_neighbors")
+    killed = JobConfig(
+        ingest=IngestConfig(source="packed", path=store,
+                            block_variants=BLOCK_VARIANTS),
+        compute=ComputeConfig(metric="ibs", device=DEVICE, checkpoint_dir=ck,
+                              checkpoint_every_blocks=CKPT_EVERY_BLOCKS))
+    for mod in launch_counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    try:
+        engine.neighbors_job(killed, source=DyingSource(
+            load_packed(store), NEIGHBORS_KILL_AT_BLOCK))
+    except RuntimeError as err:
+        if "simulated preemption" not in str(err):
+            raise
+    else:
+        fail("the dying source did not stop the neighbors job")
+    kill_wall = time.perf_counter() - t0
+    gens = (manifest_cursor(ck + ".old"), manifest_cursor(ck))
+    nb2 = os.path.join(tmp, "nb_resumed.topk")
+    rs_counts, rs_t, _, rs_wall = run_job(
+        cli_main, ["neighbors"] + store_args
+        + ["--metric", "ibs", "--checkpoint-dir", ck], launch_counters, nb2)
+    want_gens = (CKPT_EVERY_BLOCKS * BLOCK_VARIANTS,
+                 2 * CKPT_EVERY_BLOCKS * BLOCK_VARIANTS)
+    checks[f"killed: generations at {want_gens}"] = gens == want_gens
+    checks["resumed file byte-identical"] = sha256_of(nb2) == digest
+    checks["resume: K1 launches == 0"] = rs_counts["packed_gram"] == 0
+    paths["neighbors"] = nb_counts
+    paths["neighbors resumed"] = rs_counts
+    print(f"neighbors --metric ibs from the packed store, {N_SAMPLES} x "
+          f"{N_VARIANTS}, 128 hashes, 32 bands, k 10 [{card}]: wall "
+          f"{nb_wall:.3f} s; phases: "
+          + phases_line(nb_t, ("ingest_setup", "gram", "lsh",
+                               "neighbors_eval", "write"))
+          + f"; {n_cand} candidate pairs of {N_SAMPLES * (N_SAMPLES - 1) // 2}"
+          f", filter_frac {frac:.6f}, "
+          f"{int(telemetry.counter_value('neighbors.bucket_overflows'))} "
+          f"bucket overflows; {short_rows} samples with fewer than 10 "
+          f"candidates; neighbors_eval {nb_t['neighbors_eval']:.3f} s; "
+          f"sha256 {digest}; evaluated sims vs phase 6's f32 similarity: max "
+          f"|diff| {f32_err:.3g}; launches {nb_counts}; killed at block "
+          f"{NEIGHBORS_KILL_AT_BLOCK + 1} in {kill_wall:.3f} s (generations "
+          f"{gens}), resumed through the CLI in {rs_wall:.3f} s ("
+          + phases_line(rs_t, ("gram", "lsh", "neighbors_eval"))
+          + f", launches {rs_counts}); "
+          + ", ".join(f"{k}: {'ok' if v else 'FAILED'}"
+                      for k, v in checks.items()))
+    if not all(checks.values()):
+        fail("neighbors: " + ", ".join(k for k, v in checks.items() if not v))
+    print(f"phases 32-35 took {time.perf_counter() - phases_t0:.1f} s "
+          f"[{card}]")
+    return paths
+
+
 def flip_file(path: str) -> None:
     """Flip one bit of the last byte of a file (same size)."""
     with open(path, "r+b") as f:
@@ -1693,6 +2131,7 @@ def flip_file(path: str) -> None:
 def main() -> int:
     import torch
 
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible — this script runs "
               "only on an NVIDIA GPU", file=sys.stderr)
@@ -2088,8 +2527,13 @@ def main() -> int:
         new_paths.update(native_projection_parquet_phases(
             cli_main, launch_counters, card, dev, source, expected,
             synthetic_acc, files, tmp))
+        new_paths.update(streaming_example_neighbors_phases(
+            cli_main, launch_counters, card, source, expected,
+            synthetic_acc, files, tmp))
 
-    # -- 32. summary --------------------------------------------------------
+    # -- 36. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-35 took "
+          f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
         "route": "cuda",

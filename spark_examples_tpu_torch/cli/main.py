@@ -1,5 +1,6 @@
 """Command-line entry: ``python -m spark_examples_tpu_torch
-{pcoa,pca,similarity,project,cross-kinship,pack,ingest,store}``.
+{pcoa,pca,similarity,project,cross-kinship,pack,ingest,store,
+search-variants,sample-stats,coverage,neighbors}``.
 
 Flag names and defaults follow the JAX package's CLI for the flags the
 ported paths read, plus ``--device {cuda,cpu}`` (default cuda; a missing
@@ -33,6 +34,14 @@ card raises).
         --path new --ref-source store:panel/ --output-path phi.tsv
     python -m spark_examples_tpu_torch pcoa --source parquet \\
         --path cohort.parquet
+    python -m spark_examples_tpu_torch pcoa --stream-refresh-blocks 4
+    python -m spark_examples_tpu_torch search-variants --source store:ds/ \\
+        --positions 33200 41100 --output-path hist.tsv
+    python -m spark_examples_tpu_torch sample-stats --output-path qc.tsv
+    python -m spark_examples_tpu_torch coverage \\
+        --references chr22:16050000:16150000 --output-path depth.tsv
+    python -m spark_examples_tpu_torch neighbors --source store:ds/ \\
+        --metric ibs --neighbors-k 10 --output-path nb.topk
 """
 
 from __future__ import annotations
@@ -57,6 +66,9 @@ from spark_examples_tpu_torch.core.profiling import PhaseTimer
 from spark_examples_tpu_torch.ingest.source import close_source
 
 _SOURCES = config.SOURCES
+# ComputeConfig fields that only the neighbors command has flags for.
+_NEIGHBORS_FLAGS = ("neighbors_output", "neighbors_k", "minhash_hashes",
+                    "minhash_bands", "minhash_seed", "minhash_bucket_cap")
 
 
 def _source_arg(value: str) -> str:
@@ -288,6 +300,8 @@ def _job_from_args(args) -> JobConfig:
             sketch_iters=args.sketch_iters,
             sketch_seed=args.sketch_seed,
             gram_mode=args.gram_mode,
+            **{name: getattr(args, name, getattr(ComputeConfig, name))
+               for name in _NEIGHBORS_FLAGS},
         ),
         output_path=args.output_path,
         model_path=getattr(args, "save_model", None),
@@ -298,9 +312,10 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="spark_examples_tpu_torch",
         description="population-genomics pipelines on PyTorch/CUDA "
-        "(similarity / PCoA / PCA, fit-then-project and cross-kinship, "
-        "the pack and ingest ETL, and store "
-        "maintenance)",
+        "(similarity / PCoA / PCA, streaming PCoA snapshots, "
+        "fit-then-project and cross-kinship, top-k neighbors, the "
+        "search/sample-stats/coverage examples, the pack and ingest ETL, "
+        "and store maintenance)",
     )
     parser.add_argument("--version", action="version",
                         version=f"%(prog)s {__version__}")
@@ -327,6 +342,70 @@ def main(argv: list[str] | None = None) -> int:
                         choices=["auto", "distance", "similarity"],
                         help="what the persisted matrix holds (auto: trust "
                         "the file's sidecar, else assume distance)")
+    p_pcoa.add_argument("--stream-refresh-blocks", type=int, default=0,
+                        help="streaming mode: emit coordinate snapshots "
+                        "every N blocks via warm rank-k subspace "
+                        "refreshes (incremental PCoA)")
+    p_sv = sub.add_parser("search-variants",
+                          help="genotype histograms at positions")
+    _add_common(p_sv)
+    p_sv.add_argument("--positions", nargs="*", type=int, default=None)
+    _add_common(sub.add_parser(
+        "sample-stats", help="per-sample QC: call rate and heterozygosity "
+        "over one streaming pass"))
+    p_nb = sub.add_parser(
+        "neighbors",
+        help="sparse top-k nearest neighbors of a cohort: MinHash "
+        "signatures folded into one streamed variant pass, LSH banding "
+        "proposes candidate pairs, only those pairs are evaluated exactly "
+        "through the metric's pairwise finalize, and the per-sample top-k "
+        "(or the candidate edge list with --neighbors-output pairs) is "
+        "written as a self-describing binary to --output-path",
+    )
+    _add_common(p_nb)
+    p_nb.add_argument("--neighbors-output",
+                      default=ComputeConfig.neighbors_output,
+                      choices=list(config.NEIGHBORS_OUTPUTS),
+                      help="'topk' = per-sample k best neighbors (the "
+                      "default); 'pairs' = the evaluated candidate edge "
+                      "list with exact similarities")
+    p_nb.add_argument("--neighbors-k", type=int,
+                      default=ComputeConfig.neighbors_k,
+                      help="neighbors kept per sample (topk output)")
+    p_nb.add_argument("--minhash-hashes", type=int,
+                      default=ComputeConfig.minhash_hashes,
+                      help="MinHash signature length (k seeded "
+                      "permutations; a multiple of --minhash-bands)")
+    p_nb.add_argument("--minhash-bands", type=int,
+                      default=ComputeConfig.minhash_bands,
+                      help="LSH bands: more bands (fewer rows each) = more "
+                      "candidates and higher recall; fewer = stronger "
+                      "filtering")
+    p_nb.add_argument("--minhash-seed", type=int,
+                      default=ComputeConfig.minhash_seed,
+                      help="permutation seed — a resumed job must keep it "
+                      "(the checkpoint records it and refuses a mismatch)")
+    p_nb.add_argument("--minhash-bucket-cap", type=int,
+                      default=ComputeConfig.minhash_bucket_cap,
+                      help="max samples per band bucket; an over-cap "
+                      "bucket keeps its first members and counts the rest "
+                      "in neighbors.bucket_overflows")
+    p_cov = sub.add_parser("coverage",
+                           help="per-base read coverage over ranges (the "
+                           "reads example)")
+    p_cov.add_argument("--references", nargs="*", default=[],
+                       metavar="CONTIG:START:END")
+    p_cov.add_argument("--reads-source", default="synthetic",
+                       choices=["synthetic", "sam"])
+    p_cov.add_argument("--path", default=None, help="SAM file path")
+    p_cov.add_argument("--reads-per-range", type=int, default=100_000)
+    p_cov.add_argument("--read-length", type=int, default=150)
+    p_cov.add_argument("--seed", type=int, default=0)
+    p_cov.add_argument("--device", default="cuda", choices=list(DEVICES),
+                       help="where the scatter-add and scan run; cuda "
+                       "raises when no card is visible")
+    p_cov.add_argument("--output-path", default=None,
+                       help="write per-base depth TSV")
     p_proj = sub.add_parser(
         "project",
         help="place NEW samples into a fitted reference PCoA/PCA space "
@@ -400,6 +479,8 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     if args.command == "store":
         return _run_store_admin(args)
+    if args.command == "coverage":
+        return _run_coverage(args)
     if args.command == "pca" and args.metric != "shared-alt":
         parser.error(
             "pca computes the shared-alt similarity by definition; "
@@ -419,6 +500,12 @@ def main(argv: list[str] | None = None) -> int:
         timer = _ingest(job, args.chunk_variants, parser)
     elif args.command in ("project", "cross-kinship"):
         timer = _cross(args, job, parser)
+    elif args.command in ("search-variants", "sample-stats"):
+        timer = _examples(args, job)
+    elif args.command == "neighbors":
+        timer = _neighbors(job)
+    elif args.command == "pcoa" and args.stream_refresh_blocks > 0:
+        timer = _stream_pcoa(args, job, parser)
     elif args.command == "similarity":
         res = jobs.similarity_matrix_job(job)
         print(
@@ -505,6 +592,189 @@ def _cross(args, job: JobConfig,
     for a, b, p in sorted(hits, key=lambda t: -t[2])[:50]:
         print(f"{a}\t{b}\tphi={p:.4f}")
     return res.timer
+
+
+def _stream_pcoa(args, job: JobConfig,
+                 parser: argparse.ArgumentParser) -> PhaseTimer:
+    """``pcoa --stream-refresh-blocks N``: the streaming route, with a
+    line per snapshot."""
+    from spark_examples_tpu_torch.pipelines.streaming import (
+        incremental_pcoa_job,
+    )
+
+    if args.matrix_path:
+        parser.error("--stream-refresh-blocks streams the cohort; "
+                     "it cannot consume a persisted --matrix-path")
+    if args.save_model:
+        parser.error(
+            "--save-model is not supported by the streaming "
+            "route (it needs the final dense distance matrix "
+            "for the projection centering statistics) — fit "
+            "the model with a batch pcoa run"
+        )
+    job = job.replace(compute=dataclasses.replace(
+        job.compute, stream_refresh_blocks=args.stream_refresh_blocks))
+    out, snapshots = incremental_pcoa_job(job)
+    for s in snapshots:
+        print(f"snapshot@{s.n_variants} variants: "
+              f"top eigenvalue {s.eigenvalues[0]:.6g}")
+    _print_coords(out, job)
+    return out.timer
+
+
+_PREVIEW_ROWS = 50
+
+
+def _emit_table(job: JobConfig, header: str, lines: list[str], noun: str,
+                preview: list[str] | None = None) -> None:
+    """The search/stats table protocol: the full TSV to
+    ``--output-path`` (when set), up to ``_PREVIEW_ROWS`` console rows
+    (``preview``, a per-row rendering, or the TSV itself with its
+    header), and a '... N more' tail pointing at the file."""
+    import os
+
+    if job.output_path:
+        os.makedirs(os.path.dirname(job.output_path) or ".", exist_ok=True)
+        with open(job.output_path, "w") as f:
+            f.write(header)
+            f.writelines(lines)
+    shown = preview if preview is not None else lines
+    if preview is None:
+        sys.stdout.write(header)
+    sys.stdout.writelines(shown[:_PREVIEW_ROWS])
+    if len(shown) > _PREVIEW_ROWS:
+        tail = f"... {len(shown) - _PREVIEW_ROWS} more {noun}"
+        if job.output_path:
+            tail += f" (full table in {job.output_path})"
+        print(tail)
+
+
+def _examples(args, job: JobConfig) -> PhaseTimer:
+    """``search-variants`` and ``sample-stats``: one streaming pass over
+    the source (closed when it ends), then the table."""
+    from spark_examples_tpu_torch.pipelines import examples, runner
+
+    timer = PhaseTimer()
+    bv, device = job.ingest.block_variants, job.compute.device
+    with runner.job_source(job, None, timer) as src, timer.phase("scan"):
+        if args.command == "search-variants":
+            positions = set(args.positions) if args.positions else None
+            counts = examples.genotype_histogram(src, bv, positions, device)
+        else:
+            stats = examples.sample_stats(src, bv, device)
+    if args.command == "search-variants":
+        _emit_table(
+            job,
+            header="contig\tposition\thom_ref\thet\thom_alt\tmissing\taf\n",
+            lines=[
+                f"{c.contig or '?'}\t{c.position}\t{c.hom_ref}\t"
+                f"{c.het}\t{c.hom_alt}\t{c.missing}\t"
+                f"{c.allele_freq:.6f}\n"
+                for c in counts
+            ],
+            noun="variants",
+            preview=[
+                f"{c.contig or '?'}:{c.position}\t0/0={c.hom_ref}\t"
+                f"0/1={c.het}\t1/1={c.hom_alt}\t./.={c.missing}\t"
+                f"af={c.allele_freq:.4f}\n"
+                for c in counts
+            ],
+        )
+    else:
+        _emit_table(
+            job,
+            header=("sample\tn_called\tcall_rate\tn_het\thet_rate\t"
+                    "n_hom_alt\n"),
+            lines=[
+                f"{s.sample_id}\t{s.n_called}\t{s.call_rate:.6f}\t"
+                f"{s.n_het}\t{s.het_rate:.6f}\t{s.n_hom_alt}\n"
+                for s in stats
+            ],
+            noun="samples",
+        )
+    return timer
+
+
+def _neighbors(job: JobConfig) -> PhaseTimer:
+    """``neighbors`` in cohort mode: the MinHash/LSH/exact-evaluation
+    job (neighbors/engine.py), its file written to --output-path, a
+    preview of the first rows printed."""
+    from spark_examples_tpu_torch.neighbors import save_result
+    from spark_examples_tpu_torch.neighbors.engine import neighbors_job
+
+    timer = PhaseTimer()
+    res = neighbors_job(job, timer=timer)
+    if job.output_path:
+        with timer.phase("write"):
+            save_result(job.output_path, res)
+    suffix = f" -> {job.output_path}" if job.output_path else ""
+    if res.kind == "topk":
+        print(
+            f"neighbors[{res.metric}] top-{res.k} for "
+            f"{len(res.sample_ids)} samples over {res.n_variants} "
+            f"variants{suffix}"
+        )
+        for sid, ids, sims in list(zip(res.sample_ids, res.ids,
+                                       res.sims))[:5]:
+            cells = [
+                f"{res.sample_ids[j]}={s:.4f}"
+                for j, s in zip(ids.tolist(), sims.tolist()) if j >= 0
+            ]
+            print(sid + "\t" + "\t".join(cells[:5]))
+    else:
+        print(
+            f"neighbors[{res.metric}] {len(res.pairs)} evaluated "
+            f"candidate pairs among {len(res.sample_ids)} samples "
+            f"over {res.n_variants} variants{suffix}"
+        )
+        order = np.argsort(-res.sims, kind="stable")[:5]
+        for t in order:
+            i, j = res.pairs[t]
+            print(f"{res.sample_ids[i]}\t{res.sample_ids[j]}\t"
+                  f"{res.sims[t]:.4f}")
+    return timer
+
+
+def _run_coverage(args) -> int:
+    """``coverage``: per-base depth of each range on --device, a summary
+    line per range, and the depth TSV when asked."""
+    from spark_examples_tpu_torch.ingest.reads import (
+        SamSource,
+        SyntheticReadsSource,
+    )
+    from spark_examples_tpu_torch.pipelines.coverage import coverage
+
+    refs = [ReferenceRange.parse(r) for r in args.references]
+    if args.reads_source == "sam":
+        if not args.path:
+            raise SystemExit("coverage --reads-source sam requires --path")
+        src = SamSource(args.path, references=refs)
+    else:
+        if not refs:
+            refs = [ReferenceRange("chr22", 16_050_000, 16_150_000)]
+        src = SyntheticReadsSource(
+            references=refs,
+            reads_per_range=args.reads_per_range,
+            read_length=args.read_length,
+            seed=args.seed,
+        )
+    results = coverage(src, device=args.device)
+    for r in results:
+        h = [int(v) for v in r.histogram(10)]
+        print(
+            f"{r.reference}\treads={r.n_reads}\tmean_depth={r.mean:.2f}\t"
+            f"depth_hist[0..10+]={h}"
+        )
+    if args.output_path:
+        with open(args.output_path, "w") as f:
+            f.write("contig\tposition\tdepth\n")
+            for r in results:
+                contig, start = r.reference.contig, r.reference.start
+                f.writelines(
+                    f"{contig}\t{start + i}\t{d}\n"
+                    for i, d in enumerate(r.depth.astype(np.int64).tolist()))
+        print(f"depth table -> {args.output_path}")
+    return 0
 
 
 def _pack(job: JobConfig, parser: argparse.ArgumentParser) -> PhaseTimer:

@@ -50,6 +50,10 @@ SKETCH_ITERS_DEFAULT = 2
 # tile2d is accepted so that a config naming it is refused with a
 # message: one device holds the whole matrix.
 GRAM_MODES = ("auto", "replicated", "variant", "tile2d")
+# Sparse-neighbor output shapes (neighbors/, the --neighbors-output
+# flag): "topk" writes per-sample k-nearest rows (TopKResult), "pairs"
+# the deduplicated candidate pair list with exact similarities.
+NEIGHBORS_OUTPUTS = ("topk", "pairs")
 
 # Randomized-eigh defaults (power iterations / subspace oversample).
 EIGH_ITERS_DEFAULT = 8
@@ -256,6 +260,22 @@ class ComputeConfig:
     sketch_iters: int = SKETCH_ITERS_DEFAULT  # extra passes (corrected)
     sketch_seed: int = 0  # probe RNG seed (a resume must keep it)
     gram_mode: str = "auto"
+    # Streaming incremental PCoA (pipelines/streaming.py): emit
+    # coordinate snapshots every this many blocks via warm rank-k
+    # subspace refreshes; 0 runs the plain terminal solve.
+    stream_refresh_blocks: int = 0
+    # Sparse top-k neighbors (neighbors/, the `neighbors` command):
+    # MinHash signatures over variant carrier sets, LSH-banded into
+    # candidate pairs; only candidates pay the exact evaluation. hashes
+    # must divide evenly into bands (each band hashes/bands rows);
+    # bucket_cap bounds any one band bucket's share of the candidates
+    # (overflow is counted, never unbounded).
+    neighbors_output: str = "topk"  # topk | pairs
+    neighbors_k: int = 10  # neighbors kept per sample (topk output)
+    minhash_hashes: int = 128  # signature length (k permutations)
+    minhash_bands: int = 32  # LSH bands (hashes % bands == 0)
+    minhash_seed: int = 0  # permutation seed (a resume must keep it)
+    minhash_bucket_cap: int = 64  # max samples per band bucket
 
     def __post_init__(self):
         _check_enum("compute", "--gram-lowering", self.gram_lowering,
@@ -303,6 +323,31 @@ class ComputeConfig:
                    "randomized solver power iterations")
         _check_int("compute", "--eigh-oversample", self.eigh_oversample, 0,
                    1 << 20, "randomized solver extra probe columns")
+        _check_enum("compute", "--neighbors-output", self.neighbors_output,
+                    NEIGHBORS_OUTPUTS, "topk = per-sample k-nearest rows, "
+                    "pairs = the deduplicated candidate pair list with "
+                    "exact similarities")
+        _check_int("compute", "--neighbors-k", self.neighbors_k, 1, 65536,
+                   "neighbors kept per sample; clamped to N-1 at run time")
+        _check_int("compute", "--minhash-hashes", self.minhash_hashes, 1,
+                   65536, "MinHash signature length (k permutations)")
+        _check_int("compute", "--minhash-bands", self.minhash_bands, 1,
+                   65536, "LSH bands; each band hashes/bands signature rows")
+        _check_int("compute", "--minhash-seed", self.minhash_seed,
+                   -(2 ** 63), 2 ** 63 - 1,
+                   "permutation seed; a resumed job must keep it")
+        _check_int("compute", "--minhash-bucket-cap",
+                   self.minhash_bucket_cap, 1, 1 << 20,
+                   "max samples admitted per band bucket; overflow is "
+                   "counted in neighbors.bucket_overflows")
+        if self.minhash_hashes % self.minhash_bands != 0:
+            raise ValueError(
+                f"bad compute config: --minhash-hashes="
+                f"{self.minhash_hashes} is not a multiple of "
+                f"--minhash-bands={self.minhash_bands} — LSH banding "
+                "slices the signature into equal bands of "
+                "hashes/bands rows each"
+            )
         if self.metric is not None and \
                 self.metric not in kernels.finalizable_names():
             raise ValueError(

@@ -24,6 +24,9 @@ more; only the ones the ported modules cross are here):
                             the manifest (``core/checkpoint.py``)
 ``checkpoint.tile_read``    per checkpoint file during verification on
                             load, before it is hashed
+``neighbors.candidates``    per block attempt of the neighbors job's exact
+                            candidate evaluation, inside its IO retry
+                            boundary (``neighbors/engine.py``)
 ==========================  ================================================
 
 Env grammar (``;``-separated specs, ``:``-separated fields), read
@@ -61,6 +64,7 @@ SITES = (
     "store.readahead.decode",
     "checkpoint.tile_write",
     "checkpoint.tile_read",
+    "neighbors.candidates",
 )
 
 # Exit code of the "kill" kind, so a test can tell an injected kill from

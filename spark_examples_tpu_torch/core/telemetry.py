@@ -11,6 +11,8 @@ declared in :data:`NAMES`; an undeclared name warns once and counts into
   bucket, no sample retention) with exact count/sum/min/max.
 - **Spans** (:func:`span`, :func:`traced`) time a block of code into a
   same-named histogram of seconds.
+- **Events** (:func:`event`) are instant markers with attributes, kept
+  in a bounded in-process ring (:func:`events`) in the order emitted.
 
 This is the JAX package's registry (``core/telemetry.py``) without its
 trace files, exporter, live plane and trace context. The port's
@@ -24,6 +26,7 @@ import math
 import threading
 import time
 import warnings
+from collections import deque
 from contextlib import contextmanager
 
 # The names the ported modules emit (kind, meaning). Spans double as
@@ -147,6 +150,23 @@ NAMES: dict[str, tuple[str, str]] = {
         "origin re-compaction, digest-verified)"),
     "telemetry.unknown_names": (
         "counter", "instrumentation calls naming an undeclared metric"),
+    "neighbors.candidate_pairs": (
+        "counter",
+        "candidate pairs emitted by LSH banding (after per-band bucket "
+        "caps and i<j dedup): the pairs that pay exact evaluation "
+        "instead of the full N(N-1)/2",
+    ),
+    "neighbors.bucket_overflows": (
+        "counter",
+        "samples dropped from over-cap LSH band buckets "
+        "(--minhash-bucket-cap), truncated deterministically",
+    ),
+    "neighbors.evaluated_pairs": (
+        "counter",
+        "candidate pairs whose exact per-pair statistics were "
+        "accumulated by the streamed evaluation pass (equals "
+        "neighbors.candidate_pairs on a clean run)",
+    ),
     # -- gauges -----------------------------------------------------------
     "solver.rung": (
         "gauge",
@@ -178,6 +198,11 @@ NAMES: dict[str, tuple[str, str]] = {
         "measured rank-1 residual of the ratio denominator from the "
         "pass-0 dual sketches — 0 means the scaled operator is exact",
     ),
+    "neighbors.filter_frac": (
+        "gauge",
+        "fraction of all N(N-1)/2 pairs the LSH filter avoided "
+        "evaluating exactly (1 - candidates/all); higher is better",
+    ),
     "store.cache_bytes": (
         "gauge", "decoded bytes resident in the store's decode cache"),
     "store.readahead.depth": (
@@ -195,7 +220,16 @@ NAMES: dict[str, tuple[str, str]] = {
         "consumer wait for an in-flight warm of the chunk its cursor "
         "just reached",
     ),
+    # -- instant events ---------------------------------------------------
+    "stream.snapshot": (
+        "event",
+        "streaming incremental-PCoA snapshot dispatched (args: "
+        "n_variants, blocks_done)",
+    ),
 }
+
+# Events kept for :func:`events` (oldest dropped first).
+EVENT_RING = 4096
 
 HIST_LO = 1e-9
 HIST_GROWTH = 2.0 ** 0.125
@@ -277,6 +311,7 @@ _counters: dict[str, float] = {}
 _gauges: dict[str, dict] = {}
 _hists: dict[str, Histogram] = {}
 _warned_names: set[str] = set()
+_events: deque = deque(maxlen=EVENT_RING)
 
 
 def _check_name(name: str) -> None:
@@ -304,6 +339,7 @@ def reset() -> None:
         _gauges.clear()
         _hists.clear()
         _warned_names.clear()
+        _events.clear()
 
 
 def count(name: str, n: float = 1.0) -> float:
@@ -362,6 +398,21 @@ def span(name: str):
         yield
     finally:
         observe(name, time.perf_counter() - t0)
+
+
+def event(name: str, cat: str = "misc", **attrs) -> None:
+    """Record an instant event ``name`` with its attributes."""
+    _check_name(name)
+    with _lock:
+        _events.append({"name": name, "cat": cat,
+                        "t": time.perf_counter(), "args": dict(attrs)})
+
+
+def events(name: str | None = None) -> list[dict]:
+    """The recorded events (of ``name`` only, when given), oldest
+    first."""
+    with _lock:
+        return [dict(e) for e in _events if name is None or e["name"] == name]
 
 
 def traced(name: str):

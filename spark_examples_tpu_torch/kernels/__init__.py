@@ -25,7 +25,9 @@ solve operator is an exact Gram of per-block features, or a
 denominator stream as two sketches in the same pass. A
 :class:`CrossSpec` makes a fitted PCoA model of the metric projectable
 (``pipelines/project.py``): which cross statistics to stream between a
-new cohort and the panel, and how they finalize.
+new cohort and the panel, and how they finalize. A :class:`PairSpec`
+makes it top-k-able (``neighbors/``): which statistics to accumulate
+per candidate pair, and how they map to similarities.
 
 Each finalize is the counterpart of the JAX package's registration
 (``kernels/builtin.py``), whose ``np_finalize`` twins are the spec.
@@ -90,6 +92,20 @@ class CrossSpec:
 
 
 @dataclass(frozen=True)
+class PairSpec:
+    """Sparse pairwise evaluability (the neighbors job): ``stats`` are
+    ``ops.genotype.CROSS_STATS`` names accumulated per candidate pair
+    (both orientations spelled out: ``sn``/``sr``, ``hcn``/``hcr``);
+    ``sim(acc)`` maps the accumulated int64 per-pair statistic vectors
+    to float64 similarities (NumPy, elementwise over the pair axis),
+    the same values as the JAX package's float64 finalize of the dense
+    statistics off the diagonal, bit for bit."""
+
+    stats: tuple[str, ...]
+    sim: Callable
+
+
+@dataclass(frozen=True)
 class Kernel:
     name: str
     family: str  # "count" | "float" | "table"
@@ -116,6 +132,9 @@ class Kernel:
     sketch: FactorSketch | DualSketch | None = None
     # How a fitted PCoA model of the metric projects (None: it does not).
     cross: CrossSpec | None = None
+    # How the neighbors job evaluates candidate pairs (None: not
+    # top-k-able).
+    pair: PairSpec | None = None
 
     def flops(self, n: int, v: int) -> float:
         """Operations one (n, v) block contributes. Count kernels: one
@@ -256,6 +275,38 @@ def _jaccard_cross_num(acc):
     return acc["s"].to(torch.float32)
 
 
+def _ibs_pair_sim(acc):
+    """``1 - d1 / 2m`` per pair in float64; 1 when the pair shares no
+    complete variant."""
+    import numpy as np
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(acc["m"] > 0,
+                        1.0 - acc["d1"] / (2.0 * acc["m"]), 1.0)
+
+
+def _king_pair_sim(acc):
+    """KING-robust phi per pair, the het-count denominator ``hcn + hcr``
+    (the two orientations of ``hc``); 0 when the pair shares no het
+    variant. Candidate pairs are i < j, so the diagonal pin never
+    applies."""
+    import numpy as np
+
+    den = acc["hcn"] + acc["hcr"]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(den > 0, (acc["hh"] - 2 * acc["opp"]) / den, 0.0)
+
+
+def _jaccard_pair_sim(acc):
+    """Carrier-set Jaccard per pair, the union ``sn + sr - s``; 1 when
+    the union is empty."""
+    import numpy as np
+
+    union = acc["sn"] + acc["sr"] - acc["s"]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(union > 0, acc["s"] / union, 1.0)
+
+
 def _ibs_dual_operands(block):
     """Validity, carrier and hom-alt indicators and the dosage of the
     called genotypes, as f32 (N, v) operands."""
@@ -321,6 +372,7 @@ _register(Kernel(
     ),
     cross=CrossSpec(stats=("m", "d1"), d2=_ibs_cross_d2,
                     num=_ibs_cross_num),
+    pair=PairSpec(stats=("m", "d1"), sim=_ibs_pair_sim),
 ))
 _register(Kernel(
     name="ibs2",
@@ -349,6 +401,7 @@ _register(Kernel(
     stats=("hh", "opp", "hc"),
     max_increment=2,
     finalize=_king_finalize,
+    pair=PairSpec(stats=("hh", "opp", "hcn", "hcr"), sim=_king_pair_sim),
 ))
 _register(Kernel(
     name="jaccard",
@@ -366,6 +419,7 @@ _register(Kernel(
     ),
     cross=CrossSpec(stats=("s", "sn", "sr"), d2=_jaccard_cross_d2,
                     num=_jaccard_cross_num),
+    pair=PairSpec(stats=("s", "sn", "sr"), sim=_jaccard_pair_sim),
 ))
 _register(Kernel(
     name="pc-invariant",
@@ -435,6 +489,12 @@ def fused_names() -> tuple[str, ...]:
     dot (raw values up to 127) and grm (standardized floats) are not
     among them."""
     return tuple(k.name for k in _REGISTRY.values() if k.fused)
+
+
+def pairable_names() -> tuple[str, ...]:
+    """Kernels whose similarity can be evaluated per candidate pair (a
+    PairSpec): the metrics the neighbors job serves."""
+    return tuple(k.name for k in _REGISTRY.values() if k.pair is not None)
 
 
 def gram_names() -> tuple[str, ...]:

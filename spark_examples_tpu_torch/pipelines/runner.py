@@ -153,13 +153,18 @@ class GramRun:
     lowering: str
 
 
-def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
+def run_gram(job: JobConfig, source, timer: PhaseTimer,
+             on_block=None) -> GramRun:
     """Stream the cohort through the accumulators: one update per block,
     on the job's device, through the resolved lowering. With
     ``--checkpoint-dir`` the stream starts at the cursor of the
     checkpoint found there, from its accumulators and stream
     statistics, and a checkpoint is saved every
-    ``--checkpoint-every-blocks`` blocks after a device sync."""
+    ``--checkpoint-every-blocks`` blocks after a device sync.
+
+    ``on_block(acc, blocks_done, meta)``: called after each block's
+    update (the streaming PCoA refreshes its subspace there); it must
+    treat ``acc`` as read-only."""
     cfg = job.compute
     device = resolve_device(cfg.device)
     n = source.n_samples
@@ -193,7 +198,8 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
     acc, n_variants = run_pass(
         job, source, timer, device, update, acc, start_variant, packed,
         block_flops=lambda v: gram.flops_per_block(n, v, metric),
-        save_cb=save if cfg.checkpoint_dir else None, stats=stream_stats)
+        save_cb=save if cfg.checkpoint_dir else None, stats=stream_stats,
+        on_block=on_block)
     _check_int32_budget(metric, n_variants,
                         (stream_stats or {}).get("max_value", 2))
     return GramRun(acc, source.sample_ids, metric, timer, n_variants,
@@ -202,7 +208,8 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer) -> GramRun:
 
 def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
              state: dict, start_variant: int = 0, packed: bool = False,
-             block_flops=None, save_cb=None, stats: dict | None = None):
+             block_flops=None, save_cb=None, stats: dict | None = None,
+             on_block=None):
     """One streamed pass over the cohort from ``start_variant``, under
     the ``gram`` phase: ``state = update(state, block)`` for each block
     (the gram accumulators, or the sketch solver's (N, r) state).
@@ -212,7 +219,9 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
     cursor)``: the checkpoint hook, called every
     ``--checkpoint-every-blocks`` blocks after a device sync.
     ``stats``: the feed's stream statistics (``max_value``), updated in
-    place. Returns ``(state, n_variants)`` with the state synced.
+    place. ``on_block(state, blocks_done, meta)``: a read-only hook after
+    each block's update, before its checkpoint. Returns ``(state,
+    n_variants)`` with the state synced.
     """
     cfg = job.compute
     blocks_done = 0
@@ -232,6 +241,8 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
             timer.add("ingest_bytes", block.numel())
             blocks_done += 1
             last_stop = meta.stop
+            if on_block is not None:
+                on_block(state, blocks_done, meta)
             if (save_cb is not None and cfg.checkpoint_every_blocks
                     and blocks_done % cfg.checkpoint_every_blocks == 0):
                 hard_sync(state)

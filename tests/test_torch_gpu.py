@@ -521,3 +521,120 @@ def test_project_on_cuda_matches_its_cpu_run(cuda_device, tmp_path, kind):
         out[device] = pcoa_project_job(job, model, new, panel).coords
     scale = np.abs(out["cpu"]).max()
     assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-5 * scale
+
+
+def _dosages(rng, n, v, missing=0.1):
+    g = rng.integers(0, 3, (n, v)).astype(np.int8)
+    g[rng.random(g.shape) < missing] = -1
+    return g
+
+
+@pytest.mark.gpu
+def test_example_counts_on_cuda_bitwise_equal_to_the_cpu(cuda_device):
+    """The per-variant histogram and the per-sample counts of a ragged
+    cohort, reduced on the card and on the CPU: equal integers."""
+    from spark_examples_tpu_torch.pipelines import examples
+
+    g = _dosages(np.random.default_rng(21), 2504, 3001)
+    src = ArraySource(g)
+    b = torch.from_numpy(g)
+    assert torch.equal(examples.block_histogram(b.to(cuda_device)).cpu(),
+                       examples.block_histogram(b))
+    assert torch.equal(
+        examples.block_sample_counts(b.to(cuda_device)).cpu(),
+        examples.block_sample_counts(b))
+    for fn, args in ((examples.genotype_histogram, (1024, {5, 2999, 77})),
+                     (examples.genotype_histogram, (1024,)),
+                     (examples.sample_stats, (1024,))):
+        got = fn(src, *args, device="cuda")
+        want = fn(src, *args, device="cpu")
+        assert [vars(x) for x in got] == [vars(x) for x in want]
+
+
+@pytest.mark.gpu
+def test_coverage_on_cuda_bitwise_equal_to_the_cpu(cuda_device):
+    """The f32 difference-array scatter-add and scan on the card equal
+    the CPU's bit for bit (integer depths, exact in any order)."""
+    from spark_examples_tpu_torch.core.config import ReferenceRange
+    from spark_examples_tpu_torch.ingest.reads import SyntheticReadsSource
+    from spark_examples_tpu_torch.pipelines.coverage import coverage
+
+    src = SyntheticReadsSource([ReferenceRange("chr22", 16_050_000,
+                                               16_550_000),
+                                ReferenceRange("chr1", 0, 300)],
+                               reads_per_range=200_000, seed=3)
+    got = coverage(src, batch=65536, device="cuda")
+    want = coverage(src, batch=65536, device="cpu")
+    for r, w in zip(got, want):
+        assert r.depth.tobytes() == w.depth.tobytes()
+        assert r.n_reads == w.n_reads
+
+
+@pytest.mark.gpu
+def test_minhash_update_on_cuda_bitwise_equal_to_the_cpu(cuda_device):
+    """Three blocks through the int64-masked MinHash update on the card
+    and on the CPU, the hash loop chunked on both: equal signatures."""
+    from spark_examples_tpu_torch.neighbors import minhash
+
+    rng = np.random.default_rng(22)
+    blocks = [_dosages(rng, 700, 1024) for _ in range(3)]
+    sigs = {}
+    for device in ("cuda", "cpu"):
+        upd = minhash.make_update(128, 3, device)
+        state = minhash.init_state(700, 128, device)
+        for b in blocks:
+            state = upd(state, torch.from_numpy(b).to(device))
+        assert int(state["nvar"]) == 3072
+        sigs[device] = minhash.signatures(state)
+    assert np.array_equal(sigs["cuda"], sigs["cpu"])
+
+
+@pytest.mark.gpu
+def test_neighbors_job_on_cuda_matches_its_cpu_run(cuda_device, tmp_path):
+    """The whole neighbors job, the MinHash pass on the card: the same
+    file bytes as the CPU run (the evaluation is host integer work)."""
+    from spark_examples_tpu_torch.neighbors import save_result
+    from spark_examples_tpu_torch.neighbors.engine import neighbors_job
+
+    src = SyntheticSource(n_samples=200, n_variants=5000, seed=9)
+    data = {}
+    for device in ("cuda", "cpu"):
+        job = JobConfig(ingest=IngestConfig(block_variants=1024),
+                        compute=ComputeConfig(device=device,
+                                              minhash_hashes=64,
+                                              minhash_bands=16))
+        path = str(tmp_path / f"{device}.topk")
+        save_result(path, neighbors_job(job, source=src))
+        data[device] = open(path, "rb").read()
+    assert data["cuda"] == data["cpu"]
+
+
+@pytest.mark.gpu
+def test_streaming_refresh_on_cuda_matches_its_cpu_run(cuda_device):
+    """The streaming job on the card and on the CPU from the same probes:
+    the snapshots' cursors equal, every eigenvalue within 1e-4 relative
+    and every |coord| within 1e-4 of max|coords| (f32 finalize,
+    centering, QR and eigh in another order; TF32 off in the refresh),
+    and the card's TF32 setting left as it was."""
+    from spark_examples_tpu_torch.pipelines.streaming import (
+        incremental_pcoa_job,
+    )
+
+    src = SyntheticSource(n_samples=600, n_variants=16384, seed=2)
+    before = torch.backends.cuda.matmul.allow_tf32
+    runs = {}
+    for device in ("cuda", "cpu"):
+        job = JobConfig(ingest=IngestConfig(block_variants=1024),
+                        compute=ComputeConfig(num_pc=4, device=device,
+                                              stream_refresh_blocks=4))
+        runs[device] = incremental_pcoa_job(job, source=src)
+    assert torch.backends.cuda.matmul.allow_tf32 == before
+    (out, snaps), (cout, csnaps) = runs["cuda"], runs["cpu"]
+    assert [s.n_variants for s in snaps] == [s.n_variants for s in csnaps]
+    pairs = [(out.eigenvalues, out.coords, cout.eigenvalues, cout.coords)]
+    pairs += [(s.eigenvalues, s.coords, c.eigenvalues, c.coords)
+              for s, c in zip(snaps, csnaps)]
+    for vals, coords, cvals, ccoords in pairs:
+        assert np.abs(vals - cvals).max() <= 1e-4 * np.abs(cvals).max()
+        scale = np.abs(ccoords).max()
+        assert np.abs(np.abs(coords) - np.abs(ccoords)).max() <= 1e-4 * scale

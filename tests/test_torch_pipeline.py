@@ -238,7 +238,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     store, telemetry, faults, hashing, sidecar, parallel and resilient
     modules must be among them, and since the fit-then-project slice the
     native codec, the parquet source, projection and the factorized
-    model."""
+    model, and since the streaming/neighbors slice streaming PCoA, the
+    example tier, coverage, the reads sources and the neighbors
+    package."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import spark_examples_tpu_torch as p\n"
@@ -250,7 +252,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'core.hashing', 'core.sidecar', 'ingest.parallel', "
         "'ingest.resilient', 'core.checkpoint', 'solvers.sketch', "
         "'solvers.solve', 'solvers.driver', 'native', 'ingest.parquet', "
-        "'pipelines.project', 'models.factorized']\n"
+        "'pipelines.project', 'models.factorized', 'pipelines.streaming', "
+        "'pipelines.examples', 'pipelines.coverage', 'ingest.reads', "
+        "'neighbors', 'neighbors.engine', 'neighbors.minhash', "
+        "'neighbors.lsh', 'neighbors.output']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"
