@@ -192,7 +192,41 @@ Phases (any failure exits non-zero; none is caught and ignored):
     that pair and within 1e-6 of phase 6's f32 similarity; the job
     killed in its MinHash pass under ``--checkpoint-dir`` (through the
     library) resumes through the CLI to a byte-identical file.
-36. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+36. (Retired number: the closing print is phase 41.)
+37. A traced gram job: ``pcoa --source packed --metric ibs --num-pc 10``
+    on phase 14's store through the CLI, once with ``--telemetry-dir``
+    and once with ``--telemetry-dir`` and ``--trace-dir`` (a
+    ``torch.profiler`` capture): 13 K1 launches, coordinates bitwise
+    equal to phase 14's untraced run; the export's ``trace.jsonl`` holds
+    one ``phase.gram`` and 13 ``gram.block`` spans and ``metrics.json``
+    the feed's ``prefetch.*`` waits; the profiler trace holds 13 K1
+    kernel events (found by the kernel names of K1's SASS, phase 2).
+    Printed: K1's summed device time from the trace beside phase 4's
+    CUDA-event time, the device's busy and idle share of the
+    ``phase.gram`` range, the gram phase traced, with telemetry only and
+    untraced (phase 14).
+38. Served projections in-process: ``serve --model <phase 29's pcoa
+    model> --loadgen 4 --loadgen-requests 125 --cache-entries 0`` over
+    the 500 new samples: 500 answers, 0 errors, 0 sheds, 0 K1 launches;
+    sustained QPS and latency p50/p95/p99 printed. Then a
+    ``ProjectionServer`` on the card under the pcoa, pca and factorized
+    models of phase 29: every new sample nearest its own population, 16
+    rows bitwise equal to the CLI ``project`` of that one sample, all
+    500 within 1e-5 of max|coords| of phase 29's 500-row ``project``.
+39. HTTP: the CLI ``serve`` as a subprocess (``--port 0 --port-file``,
+    ``--telemetry-dir``): 32 ``POST /project`` answers bitwise equal to
+    phase 38's rows with their X-Trace-Id echoed; ``/healthz``,
+    ``/readyz``, ``/stats``, ``/metrics`` (``serve.*`` series) and
+    ``/debug/requests`` answer; SIGTERM drains and the process exits 0
+    with the exported ``serve.*`` counts equal to the requests sent.
+40. ``neighbors --model`` (phase 29's pcoa model and panel, phase 30's
+    cohort with its 10 planted copies as the queries, k 10): 0 K1
+    launches; each planted copy's top-1 is its panel twin at similarity
+    1.0; every similarity bitwise equal to the ibs pair finalize of the
+    cross statistics accumulated on the card; the file's sha256 equal to
+    the JAX package's CPU run of the same job (constant below, with the
+    commands that produced it).
+41. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -305,6 +339,34 @@ def k1_bounds(n: int, w: int, products) -> dict:
     }
 
 
+def kernel_identifiers(sass: str) -> list[str]:
+    """The kernels' source names in a ``cuobjdump -sass`` listing: the
+    innermost name of each (mangled) ``Function :`` symbol, which the
+    profiler's demangled kernel names contain."""
+    names = set()
+    for sym in re.findall(r"Function : (\S+)", sass):
+        if not sym.startswith("_Z"):
+            names.add(sym)  # an extern "C" kernel
+            continue
+        nested = sym.startswith("_ZN")
+        i = 3 if nested else 2
+        if sym[i:i + 1] == "L":  # internal linkage
+            i += 1
+        parts = []
+        while i < len(sym) and sym[i].isdigit():
+            j = i
+            while sym[j].isdigit():
+                j += 1
+            n = int(sym[i:j])
+            parts.append(sym[j:j + n])
+            i = j + n
+            if not nested:
+                break
+        if parts:
+            names.add(parts[-1])
+    return sorted(names)
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -380,7 +442,9 @@ def run_job(cli_main, argv: list[str], counters: dict, output: str):
     launches = {name: mod.launches for name, mod in counters.items()}
     if rc != 0:
         fail(f"{' '.join(argv)}: CLI returned {rc}")
-    timings = json.loads(err.getvalue().strip().splitlines()[-1])
+    # The last JSON line: --telemetry-dir prints its export line after it.
+    timings = json.loads(next(line for line in reversed(
+        err.getvalue().strip().splitlines()) if line.startswith("{")))
     return launches, timings, out.getvalue(), wall
 
 
@@ -571,6 +635,7 @@ def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
     if not sep >= SEPARATION_MIN:
         fail(f"packed-store PC1-2 separation {sep:.3f}")
     store_gram_s = timings["gram"]
+    store_coords = coords
     job = JobConfig(
         ingest=IngestConfig(source="packed", path=store,
                             block_variants=BLOCK_VARIANTS),
@@ -691,7 +756,7 @@ def dense_and_file_phases(cli_main, launch_counters: dict, card: str, dev,
                   "pcoa plink qc+ld": qc_counts})
     return paths, {"packed_store_gram_s": store_gram_s, "plink": prefix,
                    "euclidean_acc": euclidean_acc, "packed_store": store,
-                   "vcf": vcf}
+                   "vcf": vcf, "packed_store_coords": store_coords}
 
 
 def tree_bytes(root: str) -> dict:
@@ -1399,6 +1464,7 @@ def native_projection_parquet_phases(cli_main, launch_counters: dict,
     from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
     from spark_examples_tpu_torch.ingest.vcf import VcfSource
     from spark_examples_tpu_torch.ops import genotype
+    from spark_examples_tpu_torch.pipelines import project as P
     from spark_examples_tpu_torch.pipelines import runner
     from spark_examples_tpu_torch.pipelines.project import load_model
 
@@ -1550,6 +1616,7 @@ def native_projection_parquet_phases(cli_main, launch_counters: dict,
          "factorized"),
     )
     proj_lines = []
+    fitted = {}
     for name, fit_argv, fit_launches, kind in fits:
         model = os.path.join(tmp, f"{name.replace(' ', '_')}.npz")
         counts, timings, fit_coords, wall = run_cli(
@@ -1566,16 +1633,25 @@ def native_projection_parquet_phases(cli_main, launch_counters: dict,
         k = mdl.n_components
         results = {}
         for side, path in (("new", new_d), ("panel", panel_d)):
-            pcounts, ptimings, coords, pwall = run_cli(
-                cli_main, ["project", "--model", model, "--source",
-                           "packed", "--path", path, "--ref-source",
-                           "packed", "--ref-path", panel_d,
-                           "--block-variants", str(BLOCK_VARIANTS),
-                           "--device", DEVICE], launch_counters, k)
+            kept = []  # the job's coordinates at full precision
+            orig = keeping(P, "pcoa_project_job", kept)
+            try:
+                pcounts, ptimings, coords, pwall = run_cli(
+                    cli_main, ["project", "--model", model, "--source",
+                               "packed", "--path", path, "--ref-source",
+                               "packed", "--ref-path", panel_d,
+                               "--block-variants", str(BLOCK_VARIANTS),
+                               "--device", DEVICE], launch_counters, k)
+            finally:
+                P.pcoa_project_job = orig
             if any(pcounts.values()):
                 fail(f"project ({name} model, {side}): launches {pcounts}")
             results[side] = (coords, ptimings, pwall)
             paths[f"project {name} {side}"] = pcounts
+            if side == "new":
+                fitted[name] = {"model": model, "kind": kind,
+                                "fit_coords": fit_coords[:, :k],
+                                "new_coords": kept[-1].coords}
         new_coords, ptimings, pwall = results["new"]
         hits = nearest_centroid_hits(new_coords, new_pops, fit_coords[:, :k],
                                      panel_pops)
@@ -1636,6 +1712,9 @@ def native_projection_parquet_phases(cli_main, launch_counters: dict,
     dup_d = os.path.join(tmp, "new_dup")
     save_packed(dup_d, dup, [f"DUP{i}" for i in range(n_new)])
     del dup
+    files["projection"] = {"panel": panel_d, "new": new_d, "dup": dup_d,
+                           "models": fitted, "planted": planted,
+                           "panel_pops": panel_pops, "new_pops": new_pops}
     with tempfile.TemporaryDirectory() as out_dir:
         phi_path = os.path.join(out_dir, "phi.npy")
         ck_counts, ck_timings, ck_out, ck_wall = run_job(
@@ -2119,6 +2198,443 @@ def streaming_example_neighbors_phases(cli_main, launch_counters: dict,
     return paths
 
 
+# Phase 38: the loadgen's clients x requests (each of the 500 new samples
+# once) and the rows held bitwise against a single-sample CLI `project`.
+LOADGEN_CLIENTS = 4
+LOADGEN_REQUESTS = 125
+SINGLE_ROWS = 16
+# Phase 39: samples POSTed to the HTTP front, and its bind timeout.
+HTTP_SAMPLES = 32
+HTTP_BIND_TIMEOUT_S = 300
+# Served coordinates against the 500-row offline `project` (another
+# matrix shape, so another summation order): the tolerance the port
+# holds between the packages' projections.
+SERVE_RTOL = 1e-5
+# The JAX package's CPU run of `neighbors --model` on phase 30's cohort
+# against phase 29's panel (the same genotypes, ids and planted copies;
+# the similarities depend only on the genotypes and the model's metric):
+#   JAX_PLATFORMS=cpu python -c "import numpy as np; \
+#     from spark_examples_tpu.ingest.synthetic import SyntheticSource; \
+#     from spark_examples_tpu.ingest.packed import save_packed; \
+#     s = SyntheticSource(n_samples=2504, n_variants=100000); \
+#     g = np.concatenate([b for b, _ in s.blocks(16384)], axis=1); \
+#     save_packed('panel', g[:2004], s.sample_ids[:2004]); \
+#     d = g[2004:].copy(); d[:10] = g[np.arange(10) * 200]; \
+#     save_packed('new_dup', d, [f'DUP{i}' for i in range(500)])"
+#   JAX_PLATFORMS=cpu python -m spark_examples_tpu pcoa --source packed \
+#     --path panel --metric ibs --num-pc 10 --block-variants 8192 \
+#     --save-model m.npz
+#   JAX_PLATFORMS=cpu python -m spark_examples_tpu neighbors --model m.npz \
+#     --ref-source packed --ref-path panel --source packed --path new_dup \
+#     --block-variants 8192 --neighbors-k 10 --output-path nb.topk
+#   sha256sum nb.topk
+JAX_MODEL_TOPK_SHA256 = ("65e3775a68e3100d214f8f6428d84ced"
+                         "a3f4ae4713d2b798e0997143a87622f3")
+
+
+def union_seconds(spans, lo: float, hi: float) -> float:
+    """Length of the union of (start, end) intervals clipped to [lo, hi]."""
+    total, cur_lo, cur_hi = 0.0, None, None
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in spans):
+        if b <= a:
+            continue
+        if cur_hi is None or a > cur_hi:
+            if cur_hi is not None:
+                total += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    if cur_hi is not None:
+        total += cur_hi - cur_lo
+    return total
+
+
+def http_json(url: str, body: bytes | None = None, headers=None,
+              timeout: float = 60.0):
+    """(parsed JSON or text, response headers) of one request."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers=headers or {},
+                                 method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        raw = r.read()
+        hdrs = dict(r.headers)
+    if hdrs.get("Content-Type", "").startswith("application/json"):
+        return json.loads(raw), hdrs
+    return raw.decode(), hdrs
+
+
+def traced_gram_phase(cli_main, launch_counters: dict, card: str,
+                      files: dict, tmp: str, k1_ms: float,
+                      k1_names: list) -> dict:
+    """Phase 37: the packed-store gram job with the telemetry export,
+    then also under a torch.profiler capture. Returns the launches by
+    kernel of each run, by path name."""
+    from spark_examples_tpu_torch.core import telemetry
+
+    paths = {}
+
+    # -- 37. a traced gram job --------------------------------------------
+    if not k1_names:
+        fail("phase 37 needs K1's kernel names from its SASS (phase 2), "
+             "and none were read")
+    store = files["packed_store"]
+    argv = ["pcoa", "--source", "packed", "--path", store, "--metric",
+            "ibs", "--num-pc", str(NUM_PC), "--block-variants",
+            str(BLOCK_VARIANTS), "--device", DEVICE]
+    runs = {}
+    for label, extra in (("telemetry", ["--telemetry-dir",
+                                        os.path.join(tmp, "tel37a")]),
+                         ("traced", ["--telemetry-dir",
+                                     os.path.join(tmp, "tel37"),
+                                     "--trace-dir",
+                                     os.path.join(tmp, "prof37")])):
+        telemetry.reset()
+        try:
+            runs[label] = run_cli(cli_main, argv + extra, launch_counters,
+                                  NUM_PC)
+        finally:
+            telemetry.configure(dir=None)
+            telemetry.reset()
+        paths[f"pcoa --source packed, {label}"] = runs[label][0]
+    counts, timings, coords, wall = runs["traced"]
+    d = os.path.join(tmp, "tel37", "rank0")
+    events = [json.loads(line) for line in open(os.path.join(
+        d, "trace.jsonl"))]
+    spans = [e["name"] for e in events if e["ph"] == "X"]
+    metrics = json.load(open(os.path.join(d, "metrics.json")))
+    hists, gauges = metrics["histograms"], metrics["gauges"]
+    prof = json.load(open(os.path.join(tmp, "prof37", "trace_rank0.json")))
+    pevents = [e for e in prof["traceEvents"] if e.get("ph") == "X"]
+    windows = [e for e in pevents if e.get("cat") == "user_annotation"
+               and e.get("name") == "phase.gram"]
+    k1_events = [e for e in pevents if e.get("cat") == "kernel"
+                 and any(n in e.get("name", "") for n in k1_names)]
+    device_spans = [(e["ts"], e["ts"] + e["dur"]) for e in pevents
+                    if e.get("cat") in ("kernel", "gpu_memcpy",
+                                        "gpu_memset")]
+    kernel_spans = [(e["ts"], e["ts"] + e["dur"]) for e in pevents
+                    if e.get("cat") == "kernel"]
+    n_blocks = -(-N_VARIANTS // BLOCK_VARIANTS)
+    checks = {
+        f"K1 launches == {n_blocks}": counts["packed_gram"] == n_blocks,
+        "coords bitwise == phase 14's untraced run":
+            np.array_equal(coords, files["packed_store_coords"]),
+        "1 phase.gram span": spans.count("phase.gram") == 1,
+        f"{n_blocks} gram.block spans": spans.count("gram.block") == n_blocks,
+        "prefetch waits exported": all(
+            hists.get(f"prefetch.{h}", {}).get("count") == n_blocks
+            for h in ("get_wait_s", "put_wait_s", "stage_wait_s"))
+            and hists.get("prefetch.transfer_wait_s", {}).get("count", 0) > 0
+            and "prefetch.queue_depth" in gauges,
+        "gram.lowering == 1 (fused)":
+            gauges.get("gram.lowering", {}).get("last") == 1.0,
+        f"{n_blocks} K1 kernel events in the profiler trace":
+            len(k1_events) == n_blocks,
+        "one phase.gram range in the profiler trace": len(windows) == 1,
+    }
+    if not all(checks.values()):
+        fail("traced gram job: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    w = windows[0]
+    lo, hi = w["ts"], w["ts"] + w["dur"]
+    busy = union_seconds(device_spans, lo, hi) / (hi - lo)
+    kbusy = union_seconds(kernel_spans, lo, hi) / (hi - lo)
+    k1_sum_ms = sum(e["dur"] for e in k1_events) / 1e3
+    base_gram = files["packed_store_gram_s"]
+    print(f"traced gram job: pcoa --source packed --telemetry-dir "
+          f"--trace-dir, {N_SAMPLES} x {N_VARIANTS} ibs [{card}]: wall "
+          f"{wall:.3f} s; gram {timings['gram']:.4f} s traced vs "
+          f"{runs['telemetry'][1]['gram']:.4f} s with telemetry only and "
+          f"{base_gram:.4f} s untraced (phase 14); launches {counts}; "
+          f"{len(k1_events)} K1 events ({', '.join(k1_names)}) in the "
+          f"torch.profiler trace, {k1_sum_ms:.4f} ms summed "
+          f"({k1_sum_ms / len(k1_events):.4f} ms each; phase 4's CUDA "
+          f"events: {k1_ms:.4f} ms); phase.gram window "
+          f"{(hi - lo) / 1e3:.3f} ms: device busy {busy:.4f} (kernels "
+          f"{kbusy:.4f}), idle {1.0 - busy:.4f}; gram.block p50/p95 "
+          f"{hists['gram.block']['p50'] * 1e3:.3f} / "
+          f"{hists['gram.block']['p95'] * 1e3:.3f} ms; prefetch get-wait "
+          f"sum {hists['prefetch.get_wait_s']['sum']:.4f} s (stall "
+          f"fraction "
+          f"{telemetry.stall_fraction(metrics['phases'], hists['prefetch.get_wait_s']['sum']):.4f}), "
+          f"transfer-wait sum {hists['prefetch.transfer_wait_s']['sum']:.4f}"
+          f" s; trace.jsonl {len(events)} events, profiler trace "
+          f"{os.path.getsize(os.path.join(tmp, 'prof37', 'trace_rank0.json'))}"
+          f" bytes; " + ", ".join(f"{k}: ok" for k in checks))
+    return paths
+
+
+def serving_phases(cli_main, launch_counters: dict, card: str, dev,
+                   files: dict, tmp: str) -> dict:
+    """Phases 38-40: served projections in-process (the CLI loadgen,
+    then ProjectionServer under three models), the HTTP front in a
+    subprocess, and ``neighbors --model``. Returns the launches by kernel
+    of each in-process run, by path name."""
+    import concurrent.futures
+    import signal
+
+    import torch
+
+    from spark_examples_tpu_torch import kernels
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.ingest.packed import (
+        load_packed,
+        save_packed,
+    )
+    from spark_examples_tpu_torch.neighbors import load_result
+    from spark_examples_tpu_torch.pipelines import project as P
+    from spark_examples_tpu_torch.serve import (
+        ProjectionEngine,
+        ProjectionServer,
+    )
+
+    paths = {}
+
+    # -- 38. served projections, in-process -------------------------------
+    proj = files["projection"]
+    panel_d, new_d = proj["panel"], proj["new"]
+    models = proj["models"]
+    new_src = load_packed(new_d)
+    new_rows = np.concatenate(
+        [np.array(b) for b, _ in new_src.blocks(BLOCK_VARIANTS)], axis=1)
+    new_ids = list(new_src.sample_ids)
+    n_new = len(new_rows)
+    pcoa_model = models["pcoa"]["model"]
+    serve_common = ["--ref-source", "packed", "--ref-path", panel_d,
+                    "--block-variants", str(BLOCK_VARIANTS), "--device",
+                    DEVICE]
+    telemetry.reset()
+    lg_counts, lg_out, lg_wall = run_counted(
+        cli_main, ["serve", "--model", pcoa_model, "--source", "packed",
+                   "--path", new_d, "--loadgen", str(LOADGEN_CLIENTS),
+                   "--loadgen-requests", str(LOADGEN_REQUESTS),
+                   "--cache-entries", "0"] + serve_common, launch_counters)
+    report = json.loads(lg_out.strip().splitlines()[-1])
+    lat = telemetry.metrics_snapshot()["histograms"]["serve.latency_s"]
+    rows_h = telemetry.metrics_snapshot()["histograms"]["serve.batch_rows"]
+    paths["serve --loadgen"] = lg_counts
+    lg_checks = {
+        f"{n_new} answers": report["completed"] == n_new == lat["count"],
+        "0 errors": report["errors"] == 0 and report["deadline_expired"] == 0,
+        "0 sheds": report["shed"] == 0,
+        "K1 launches == 0": lg_counts["packed_gram"] == 0,
+    }
+    if not all(lg_checks.values()):
+        fail(f"serve --loadgen: {report}, launches {lg_counts}")
+    print(f"serve --loadgen {LOADGEN_CLIENTS} x {LOADGEN_REQUESTS}, pcoa "
+          f"model, {n_new} new samples against the {PANEL_SAMPLES}-sample "
+          f"panel, max_batch 8 [{card}]: wall {lg_wall:.3f} s (staging "
+          f"included); sustained {report['sustained_qps']} QPS over "
+          f"{report['duration_s']} s; latency p50 / p95 / p99 "
+          f"{lat['p50'] * 1e3:.3f} / {lat['p95'] * 1e3:.3f} / "
+          f"{lat['p99'] * 1e3:.3f} ms (max {lat['max'] * 1e3:.3f}); "
+          f"{report['server']['batches']} batches, "
+          f"{rows_h['mean']:.2f} rows each; launches {lg_counts}; "
+          + ", ".join(f"{k}: ok" for k in lg_checks))
+    telemetry.reset()
+
+    singles = np.linspace(0, n_new - 1, SINGLE_ROWS).astype(int)
+    single_dirs = {}
+    for i in singles:
+        single_dirs[i] = os.path.join(tmp, f"single{i}")
+        save_packed(single_dirs[i], new_rows[i:i + 1], [new_ids[i]])
+    served = {}
+    lines = []
+    for name in ("pcoa", "pca", "pcoa corrected"):
+        m = models[name]
+        for mod in launch_counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        engine = ProjectionEngine(m["model"], load_packed(panel_d),
+                                  block_variants=BLOCK_VARIANTS,
+                                  max_batch=8, device=DEVICE)
+        stage_s = time.perf_counter() - t0
+        server = ProjectionServer(engine, max_queue=n_new,
+                                  cache_entries=0).start()
+        try:
+            t0 = time.perf_counter()
+            futs = [server.submit(q) for q in new_rows]
+            rows = np.concatenate([f.result(timeout=600) for f in futs])
+            serve_s = time.perf_counter() - t0
+            batches = server.stats.snapshot()["batches"]
+        finally:
+            server.close()
+        launches = {k: mod.launches for k, mod in launch_counters.items()}
+        paths[f"ProjectionServer {name}"] = launches
+        served[name] = rows
+        want = m["new_coords"]
+        rel = float(np.abs(rows - want).max() / np.abs(want).max())
+        hits = nearest_centroid_hits(rows, proj["new_pops"],
+                                     m["fit_coords"], proj["panel_pops"])
+        bitwise = 0
+        for i in singles:
+            kept = []
+            orig = keeping(P, "pcoa_project_job", kept)
+            try:
+                one_counts, _out, _w = run_counted(
+                    cli_main, ["project", "--model", m["model"], "--source",
+                               "packed", "--path", single_dirs[i]]
+                    + serve_common, launch_counters)
+            finally:
+                P.pcoa_project_job = orig
+            if any(one_counts.values()):
+                fail(f"single-sample project ({name}): launches "
+                     f"{one_counts}")
+            bitwise += int(np.array_equal(kept[-1].coords, rows[i:i + 1]))
+        ok = {
+            "K1 launches == 0": not any(launches.values()),
+            f"{n_new}/{n_new} nearest their population": hits == n_new,
+            f"{SINGLE_ROWS} rows bitwise == single-sample CLI project":
+                bitwise == SINGLE_ROWS,
+            f"within {SERVE_RTOL} of max|coords| of phase 29's project":
+                rel <= SERVE_RTOL,
+        }
+        if not all(ok.values()):
+            fail(f"served {name}: hits {hits}, bitwise {bitwise}/"
+                 f"{SINGLE_ROWS}, max |diff| / max|coords| {rel:.3g}, "
+                 f"launches {launches}")
+        lines.append(f"{name} ({m['kind']} model): staged in {stage_s:.3f} "
+                     f"s, {n_new} rows in {serve_s:.3f} s ({batches} "
+                     f"batches), max |diff| / max|coords| vs phase 29 "
+                     f"{rel:.3g}, {bitwise}/{SINGLE_ROWS} rows bitwise")
+    print(f"ProjectionServer over the card's engine [{card}]: "
+          + "; ".join(lines) + f"; every new sample nearest its "
+          "population's centroid; 0 K1 launches")
+
+    # -- 39. HTTP: the serve CLI as a process -------------------------------
+    d2 = os.path.join(tmp, "tel39")
+    port_file = os.path.join(tmp, "port39.json")
+    log_out = open(os.path.join(tmp, "serve39.out"), "w")
+    log_err = open(os.path.join(tmp, "serve39.err"), "w+")
+    cmd = [sys.executable, "-m", "spark_examples_tpu_torch", "serve",
+           "--model", pcoa_model, "--port", "0", "--port-file", port_file,
+           "--telemetry-dir", d2] + serve_common
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=log_out, stderr=log_err)
+    try:
+        while not os.path.exists(port_file):
+            if proc.poll() is not None:
+                log_err.seek(0)
+                fail(f"serve exited {proc.returncode} before binding: "
+                     f"{log_err.read()[-2000:]}")
+            if time.perf_counter() - t0 > HTTP_BIND_TIMEOUT_S:
+                fail("serve did not bind within "
+                     f"{HTTP_BIND_TIMEOUT_S} s")
+            time.sleep(0.05)
+        bind_s = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{json.load(open(port_file))['port']}"
+        want_rows = served["pcoa"]
+
+        def post(i):
+            tid = f"chipsmoke{i:07d}"
+            out, hdrs = http_json(
+                f"{base}/project",
+                json.dumps({"genotypes": new_rows[i].tolist()}).encode(),
+                headers={"X-Trace-Id": tid}, timeout=120)
+            return i, tid, out, hdrs
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(post, range(HTTP_SAMPLES)))
+        http_s = time.perf_counter() - t0
+        echoed = all(h.get("X-Trace-Id") == tid for _i, tid, _o, h in answers)
+        same = all(np.array_equal(np.asarray(o["coords"], np.float32),
+                                  want_rows[i:i + 1])
+                   for i, _t, o, _h in answers)
+        health, _ = http_json(f"{base}/healthz")
+        ready, _ = http_json(f"{base}/readyz")
+        stats, _ = http_json(f"{base}/stats")
+        prom, _ = http_json(f"{base}/metrics")
+        recent, _ = http_json(f"{base}/debug/requests")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log_out.close()
+    log_err.seek(0)
+    err_text = log_err.read()
+    log_err.close()
+    exported = json.load(open(os.path.join(d2, "rank0", "metrics.json")))
+    http_checks = {
+        "X-Trace-Id echoed": echoed,
+        "answers bitwise == phase 38's rows": same,
+        "/healthz healthy": health.get("status") == "healthy",
+        "/readyz ready": ready.get("ready") is True,
+        f"/stats completed == {HTTP_SAMPLES}":
+            stats.get("completed") == HTTP_SAMPLES,
+        "/metrics serve.* series":
+            f"serve_requests_total {float(HTTP_SAMPLES)}" in prom
+            and f"serve_latency_s_count {HTTP_SAMPLES}" in prom,
+        "/debug/requests exemplars":
+            len(recent.get("exemplars", [])) == HTTP_SAMPLES,
+        "SIGTERM: drained, exit 0": rc == 0 and "draining..." in err_text,
+        f"exported serve.latency_s count == {HTTP_SAMPLES}":
+            exported["histograms"]["serve.latency_s"]["count"]
+            == HTTP_SAMPLES
+            and exported["counters"]["serve.requests"] == HTTP_SAMPLES,
+    }
+    if not all(http_checks.values()):
+        fail("serve over HTTP: " + ", ".join(
+            k for k, v in http_checks.items() if not v)
+             + f"; stderr: {err_text[-2000:]}")
+    elat = exported["histograms"]["serve.latency_s"]
+    print(f"serve over HTTP (subprocess, --port 0) [{card}]: bound in "
+          f"{bind_s:.3f} s; {HTTP_SAMPLES} POST /project from 8 threads in "
+          f"{http_s:.3f} s; server latency p50 / p99 "
+          f"{elat['p50'] * 1e3:.3f} / {elat['p99'] * 1e3:.3f} ms, "
+          f"batch rows mean "
+          f"{exported['histograms']['serve.batch_rows']['mean']:.2f}; "
+          + ", ".join(f"{k}: ok" for k in http_checks))
+
+    # -- 40. neighbors --model -------------------------------------------
+    dup_d = proj["dup"]
+    planted = proj["planted"]
+    nb = os.path.join(tmp, "nb_model.topk")
+    nb_counts, nb_t, _out, nb_wall = run_job(
+        cli_main, ["neighbors", "--model", pcoa_model, "--source", "packed",
+                   "--path", dup_d, "--neighbors-k", "10"] + serve_common,
+        launch_counters, nb)
+    paths["neighbors --model"] = nb_counts
+    res = load_result(nb, expect_kind="topk")
+    spec = kernels.get("ibs").pair
+    acc = {k: torch.zeros((n_new, PANEL_SAMPLES), dtype=torch.int32,
+                          device=dev) for k in spec.stats}
+    for (bn, _mn), (br, _mr) in zip(
+            load_packed(dup_d).blocks(BLOCK_VARIANTS),
+            load_packed(panel_d).blocks(BLOCK_VARIANTS)):
+        P.update_cross(acc, torch.from_numpy(np.array(bn)).to(dev),
+                       torch.from_numpy(np.array(br)).to(dev))
+    full = np.asarray(spec.sim({k: v.cpu().numpy().astype(np.int64)
+                                for k, v in acc.items()}), np.float64)
+    digest = sha256_of(nb)
+    nb_checks = {
+        "K1 launches == 0": nb_counts["packed_gram"] == 0,
+        "planted copies' top-1 = panel twin at 1.0": all(
+            res.ids[i, 0] == planted[i] and res.sims[i, 0] == 1.0
+            for i in range(PLANTED_COPIES)),
+        "sims bitwise == the ibs pair finalize of the cross stats":
+            np.take_along_axis(full, res.ids.astype(np.int64), 1).tobytes()
+            == res.sims.tobytes(),
+        "sha256 == the JAX package's": digest == JAX_MODEL_TOPK_SHA256,
+        "k 10": res.ids.shape == (n_new, 10),
+    }
+    if not all(nb_checks.values()):
+        fail("neighbors --model: " + ", ".join(
+            k for k, v in nb_checks.items() if not v) + f"; sha256 {digest}")
+    print(f"neighbors --model (pcoa ibs), {n_new} queries with "
+          f"{PLANTED_COPIES} planted copies against the {PANEL_SAMPLES}-"
+          f"sample panel, k 10 [{card}]: wall {nb_wall:.3f} s; phases: "
+          + phases_line(nb_t, ("stage", "neighbors_eval", "write"))
+          + f"; sha256 {digest}; launches {nb_counts}; "
+          + ", ".join(f"{k}: ok" for k in nb_checks))
+    del acc, full
+    return paths
+
+
 def flip_file(path: str) -> None:
     """Flip one bit of the last byte of a file (same size)."""
     with open(path, "r+b") as f:
@@ -2188,6 +2704,7 @@ def main() -> int:
             fail(f"csrc/{name}.cu: ptxas reports spills (or no report): "
                  f"{spills}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    k1_names = []  # K1's kernel identifiers, from its library's SASS
     if not os.path.exists(cuobjdump):
         print("sass: the CUDA toolkit has no cuobjdump; SASS not read")
     else:
@@ -2195,6 +2712,7 @@ def main() -> int:
             [cuobjdump, "-sass", str(cuda_build._library_path(name))],
             check=True, capture_output=True, text=True, timeout=300).stdout
             for name in reports}
+        k1_names = kernel_identifiers(sass["packed_gram"])
         imma = re.findall(r"\b(?:IMMA|IGMMA)[.\w]*", sass["packed_gram"])
         if not imma:
             fail("K1's SASS holds no int8 tensor-core instruction (IMMA or "
@@ -2530,9 +3048,16 @@ def main() -> int:
         new_paths.update(streaming_example_neighbors_phases(
             cli_main, launch_counters, card, source, expected,
             synthetic_acc, files, tmp))
+        phases_t0 = time.perf_counter()
+        new_paths.update(traced_gram_phase(
+            cli_main, launch_counters, card, files, tmp, k1_ms, k1_names))
+        new_paths.update(serving_phases(
+            cli_main, launch_counters, card, dev, files, tmp))
+        print(f"phases 37-40 took {time.perf_counter() - phases_t0:.1f} s "
+              f"[{card}]")
 
-    # -- 36. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-35 took "
+    # -- 41. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-40 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",

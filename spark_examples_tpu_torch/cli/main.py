@@ -1,10 +1,13 @@
 """Command-line entry: ``python -m spark_examples_tpu_torch
 {pcoa,pca,similarity,project,cross-kinship,pack,ingest,store,
-search-variants,sample-stats,coverage,neighbors}``.
+search-variants,sample-stats,coverage,neighbors,serve}``.
 
 Flag names and defaults follow the JAX package's CLI for the flags the
 ported paths read, plus ``--device {cuda,cpu}`` (default cuda; a missing
-card raises).
+card raises). Every job command takes the telemetry flags
+(``--telemetry-dir``, ``--trace-events``, ``--trace-sample``,
+``--telemetry-flush-s``, ``--live-port``) and ``--trace-dir``, a
+``torch.profiler`` capture of the whole job.
 
     python -m spark_examples_tpu_torch pcoa --n-samples 2504 \\
         --n-variants 100000 --metric ibs --num-pc 10 --output-path coords.tsv
@@ -42,11 +45,21 @@ card raises).
         --references chr22:16050000:16150000 --output-path depth.tsv
     python -m spark_examples_tpu_torch neighbors --source store:ds/ \\
         --metric ibs --neighbors-k 10 --output-path nb.topk
+    python -m spark_examples_tpu_torch neighbors --model m.npz \\
+        --ref-source store:panel/ --source vcf --path new.vcf.gz
+    python -m spark_examples_tpu_torch serve --model m.npz \\
+        --ref-source store:panel/ --port 8777 --telemetry-dir tel/
+    python -m spark_examples_tpu_torch serve --model m.npz \\
+        --ref-source store:panel/ --source vcf --path new.vcf.gz \\
+        --loadgen 4 --loadgen-requests 50
+    python -m spark_examples_tpu_torch pcoa --source store:ds/ \\
+        --telemetry-dir tel/ --trace-dir prof/
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -239,6 +252,41 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--output-path", default=None)
     p.add_argument("--timings", action="store_true",
                    help="print per-phase timing JSON to stderr")
+    t = p.add_argument_group("telemetry")
+    t.add_argument("--telemetry-dir", default=None,
+                   help="export structured telemetry: Chrome trace events "
+                   "(rank<k>/trace.jsonl, loadable in Perfetto / "
+                   "chrome://tracing), the metrics registry "
+                   "(rank<k>/metrics.json: counters, gauges, "
+                   "p50/p95/p99 histograms, derived throughputs) and a "
+                   "summary table")
+    t.add_argument("--trace-events", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="buffer per-block span events into trace.jsonl "
+                   "(--no-trace-events keeps the metrics.json export but "
+                   "skips the event timeline for very long streams)")
+    t.add_argument("--trace-sample", type=float, default=1.0,
+                   metavar="RATE",
+                   help="request-trace sampling rate in [0, 1]: a served "
+                   "request's trace.request span and slowest-K exemplar "
+                   "entry are kept iff its trace id samples in "
+                   "(deterministic on the id); 1 keeps everything, 0 "
+                   "disables request tracing")
+    t.add_argument("--telemetry-flush-s", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="publish live telemetry snapshots every this many "
+                   "seconds (atomic metrics.json + rolling "
+                   "live_trace.jsonl under --telemetry-dir); 0 = export "
+                   "at exit only")
+    t.add_argument("--live-port", type=int, default=None, metavar="PORT",
+                   help="bind a live-introspection HTTP sidecar on this "
+                   "port (0 = ephemeral): GET /metrics (Prometheus "
+                   "text), /debug/telemetry (full live snapshot JSON), "
+                   "/healthz")
+    t.add_argument("--trace-dir", default=None,
+                   help="capture a torch.profiler trace of the job into "
+                   "this directory (a Chrome trace: host activity, and "
+                   "the card's kernels on --device cuda)")
 
 
 def _add_ref_source(p: argparse.ArgumentParser) -> None:
@@ -258,6 +306,13 @@ def _needs_ref_path(args) -> bool:
 
 def _job_from_args(args) -> JobConfig:
     return JobConfig(
+        telemetry=config.TelemetryConfig(
+            dir=args.telemetry_dir,
+            trace_events=args.trace_events,
+            flush_s=args.telemetry_flush_s,
+            live_port=args.live_port,
+            trace_sample=args.trace_sample,
+        ),
         ingest=IngestConfig(
             source=args.source,
             path=args.path,
@@ -390,6 +445,16 @@ def main(argv: list[str] | None = None) -> int:
                       help="max samples per band bucket; an over-cap "
                       "bucket keeps its first members and counts the rest "
                       "in neighbors.bucket_overflows")
+    p_nb.add_argument("--model", default=None,
+                      help="query-vs-panel mode: a pcoa .npz from "
+                      "--save-model; the --source cohort's top-k panel "
+                      "neighbors by exact similarity (no MinHash), through "
+                      "the serving engine's padded-batch cross statistics")
+    p_nb.add_argument("--ref-source", default="packed", type=_source_arg,
+                      metavar="{" + ",".join(_SOURCES) + "}",
+                      help="reference panel genotypes (query-vs-panel "
+                      "mode); store:<dir> works here too")
+    p_nb.add_argument("--ref-path", default=None)
     p_cov = sub.add_parser("coverage",
                            help="per-base read coverage over ranges (the "
                            "reads example)")
@@ -473,6 +538,63 @@ def main(argv: list[str] | None = None) -> int:
                          help="where an origin re-compaction runs (LD "
                          "pruning's r^2); cuda raises when no card is "
                          "visible")
+    p_srv = sub.add_parser(
+        "serve",
+        help="long-lived online projection server: model + reference "
+        "panel staged on the device once, queries answered through a "
+        "micro-batching queue (bit-identical to the offline `project`); "
+        "binds a local HTTP endpoint, or with --loadgen N drives it with "
+        "N closed-loop clients and prints the serving report",
+    )
+    _add_common(p_srv)  # --source/--path describe the LOADGEN query pool
+    p_srv.add_argument("--model", default=None,
+                       help=".npz from pcoa/pca --save-model")
+    p_srv.add_argument("--ref-source", default="packed", type=_source_arg,
+                       metavar="{" + ",".join(_SOURCES) + "}",
+                       help="reference panel genotypes (the panel the "
+                       "model was fitted on), staged on the device once; "
+                       "store:<dir> works here too")
+    p_srv.add_argument("--ref-path", default=None)
+    p_srv.add_argument("--max-batch", type=int,
+                       default=config.ServeConfig.max_batch,
+                       help="micro-batch ceiling; batches are padded to "
+                       "this")
+    p_srv.add_argument("--max-linger-ms", type=float,
+                       default=config.ServeConfig.max_linger_ms,
+                       help="max wait past the first queued query while "
+                       "coalescing a batch (the latency/throughput dial)")
+    p_srv.add_argument("--max-queue", type=int,
+                       default=config.ServeConfig.max_queue,
+                       help="bounded admission queue; a full queue sheds "
+                       "with an explicit ServerOverloaded (HTTP 429)")
+    p_srv.add_argument("--cache-entries", type=int,
+                       default=config.ServeConfig.cache_entries,
+                       help="LRU result cache size, keyed by genotype "
+                       "digest (0 disables)")
+    p_srv.add_argument("--deadline-ms", type=float,
+                       default=config.ServeConfig.deadline_ms,
+                       help="default per-request deadline (0 = none); "
+                       "expired requests answer DeadlineExceeded/504")
+    p_srv.add_argument("--host", default=config.ServeConfig.host)
+    p_srv.add_argument("--port", type=int, default=config.ServeConfig.port,
+                       help="HTTP bind port (0 = ephemeral)")
+    p_srv.add_argument("--loadgen", type=int, default=0, metavar="CLIENTS",
+                       help="instead of serving HTTP, drive the server "
+                       "with this many concurrent closed-loop clients "
+                       "(queries from --source/--path) and print the "
+                       "offered/sustained QPS + latency report as JSON")
+    p_srv.add_argument("--loadgen-requests", type=int, default=50,
+                       help="requests per loadgen client")
+    p_srv.add_argument("--drain-timeout-s", type=float,
+                       default=config.ServeConfig.drain_timeout_s,
+                       help="SIGTERM drain budget: admitted requests get "
+                       "this long to resolve; stragglers past it fail "
+                       "loudly (ServerClosed) and are counted in "
+                       "serve.drain_abandoned")
+    p_srv.add_argument("--port-file", default=None, metavar="PATH",
+                       help="after the HTTP endpoint binds, atomically "
+                       "write {\"port\": N} here (how a parent learns "
+                       "an ephemeral --port 0 bind)")
     # The pca job is defined on the shared-alt similarity; any other
     # --metric would be silently ignored, so it is rejected instead.
     sub.choices["pca"].set_defaults(metric="shared-alt")
@@ -491,9 +613,48 @@ def main(argv: list[str] | None = None) -> int:
         job = _job_from_args(args)
     except ValueError as e:
         parser.error(str(e))
+    with contextlib.ExitStack() as stack:
+        _observe(stack, args, job)
+        return _dispatch(args, job, parser)
 
+
+def _observe(stack: contextlib.ExitStack, args, job: JobConfig) -> None:
+    """Arm the job's observability on ``stack``: the ``--trace-dir``
+    capture around everything, the telemetry export (configured before
+    the job, written on every way out, after the flusher's final
+    publish) and the ``--live-port`` sidecar."""
+    from spark_examples_tpu_torch.core import live, profiling, telemetry
+
+    stack.enter_context(profiling.trace(args.trace_dir, job.compute.device))
+    if job.telemetry.dir:
+        telemetry.configure(dir=job.telemetry.dir,
+                            trace_events=job.telemetry.trace_events,
+                            flush_s=job.telemetry.flush_s,
+                            trace_sample=job.telemetry.trace_sample)
+
+        def export():
+            d = telemetry.export()
+            if d:
+                print(f"telemetry -> {d}", file=sys.stderr)
+
+        stack.callback(export)
+        stack.callback(telemetry.stop_periodic_flush)
+    else:
+        telemetry.set_trace_sample(job.telemetry.trace_sample)
+    sidecar = live.maybe_start_live(port=job.telemetry.live_port)
+    if sidecar is not None:
+        stack.callback(sidecar.shutdown)
+        if job.telemetry.live_port is not None:
+            print(f"live telemetry on http://{sidecar.host}:{sidecar.port} "
+                  "(GET /metrics, /debug/telemetry, /healthz)",
+                  file=sys.stderr)
+
+
+def _dispatch(args, job: JobConfig, parser: argparse.ArgumentParser) -> int:
     from spark_examples_tpu_torch.pipelines import jobs
 
+    if args.command == "serve":
+        return _serve(args, job, parser)
     if args.command == "pack":
         timer = _pack(job, parser)
     elif args.command == "ingest":
@@ -503,7 +664,7 @@ def main(argv: list[str] | None = None) -> int:
     elif args.command in ("search-variants", "sample-stats"):
         timer = _examples(args, job)
     elif args.command == "neighbors":
-        timer = _neighbors(job)
+        timer = _neighbors(args, job, parser)
     elif args.command == "pcoa" and args.stream_refresh_blocks > 0:
         timer = _stream_pcoa(args, job, parser)
     elif args.command == "similarity":
@@ -695,15 +856,22 @@ def _examples(args, job: JobConfig) -> PhaseTimer:
     return timer
 
 
-def _neighbors(job: JobConfig) -> PhaseTimer:
-    """``neighbors`` in cohort mode: the MinHash/LSH/exact-evaluation
-    job (neighbors/engine.py), its file written to --output-path, a
-    preview of the first rows printed."""
+def _neighbors(args, job: JobConfig,
+               parser: argparse.ArgumentParser) -> PhaseTimer:
+    """``neighbors``: in cohort mode the MinHash/LSH/exact-evaluation job
+    (neighbors/engine.py); with ``--model`` each query's top-k panel
+    neighbors through the serving engine's padded-batch pair statistics.
+    The file goes to --output-path and a preview of the first rows is
+    printed."""
     from spark_examples_tpu_torch.neighbors import save_result
     from spark_examples_tpu_torch.neighbors.engine import neighbors_job
 
     timer = PhaseTimer()
-    res = neighbors_job(job, timer=timer)
+    if args.model:
+        res, panel_ids = _neighbors_vs_panel(args, job, parser, timer)
+    else:
+        res = neighbors_job(job, timer=timer)
+        panel_ids = list(res.sample_ids)
     if job.output_path:
         with timer.phase("write"):
             save_result(job.output_path, res)
@@ -717,7 +885,7 @@ def _neighbors(job: JobConfig) -> PhaseTimer:
         for sid, ids, sims in list(zip(res.sample_ids, res.ids,
                                        res.sims))[:5]:
             cells = [
-                f"{res.sample_ids[j]}={s:.4f}"
+                f"{panel_ids[j]}={s:.4f}"
                 for j, s in zip(ids.tolist(), sims.tolist()) if j >= 0
             ]
             print(sid + "\t" + "\t".join(cells[:5]))
@@ -733,6 +901,212 @@ def _neighbors(job: JobConfig) -> PhaseTimer:
             print(f"{res.sample_ids[i]}\t{res.sample_ids[j]}\t"
                   f"{res.sims[t]:.4f}")
     return timer
+
+
+# Queries per padded batch of ``neighbors --model``: hom-ref padding keeps
+# each row's integer sums independent of the chunk, so any chunking
+# matches a server's answers bit for bit.
+_NEIGHBORS_BATCH = 8
+
+
+def _neighbors_vs_panel(args, job: JobConfig,
+                        parser: argparse.ArgumentParser,
+                        timer: PhaseTimer):
+    """``neighbors --model``: stage the model's panel on the job's
+    device, then every query's top-k panel samples by exact similarity,
+    ``_NEIGHBORS_BATCH`` queries at a time. Returns (TopKResult, the
+    panel's sample ids); both sources are closed when it ends."""
+    from spark_examples_tpu_torch.neighbors import TopKResult
+    from spark_examples_tpu_torch.pipelines import project as P
+    from spark_examples_tpu_torch.pipelines.runner import build_source
+    from spark_examples_tpu_torch.serve import engine as E
+
+    if args.maf > 0.0 or args.max_missing < 1.0 or args.ld_prune_r2 > 0:
+        parser.error(
+            "--maf/--max-missing/--ld-prune-r2 cannot apply during "
+            "query-vs-panel neighbors (data-dependent masks would "
+            "keep different variant subsets per cohort); filter "
+            "both cohorts to the same sites beforehand"
+        )
+    if _needs_ref_path(args):
+        parser.error("neighbors --model requires --ref-path (the "
+                     "panel genotypes the model was fitted on)")
+    try:
+        model = P.load_model(args.model)
+        E.check_topkable(model)
+    except ValueError as e:
+        parser.error(str(e))
+    device = job.compute.device
+    ctx = E.ModelContext(model, device)
+    ref_cfg = dataclasses.replace(job.ingest, source=args.ref_source,
+                                  path=args.ref_path)
+    src_ref = build_source(ref_cfg, device)
+    try:
+        P.check_reference_panel(model, src_ref)
+        with timer.phase("stage"):
+            blocks, n_variants, _nbytes = E.stage_blocks(
+                src_ref, job.ingest.block_variants, ctx.device)
+    finally:
+        close_source(src_ref)
+    queries, query_ids = _query_pool(job, n_variants, parser, "query cohort")
+    k = job.compute.neighbors_k
+    ids_rows, sim_rows = [], []
+    with timer.phase("neighbors_eval"):
+        for i in range(0, queries.shape[0], _NEIGHBORS_BATCH):
+            ids, sims = E.batch_topk(
+                ctx, blocks, queries[i:i + _NEIGHBORS_BATCH],
+                _NEIGHBORS_BATCH, n_variants, k)
+            ids_rows.append(ids)
+            sim_rows.append(sims)
+    res = TopKResult(
+        ids=np.concatenate(ids_rows, axis=0),
+        sims=np.concatenate(sim_rows, axis=0),
+        sample_ids=tuple(query_ids),
+        metric=model.metric,
+        k=int(ids_rows[0].shape[1]), n_variants=n_variants,
+    )
+    return res, list(model.sample_ids)
+
+
+def _query_pool(job: JobConfig, n_variants: int,
+                parser: argparse.ArgumentParser,
+                noun: str) -> tuple[np.ndarray, list[str]]:
+    """The --source cohort as one (Q, V) int8 array with its sample ids
+    (a synthetic source is generated at the panel's variant count);
+    a cohort of another width is a usage error."""
+    from spark_examples_tpu_torch.pipelines.runner import build_source
+
+    q_cfg = job.ingest
+    if q_cfg.source == "synthetic":
+        q_cfg = dataclasses.replace(q_cfg, n_variants=n_variants)
+    q_src = build_source(q_cfg, job.compute.device)
+    try:
+        pool = np.concatenate(
+            [b for b, _ in q_src.blocks(q_cfg.block_variants)], axis=1)
+        ids = list(q_src.sample_ids)
+    finally:
+        close_source(q_src)
+    if pool.shape[1] != n_variants:
+        parser.error(
+            f"{noun} carries {pool.shape[1]} variants but the model's "
+            f"panel has {n_variants} — both cohorts must be genotyped "
+            "at the panel's sites"
+        )
+    return pool, ids
+
+
+def _write_port_file(path, port) -> None:
+    """--port-file: atomically publish the bound port."""
+    if not path:
+        return
+    from spark_examples_tpu_torch.core import telemetry
+
+    telemetry._atomic_write(path, json.dumps({"port": int(port)}))
+
+
+def _serve(args, job: JobConfig, parser: argparse.ArgumentParser) -> int:
+    """``serve``: engine and server up on the job's device, then either
+    a local HTTP endpoint (SIGTERM or Ctrl-C drains) or an in-process
+    closed-loop loadgen run whose JSON report goes to stdout. The
+    telemetry export (the job's exit stack) runs after the drain, so
+    the exported serve.* histograms cover the whole serving life."""
+    from spark_examples_tpu_torch.pipelines.runner import build_source
+    from spark_examples_tpu_torch.serve import (
+        ProjectionEngine,
+        ProjectionServer,
+        run_loadgen,
+    )
+
+    if not args.model:
+        parser.error("serve needs --model MODEL.npz (the fitted panel "
+                     "model to serve)")
+    if _needs_ref_path(args):
+        parser.error("serve requires --ref-path (the panel genotypes "
+                     "the model was fitted on)")
+    try:
+        cfg = config.ServeConfig(
+            model_path=args.model,
+            max_batch=args.max_batch,
+            max_linger_ms=args.max_linger_ms,
+            max_queue=args.max_queue,
+            cache_entries=args.cache_entries,
+            deadline_ms=args.deadline_ms,
+            host=args.host,
+            port=args.port,
+            drain_timeout_s=args.drain_timeout_s,
+        )
+        ref_cfg = dataclasses.replace(job.ingest, source=args.ref_source,
+                                      path=args.ref_path)
+    except ValueError as e:
+        parser.error(str(e))
+    device = job.compute.device
+    src_ref = build_source(ref_cfg, device)
+    try:
+        engine = ProjectionEngine(
+            cfg.model_path, src_ref,
+            block_variants=job.ingest.block_variants,
+            max_batch=cfg.max_batch, device=device,
+        )
+        server = ProjectionServer(
+            engine,
+            max_linger_s=cfg.max_linger_ms / 1e3,
+            max_queue=cfg.max_queue,
+            cache_entries=cfg.cache_entries,
+            default_deadline_s=(cfg.deadline_ms / 1e3) or None,
+            drain_timeout_s=cfg.drain_timeout_s,
+        )
+        server.start()
+        try:
+            if args.loadgen > 0:
+                pool, _ids = _query_pool(job, engine.n_variants, parser,
+                                         "loadgen query pool")
+                report = run_loadgen(
+                    server, pool, clients=args.loadgen,
+                    requests_per_client=args.loadgen_requests,
+                    deadline_s=(cfg.deadline_ms / 1e3) or None,
+                )
+                print(json.dumps(report, sort_keys=True))
+            else:
+                _serve_http(args, cfg, server)
+        finally:
+            server.close()
+    finally:
+        close_source(src_ref)
+    return 0
+
+
+def _serve_http(args, cfg, server) -> None:
+    """Serve ``server`` over HTTP in the foreground until SIGTERM or
+    Ctrl-C, which drain rather than kill: admitted requests are
+    answered before the process exits."""
+    import signal
+
+    from spark_examples_tpu_torch.serve.http import ProjectionHTTPServer
+
+    http = ProjectionHTTPServer(server, host=cfg.host, port=cfg.port)
+    _write_port_file(args.port_file, http.port)
+
+    def _sigterm(signum, frame):
+        raise KeyboardInterrupt
+
+    try:
+        signal.signal(signal.SIGTERM, _sigterm)
+    except ValueError:
+        pass  # not the main thread (embedded use)
+    engine = server.engine
+    print(
+        f"serving projections on http://{http.host}:{http.port} "
+        f"(POST /project, GET /healthz, GET /stats; "
+        f"{engine.n_variants} variants x {engine.n_components} "
+        f"components; Ctrl-C drains)",
+        file=sys.stderr, flush=True,
+    )
+    try:
+        http.serve_forever()
+    except KeyboardInterrupt:
+        print("draining...", file=sys.stderr)
+    finally:
+        http.shutdown()
 
 
 def _run_coverage(args) -> int:

@@ -384,9 +384,112 @@ class ComputeConfig:
 
 
 @dataclass
+class TelemetryConfig:
+    """Structured-telemetry export (core/telemetry.py).
+
+    ``dir`` turns export on: ``<dir>/rank<k>/{trace.jsonl,metrics.json}``
+    (trace.jsonl loads in Perfetto / chrome://tracing) and a summary
+    table. ``trace_events=False`` keeps the metrics export but buffers
+    no per-block span events. ``flush_s > 0`` republishes
+    ``metrics.json`` and a rolling ``live_trace.jsonl`` every ``flush_s``
+    seconds while the job runs. ``live_port`` (0 = ephemeral) binds the
+    HTTP sidecar (core/live.py: ``/metrics``, ``/debug/telemetry``,
+    ``/healthz``). ``trace_sample`` is the share of served requests
+    that get a ``trace.request`` span and an exemplar slot
+    (deterministic on the trace id). Metrics are collected either way.
+    """
+
+    dir: str | None = None
+    trace_events: bool = True
+    flush_s: float = 0.0  # 0 = export at exit only
+    live_port: int | None = None  # None = no sidecar; 0 = ephemeral
+    trace_sample: float = 1.0
+
+    def __post_init__(self):
+        if not (isinstance(self.flush_s, (int, float))
+                and 0.0 <= self.flush_s <= 86400.0):
+            raise ValueError(
+                f"bad telemetry config: --telemetry-flush-s="
+                f"{self.flush_s!r} — expected seconds in [0, 86400] "
+                "(0 disables the periodic flusher)"
+            )
+        if self.flush_s and not self.dir:
+            raise ValueError(
+                "bad telemetry config: --telemetry-flush-s needs "
+                "--telemetry-dir (the periodic flusher publishes "
+                "snapshots under the export directory)"
+            )
+        if self.live_port is not None and not (
+                isinstance(self.live_port, int)
+                and 0 <= self.live_port <= 65535):
+            raise ValueError(
+                f"bad telemetry config: --live-port={self.live_port!r} "
+                "— expected a TCP port in [0, 65535] (0 binds an "
+                "ephemeral port)"
+            )
+        if not (isinstance(self.trace_sample, (int, float))
+                and not isinstance(self.trace_sample, bool)
+                and 0.0 <= self.trace_sample <= 1.0):
+            raise ValueError(
+                f"bad telemetry config: --trace-sample="
+                f"{self.trace_sample!r} — expected a sample rate in "
+                "[0, 1] (the fraction of requests granted detailed "
+                "per-request tracing; 0 disables, 1 traces everything)"
+            )
+
+
+@dataclass
+class ServeConfig:
+    """Online projection server knobs (serve/, the ``serve`` command).
+
+    ``max_batch`` x ``max_linger_ms`` is the latency/throughput dial:
+    the batching worker coalesces up to max_batch queued queries but
+    never waits longer than the linger past the first one, and the
+    batch is padded to max_batch. ``max_queue`` bounds admission — a
+    full queue sheds with an explicit ServerOverloaded. ``deadline_ms``
+    (0 = none) is the default per-request deadline; ``cache_entries``
+    (0 = off) sizes the LRU result cache keyed by genotype digest.
+    ``drain_timeout_s`` is the SIGTERM drain budget: stragglers past it
+    fail loudly (ServerClosed) and count in ``serve.drain_abandoned``.
+    """
+
+    model_path: str | None = None
+    max_batch: int = 8
+    max_linger_ms: float = 2.0
+    max_queue: int = 64
+    cache_entries: int = 256
+    deadline_ms: float = 0.0
+    host: str = "127.0.0.1"
+    port: int = 8777
+    drain_timeout_s: float = 60.0
+
+    def __post_init__(self):
+        def _check(flag, value, lo, hi, why):
+            if not (isinstance(value, (int, float)) and lo <= value <= hi):
+                raise ValueError(
+                    f"bad serve config: {flag}={value!r} — expected a "
+                    f"number in [{lo}, {hi}] ({why})"
+                )
+
+        _check("--max-batch", self.max_batch, 1, 4096,
+               "micro-batch ceiling; batches pad to it")
+        _check("--max-linger-ms", self.max_linger_ms, 0.0, 60_000.0,
+               "max coalescing wait past the first queued query")
+        _check("--max-queue", self.max_queue, 1, 1 << 20,
+               "bounded admission queue; a full queue sheds")
+        _check("--cache-entries", self.cache_entries, 0, 1 << 20,
+               "LRU result cache size; 0 disables")
+        _check("--deadline-ms", self.deadline_ms, 0.0, 86_400_000.0,
+               "default per-request deadline; 0 = none")
+        _check("--drain-timeout-s", self.drain_timeout_s, 0.1, 86_400.0,
+               "SIGTERM drain budget before stragglers fail loudly")
+
+
+@dataclass
 class JobConfig:
     ingest: IngestConfig = field(default_factory=IngestConfig)
     compute: ComputeConfig = field(default_factory=ComputeConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     output_path: str | None = None
     # pcoa/pca: persist the fitted embedding (eigenpairs + centering
     # statistics) so `project` can place new samples into the same

@@ -27,6 +27,17 @@ more; only the ones the ported modules cross are here):
 ``neighbors.candidates``    per block attempt of the neighbors job's exact
                             candidate evaluation, inside its IO retry
                             boundary (``neighbors/engine.py``)
+``device.put``              per block, just before the feed's host->device
+                            copy (``ingest/prefetch.py``)
+``prefetch.transfer_wait``  per staging slab retired by the CUDA feed,
+                            before it waits out the slab's copy
+``serve.request``           per admitted request, in the serving worker's
+                            batch assembly (``serve/server.py``): an
+                            io_error fails exactly that request
+``telemetry.flush``         inside each periodic telemetry flush, before
+                            ``metrics.json`` is rewritten
+``trace.export``            before ``requests.json`` (the slowest-request
+                            exemplars) is written
 ==========================  ================================================
 
 Env grammar (``;``-separated specs, ``:``-separated fields), read
@@ -65,6 +76,11 @@ SITES = (
     "checkpoint.tile_write",
     "checkpoint.tile_read",
     "neighbors.candidates",
+    "device.put",
+    "prefetch.transfer_wait",
+    "serve.request",
+    "telemetry.flush",
+    "trace.export",
 )
 
 # Exit code of the "kill" kind, so a test can tell an injected kill from
@@ -154,6 +170,7 @@ class Injector:
         if spec is None:
             return
         telemetry.count("faults.fired")
+        telemetry.event("fault", cat="faults", site=site, kind=spec.kind)
         self._execute(spec, site, path)
 
     @staticmethod

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import hashlib
 
+import numpy as np
+
 
 def sha256_bytes(data) -> str:
     """Hex sha256 of a bytes-like object (bytes, memoryview, buffer):
@@ -41,6 +43,18 @@ class TeeHashWriter:
 
     def __getattr__(self, name):
         return getattr(self._f, name)
+
+
+def array_digest(arr: np.ndarray, namespace: str = "") -> str:
+    """Content digest of one array, dtype and shape folded in so two
+    buffers with the same bytes but different views cannot collide;
+    ``namespace`` prefixes a caller-chosen scope (the serving cache's
+    model fingerprint)."""
+    a = np.ascontiguousarray(arr)
+    h = hashlib.sha256()
+    h.update(f"{namespace}|{a.dtype.str}|{a.shape}|".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def sample_hash(sample_ids: list[str]) -> str:

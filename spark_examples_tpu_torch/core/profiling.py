@@ -1,19 +1,29 @@
-"""Per-phase wall-clock timing.
+"""Per-phase wall-clock timing and the profiler capture.
 
 PyTorch returns from a CUDA call before the device has finished it, so
 a phase that ends without a barrier times the enqueue, not the work.
 :func:`hard_sync` is that barrier; the job routes call it on whatever a
 phase produced before the phase closes.
+
+:class:`PhaseTimer` mirrors every phase into the telemetry registry (a
+``phase.<name>`` span on the trace timeline and a counter of summed
+seconds) and every counter it adds, and reports its derived throughputs
+through :func:`telemetry.derive_throughputs`, the formula the exported
+``metrics.json`` uses too. :func:`trace` (``--trace-dir``) captures a
+``torch.profiler`` trace of a whole job, in which each phase is a named
+range (``phase.<name>``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
+import os
 from dataclasses import dataclass, field
 
 import torch
+
+from spark_examples_tpu_torch.core import telemetry
 
 
 def _tensors(tree):
@@ -41,34 +51,99 @@ def hard_sync(tree):
     return tree
 
 
+# Registry counter -> report key of the resilience incidents a report
+# carries, as the delta since the timer was made (the registry is
+# process-wide; an earlier job's retries are not this one's).
+_INCIDENT_COUNTERS = (
+    ("ingest.retries", "ingest_retries"),
+    ("ingest.reopens", "ingest_reopens"),
+    ("ingest.corrupt_blocks", "ingest_corrupt_blocks"),
+)
+
+
 @dataclass
 class PhaseTimer:
-    """Accumulates named phase durations (seconds) and counters."""
+    """Accumulates named phase durations (seconds) and counters, both
+    mirrored into the telemetry registry."""
 
     phases: dict[str, float] = field(default_factory=dict)
     counters: dict[str, float] = field(default_factory=dict)
+    incident_base: dict[str, float] = field(default_factory=dict,
+                                            repr=False, compare=False)
+
+    def __post_init__(self):
+        if not self.incident_base:
+            self.incident_base = {name: telemetry.counter_value(name)
+                                  for name, _ in _INCIDENT_COUNTERS}
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
+        sp = telemetry.begin("phase." + name, cat="phase")
         try:
-            yield
+            # Also a named range in a --trace-dir capture, where the card's
+            # kernels can be set against the phase's window.
+            with torch.profiler.record_function("phase." + name):
+                yield
         finally:
-            dt = time.perf_counter() - t0
+            dt = sp.end()
             self.phases[name] = self.phases.get(name, 0.0) + dt
+            telemetry.count("phase." + name, dt)
 
     def add(self, counter: str, amount: float) -> None:
         self.counters[counter] = self.counters.get(counter, 0.0) + amount
+        telemetry.count(counter, amount)
 
     def report(self) -> dict:
+        """Phases, counters, the derived throughputs and the incidents
+        since the timer was made."""
         rep: dict[str, float] = dict(self.phases)
         rep.update(self.counters)
-        gram_s = self.phases.get("gram", 0.0)
-        if gram_s > 0:
-            rep["gram_gflops"] = self.counters.get("gram_flops", 0.0) / gram_s / 1e9
-            rep["ingest_mb_s"] = (self.counters.get("ingest_bytes", 0.0)
-                                  / gram_s / 1e6)
-        eigh_s = self.phases.get("eigh", 0.0)
-        if eigh_s > 0:
-            rep["eigh_gflops"] = self.counters.get("eigh_flops", 0.0) / eigh_s / 1e9
+        rep.update(telemetry.derive_throughputs(self.phases, self.counters))
+        for cname, key in _INCIDENT_COUNTERS:
+            v = telemetry.counter_value(cname) - self.incident_base.get(
+                cname, 0.0)
+            if v > 0:
+                rep[key] = v
         return rep
+
+
+def kernel_events(prof) -> list:
+    """The device-kernel events of a finished ``torch.profiler``
+    capture (what CUPTI recorded on the card)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None, device: str = "cpu"):
+    """Capture a ``torch.profiler`` trace of the block into ``logdir``
+    as a Chrome trace (``trace_rank<r>.json``; loads in Perfetto or
+    ``chrome://tracing``). Host activity always; the card's kernels too
+    when ``device`` is ``cuda`` (a missing card raises). A CUDA capture
+    that recorded no device kernel means CUPTI did not trace the card,
+    and raises rather than leave an untraced job looking traced. Yields
+    the profiler (None when ``logdir`` is unset)."""
+    if not logdir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_examples_tpu_torch.core.device import resolve_device
+
+    cuda = resolve_device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    if cuda and not kernel_events(prof):
+        raise RuntimeError(
+            "--trace-dir: the torch.profiler capture holds no CUDA kernel "
+            "event — CUPTI did not trace the card, so the trace would "
+            "show host activity only"
+        )
+    rank, _ = telemetry._rank()
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_rank{rank}.json"))

@@ -1,31 +1,54 @@
-"""In-process metrics registry: counters, gauges, histograms and spans.
+"""Structured telemetry: metrics registry, spans, trace export and the
+live plane.
 
-The dataset store, the retrying ingest and the fault harness count what
-they do here: chunks verified, cache hits, retries absorbed, heals,
-readahead depth. Every name an instrumentation site uses must be
-declared in :data:`NAMES`; an undeclared name warns once and counts into
+The ported modules count what they do here: chunks verified, retries
+absorbed, heals, the feed's waits, the gram loop's blocks, each served
+request. Every name an instrumentation site uses must be declared in
+:data:`NAMES` (entries ending in ``.*`` declare a family, like
+``phase.*``); an undeclared name warns once and counts into
 ``telemetry.unknown_names`` instead of raising mid-job.
+``tests/test_torch_telemetry_names.py`` lints the call sites.
 
-- **Counters** are monotonic float sums, **gauges** keep last/min/max,
-  and **histograms** are streaming log-bucket histograms (2^(1/8) per
-  bucket, no sample retention) with exact count/sum/min/max.
-- **Spans** (:func:`span`, :func:`traced`) time a block of code into a
-  same-named histogram of seconds.
-- **Events** (:func:`event`) are instant markers with attributes, kept
-  in a bounded in-process ring (:func:`events`) in the order emitted.
+- **Metrics registry**: counters (monotonic float sums), gauges
+  (last/min/max) and streaming log-bucket histograms (2^(1/8) per
+  bucket, no sample retention) with exact count/sum/min/max. Always on.
+- **Spans** (:func:`span`, :func:`begin`, :func:`span_at`,
+  :func:`traced`) time an interval into a same-named histogram of
+  seconds and, while tracing is configured, into a Chrome trace event
+  (keys ``name, cat, ph, ts, dur, pid, tid, args``: the JAX package's,
+  so one stitcher reads either package's exports).
+- **Events** (:func:`event`) are instant markers; the newest
+  :data:`EVENT_RING` stay readable in-process (:func:`events`) whether
+  or not tracing is on.
+- **Request trace context** (:func:`trace_scope`, :func:`should_sample`
+  — crc32 of the trace id against the rate, the JAX package's decision
+  for the same id) and the slowest-K request exemplars.
+- **Exporter** (:func:`export`): ``<dir>/rank<k>/{trace.jsonl,
+  metrics.json}``, ``requests.json`` and a ``summary.txt``, every file
+  written through tmp + rename. :class:`PeriodicFlusher` republishes
+  ``metrics.json`` and a rolling ``live_trace.jsonl`` every ``flush_s``
+  seconds (the ``telemetry.flush`` fault site fires inside each flush).
+- :func:`derive_throughputs`, :func:`effective_gram_time` and
+  :func:`stall_fraction`: the one formula the PhaseTimer report, the
+  exporter and the summary share.
 
-This is the JAX package's registry (``core/telemetry.py``) without its
-trace files, exporter, live plane and trace context. The port's
-``core/profiling.py::PhaseTimer`` keeps the job phases.
+The HTTP surfaces over this module live in ``core/live.py``.
 """
 
 from __future__ import annotations
 
+import contextvars
 import functools
+import heapq
+import json
 import math
+import os
+import sys
 import threading
 import time
+import uuid
 import warnings
+import zlib
 from collections import deque
 from contextlib import contextmanager
 
@@ -226,20 +249,244 @@ NAMES: dict[str, tuple[str, str]] = {
         "streaming incremental-PCoA snapshot dispatched (args: "
         "n_variants, blocks_done)",
     ),
+    # -- the gram loop, the feed, the live plane and serving -------------
+    "phase.*": (
+        "span",
+        "one PhaseTimer phase (gram/eigh/finalize/...) — wall-clock of the "
+        "named pipeline stage; also mirrored as a counter of summed seconds",
+    ),
+    "gram.block": (
+        "span",
+        "one block period of the streamed gram loop: producer/queue wait + "
+        "host->device transfer + update dispatch + hooks + checkpoint",
+    ),
+    "gram.pad_step": (
+        "event",
+        "a loop step whose block carried no variant of this process's "
+        "stream (an all-MISSING padding slab) — deliberately NOT a "
+        "gram.block sample, so padding cannot skew the block percentiles",
+    ),
+    "gram.lowering": (
+        "gauge",
+        "count-family contraction lowering the gram job resolved to: 1 = "
+        "the fused packed CUDA kernel (decode + mask + contract in one "
+        "pass), 0 = the reference unpack-then-contract path — the auto "
+        "choice made observable (--gram-lowering)",
+    ),
+    "gram_flops": ("counter", "FLOPs credited to the gram accumulation"),
+    "ingest_bytes": ("counter", "bytes actually shipped host->device"),
+    "eigh_flops": ("counter", "FLOPs credited to the eigensolve"),
+    "prefetch.queue_depth": (
+        "gauge",
+        "prefetch queue occupancy sampled at each consumer get (max == "
+        "configured depth means the producer is ahead; 0 means the card "
+        "is starved)",
+    ),
+    "prefetch.transfers_in_flight": (
+        "gauge",
+        "host->device transfers dispatched ahead of the yielded block "
+        "in the K-deep feed (bounded by the transfer ring depth)",
+    ),
+    "prefetch.put_wait_s": (
+        "histogram",
+        "producer-thread wait per block for queue space (large => "
+        "consumer/device is the bottleneck)",
+    ),
+    "prefetch.get_wait_s": (
+        "histogram",
+        "consumer wait per block for the producer (large => ingest is the "
+        "bottleneck; sum/gram time = the stall fraction)",
+    ),
+    "prefetch.stage_wait_s": (
+        "histogram",
+        "producer wait per block for a free pinned staging slab (large => "
+        "the transfer/compute side of the ring is the bottleneck and "
+        "every slab is in flight)",
+    ),
+    "prefetch.transfer_wait_s": (
+        "histogram",
+        "residual wait at block retire time for its host->device "
+        "transfer to complete before the staging slab rotates back — "
+        "~0 when the K-deep pipeline hides the transfer entirely",
+    ),
+    "fault": ("event", "a fault-injection spec fired (args: site, kind)"),
+    "telemetry.dropped_events": (
+        "counter", "trace events dropped past MAX_EVENTS"),
+    "live.flush": (
+        "span",
+        "one periodic live-telemetry flush: the telemetry.flush fault "
+        "site + atomic metrics.json rewrite + rolling live_trace.jsonl "
+        "ring rewrite (tmp+rename both, so a kill mid-flush leaves the "
+        "last-good snapshot readable)",
+    ),
+    "live.flushes": (
+        "counter",
+        "periodic live-telemetry snapshots published by the background "
+        "flusher (atomic metrics.json + rolling live_trace.jsonl every "
+        "flush_s seconds)",
+    ),
+    "live.flush_errors": (
+        "counter",
+        "periodic flushes that failed (unwritable dir, full disk, "
+        "injected telemetry.flush fault) — warned once and absorbed; "
+        "the flusher must never be able to kill the job it reports on",
+    ),
+    "live.requests": (
+        "counter",
+        "live-introspection HTTP requests answered by this process "
+        "(/metrics, /debug/telemetry, /healthz on the --live-port "
+        "sidecar or the serve front)",
+    ),
+    "trace.request": (
+        "span",
+        "one sampled request's admission-to-response wall at the HTTP "
+        "front (args: trace_id, route, class, status) — the root of the "
+        "per-request waterfall",
+    ),
+    "trace.sampled": (
+        "counter",
+        "requests granted detailed per-request tracing by the "
+        "--trace-sample rate (deterministic on trace_id)",
+    ),
+    "trace.export_errors": (
+        "counter",
+        "slowest-request exemplar (requests.json) writes that failed "
+        "(unwritable dir, injected trace.export fault) — absorbed; the "
+        "last-good exemplar file stays readable (tmp+rename)",
+    ),
+    "trace.exemplars": (
+        "gauge",
+        "occupancy of the slowest-K request exemplar ring keyed by "
+        "trace_id (GET /debug/requests serves it; bounded at "
+        "TRACE_EXEMPLARS)",
+    ),
+    "serve.assemble": (
+        "span",
+        "one micro-batch assembly in the projection server: dequeue sweep "
+        "(fault site, cancellation, deadline expiry) + stack of the live "
+        "queries",
+    ),
+    "serve.device_step": (
+        "span",
+        "one padded micro-batch through the device: cross-stat "
+        "accumulation against the staged reference blocks + per-row "
+        "finalize",
+    ),
+    "serve.drain": (
+        "span",
+        "graceful server drain: admission closed, wall-clock until every "
+        "in-flight request resolved and the worker joined",
+    ),
+    "serve.requests": (
+        "counter",
+        "requests admitted into the projection server's bounded queue "
+        "(cache hits answered at submit are counted separately)",
+    ),
+    "serve.shed": (
+        "counter",
+        "requests rejected with ServerOverloaded at admission — the "
+        "bounded queue was full (explicit load-shedding, not latency)",
+    ),
+    "serve.cache_hits": (
+        "counter",
+        "requests answered from the LRU result cache by genotype digest "
+        "(no queue, no device work)",
+    ),
+    "serve.cache_misses": (
+        "counter", "requests that missed the result cache"),
+    "serve.deadline_expired": (
+        "counter",
+        "admitted requests dropped at batch assembly because their "
+        "deadline had already passed (answered with DeadlineExceeded)",
+    ),
+    "serve.cancelled": (
+        "counter",
+        "admitted requests cancelled by the client before batch pickup",
+    ),
+    "serve.errors": (
+        "counter",
+        "admitted requests answered with a processing error (including "
+        "injected serve.request faults)",
+    ),
+    "serve.worker_restarts": (
+        "counter",
+        "projection-server batching-worker recoveries: an unexpected "
+        "worker-loop failure or thread death was caught and the worker "
+        "restarted WITHOUT dropping admitted requests (health degrades "
+        "for the cooloff window)",
+    ),
+    "serve.breaker_open": (
+        "counter",
+        "store-read circuit-breaker trips in the serve panel path: "
+        "repeated staging failures opened the breaker and the server "
+        "entered cached-panel-only mode (still serving, degraded)",
+    ),
+    "serve.drain_abandoned": (
+        "counter",
+        "admitted requests still queued when the SIGTERM drain budget "
+        "(--drain-timeout-s) expired — failed loudly with ServerClosed, "
+        "never dropped",
+    ),
+    "serve.in_flight": (
+        "gauge",
+        "admitted-but-unanswered requests in the projection server "
+        "(queued + in the current batch); max is the realized backlog",
+    ),
+    "serve.health": (
+        "gauge",
+        "the serving health state machine as a number (0 healthy, "
+        "1 degraded, 2 draining) — published on every transition; "
+        "/healthz reports the same state as a string",
+    ),
+    "serve.enqueue_wait_s": (
+        "histogram",
+        "per admitted request: wall-clock from admission to batch pickup "
+        "(large => the device step or linger window is the bottleneck)",
+    ),
+    "serve.latency_s": (
+        "histogram",
+        "per served request: submit to completed result, cache hits "
+        "included — the client-visible latency whose p50/p99 the loadgen "
+        "reports",
+    ),
+    "serve.batch_rows": (
+        "histogram",
+        "live (non-padding) queries per executed micro-batch: mean near "
+        "max_batch means coalescing is working; 1 means linger is too "
+        "short for the offered load",
+    ),
 }
 
+_FAMILIES = tuple(n[:-1] for n in NAMES if n.endswith(".*"))  # "phase."
+
+KINDS = ("span", "event", "counter", "gauge", "histogram")
+
+# Trace events buffered for export (a counter takes the overflow).
+MAX_EVENTS = 500_000
 # Events kept for :func:`events` (oldest dropped first).
 EVENT_RING = 4096
+# The rolling ring the live surfaces expose.
+RECENT_EVENTS = 256
+# Slowest-K request exemplar ring size.
+TRACE_EXEMPLARS = 32
 
 HIST_LO = 1e-9
 HIST_GROWTH = 2.0 ** 0.125
 _HIST_BUCKETS = 1 + 8 * 47 + 1  # underflow + 47 octaves + overflow
 _LOG_G = math.log(HIST_GROWTH)
 
+# Job identity: a run id shared by every attempt of one job and the
+# attempt ordinal, pinned through the environment by a supervising
+# parent (the JAX package's variable names, so either package's parent
+# arms the other's child).
+ENV_RUN_ID = "SPARK_EXAMPLES_TPU_RUN_ID"
+ENV_ATTEMPT = "SPARK_EXAMPLES_TPU_ATTEMPT"
+ENV_TRACE_SAMPLE = "SPARK_EXAMPLES_TPU_TRACE_SAMPLE"
+
 
 def is_declared(name: str) -> bool:
-    """True when ``name`` is in the registry."""
-    return name in NAMES
+    """True when ``name`` is in the registry (exact or family match)."""
+    return name in NAMES or name.startswith(_FAMILIES)
 
 
 class Histogram:
@@ -266,6 +513,17 @@ class Histogram:
         self.sum += v
         self.min = min(self.min, v)
         self.max = max(self.max, v)
+
+    def merge(self, other: "Histogram") -> "Histogram":
+        """Fold ``other`` into this histogram (same bucket grid)."""
+        if other.count:
+            for i, n in enumerate(other.buckets):
+                self.buckets[i] += n
+            self.count += other.count
+            self.sum += other.sum
+            self.min = min(self.min, other.min)
+            self.max = max(self.max, other.max)
+        return self
 
     @staticmethod
     def _bounds(i: int) -> tuple[float, float]:
@@ -305,13 +563,64 @@ class Histogram:
 
 
 # Process-wide state under one lock: sites record from the main thread,
-# the feed's producer, readahead workers and the compaction pools.
+# the feed's producer, readahead workers, the serving worker and HTTP
+# handler threads. Reentrant, because the SIGTERM crash flush runs
+# export() on the main thread at any bytecode boundary, possibly inside
+# a `with _lock:` of a count().
 _lock = threading.RLock()
+_T0 = time.perf_counter()  # trace timestamp epoch
+_START_UNIX = time.time()
+
 _counters: dict[str, float] = {}
 _gauges: dict[str, dict] = {}
 _hists: dict[str, Histogram] = {}
 _warned_names: set[str] = set()
-_events: deque = deque(maxlen=EVENT_RING)
+_ring: deque = deque(maxlen=EVENT_RING)  # :func:`events`
+_events: list[dict] = []  # trace events, while tracing is configured
+_exemplars: list[tuple[float, int, dict]] = []  # min-heap on total_s
+_exemplar_seq = 0
+
+_dir: str | None = None
+_trace = False
+_flusher: "PeriodicFlusher | None" = None
+_run_id: str | None = None
+
+
+def _env_trace_sample() -> float:
+    try:
+        v = float(os.environ.get(ENV_TRACE_SAMPLE, "") or 1.0)
+    except ValueError:
+        return 1.0
+    return min(max(v, 0.0), 1.0)
+
+
+_trace_sample = _env_trace_sample()
+
+
+def run_id() -> str:
+    """The stable job id stamped into exported events and metrics: the
+    environment's when a parent pinned one, else a fresh token (minted
+    once, under the lock)."""
+    global _run_id
+    with _lock:
+        if _run_id is None:
+            _run_id = (os.environ.get(ENV_RUN_ID, "").strip()
+                       or uuid.uuid4().hex[:12])
+        return _run_id
+
+
+def attempt() -> int:
+    """This process's attempt ordinal (0 unsupervised / first child)."""
+    try:
+        return int(os.environ.get(ENV_ATTEMPT, "0") or 0)
+    except ValueError:
+        return 0
+
+
+def identity() -> dict:
+    """{run_id, attempt, rank}: the stitch keys, in one place."""
+    rank, _ = _rank()
+    return {"run_id": run_id(), "attempt": attempt(), "rank": rank}
 
 
 def _check_name(name: str) -> None:
@@ -332,14 +641,86 @@ def _check_name(name: str) -> None:
     )
 
 
+def configure(dir: str | None = None, trace_events: bool = True,
+              flush_s: float = 0.0,
+              trace_sample: float | None = None) -> None:
+    """Set where :func:`export` writes and whether spans buffer trace
+    events (``trace_events=False`` keeps ``metrics.json`` and writes an
+    events-free ``trace.jsonl``). ``flush_s > 0`` starts the
+    :class:`PeriodicFlusher`. A directory also installs the crash flush
+    (an ``atexit`` hook and, from the main thread over the default
+    disposition, a SIGTERM handler that exports, then re-delivers the
+    signal). ``dir=None`` turns export and event buffering off."""
+    global _dir, _trace
+    with _lock:
+        _dir = dir
+        _trace = bool(trace_events) and dir is not None
+    if trace_sample is not None:
+        set_trace_sample(trace_sample)
+        os.environ[ENV_TRACE_SAMPLE] = repr(_trace_sample)
+    if dir is not None:
+        _install_crash_flush()
+    if flush_s and flush_s > 0 and dir is not None:
+        start_periodic_flush(flush_s, dir=dir)
+    else:
+        stop_periodic_flush()
+
+
+_atexit_installed = False
+_sigterm_installed = False
+
+
+def _crash_flush() -> None:
+    """Export for an abnormal exit: never raises, never prints."""
+    try:
+        export()
+    except BaseException:
+        pass
+
+
+def _install_crash_flush() -> None:
+    # Two latches: signal handlers can only be set from the main thread,
+    # so a configure() from a worker thread installs only the atexit half.
+    global _atexit_installed, _sigterm_installed
+    if not _atexit_installed:
+        _atexit_installed = True
+        import atexit
+
+        atexit.register(_crash_flush)
+    if _sigterm_installed:
+        return
+    try:
+        import signal
+
+        if threading.current_thread() is not threading.main_thread():
+            return
+        _sigterm_installed = True
+        prev = signal.getsignal(signal.SIGTERM)
+
+        def _on_term(signum, frame):
+            _crash_flush()
+            signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+
+        # Only over the default disposition: a handler installed first
+        # (or later, as serve's drain) keeps its meaning.
+        if prev in (signal.SIG_DFL, None):
+            signal.signal(signal.SIGTERM, _on_term)
+    except (ValueError, OSError):
+        pass
+
+
 def reset() -> None:
-    """Zero every counter, gauge and histogram."""
+    """Zero every counter, gauge and histogram and drop the buffered
+    events and exemplars (the configuration survives)."""
     with _lock:
         _counters.clear()
         _gauges.clear()
         _hists.clear()
         _warned_names.clear()
+        _ring.clear()
         _events.clear()
+        _exemplars.clear()
 
 
 def count(name: str, n: float = 1.0) -> float:
@@ -378,9 +759,7 @@ def gauge_set(name: str, value: float) -> None:
             g["max"] = max(g["max"], v)
 
 
-def observe(name: str, value: float) -> None:
-    """Record ``value`` into histogram ``name``."""
-    _check_name(name)
+def _record(name: str, value: float) -> None:
     with _lock:
         h = _hists.get(name)
         if h is None:
@@ -388,40 +767,207 @@ def observe(name: str, value: float) -> None:
         h.record(value)
 
 
-@contextmanager
-def span(name: str):
-    """``with telemetry.span("store.heal"):`` times the block into the
-    histogram ``name`` (seconds)."""
+def observe(name: str, value: float) -> None:
+    """Record ``value`` into histogram ``name``."""
     _check_name(name)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        observe(name, time.perf_counter() - t0)
+    _record(name, value)
+
+
+def _append_event(ev: dict) -> None:
+    with _lock:
+        if len(_events) >= MAX_EVENTS:
+            _counters["telemetry.dropped_events"] = (
+                _counters.get("telemetry.dropped_events", 0.0) + 1.0)
+            return
+        _events.append(ev)
 
 
 def event(name: str, cat: str = "misc", **attrs) -> None:
-    """Record an instant event ``name`` with its attributes."""
+    """Record an instant event ``name`` with its attributes: always into
+    the in-process ring, and onto the trace timeline (a thread-scoped
+    ``ph: "i"`` event, the ambient request ids stamped in) while tracing
+    is configured."""
     _check_name(name)
+    now = time.perf_counter()
     with _lock:
-        _events.append({"name": name, "cat": cat,
-                        "t": time.perf_counter(), "args": dict(attrs)})
+        _ring.append({"name": name, "cat": cat, "t": now,
+                      "args": dict(attrs)})
+    if not _trace:
+        return
+    ctx = _TRACE_CTX.get()
+    if ctx is not None:
+        attrs = {**ctx, **attrs}
+    _append_event({"name": name, "cat": cat, "ph": "i", "s": "t",
+                   "ts": (now - _T0) * 1e6, "tid": threading.get_ident(),
+                   "args": attrs})
 
 
 def events(name: str | None = None) -> list[dict]:
     """The recorded events (of ``name`` only, when given), oldest
     first."""
     with _lock:
-        return [dict(e) for e in _events if name is None or e["name"] == name]
+        return [dict(e) for e in _ring if name is None or e["name"] == name]
 
 
-def traced(name: str):
+# -- request trace context ---------------------------------------------------
+# A trace id is minted at HTTP admission (or taken from X-Trace-Id) and
+# rides a contextvar, so spans and events opened under trace_scope carry
+# it. Sampling is deterministic on the id.
+
+_TRACE_CTX: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "spark_examples_tpu_torch_trace_ctx", default=None)
+
+
+def new_trace_id() -> str:
+    """A fresh 16-hex request id."""
+    return uuid.uuid4().hex[:16]
+
+
+def new_span_id() -> str:
+    """A fresh 8-hex span id."""
+    return uuid.uuid4().hex[:8]
+
+
+def current_trace() -> dict | None:
+    """The ambient {trace_id, span_id} of this task, or None."""
+    return _TRACE_CTX.get()
+
+
+@contextmanager
+def trace_scope(trace_id: str | None = None, span_id: str | None = None):
+    """Bind a request trace context for the block; yields it."""
+    ctx = {"trace_id": trace_id or new_trace_id(),
+           "span_id": span_id or new_span_id()}
+    token = _TRACE_CTX.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _TRACE_CTX.reset(token)
+
+
+def set_trace_sample(rate: float) -> None:
+    """Set the process-wide request-tracing sample rate, clamped to
+    [0, 1] (``--trace-sample``)."""
+    global _trace_sample
+    _trace_sample = min(max(float(rate), 0.0), 1.0)
+
+
+def trace_sample() -> float:
+    return _trace_sample
+
+
+def should_sample(trace_id: str) -> bool:
+    """Deterministic per-request sampling: crc32(trace_id) against the
+    rate, so every thread and process that sees one id agrees."""
+    rate = _trace_sample
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    return (zlib.crc32(trace_id.encode()) & 0xFFFFFFFF) < rate * 2**32
+
+
+def record_request_exemplar(trace_id: str, total_s: float,
+                            phases: dict, **attrs) -> None:
+    """Keep this request in the slowest-K exemplar ring if it is slow
+    enough (a min-heap on total latency)."""
+    global _exemplar_seq
+    rec = {"trace_id": trace_id, "total_s": total_s,
+           "phases": dict(phases), "t_unix": time.time(), **attrs}
+    with _lock:
+        _exemplar_seq += 1
+        if len(_exemplars) < TRACE_EXEMPLARS:
+            heapq.heappush(_exemplars, (total_s, _exemplar_seq, rec))
+        elif total_s > _exemplars[0][0]:
+            heapq.heapreplace(_exemplars, (total_s, _exemplar_seq, rec))
+        else:
+            return
+        n = len(_exemplars)
+    gauge_set("trace.exemplars", float(n))
+
+
+def request_exemplars() -> list[dict]:
+    """The exemplar ring, slowest first."""
+    with _lock:
+        items = sorted(_exemplars, key=lambda e: (-e[0], e[1]))
+    return [dict(rec) for _t, _s, rec in items]
+
+
+# -- spans ---------------------------------------------------------------------
+
+
+def _span_event(name, cat, t0, dur, tid, attrs) -> None:
+    _append_event({"name": name, "cat": cat, "ph": "X",
+                   "ts": (t0 - _T0) * 1e6, "dur": dur * 1e6, "tid": tid,
+                   "args": attrs})
+
+
+def span_at(name: str, t0: float, dur: float, cat: str = "trace",
+            tid: int | None = None, **attrs) -> None:
+    """Record an already-measured interval (``perf_counter`` start and
+    seconds) as a completed span."""
+    _check_name(name)
+    _record(name, dur)
+    if _trace:
+        _span_event(name, cat, t0, dur,
+                    threading.get_ident() if tid is None else tid, attrs)
+
+
+class SpanHandle:
+    """An open span: :meth:`end` records it (histogram + trace event),
+    :meth:`cancel` drops it. Loop bodies use handles to time a whole
+    block period, producer wait included."""
+
+    __slots__ = ("name", "cat", "t0", "tid", "trace", "_open")
+
+    def __init__(self, name: str, cat: str):
+        self.name = name
+        self.cat = cat
+        self.t0 = time.perf_counter()
+        self.tid = threading.get_ident()
+        # Captured at open: the span may end on another thread.
+        self.trace = _TRACE_CTX.get()
+        self._open = True
+
+    def end(self, **attrs) -> float:
+        if not self._open:
+            return 0.0
+        self._open = False
+        dur = time.perf_counter() - self.t0
+        _record(self.name, dur)
+        if _trace:
+            if self.trace is not None:
+                attrs = {**self.trace, **attrs}
+            _span_event(self.name, self.cat, self.t0, dur, self.tid, attrs)
+        return dur
+
+    def cancel(self) -> None:
+        self._open = False
+
+
+def begin(name: str, cat: str = "misc") -> SpanHandle:
+    _check_name(name)
+    return SpanHandle(name, cat)
+
+
+@contextmanager
+def span(name: str, cat: str = "misc", **attrs):
+    """``with telemetry.span("store.heal"):`` times the block into the
+    histogram ``name`` (seconds) and, while tracing, the timeline."""
+    sp = begin(name, cat)
+    try:
+        yield sp
+    finally:
+        sp.end(**attrs)
+
+
+def traced(name: str, cat: str = "misc"):
     """Decorator form of :func:`span` for whole-function spans."""
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with span(name):
+            with span(name, cat=cat):
                 return fn(*args, **kwargs)
 
         return wrapper
@@ -429,11 +975,373 @@ def traced(name: str):
     return deco
 
 
-def metrics_snapshot() -> dict:
-    """Counters, gauges and histogram summaries, copied."""
+# -- derived metrics: the one formula --------------------------------------
+
+
+def effective_gram_time(phases: dict) -> float:
+    """The gram phase minus the streaming refreshes dispatched inside
+    it (``stream_refresh``): the denominator every throughput and stall
+    fraction shares."""
+    return max(phases.get("gram", 0.0) - phases.get("stream_refresh", 0.0),
+               0.0)
+
+
+def stall_fraction(phases: dict, get_wait_sum: float) -> float:
+    """Share of the effective gram phase the consumer waited on the
+    feed's producer."""
+    gram_t = effective_gram_time(phases)
+    return get_wait_sum / gram_t if gram_t else 0.0
+
+
+def derive_throughputs(phases: dict, counters: dict) -> dict:
+    """Derived throughput metrics where the raw counters exist."""
+    rep: dict[str, float] = {}
+    gram_t = effective_gram_time(phases)
+    if "gram_flops" in counters and gram_t:
+        rep["gram_gflops_per_s"] = counters["gram_flops"] / gram_t / 1e9
+    # Bytes are shipped inside an "ingest" phase where one exists, else
+    # inside the gram loop.
+    stream_t = phases.get("ingest") or gram_t
+    if "ingest_bytes" in counters and stream_t:
+        rep["ingest_mb_per_s"] = counters["ingest_bytes"] / stream_t / 1e6
+    if "eigh_flops" in counters and phases.get("eigh"):
+        rep["eigh_gflops_per_s"] = counters["eigh_flops"] / phases["eigh"] / 1e9
+    return rep
+
+
+def _split_counters() -> tuple[dict, dict]:
+    """(phases, plain counters) from the registry."""
     with _lock:
-        return {
-            "counters": dict(_counters),
-            "gauges": {k: dict(v) for k, v in _gauges.items()},
-            "histograms": {k: h.summary() for k, h in _hists.items()},
-        }
+        counters = dict(_counters)
+    phases = {k[len("phase."):]: v for k, v in counters.items()
+              if k.startswith("phase.")}
+    plain = {k: v for k, v in counters.items() if not k.startswith("phase.")}
+    return phases, plain
+
+
+def digest() -> dict:
+    """The compact headline: block-time p50/p95, the feed's stall
+    fraction, retries."""
+    phases, counters = _split_counters()
+    with _lock:
+        block = _hists.get("gram.block")
+        stall = _hists.get("prefetch.get_wait_s")
+        block = block.summary() if block else {"count": 0}
+        stall_sum = stall.sum if stall else 0.0
+    return {
+        "block_p50_s": round(block.get("p50", 0.0), 6),
+        "block_p95_s": round(block.get("p95", 0.0), 6),
+        "blocks": block.get("count", 0),
+        "prefetch_stall_frac": round(stall_fraction(phases, stall_sum), 4),
+        "ingest_retries": int(counters.get("ingest.retries", 0.0)),
+    }
+
+
+def _rank() -> tuple[int, int]:
+    """(rank, world size) of an initialised ``torch.distributed`` group,
+    else (0, 1). torch is not imported for the question."""
+    dist_mod = sys.modules.get("torch.distributed")
+    if dist_mod is None:
+        return 0, 1
+    try:
+        if dist_mod.is_available() and dist_mod.is_initialized():
+            return dist_mod.get_rank(), dist_mod.get_world_size()
+    except (RuntimeError, ValueError):
+        pass
+    return 0, 1
+
+
+def metrics_snapshot() -> dict:
+    """The metrics.json payload: counters, phases, gauges, histogram
+    summaries and the derived throughputs, copied."""
+    phases, counters = _split_counters()
+    with _lock:
+        gauges = {k: dict(v) for k, v in _gauges.items()}
+        hists = {k: h.summary() for k, h in _hists.items()}
+    return {
+        "counters": counters,
+        "phases": phases,
+        "gauges": gauges,
+        "histograms": hists,
+        "derived": derive_throughputs(phases, counters),
+    }
+
+
+def recent_events(n: int = RECENT_EVENTS) -> list[dict]:
+    """The newest ``n`` buffered trace events, the flusher's own
+    ``live.flush`` spans left out (a quiet stretch would otherwise fill
+    the ring with them)."""
+    if n <= 0:
+        return []
+    out: list[dict] = []
+    with _lock:
+        for ev in reversed(_events):
+            if ev.get("name") == "live.flush":
+                continue
+            out.append(dict(ev))
+            if len(out) >= n:
+                break
+    out.reverse()
+    return out
+
+
+def live_snapshot(recent: int = RECENT_EVENTS) -> dict:
+    """The in-flight payload ``/debug/telemetry`` serves: the metrics
+    snapshot, the recent trace events and the job's identity."""
+    snap = metrics_snapshot()
+    snap["recent_events"] = recent_events(recent)
+    snap["meta"] = _meta(len(snap["recent_events"]))
+    return snap
+
+
+def _meta(events_n: int) -> dict:
+    rank, n_proc = _rank()
+    now_unix, now_perf = time.time(), time.perf_counter()
+    return {
+        "rank": rank,
+        "process_count": n_proc,
+        "run_id": run_id(),
+        "attempt": attempt(),
+        "trace_events": events_n,
+        "wrote_unix_s": now_unix,
+        # Wall clock at trace ts=0: places this process's events on one
+        # timeline with other processes'.
+        "epoch_unix_s": now_unix - (now_perf - _T0),
+        "uptime_s": now_perf - _T0,
+    }
+
+
+def _atomic_write(path: str, text: str) -> None:
+    """tmp + rename: a reader, or a kill mid-write, sees the previous
+    complete file or the new one, never a torn one."""
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def _atomic_write_lines(path: str, lines) -> None:
+    """Same atomicity, streamed line by line (no joined copy)."""
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    with open(tmp, "w") as f:
+        for line in lines:
+            f.write(line)
+            f.write("\n")
+    os.replace(tmp, path)
+
+
+def _rank_dir(base: str) -> str:
+    """``<base>/rank<r>``, or ``<base>/attempt<a>/rank<r>`` when a parent
+    pinned an attempt ordinal."""
+    rank, _ = _rank()
+    if os.environ.get(ENV_ATTEMPT, "").strip():
+        return os.path.join(base, f"attempt{attempt()}", f"rank{rank}")
+    return os.path.join(base, f"rank{rank}")
+
+
+def _export_exemplars(d: str) -> None:
+    """``requests.json``: the slowest-K exemplar ring, written
+    atomically; a failed write (the ``trace.export`` fault site fires
+    here) counts ``trace.export_errors`` and leaves the last good file."""
+    from spark_examples_tpu_torch.core import faults  # imports this module
+
+    ex = request_exemplars()
+    if not ex:
+        return
+    path = os.path.join(d, "requests.json")
+    try:
+        faults.fire("trace.export", path=path)
+        _atomic_write(path, json.dumps(
+            {"exemplars": ex, "trace_sample": _trace_sample,
+             "meta": _meta(0)}, indent=1, sort_keys=True, default=str))
+    except OSError:
+        count("trace.export_errors")
+
+
+class PeriodicFlusher:
+    """Daemon thread republishing ``metrics.json`` and a rolling
+    ``live_trace.jsonl`` every ``interval_s`` seconds, atomically. A
+    failed flush warns once, counts ``live.flush_errors`` and the
+    flusher carries on."""
+
+    def __init__(self, base: str, interval_s: float):
+        self.base = base
+        self.interval_s = max(0.01, float(interval_s))
+        self._stop = threading.Event()
+        self._warned = False
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "PeriodicFlusher":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name="telemetry-flusher", daemon=True)
+            self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.flush()
+        self.flush()  # the tail, so stop() loses nothing
+
+    def flush(self) -> None:
+        from spark_examples_tpu_torch.core import faults  # imports this
+
+        d = _rank_dir(self.base)
+        try:
+            with span("live.flush", cat="live"):
+                os.makedirs(d, exist_ok=True)
+                metrics_path = os.path.join(d, "metrics.json")
+                faults.fire("telemetry.flush", path=metrics_path)
+                snap = metrics_snapshot()
+                snap["meta"] = _meta(len(_events))
+                _atomic_write(metrics_path,
+                              json.dumps(snap, indent=1, sort_keys=True,
+                                         default=str))
+                rank = snap["meta"]["rank"]
+                _atomic_write_lines(
+                    os.path.join(d, "live_trace.jsonl"),
+                    (json.dumps({**ev, "pid": rank}, default=str)
+                     for ev in recent_events()))
+                _export_exemplars(d)
+            count("live.flushes")
+        except Exception as e:
+            count("live.flush_errors")
+            if not self._warned:
+                self._warned = True
+                warnings.warn(
+                    f"periodic telemetry flush to {d!r} failed ({e!r}) — "
+                    "the job continues; live snapshots may be stale "
+                    "until writes recover",
+                    RuntimeWarning, stacklevel=2,
+                )
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+
+def start_periodic_flush(interval_s: float,
+                         dir: str | None = None) -> PeriodicFlusher | None:
+    """Start (or retarget) the module's flusher; None when no directory
+    is configured."""
+    global _flusher
+    base = dir or _dir
+    if not base:
+        return None
+    stop_periodic_flush()
+    _flusher = PeriodicFlusher(base, interval_s).start()
+    return _flusher
+
+
+def stop_periodic_flush() -> None:
+    """Stop the flusher (one final flush included)."""
+    global _flusher
+    f = _flusher
+    _flusher = None
+    if f is not None:
+        f.stop()
+
+
+def export(dir: str | None = None) -> str | None:
+    """Write ``rank<k>/{trace.jsonl,metrics.json}`` (and
+    ``requests.json``) under ``dir`` or the configured directory, plus
+    ``summary.txt`` on rank 0. Returns this rank's directory, or None
+    when nothing is configured or the write failed (it warns: telemetry
+    never fails the job it describes)."""
+    base = dir or _dir
+    if not base:
+        return None
+    try:
+        return _export(base)
+    except OSError as e:
+        warnings.warn(f"telemetry export to {base} failed: {e}",
+                      RuntimeWarning, stacklevel=2)
+        return None
+
+
+def _export(base: str) -> str:
+    rank, n_proc = _rank()
+    d = _rank_dir(base)
+    os.makedirs(d, exist_ok=True)
+    rid, att = run_id(), attempt()
+    with _lock:
+        evs = sorted(_events, key=lambda e: (e["ts"], -e.get("dur", 0.0)))
+    track = f"rank {rank}" if not att else f"attempt {att} rank {rank}"
+
+    def _trace_lines():
+        yield json.dumps({"name": "process_name", "ph": "M", "pid": rank,
+                          "tid": 0, "ts": 0, "args": {"name": track}})
+        for ev in evs:
+            yield json.dumps(
+                {**ev, "pid": rank,
+                 "args": {**ev.get("args", {}), "run_id": rid,
+                          "attempt": att}},
+                default=str)
+
+    _atomic_write_lines(os.path.join(d, "trace.jsonl"), _trace_lines())
+    snap = metrics_snapshot()
+    snap["meta"] = _meta(len(evs))
+    _atomic_write(os.path.join(d, "metrics.json"),
+                  json.dumps(snap, indent=1, sort_keys=True, default=str))
+    _export_exemplars(d)
+    if rank == 0:
+        try:
+            _write_summary(os.path.dirname(d), n_proc)
+        except OSError as e:
+            warnings.warn(f"telemetry summary not written: {e}",
+                          RuntimeWarning, stacklevel=2)
+    return d
+
+
+def _write_summary(base: str, n_proc: int) -> None:
+    """A per-rank table at ``base``: gram throughput, ingest rate, block
+    p50/p95, stall fraction, retries. Peer files older than this
+    process are ignored as a previous run's."""
+    rows = []
+    stale = 0
+    for rank in range(n_proc):
+        try:
+            with open(os.path.join(base, f"rank{rank}",
+                                   "metrics.json")) as f:
+                m = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if (rank != 0 and m.get("meta", {}).get("wrote_unix_s", 0.0)
+                < _START_UNIX - 5.0):
+            stale += 1
+            continue
+        hists = m.get("histograms", {})
+        block = hists.get("gram.block", {})
+        stall = hists.get("prefetch.get_wait_s", {})
+        derived = m.get("derived", {})
+        rows.append({
+            "rank": rank,
+            "gram_gflops": derived.get("gram_gflops_per_s", 0.0),
+            "ingest_mb_s": derived.get("ingest_mb_per_s", 0.0),
+            "block_p50_ms": block.get("p50", 0.0) * 1e3,
+            "block_p95_ms": block.get("p95", 0.0) * 1e3,
+            "stall_frac": stall_fraction(m.get("phases", {}),
+                                         stall.get("sum", 0.0)),
+            "retries": int(m.get("counters", {}).get("ingest.retries", 0)),
+        })
+    cols = ("rank", "gram_gflops", "ingest_mb_s", "block_p50_ms",
+            "block_p95_ms", "stall_frac", "retries")
+    lines = ["\t".join(cols)]
+    for r in rows:
+        lines.append("\t".join(
+            str(r[c]) if c in ("rank", "retries")
+            else f"{r[c]:.3f}" if c == "stall_frac"
+            else f"{r[c]:.2f}"
+            for c in cols
+        ))
+    if len(rows) < n_proc:
+        note = (f"note: {n_proc - len(rows)} rank(s) had not exported "
+                "when rank 0 wrote this summary")
+        if stale:
+            note += (f" ({stale} stale file(s) from a previous run in "
+                     "this directory were ignored)")
+        lines.append(note)
+    with open(os.path.join(base, "summary.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")

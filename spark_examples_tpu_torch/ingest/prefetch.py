@@ -20,18 +20,30 @@ block, wrapped without a copy.
 Ragged final blocks are padded to the full width with MISSING (dense) or
 0xFF (packed: four missing codes per byte), which contribute zero to
 every gram product and keep one block shape for the whole stream.
+
+Per-stage telemetry, under the JAX package's names:
+``prefetch.stage_wait_s`` (the producer waits for a free slab),
+``prefetch.put_wait_s`` (it waits for queue space),
+``prefetch.get_wait_s`` (the consumer waits for a block: its sum over
+the gram phase is the stall fraction), ``prefetch.queue_depth`` sampled
+before each get, ``prefetch.transfers_in_flight`` and
+``prefetch.transfer_wait_s`` (a retired slab's residual copy wait). The
+``device.put`` fault site fires before each block's copy to the device,
+``prefetch.transfer_wait`` before a slab's copy is waited out.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from collections import deque
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from spark_examples_tpu_torch.core import faults, telemetry
 from spark_examples_tpu_torch.core.dtypes import GENOTYPE_DTYPE, MISSING
 from spark_examples_tpu_torch.ingest import bitpack
 from spark_examples_tpu_torch.ingest.source import BlockMeta, GenotypeSource
@@ -100,18 +112,23 @@ class _PinnedRing:
         self._n_slots = n_slots
 
     def acquire(self, stop: threading.Event) -> _Slab | None:
+        t0 = time.perf_counter()
         while not stop.is_set():
             try:
-                return self._free.get_nowait()
+                slab = self._free.get_nowait()
             except queue.Empty:
-                pass
-            if self._allocated < self._n_slots:  # producer thread only
-                self._allocated += 1
-                return _Slab(self._shape, self._dtype, self._free)
-            try:
-                return self._free.get(timeout=0.1)
-            except queue.Empty:
-                continue
+                slab = None
+                if self._allocated < self._n_slots:  # producer thread only
+                    self._allocated += 1
+                    slab = _Slab(self._shape, self._dtype, self._free)
+                else:
+                    try:
+                        slab = self._free.get(timeout=0.1)
+                    except queue.Empty:
+                        continue
+            telemetry.observe("prefetch.stage_wait_s",
+                              time.perf_counter() - t0)
+            return slab
         return None
 
 
@@ -153,10 +170,16 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
-    def put(item) -> bool:
+    def put(item, measure: bool = True) -> bool:
+        # The sentinels' waits (the final put waits for the consumer to
+        # drain the whole queue) are not block waits.
+        t0 = time.perf_counter()
         while not stop.is_set():
             try:
                 q.put(item, timeout=0.1)
+                if measure:
+                    telemetry.observe("prefetch.put_wait_s",
+                                      time.perf_counter() - t0)
                 return True
             except queue.Full:
                 continue
@@ -187,7 +210,7 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
                 host[:, hi - lo:] = MISSING
             if not put((host, slab, meta)):
                 return
-        put(_END)
+        put(_END, measure=False)
 
     def produce():
         try:
@@ -205,20 +228,24 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
                     host = slab.array
                 if not put((host, slab, meta)):
                     return
-            put(_END)
+            put(_END, measure=False)
         except BaseException as e:  # propagate into the consumer
-            put(e)
+            put(e, measure=False)
 
     t = threading.Thread(target=produce, name="prefetch-producer",
                          daemon=True)
     t.start()
     try:
         while True:
+            telemetry.gauge_set("prefetch.queue_depth", q.qsize())
+            t0 = time.perf_counter()
             item = q.get()
             if item is _END:
                 return
             if isinstance(item, BaseException):
                 raise item
+            telemetry.observe("prefetch.get_wait_s",
+                              time.perf_counter() - t0)
             yield item
     finally:
         stop.set()
@@ -254,6 +281,7 @@ def stream_to_device(
                         max(1, prefetch), pack, ring, stats)
     try:
         for host, slab, meta in producer:
+            faults.fire("device.put")
             if not cuda:
                 if not host.flags.writeable:
                     # A store's read-only mapping or cached payload: the
@@ -270,9 +298,15 @@ def stream_to_device(
             # Allocated on the copy stream, used on the compute stream.
             block.record_stream(compute_stream)
             pending.append((done, slab))
+            telemetry.gauge_set("prefetch.transfers_in_flight",
+                                float(len(pending)))
             if len(pending) > TRANSFER_DEPTH:
                 ev, old = pending.popleft()
+                faults.fire("prefetch.transfer_wait")
+                t0 = time.perf_counter()
                 ev.synchronize()
+                telemetry.observe("prefetch.transfer_wait_s",
+                                  time.perf_counter() - t0)
                 old.release()
             yield block, meta
     finally:

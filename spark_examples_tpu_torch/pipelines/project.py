@@ -362,6 +362,19 @@ def _den_diag(qden: torch.Tensor, block: torch.Tensor,
     return qden
 
 
+def update_cross(acc: dict, bn: torch.Tensor, br: torch.Tensor) -> dict:
+    """Add one block's cross statistics (the keys of ``acc``) of the new
+    rows ``bn`` against the reference rows ``br`` into ``acc``, in
+    place, and return it: the offline lockstep pass and the serving
+    engine both run this. Integer sums, so any block partition and any
+    padding of ``bn`` with extra rows leave each row's totals
+    unchanged."""
+    upd = genotype.cross_stats(bn, br, tuple(acc))
+    for k in acc:
+        acc[k].add_(upd[k])
+    return acc
+
+
 def _accumulate_cross(job: JobConfig, source_new, source_ref,
                       stats: tuple[str, ...], timer: PhaseTimer,
                       den_metric: str | None = None):
@@ -419,9 +432,7 @@ def _accumulate_cross(job: JobConfig, source_new, source_ref,
                     f"new/reference positions differ in block "
                     f"[{mn.start}, {mn.stop}) — not the same variant set"
                 )
-            upd = genotype.cross_stats(bn, br, stats)
-            for k in stats:
-                acc[k].add_(upd[k])
+            update_cross(acc, bn, br)
             if qden is not None:
                 qden = _den_diag(qden, bn, den_metric)
             moment_blocks.append(_af_moments(bn, br))

@@ -9,7 +9,9 @@ finds there and, with ``--checkpoint-every-blocks``, saves one every
 that many blocks (core/checkpoint.py). The gram accumulation and each
 pass of the sketch solver stream through one loop, :func:`run_pass`
 (the JAX package's ``run_gram`` loop and ``run_sketch_pass``), so they
-share the feed, the cursor and the checkpoint cadence.
+share the feed, the cursor and the checkpoint cadence, and the
+``gram.block`` span of each block period (producer wait, copy, update,
+hooks and checkpoint) under the ``phase.gram`` span.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.core import checkpoint as ckpt
+from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.core.config import IngestConfig, JobConfig
 from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
@@ -173,6 +176,7 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer,
     packed = kernels.streams_packed(metric, cfg.pack_stream)
     lowering = gram.resolve_gram_lowering(cfg.gram_lowering, packed, device,
                                           metric)
+    telemetry.gauge_set("gram.lowering", 1.0 if lowering == "fused" else 0.0)
     update = gram.impl_for(metric, packed, cfg.grm_precise, lowering)
     # Only value-scaled kernels on a dense stream read the largest value;
     # a resumed job starts from the saved one, so the int32 guard sees
@@ -234,6 +238,9 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
         prefetch=job.ingest.prefetch_blocks,
     ))
     with timer.phase("gram"), feed as blocks:
+        # Each span is begun before the block is pulled, so it holds the
+        # wait for the feed as well as the work.
+        sp = telemetry.begin("gram.block", cat="gram")
         for block, meta in blocks:
             state = update(state, block)
             if block_flops is not None:
@@ -247,6 +254,14 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
                     and blocks_done % cfg.checkpoint_every_blocks == 0):
                 hard_sync(state)
                 save_cb(state, meta.stop)
+            if meta.stop > meta.start:
+                sp.end(index=blocks_done, stop=meta.stop)
+            else:  # a padding slab: no block time to record
+                sp.cancel()
+                telemetry.event("gram.pad_step", cat="gram",
+                                index=blocks_done)
+            sp = telemetry.begin("gram.block", cat="gram")
+        sp.cancel()  # the last span saw only the stream's end
         state = hard_sync(state)
     n_variants = last_stop if last_stop > 0 else source.n_variants
     return state, n_variants

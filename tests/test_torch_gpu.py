@@ -638,3 +638,145 @@ def test_streaming_refresh_on_cuda_matches_its_cpu_run(cuda_device):
         assert np.abs(vals - cvals).max() <= 1e-4 * np.abs(cvals).max()
         scale = np.abs(ccoords).max()
         assert np.abs(np.abs(coords) - np.abs(ccoords)).max() <= 1e-4 * scale
+
+
+def _fitted_panel(tmp_path, kind, n=120, v=3000):
+    panel = SyntheticSource(n_samples=n, n_variants=v, seed=4)
+    model = str(tmp_path / f"{kind}.npz")
+    metric = None if kind == "pca" else "ibs"
+    solver = "corrected" if kind == "factorized" else "exact"
+    fit = JobConfig(ingest=IngestConfig(block_variants=1024),
+                    compute=ComputeConfig(num_pc=4, device="cpu",
+                                          metric=metric, solver=solver,
+                                          sketch_rank=16),
+                    model_path=model)
+    (jobs.variants_pca_job if kind == "pca" else jobs.pcoa_job)(
+        fit, source=panel)
+    return panel, model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pcoa", "pca", "factorized"])
+def test_served_rows_on_cuda_match_the_cpu_and_offline(cuda_device, tmp_path,
+                                                       kind):
+    """One model served on the card and on the CPU: the padded batch's
+    int32 cross statistics bitwise equal, the rows within 1e-5 of
+    max|coords|; each card row bitwise the card's offline single-query
+    project (the same finalize at the same shape)."""
+    from spark_examples_tpu_torch.pipelines.project import pcoa_project_job
+    from spark_examples_tpu_torch.serve import ProjectionEngine
+    from spark_examples_tpu_torch.serve import engine as E
+
+    panel, model = _fitted_panel(tmp_path, kind)
+    queries = np.concatenate(
+        [b for b, _ in SyntheticSource(n_samples=5, n_variants=3000,
+                                       seed=8).blocks(1024)], axis=1)
+    engines = {d: ProjectionEngine(model, panel, block_variants=1024,
+                                   max_batch=8, device=d)
+               for d in ("cuda", "cpu")}
+    g, _b = E._padded_batch(queries, 8, 3000)
+    accs = {d: E._cross_batch(e._ctx, e._ref_blocks, g, e.stats)[0]
+            for d, e in engines.items()}
+    for k in accs["cpu"]:
+        assert torch.equal(accs["cuda"][k].cpu(), accs["cpu"][k])
+    rows = {d: e.project_batch(queries) for d, e in engines.items()}
+    scale = np.abs(rows["cpu"]).max()
+    assert np.abs(rows["cuda"] - rows["cpu"]).max() <= 1e-5 * scale
+    job = JobConfig(ingest=IngestConfig(block_variants=1024),
+                    compute=ComputeConfig(device="cuda"))
+    for i in range(len(queries)):
+        want = pcoa_project_job(job, model, ArraySource(queries[i:i + 1]),
+                                panel).coords
+        assert np.array_equal(rows["cuda"][i:i + 1], want), i
+
+
+@pytest.mark.gpu
+def test_serving_worker_runs_on_the_engine_s_stream(cuda_device, tmp_path):
+    """Every batch runs on the worker thread with the engine's device
+    and CUDA stream current, a worker restarted at admission too; the
+    handler threads pass numpy arrays only."""
+    import threading
+
+    from spark_examples_tpu_torch.serve import (
+        ProjectionEngine,
+        ProjectionServer,
+    )
+
+    panel, model = _fitted_panel(tmp_path, "pcoa")
+    engine = ProjectionEngine(model, panel, block_variants=1024,
+                              max_batch=4)
+    seen = []
+    real = engine.project_batch
+
+    def recording(genotypes):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_stream(cuda_device) == engine.stream,
+                     torch.cuda.current_device()))
+        return real(genotypes)
+
+    engine.project_batch = recording
+    queries = np.concatenate(
+        [b for b, _ in SyntheticSource(n_samples=12, n_variants=3000,
+                                       seed=9).blocks(1024)], axis=1)
+    server = ProjectionServer(engine, cache_entries=0).start()
+    try:
+        want = real(queries[:4])
+        futs = []
+        threads = [threading.Thread(
+            target=lambda i=i: futs.append(server.submit(queries[i])))
+            for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        for f in futs:
+            assert isinstance(f.result(timeout=60), np.ndarray)
+        server._stop.set()
+        server._worker.join(timeout=10)
+        server._stop.clear()
+        with pytest.warns(RuntimeWarning, match="found dead at admission"):
+            got = server.project(queries[0], timeout=60)
+        assert np.array_equal(got, want[:1])
+    finally:
+        server.close()
+    assert len(seen) >= 4
+    assert all(name == "projection-serve-worker" and on_stream
+               and dev == engine.device.index
+               for name, on_stream, dev in seen), seen
+
+
+@pytest.mark.gpu
+def test_cuda_feed_fires_the_transfer_wait_site(cuda_device):
+    from spark_examples_tpu_torch.core import faults, telemetry
+    from spark_examples_tpu_torch.ingest.prefetch import (
+        TRANSFER_DEPTH,
+        stream_to_device,
+    )
+
+    src = SyntheticSource(n_samples=64, n_variants=4096, seed=1)
+    telemetry.reset()
+    with faults.armed(["prefetch.transfer_wait:delay:delay=0.001:max=0"]) \
+            as inj:
+        blocks = [(b.cpu(), m) for b, m in
+                  stream_to_device(src, 512, cuda_device)]
+        assert inj.fire_count("prefetch.transfer_wait") == \
+            len(blocks) - TRANSFER_DEPTH
+    hists = telemetry.metrics_snapshot()["histograms"]
+    assert hists["prefetch.transfer_wait_s"]["count"] == \
+        len(blocks) - TRANSFER_DEPTH
+    assert hists["prefetch.stage_wait_s"]["count"] == len(blocks)
+
+
+@pytest.mark.gpu
+def test_trace_dir_captures_the_card_s_kernels(cuda_device, tmp_path):
+    import json
+    import os
+
+    from spark_examples_tpu_torch.core import profiling
+
+    x = torch.ones(256, 256, device=cuda_device)
+    with profiling.trace(str(tmp_path), "cuda") as prof:
+        (x @ x).sum().item()
+    assert profiling.kernel_events(prof)
+    trace = json.load(open(os.path.join(tmp_path, "trace_rank0.json")))
+    assert any(e.get("cat") == "kernel" for e in trace["traceEvents"])

@@ -548,7 +548,8 @@ def test_undeclared_name_warns_once_and_counts():
     assert telemetry.counter_value("telemetry.unknown_names") == 2.0
     telemetry.reset()
     assert telemetry.metrics_snapshot() == \
-        {"counters": {}, "gauges": {}, "histograms": {}}
+        {"counters": {}, "phases": {}, "gauges": {}, "histograms": {},
+         "derived": {}}
 
 
 def test_names_are_declared_in_jax_too():

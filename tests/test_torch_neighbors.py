@@ -526,7 +526,8 @@ def test_cli_rejects_bad_knobs_by_name(capsys):
             tconfig.ComputeConfig(**kw)
     with pytest.raises(SystemExit):
         tmain(["neighbors", "--device", "cpu", "--model", "m.npz"])
-    assert "unrecognized arguments: --model" in capsys.readouterr().err
+    assert "neighbors --model requires --ref-path" in \
+        capsys.readouterr().err
 
 
 def test_device_cuda_without_a_card_raises(monkeypatch):
@@ -536,3 +537,115 @@ def test_device_cuda_without_a_card_raises(monkeypatch):
         compute=tconfig.ComputeConfig(metric="ibs"))
     with pytest.raises(RuntimeError, match="--device cuda"):
         engine.neighbors_job(job, source=ArraySource(_cohort(3, 8, 300)))
+
+
+# ------------------------------------------------- neighbors --model
+
+def _panel_and_queries(tmp_path, seed=13, n=30, q=11, v=700):
+    """A packed panel store, a packed query store holding two panel
+    samples among random ones, and the panel's ids."""
+    from spark_examples_tpu_torch.ingest.packed import save_packed
+
+    panel = _cohort(seed, n, v)
+    queries = _cohort(seed + 1, q, v)
+    queries[2], queries[7] = panel[5], panel[19]
+    save_packed(str(tmp_path / "panel"), panel)
+    save_packed(str(tmp_path / "queries"), queries,
+                [f"Q{i}" for i in range(q)])
+    return panel, queries
+
+
+@pytest.mark.parametrize("metric", ["ibs", "jaccard"])
+def test_cli_model_mode_file_byte_equal_jax_cli(tmp_path, capsys, metric):
+    from spark_examples_tpu.cli.main import main as jmain
+    from spark_examples_tpu_torch.cli.main import main as tmain
+
+    _panel_and_queries(tmp_path)
+    model = str(tmp_path / "m.npz")
+    assert tmain(["pcoa", "--device", "cpu", "--source", "packed",
+                  "--path", str(tmp_path / "panel"), "--metric", metric,
+                  "--num-pc", "3", "--block-variants", "256",
+                  "--save-model", model]) == 0
+    capsys.readouterr()
+    argv = ["neighbors", "--model", model, "--ref-source", "packed",
+            "--ref-path", str(tmp_path / "panel"), "--source", "packed",
+            "--path", str(tmp_path / "queries"), "--block-variants", "128",
+            "--neighbors-k", "4"]
+    tpath, jpath = str(tmp_path / "t.nb"), str(tmp_path / "j.nb")
+    assert jmain(argv + ["--output-path", jpath]) == 0
+    jout = capsys.readouterr().out
+    assert tmain(argv + ["--device", "cpu", "--output-path", tpath]) == 0
+    tout = capsys.readouterr().out
+    with open(tpath, "rb") as ft, open(jpath, "rb") as fj:
+        assert ft.read() == fj.read()
+    assert tout.replace(tpath, "X") == jout.replace(jpath, "X")
+    res = load_result(tpath)
+    assert res.ids[2, 0] == 5 and res.sims[2, 0] == 1.0
+    assert res.ids[7, 0] == 19 and res.sims[7, 0] == 1.0
+    assert res.sample_ids[0] == "Q0" and res.ids.shape == (11, 4)
+
+
+def test_model_mode_sims_are_the_pair_finalize_of_cross_stats(tmp_path):
+    """Every top-k similarity is bitwise the metric's pair finalize of
+    the query-vs-panel int32 cross statistics."""
+    from spark_examples_tpu_torch.pipelines.project import load_model
+    from spark_examples_tpu_torch.serve import engine as E
+
+    panel, queries = _panel_and_queries(tmp_path)
+    model = str(tmp_path / "m.npz")
+    from spark_examples_tpu_torch.pipelines.jobs import pcoa_job
+
+    pcoa_job(tconfig.JobConfig(
+        ingest=tconfig.IngestConfig(block_variants=256),
+        compute=tconfig.ComputeConfig(metric="ibs", num_pc=3,
+                                      device="cpu"),
+        model_path=model), source=ArraySource(panel))
+    ctx = E.ModelContext(load_model(model), "cpu")
+    blocks, v, _ = E.stage_blocks(ArraySource(panel), 200, "cpu")
+    ids, sims = E.batch_topk(ctx, blocks, queries[:5], 8, v, 30)
+    spec = kernels.get("ibs").pair
+    acc = genotype.cross_stats(torch.from_numpy(queries[:5]),
+                               torch.from_numpy(panel), spec.stats)
+    full = spec.sim({k: t.numpy().astype(np.int64) for k, t in acc.items()})
+    np.testing.assert_array_equal(sims, np.take_along_axis(full, ids, 1))
+
+
+def test_cli_model_mode_refuses_pca_models_like_jax(tmp_path, capsys):
+    from spark_examples_tpu.cli.main import main as jmain
+    from spark_examples_tpu_torch.cli.main import main as tmain
+
+    _panel_and_queries(tmp_path)
+    model = str(tmp_path / "pca.npz")
+    assert tmain(["pca", "--device", "cpu", "--source", "packed",
+                  "--path", str(tmp_path / "panel"), "--num-pc", "3",
+                  "--block-variants", "256", "--save-model", model]) == 0
+    capsys.readouterr()
+    argv = ["neighbors", "--model", model, "--ref-source", "packed",
+            "--ref-path", str(tmp_path / "panel"), "--source", "packed",
+            "--path", str(tmp_path / "queries")]
+    errs = []
+    for main, extra in ((jmain, []), (tmain, ["--device", "cpu"])):
+        with pytest.raises(SystemExit):
+            main(argv + extra)
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert "topk serving needs a metric-bearing (pcoa) model" in errs[1]
+    assert errs[0].split("error: ")[1] == errs[1].split("error: ")[1]
+    with pytest.raises(SystemExit):
+        tmain(argv + ["--device", "cpu", "--maf", "0.1"])
+    assert "cannot apply during query-vs-panel neighbors" in \
+        capsys.readouterr().err
+
+
+def test_model_mode_on_cuda_without_a_card_raises(monkeypatch, tmp_path):
+    from spark_examples_tpu_torch.cli.main import main as tmain
+
+    _panel_and_queries(tmp_path)
+    model = str(tmp_path / "m.npz")
+    assert tmain(["pcoa", "--device", "cpu", "--source", "packed",
+                  "--path", str(tmp_path / "panel"), "--num-pc", "3",
+                  "--block-variants", "256", "--save-model", model]) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cuda"):
+        tmain(["neighbors", "--model", model, "--ref-path",
+               str(tmp_path / "panel"), "--source", "packed", "--path",
+               str(tmp_path / "queries")])

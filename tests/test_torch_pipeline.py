@@ -229,7 +229,7 @@ def test_hard_sync_returns_its_argument_and_timer_reports():
         pass
     t.add("gram_flops", 1e9)
     rep = t.report()
-    assert rep["gram_flops"] == 1e9 and "gram_gflops" in rep
+    assert rep["gram_flops"] == 1e9 and "gram_gflops_per_s" in rep
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -240,7 +240,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     native codec, the parquet source, projection and the factorized
     model, and since the streaming/neighbors slice streaming PCoA, the
     example tier, coverage, the reads sources and the neighbors
-    package."""
+    package, and the serve package and the live telemetry plane."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import spark_examples_tpu_torch as p\n"
@@ -255,7 +255,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'pipelines.project', 'models.factorized', 'pipelines.streaming', "
         "'pipelines.examples', 'pipelines.coverage', 'ingest.reads', "
         "'neighbors', 'neighbors.engine', 'neighbors.minhash', "
-        "'neighbors.lsh', 'neighbors.output']\n"
+        "'neighbors.lsh', 'neighbors.output', 'serve', 'serve.cache', "
+        "'serve.health', 'serve.engine', 'serve.server', 'serve.http', "
+        "'serve.loadgen', 'core.live', 'core.profiling']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"
