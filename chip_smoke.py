@@ -192,7 +192,7 @@ Phases (any failure exits non-zero; none is caught and ignored):
     that pair and within 1e-6 of phase 6's f32 similarity; the job
     killed in its MinHash pass under ``--checkpoint-dir`` (through the
     library) resumes through the CLI to a byte-identical file.
-36. (Retired number: the closing print is phase 41.)
+36. (Retired number: the closing print is phase 45.)
 37. A traced gram job: ``pcoa --source packed --metric ibs --num-pc 10``
     on phase 14's store through the CLI, once with ``--telemetry-dir``
     and once with ``--telemetry-dir`` and ``--trace-dir`` (a
@@ -226,7 +226,39 @@ Phases (any failure exits non-zero; none is caught and ignored):
     cross statistics accumulated on the card; the file's sha256 equal to
     the JAX package's CPU run of the same job (constant below, with the
     commands that produced it).
-41. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+41. Supervision: ``similarity --metric ibs --source packed`` on phase
+    14's store with ``--checkpoint-every-blocks 4 --telemetry-dir
+    --supervise`` as a subprocess, killed at phase 23's block (the 11th
+    block read, ``ingest.block_read:kill`` from the environment): exit 0
+    after ``supervisor: attempt 0: crash: exit code 113``, ``.npy``
+    bytes equal to the unsupervised run's, ``supervisor.json`` with 1
+    restart, ``telemetry stitch`` giving tracks ``attempt 0 rank 0`` and
+    ``attempt 1 rank 0`` and a restart marker, K1 in both attempts as
+    each attempt's own ``metrics.json`` counts it (``gram.fused_blocks``;
+    attempt 0 dies by ``os._exit``, so its count is that of its last
+    live flush, a lower bound), the resumed attempt one launch a
+    ``gram.block`` from a checkpoint generation, the kernels loaded
+    from ``_build/``, and never more than this script plus one child
+    holding a context on the card (the parent holds none).
+42. The same job with a block read stalled 120 s and
+    ``--supervise-stall-timeout 5``: the watchdog's verdict is a stall,
+    the child dies by TERM (KILL after the grace; its TERM export gives
+    attempt 0's exact K1 count), and the restart writes the same
+    bytes.
+43. Fleet in-process: a manifest of three routes over phase 29's panel
+    under phase 38's pcoa (with ``topk``), pca and factorized models,
+    budget 2.5 staged panels: 16 new samples a route through
+    ``FleetRouter`` bitwise equal to phase 38's rows, again after every
+    panel is evicted and re-staged, ``fleet.evictions`` and
+    ``fleet.restage_total`` >= 1; then ``serve --fleet --loadgen 2``
+    through the CLI (interactive p99 <= batch p99) and
+    ``run_hedged_loadgen`` over a lingering and a fast router (hedged
+    p99 below unhedged, 0 errors); 0 K1 launches.
+44. ``serve --fleet`` over HTTP as a subprocess: ``POST
+    /project/<route>`` and ``/neighbors/pcoa`` equal phase 43's
+    in-process answers, ``/metrics`` carries ``fleet_pool_bytes``,
+    SIGTERM drains with exit 0.
+45. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -244,6 +276,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2372,7 +2405,6 @@ def serving_phases(cli_main, launch_counters: dict, card: str, dev,
     subprocess, and ``neighbors --model``. Returns the launches by kernel
     of each in-process run, by path name."""
     import concurrent.futures
-    import signal
 
     import torch
 
@@ -2501,6 +2533,7 @@ def serving_phases(cli_main, launch_counters: dict, card: str, dev,
     print(f"ProjectionServer over the card's engine [{card}]: "
           + "; ".join(lines) + f"; every new sample nearest its "
           "population's centroid; 0 K1 launches")
+    files["served"] = served
 
     # -- 39. HTTP: the serve CLI as a process -------------------------------
     d2 = os.path.join(tmp, "tel39")
@@ -2632,6 +2665,541 @@ def serving_phases(cli_main, launch_counters: dict, card: str, dev,
           + f"; sha256 {digest}; launches {nb_counts}; "
           + ", ".join(f"{k}: ok" for k in nb_checks))
     del acc, full
+    return paths
+
+
+# Phases 41-42: the supervised ibs job over phase 14's store, killed at
+# phase 23's block (the 11th block read; checkpoints every 4 blocks),
+# then stalled by a block read that sleeps far past the watchdog's
+# --supervise-stall-timeout.
+KILL_AFTER_READS = 10
+SUPERVISED_KILL = f"ingest.block_read:kill:after={KILL_AFTER_READS}:max=1"
+STALL_AFTER_READS = 6
+STALL_DELAY_S = 120
+STALL_TIMEOUT_S = 5
+SUPERVISED_TIMEOUT_S = 600
+# Phases 43-44: the fleet over phase 29's panel, one route per model of
+# phase 38, a budget of 2.5 staged panels (serving all three evicts).
+FLEET_ROUTES = (("pcoa", "pcoa", True), ("pca", "pca", False),
+                ("factorized", "pcoa corrected", False))
+FLEET_BUDGET_PANELS = 2.5
+FLEET_SAMPLES = 16
+FLEET_TOPK = 10
+FLEET_LOADGEN_CLIENTS = 2
+FLEET_LOADGEN_REQUESTS = 10
+# The hedging runs of tests/test_fleet.py: 2 clients x 6 requests, fewer
+# than the 20 completions after which the hedge delay becomes the
+# rolling p95 (each request then hedges at the floor).
+HEDGE_CLIENTS = 2
+HEDGE_REQUESTS = 6
+HEDGE_SLOW_LINGER_MS = 120.0
+HEDGE_FLOOR_S = 0.02
+
+
+def compute_apps() -> int:
+    """The number of processes holding a context on the card. In this
+    container ``nvidia-smi`` cannot map them to our pids (it reports
+    pid 1 for each), so the supervised parent is checked by count."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return len([line for line in out.splitlines() if line.strip()])
+
+
+def built_kernels() -> dict:
+    from spark_examples_tpu_torch.ops import cuda_build
+
+    return {p.name: p.stat().st_mtime_ns
+            for p in cuda_build.BUILD_DIR.glob("*.so")}
+
+
+def run_supervised(argv: list[str], fault_spec: str, tmp: str,
+                   name: str) -> dict:
+    """``argv`` (a CLI job) with ``--supervise`` as a subprocess, the
+    fault armed through the environment, the card's compute processes
+    counted every 0.25 s while it runs. Returns the parent's rc, stderr,
+    wall, the counts seen and the supervisor ledger."""
+    env = dict(os.environ, SPARK_EXAMPLES_TPU_FAULTS=fault_spec)
+    err_path = os.path.join(tmp, f"{name}.err")
+    before = compute_apps()
+    counts = []
+    with open(err_path, "w+") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "spark_examples_tpu_torch", *argv,
+             "--supervise"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > SUPERVISED_TIMEOUT_S:
+                    fail(f"{name}: the supervised job ran past "
+                         f"{SUPERVISED_TIMEOUT_S} s")
+                counts.append(compute_apps())
+                time.sleep(0.25)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        wall = time.perf_counter() - t0
+        err.seek(0)
+        text = err.read()
+    return {"rc": proc.returncode, "stderr": text, "wall": wall,
+            "apps_before": before, "apps": counts}
+
+
+def stitched(cli_main, tel: str) -> tuple[dict, list[dict]]:
+    """``telemetry stitch`` of ``tel`` through the CLI: (report, the
+    stitched trace's events)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli_main(["telemetry", "stitch", "--path", tel])
+    if rc != 0:
+        fail(f"telemetry stitch --path {tel}: exit {rc}")
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    events = [json.loads(line) for line in open(report["output"])
+              if line.strip()]
+    return report, events
+
+
+def attempt_counts(tel: str) -> tuple[dict, dict, dict]:
+    """The ``metrics.json`` of attempts 0 and 1 under the telemetry
+    directory ``tel``, and from each attempt's own: K1's launches
+    (``gram.fused_blocks``) and its ``gram.block`` spans."""
+    metrics = {a: json.load(open(os.path.join(
+        tel, f"attempt{a}", "rank0", "metrics.json"))) for a in (0, 1)}
+    k1 = {a: int(m["counters"].get("gram.fused_blocks", 0))
+          for a, m in metrics.items()}
+    blocks = {a: m["histograms"].get("gram.block", {}).get("count", 0)
+              for a, m in metrics.items()}
+    return metrics, k1, blocks
+
+
+def attempt_paths(verdict: str, k1: dict, exact0: bool) -> dict:
+    """The ``launches_by_path`` entries of one supervised job: each
+    attempt's K1 launches as it exported them, attempt 0's named a
+    lower bound unless it exported at its end. K2's wrapper exports no
+    count, so a child's K2 launches are not listed."""
+    first = ("attempt 0" if exact0
+             else "attempt 0, at least (its last live flush)")
+    return {f"similarity ibs --supervise, {verdict}: {first}":
+            {"packed_gram": k1[0]},
+            f"similarity ibs --supervise, {verdict}: attempt 1":
+            {"packed_gram": k1[1]}}
+
+
+def supervised_phases(cli_main, launch_counters: dict, card: str,
+                      files: dict, tmp: str) -> dict:
+    """Phases 41-42: a supervised ibs job killed at phase 23's block and
+    one stalled, each restarted by the watchdog and resumed from its
+    checkpoint to the uninterrupted run's bytes. Returns K1's launches
+    in each attempt as that attempt's own ``metrics.json`` exports them
+    (``gram.fused_blocks``, counted where the wrapper launches K1):
+    exact for an attempt that exported at its end (attempt 1; a child
+    that died by TERM), a lower bound for one that died by
+    ``os._exit`` or KILL, whose last export is its last live flush."""
+    paths = {}
+    argv = ["similarity", "--metric", "ibs", "--source", "packed", "--path",
+            files["packed_store"], "--block-variants", str(BLOCK_VARIANTS),
+            "--device", DEVICE]
+    clean = os.path.join(tmp, "sup_clean.npy")
+    clean_counts, _t, _o, clean_wall = run_job(cli_main, argv,
+                                               launch_counters, clean)
+    expected = math.ceil(N_VARIANTS / BLOCK_VARIANTS)
+    if clean_counts["packed_gram"] != expected:
+        fail(f"the unsupervised ibs job launched K1 "
+             f"{clean_counts['packed_gram']} times, expected {expected}")
+    want = open(clean, "rb").read()
+    kernels_before = built_kernels()
+
+    # -- 41. killed at the 11th block read ---------------------------------
+    tel = os.path.join(tmp, "tel41")
+    out = os.path.join(tmp, "sup41.npy")
+    job = argv + ["--checkpoint-dir", os.path.join(tmp, "ck41"),
+                  "--checkpoint-every-blocks", str(CKPT_EVERY_BLOCKS),
+                  "--telemetry-dir", tel, "--telemetry-flush-s", "0.05",
+                  "--output-path", out]
+    run = run_supervised(job, SUPERVISED_KILL, tmp, "sup41")
+    ledger = json.load(open(os.path.join(tel, "supervisor.json")))
+    report, events = stitched(cli_main, tel)
+    tracks = sorted(e["args"]["name"] for e in events
+                    if e.get("name") == "process_name")
+    metrics, k1, blocks = attempt_counts(tel)
+    crash_t = ledger["incidents"][0]["t_unix"] if ledger["incidents"] else 0
+    a1_first = min((e["ts"] for e in events if e.get("name") == "gram.block"
+                    and e["pid"] == 10_000), default=None)
+    epoch0 = min(m["meta"]["epoch_unix_s"] for m in metrics.values())
+    restart_s = (epoch0 + a1_first / 1e6 - crash_t
+                 if a1_first is not None else float("nan"))
+    checks = {
+        "rc 0": run["rc"] == 0,
+        "attempt 0: crash: exit code 113":
+            "supervisor: attempt 0: crash: exit code 113" in run["stderr"],
+        ".npy bytes == the unsupervised run's": open(out, "rb").read()
+        == want,
+        "supervisor.json: 1 restart": ledger["restarts"] == 1
+        and ledger["done"] and ledger["final_returncode"] == 0,
+        "stitch: tracks attempt 0 rank 0, attempt 1 rank 0, supervisor":
+            tracks == ["attempt 0 rank 0", "attempt 1 rank 0", "supervisor"],
+        "stitch: 1 restart marker": report["restart_markers"] == 1
+        and not report["mixed_run_ids"],
+        "K1 ran in both attempts (their exported launches)":
+            k1[0] >= 1 and k1[1] >= 1,
+        "attempt 0 launched K1 at most once a block read before the kill":
+            k1[0] <= KILL_AFTER_READS,
+        "attempt 1: one K1 launch a gram.block": k1[1] == blocks[1],
+        "attempt 1 resumed from a checkpoint generation":
+            0 < blocks[1] < expected
+            and (expected - blocks[1]) % CKPT_EVERY_BLOCKS == 0,
+        "the parent held no context (never more than this script + 1 "
+        "child on the card)": max(run["apps"], default=0)
+        <= run["apps_before"] + 1,
+        "the child was seen on the card": max(run["apps"], default=0)
+        == run["apps_before"] + 1,
+        "the kernels were loaded from _build/, not rebuilt":
+            built_kernels() == kernels_before,
+    }
+    if not all(checks.values()):
+        fail("supervised kill: " + ", ".join(
+            k for k, v in checks.items() if not v)
+             + f"; K1 {k1}; blocks {blocks}; tracks {tracks}; stderr "
+             f"{run['stderr'][-2000:]}")
+    paths.update(attempt_paths("killed", k1, exact0=False))
+    print(f"supervised similarity ibs, killed at block read "
+          f"{KILL_AFTER_READS + 1} [{card}]: wall {run['wall']:.3f} s "
+          f"(unsupervised, in this process: {clean_wall:.3f} s); K1 "
+          f"launches attempt 0 at least {k1[0]} (its last live flush "
+          f"before os._exit; {blocks[0]} gram.block spans), attempt 1 "
+          f"{k1[1]} from the checkpoint at {expected - blocks[1]} blocks "
+          f"(phase 23's in-process kill: 5 from 8); restart "
+          f"to attempt 1's first block {restart_s:.3f} s (child start, "
+          f"CUDA context, kernels loaded from _build/); stitched "
+          f"{report['events']} events; compute processes on the card "
+          f"{run['apps_before']} before, at most {max(run['apps'])} during; "
+          + ", ".join(f"{k}: ok" for k in checks))
+
+    # -- 42. a stalled block read ---------------------------------------------
+    tel = os.path.join(tmp, "tel42")
+    out = os.path.join(tmp, "sup42.npy")
+    job = argv + ["--checkpoint-dir", os.path.join(tmp, "ck42"),
+                  "--checkpoint-every-blocks", str(CKPT_EVERY_BLOCKS),
+                  "--telemetry-dir", tel, "--telemetry-flush-s", "0.05",
+                  "--supervise-stall-timeout", str(STALL_TIMEOUT_S),
+                  "--output-path", out]
+    run = run_supervised(
+        job, f"ingest.block_read:delay:delay={STALL_DELAY_S}:"
+        f"after={STALL_AFTER_READS}:max=1", tmp, "sup42")
+    ledger = json.load(open(os.path.join(tel, "supervisor.json")))
+    incident = ledger["incidents"][0] if ledger["incidents"] else {}
+    _metrics, k1, blocks = attempt_counts(tel)
+    termed = incident.get("returncode") == -signal.SIGTERM
+    checks = {
+        "rc 0": run["rc"] == 0,
+        "attempt 0: stall": "supervisor: attempt 0: stall:" in run["stderr"]
+        and incident.get("kind") == "stall",
+        "1 watchdog kill, 1 restart": ledger["watchdog_kills"] == 1
+        and ledger["restarts"] == 1,
+        "the child died by TERM or KILL": incident.get("returncode") in
+        (-signal.SIGTERM, -signal.SIGKILL),
+        ".npy bytes == the unsupervised run's": open(out, "rb").read()
+        == want,
+        "K1 ran in both attempts (their exported launches)":
+            k1[0] >= 1 and k1[1] >= 1,
+        "attempt 0 launched K1 at most once a block read before the stall":
+            k1[0] <= STALL_AFTER_READS,
+        "attempt 1: one K1 launch a gram.block": k1[1] == blocks[1],
+        "attempt 1 resumed from a checkpoint generation":
+            0 < blocks[1] < expected
+            and (expected - blocks[1]) % CKPT_EVERY_BLOCKS == 0,
+        "the parent held no context": max(run["apps"], default=0)
+        <= run["apps_before"] + 1,
+    }
+    if not all(checks.values()):
+        fail("supervised stall: " + ", ".join(
+            k for k, v in checks.items() if not v)
+             + f"; K1 {k1}; blocks {blocks}; incident {incident}; stderr "
+             f"{run['stderr'][-2000:]}")
+    paths.update(attempt_paths("stalled", k1, exact0=termed))
+    print(f"supervised similarity ibs, block read {STALL_AFTER_READS + 1} "
+          f"stalled {STALL_DELAY_S} s, --supervise-stall-timeout "
+          f"{STALL_TIMEOUT_S} [{card}]: wall {run['wall']:.3f} s; verdict "
+          f"{incident.get('kind')} ({incident.get('detail')}), child exit "
+          f"{incident.get('returncode')}; K1 launches attempt 0 "
+          + (f"{k1[0]} (its TERM export" if termed else
+             f"at least {k1[0]} (its last live flush before KILL")
+          + f"; {blocks[0]} gram.block spans), attempt 1 {k1[1]}; "
+          + ", ".join(f"{k}: ok" for k in checks))
+    return paths
+
+
+def fleet_phases(cli_main, launch_counters: dict, card: str, files: dict,
+                 tmp: str) -> dict:
+    """Phases 43-44: the fleet over phase 29's panel in-process (rows
+    bitwise phase 38's, again after a forced evict and restage; the CLI
+    loadgen mix; hedging between two routers), then ``serve --fleet``
+    over HTTP as a subprocess. Returns the launches by kernel of each
+    in-process run."""
+    import concurrent.futures
+
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        PRIORITY_CLASSES,
+        IngestConfig,
+        ServeConfig,
+    )
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+    from spark_examples_tpu_torch.serve import (
+        FleetManifest,
+        build_fleet,
+        run_hedged_loadgen,
+    )
+
+    paths = {}
+    proj = files["projection"]
+    served = files["served"]
+    new_src = load_packed(proj["new"])
+    new_rows = np.concatenate(
+        [np.array(b) for b, _ in new_src.blocks(BLOCK_VARIANTS)], axis=1)
+    picks = np.linspace(0, len(new_rows) - 1, FLEET_SAMPLES).astype(int)
+    panel_bytes = PANEL_SAMPLES * N_VARIANTS  # the pool's int8 charge
+    budget = int(FLEET_BUDGET_PANELS * panel_bytes)
+    doc = {"budget_mb": budget / 1e6, "block_variants": BLOCK_VARIANTS,
+           "routes": [{"name": route,
+                       "model": proj["models"][model]["model"],
+                       "source": "packed", "path": proj["panel"],
+                       **({"topk": True} if topk else {})}
+                      for route, model, topk in FLEET_ROUTES]}
+    manifest = os.path.join(tmp, "fleet.json")
+    with open(manifest, "w") as f:
+        json.dump(doc, f)
+
+    def fleet_of(**cfg):
+        return build_fleet(FleetManifest.parse(doc),
+                           ServeConfig(cache_entries=0, **cfg),
+                           ingest_defaults=IngestConfig(
+                               block_variants=BLOCK_VARIANTS),
+                           device=DEVICE)
+
+    # -- 43. in-process -------------------------------------------------------
+    telemetry.reset()
+    for mod in launch_counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    fleet = fleet_of().start()
+    build_s = time.perf_counter() - t0
+    rows, topk, timings = {}, {}, {}
+    try:
+        for route, model, _topk in FLEET_ROUTES:
+            t0 = time.perf_counter()
+            futs = [fleet.submit(route, new_rows[i]) for i in picks]
+            rows[route] = np.concatenate([f.result(timeout=600)
+                                          for f in futs])
+            timings[route] = time.perf_counter() - t0
+            if fleet.pool.resident_bytes() > budget:
+                fail(f"fleet pool over budget: "
+                     f"{fleet.pool.resident_bytes()} > {budget}")
+        charge = {r: fleet.routes[r].panel_bytes_hint for r in fleet.routes}
+        for route, _m, has_topk in FLEET_ROUTES:
+            if has_topk:
+                topk[route] = [fleet.topk(route, new_rows[i], FLEET_TOPK,
+                                          timeout=600) for i in picks]
+        for route in fleet.routes:
+            fleet.pool.evict(route)
+        t0 = time.perf_counter()
+        again = {route: np.concatenate([
+            fleet.project(route, new_rows[i], timeout=600) for i in picks])
+            for route, _m, _t in FLEET_ROUTES}
+        restage_s = time.perf_counter() - t0
+        evictions = telemetry.counter_value("fleet.evictions")
+        restages = telemetry.counter_value("fleet.restage_total")
+        resident = fleet.pool.resident_bytes()
+    finally:
+        fleet.close()
+    launches = {k: mod.launches for k, mod in launch_counters.items()}
+    paths["FleetRouter, 3 routes"] = launches
+    checks = {
+        f"{FLEET_SAMPLES} rows a route bitwise == phase 38's "
+        "ProjectionServer rows": all(
+            np.array_equal(rows[r], served[m][picks])
+            for r, m, _t in FLEET_ROUTES),
+        "again bitwise after a forced evict and restage": all(
+            np.array_equal(again[r], rows[r]) for r in rows),
+        "the pool charged each panel N_ref x V int8 bytes":
+            set(charge.values()) == {panel_bytes},
+        "fleet.evictions >= 1": evictions >= 1,
+        "fleet.restage_total >= 1": restages >= 1,
+        f"resident <= budget ({budget} B)": resident <= budget,
+        "K1 launches == 0": not any(launches.values()),
+    }
+    if not all(checks.values()):
+        fail("fleet in-process: " + ", ".join(
+            k for k, v in checks.items() if not v)
+             + f"; evictions {evictions}, restages {restages}")
+    print(f"FleetRouter in-process, 3 routes over the {PANEL_SAMPLES}-"
+          f"sample panel, budget {FLEET_BUDGET_PANELS} panels "
+          f"({budget / 1e6:.1f} MB) [{card}]: built in {build_s:.3f} s; "
+          f"{FLEET_SAMPLES} rows a route (staging included) "
+          + ", ".join(f"{r} {timings[r]:.3f} s" for r in timings)
+          + f"; after evicting all three, {3 * FLEET_SAMPLES} rows in "
+          f"{restage_s:.3f} s; fleet.evictions {evictions:.0f}, "
+          f"fleet.restage_total {restages:.0f}; "
+          + ", ".join(f"{k}: ok" for k in checks))
+
+    for mod in launch_counters.values():
+        mod.launches = 0
+    telemetry.reset()
+    lg_counts, lg_out, lg_wall = run_counted(
+        cli_main, ["serve", "--fleet", manifest, "--source", "packed",
+                   "--path", proj["new"], "--block-variants",
+                   str(BLOCK_VARIANTS), "--device", DEVICE,
+                   "--cache-entries", "0", "--loadgen",
+                   str(FLEET_LOADGEN_CLIENTS), "--loadgen-requests",
+                   str(FLEET_LOADGEN_REQUESTS)], launch_counters)
+    report = json.loads(lg_out.strip().splitlines()[-1])
+    paths["serve --fleet --loadgen"] = lg_counts
+    per_class = report["per_class"]
+    n_req = (len(FLEET_ROUTES) * len(PRIORITY_CLASSES)
+             * FLEET_LOADGEN_CLIENTS * FLEET_LOADGEN_REQUESTS)
+    inter, batch = PRIORITY_CLASSES
+    lg_checks = {
+        f"{n_req} answers, 0 errors, 0 sheds": report["completed"] == n_req
+        and report["errors"] == 0 and report["shed"] == 0,
+        "interactive p99 <= batch p99":
+            per_class[inter]["p99_s"] <= per_class[batch]["p99_s"],
+        "K1 launches == 0": not any(lg_counts.values()),
+    }
+    if not all(lg_checks.values()):
+        fail(f"serve --fleet --loadgen: {report}")
+    print(f"serve --fleet --loadgen {FLEET_LOADGEN_CLIENTS} x "
+          f"{FLEET_LOADGEN_REQUESTS} per route and class [{card}]: wall "
+          f"{lg_wall:.3f} s; sustained {report['sustained_qps']} QPS over "
+          f"{report['duration_s']} s; p50 / p99 interactive "
+          f"{per_class[inter]['p50_s'] * 1e3:.3f} / "
+          f"{per_class[inter]['p99_s'] * 1e3:.3f} ms, batch "
+          f"{per_class[batch]['p50_s'] * 1e3:.3f} / "
+          f"{per_class[batch]['p99_s'] * 1e3:.3f} ms; fleet.evictions "
+          f"{telemetry.counter_value('fleet.evictions'):.0f}, "
+          f"restage_total {telemetry.counter_value('fleet.restage_total'):.0f}; "
+          + ", ".join(f"{k}: ok" for k in lg_checks))
+
+    for mod in launch_counters.values():
+        mod.launches = 0
+    telemetry.reset()
+    slow = fleet_of(max_linger_ms=HEDGE_SLOW_LINGER_MS).start()
+    fast = fleet_of(max_linger_ms=0.0).start()
+    try:
+        pool = new_rows[picks]
+        for router in (slow, fast):
+            # Staged, and one request through each worker: its first
+            # batch on its stream pays one-time costs the runs must not.
+            router.warm_route("pcoa")
+            router.project("pcoa", pool[0], timeout=600)
+        unhedged = run_hedged_loadgen(
+            [slow, slow], pool, clients=HEDGE_CLIENTS,
+            requests_per_client=HEDGE_REQUESTS, route="pcoa",
+            hedge_floor_s=600.0)
+        hedged = run_hedged_loadgen(
+            [slow, fast], pool, clients=HEDGE_CLIENTS,
+            requests_per_client=HEDGE_REQUESTS, route="pcoa",
+            hedge_floor_s=HEDGE_FLOOR_S)
+    finally:
+        slow.close()
+        fast.close()
+    hedge_counts = {k: mod.launches for k, mod in launch_counters.items()}
+    paths["run_hedged_loadgen, 2 routers"] = hedge_counts
+    h_checks = {
+        "0 errors": unhedged["errors"] == 0 and hedged["errors"] == 0,
+        "hedged p99 < unhedged p99": hedged["p99_s"] < unhedged["p99_s"],
+        "hedges launched and won": hedged["hedge_launched"] > 0
+        and hedged["hedge_wins"] > 0 and unhedged["hedge_launched"] == 0,
+        "K1 launches == 0": not any(hedge_counts.values()),
+    }
+    if not all(h_checks.values()):
+        fail(f"hedged loadgen: unhedged {unhedged}, hedged {hedged}")
+    print(f"run_hedged_loadgen, {HEDGE_CLIENTS} x {HEDGE_REQUESTS}, primary "
+          f"lingering {HEDGE_SLOW_LINGER_MS:.0f} ms [{card}]: p50 / p99 "
+          f"unhedged {unhedged['p50_s'] * 1e3:.3f} / "
+          f"{unhedged['p99_s'] * 1e3:.3f} ms, hedged "
+          f"{hedged['p50_s'] * 1e3:.3f} / {hedged['p99_s'] * 1e3:.3f} ms; "
+          f"hedge_launched {hedged['hedge_launched']}, hedge_wins "
+          f"{hedged['hedge_wins']}, errors {hedged['errors']}; "
+          + ", ".join(f"{k}: ok" for k in h_checks))
+
+    # -- 44. the fleet HTTP front as a process ------------------------------
+    port_file = os.path.join(tmp, "port44.json")
+    log_err = open(os.path.join(tmp, "fleet44.err"), "w+")
+    cmd = [sys.executable, "-m", "spark_examples_tpu_torch", "serve",
+           "--fleet", manifest, "--port", "0", "--port-file", port_file,
+           "--cache-entries", "0", "--block-variants", str(BLOCK_VARIANTS),
+           "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.DEVNULL, stderr=log_err)
+    try:
+        while not os.path.exists(port_file):
+            if proc.poll() is not None:
+                log_err.seek(0)
+                fail(f"serve --fleet exited {proc.returncode} before "
+                     f"binding: {log_err.read()[-2000:]}")
+            if time.perf_counter() - t0 > HTTP_BIND_TIMEOUT_S:
+                fail(f"serve --fleet did not bind within "
+                     f"{HTTP_BIND_TIMEOUT_S} s")
+            time.sleep(0.05)
+        bind_s = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{json.load(open(port_file))['port']}"
+
+        def post(job):
+            verb, route, j = job
+            body = {"genotypes": new_rows[picks[j]].tolist()}
+            if verb == "neighbors":
+                body["k"] = FLEET_TOPK
+            out, _h = http_json(f"{base}/{verb}/{route}",
+                                json.dumps(body).encode(), timeout=600)
+            return job, out
+
+        jobs = ([("project", r, j) for r, _m, _t in FLEET_ROUTES
+                 for j in range(FLEET_SAMPLES)]
+                + [("neighbors", r, j) for r in topk
+                   for j in range(FLEET_SAMPLES)])
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(post, jobs))
+        http_s = time.perf_counter() - t0
+        same_rows = all(
+            np.array_equal(np.asarray(out["coords"], np.float32),
+                           rows[route][j:j + 1])
+            for (verb, route, j), out in answers if verb == "project")
+        same_topk = all(
+            out["neighbor_indices"] == topk[route][j][0].tolist()
+            and out["similarities"] == topk[route][j][1].tolist()
+            for (verb, route, j), out in answers if verb == "neighbors")
+        prom, _ = http_json(f"{base}/metrics")
+        routes, _ = http_json(f"{base}/routes")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    log_err.seek(0)
+    err_text = log_err.read()
+    log_err.close()
+    http_checks = {
+        "POST /project/<route> == the in-process rows": same_rows,
+        "POST /neighbors/pcoa == the in-process top-k": same_topk,
+        "/metrics carries fleet_pool_bytes": "fleet_pool_bytes" in prom,
+        f"/routes: {FLEET_SAMPLES} completed a route": all(
+            routes[r]["completed"] >= FLEET_SAMPLES for r in routes),
+        "SIGTERM: drained, exit 0": rc == 0 and "draining..." in err_text,
+    }
+    if not all(http_checks.values()):
+        fail("serve --fleet over HTTP: " + ", ".join(
+            k for k, v in http_checks.items() if not v)
+             + f"; stderr: {err_text[-2000:]}")
+    print(f"serve --fleet over HTTP (subprocess, --port 0) [{card}]: bound "
+          f"in {bind_s:.3f} s; {len(jobs)} POSTs from 8 threads in "
+          f"{http_s:.3f} s; " + ", ".join(f"{k}: ok" for k in http_checks))
     return paths
 
 
@@ -3055,9 +3623,16 @@ def main() -> int:
             cli_main, launch_counters, card, dev, files, tmp))
         print(f"phases 37-40 took {time.perf_counter() - phases_t0:.1f} s "
               f"[{card}]")
+        phases_t0 = time.perf_counter()
+        new_paths.update(supervised_phases(
+            cli_main, launch_counters, card, files, tmp))
+        new_paths.update(fleet_phases(
+            cli_main, launch_counters, card, files, tmp))
+        print(f"phases 41-44 took {time.perf_counter() - phases_t0:.1f} s "
+              f"[{card}]")
 
-    # -- 41. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-40 took "
+    # -- 45. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-44 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
@@ -3093,7 +3668,8 @@ def main() -> int:
                              "pcoa braycurtis": bc_counts["braycurtis"],
                              "pca": pca_counts["braycurtis"],
                              **{path: c["braycurtis"]
-                                for path, c in new_paths.items()}},
+                                for path, c in new_paths.items()
+                                if "braycurtis" in c}},
         "max_abs_err": max(k2_err, k2_float_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

@@ -1,5 +1,5 @@
 """Command-line entry: ``python -m spark_examples_tpu_torch
-{pcoa,pca,similarity,project,cross-kinship,pack,ingest,store,
+{pcoa,pca,similarity,project,cross-kinship,pack,ingest,store,telemetry,
 search-variants,sample-stats,coverage,neighbors,serve}``.
 
 Flag names and defaults follow the JAX package's CLI for the flags the
@@ -54,6 +54,16 @@ card raises). Every job command takes the telemetry flags
         --loadgen 4 --loadgen-requests 50
     python -m spark_examples_tpu_torch pcoa --source store:ds/ \\
         --telemetry-dir tel/ --trace-dir prof/
+    python -m spark_examples_tpu_torch similarity --source store:ds/ \\
+        --checkpoint-dir ck --checkpoint-every-blocks 4 \\
+        --telemetry-dir tel/ --output-path d.npy --supervise
+    python -m spark_examples_tpu_torch telemetry stitch --path tel/
+    python -m spark_examples_tpu_torch serve --fleet fleet.json \\
+        --port 8777 --fleet-budget-mb 512
+
+``--supervise`` re-invokes the command as a watched child and restarts
+it on a crash, hang or stall (it resumes from its checkpoint); the
+parent holds no device.
 """
 
 from __future__ import annotations
@@ -182,6 +192,24 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    "its digest verify is healed in place from a "
                    "replica (else from the manifest's recorded origin) "
                    "instead of failing the run")
+    s = p.add_argument_group("supervision")
+    s.add_argument("--supervise", action="store_true",
+                   help="run this job as a supervised, crash-resumable "
+                   "unit of work: a child process streams under a "
+                   "heartbeat watchdog, and a crash, kill, hang, or "
+                   "stall restarts it from the latest sha256-verified "
+                   "checkpoint (pair with --checkpoint-dir/"
+                   "--checkpoint-every-blocks so restarts resume "
+                   "instead of recomputing); the parent holds no device")
+    s.add_argument("--supervise-max-restarts", type=int, default=3,
+                   help="restarts before the supervisor gives up and "
+                   "exits with the last failure")
+    s.add_argument("--supervise-stall-timeout", type=float, default=60.0,
+                   help="seconds of frozen progress (heartbeats alive, "
+                   "no forward motion) before the watchdog kills and "
+                   "restarts; the effective budget never drops below "
+                   "50 block-periods of the job's own reported block "
+                   "p95")
     c = p.add_argument_group("compute")
     c.add_argument("--device", default="cuda", choices=list(DEVICES),
                    help="where the job runs; cuda raises when no card is "
@@ -370,7 +398,8 @@ def main(argv: list[str] | None = None) -> int:
         "(similarity / PCoA / PCA, streaming PCoA snapshots, "
         "fit-then-project and cross-kinship, top-k neighbors, the "
         "search/sample-stats/coverage examples, the pack and ingest ETL, "
-        "and store maintenance)",
+        "store maintenance, supervised crash-resumable jobs and the "
+        "telemetry stitch, and single-model or fleet serving)",
     )
     parser.add_argument("--version", action="version",
                         version=f"%(prog)s {__version__}")
@@ -538,17 +567,70 @@ def main(argv: list[str] | None = None) -> int:
                          help="where an origin re-compaction runs (LD "
                          "pruning's r^2); cuda raises when no card is "
                          "visible")
+    p_tel = sub.add_parser(
+        "telemetry",
+        help="telemetry maintenance. `telemetry stitch --path <dir>`: "
+        "merge a job's per-attempt, per-rank exports "
+        "(attempt<a>/rank<r>/trace.jsonl from supervised restarts, "
+        "rank<r>/ otherwise) into ONE Perfetto-loadable session trace "
+        "on a shared wall-clock timeline, with the supervisor's "
+        "crash/hang/stall incidents as restart markers. The verb "
+        "`timeline` and `stitch --fleet` read the fleet controller's "
+        "files and are not yet ported",
+    )
+    p_tel.add_argument("verb", choices=["stitch", "timeline"],
+                       help="maintenance action")
+    p_tel.add_argument("--path", required=True,
+                       help="the --telemetry-dir of the job to stitch")
+    p_tel.add_argument("--output", default=None,
+                       help="stitched trace path (default: "
+                       "<path>/stitched_trace.jsonl)")
+    p_tel.add_argument("--fleet", action="store_true",
+                       help="stitch a fleet workdir (not yet ported)")
     p_srv = sub.add_parser(
         "serve",
         help="long-lived online projection server: model + reference "
         "panel staged on the device once, queries answered through a "
         "micro-batching queue (bit-identical to the offline `project`); "
         "binds a local HTTP endpoint, or with --loadgen N drives it with "
-        "N closed-loop clients and prints the serving report",
+        "N closed-loop clients and prints the serving report. With "
+        "--fleet: many named (model, panel) routes in one process under "
+        "a budgeted warm panel pool with LRU eviction and priority-class "
+        "admission",
     )
     _add_common(p_srv)  # --source/--path describe the LOADGEN query pool
     p_srv.add_argument("--model", default=None,
-                       help=".npz from pcoa/pca --save-model")
+                       help=".npz from pcoa/pca --save-model "
+                       "(single-model mode; --fleet replaces it)")
+    p_srv.add_argument("--fleet", default=None, metavar="MANIFEST",
+                       help="fleet manifest JSON (route registry: "
+                       "name -> model path + panel source); serves "
+                       "every route from one process — POST /project "
+                       "with a 'route' field, or /project/<route>")
+    p_srv.add_argument("--fleet-budget-mb", type=float,
+                       default=config.ServeConfig.fleet_budget_mb,
+                       help="warm panel pool budget (fleet mode): "
+                       "staged panels past it are LRU-evicted and "
+                       "re-stage on demand through the store "
+                       "(fleet.restage_total counts the cold starts); "
+                       "a budget_mb in the manifest wins")
+    p_srv.add_argument("--queue-interactive", type=int,
+                       default=config.ServeConfig.queue_interactive,
+                       help="interactive-class admission bound (fleet "
+                       "mode): the protected class's shed threshold")
+    p_srv.add_argument("--queue-batch", type=int,
+                       default=config.ServeConfig.queue_batch,
+                       help="batch-class admission bound (fleet mode): "
+                       "backfill sheds here first under overload while "
+                       "interactive keeps admitting")
+    p_srv.add_argument("--deadline-interactive-ms", type=float,
+                       default=config.ServeConfig.deadline_interactive_ms,
+                       help="default deadline for interactive-class "
+                       "requests (fleet mode; 0 = none)")
+    p_srv.add_argument("--deadline-batch-ms", type=float,
+                       default=config.ServeConfig.deadline_batch_ms,
+                       help="default deadline for batch-class requests "
+                       "(fleet mode; 0 = none)")
     p_srv.add_argument("--ref-source", default="packed", type=_source_arg,
                        metavar="{" + ",".join(_SOURCES) + "}",
                        help="reference panel genotypes (the panel the "
@@ -585,6 +667,10 @@ def main(argv: list[str] | None = None) -> int:
                        "offered/sustained QPS + latency report as JSON")
     p_srv.add_argument("--loadgen-requests", type=int, default=50,
                        help="requests per loadgen client")
+    p_srv.add_argument("--loadgen-seed", type=int,
+                       default=config.ServeConfig.loadgen_seed,
+                       help="seeds the loadgen hedge-delay ring and "
+                       "burst schedule so runs replay deterministically")
     p_srv.add_argument("--drain-timeout-s", type=float,
                        default=config.ServeConfig.drain_timeout_s,
                        help="SIGTERM drain budget: admitted requests get "
@@ -603,6 +689,8 @@ def main(argv: list[str] | None = None) -> int:
         return _run_store_admin(args)
     if args.command == "coverage":
         return _run_coverage(args)
+    if args.command == "telemetry":
+        return _run_telemetry_admin(args, parser)
     if args.command == "pca" and args.metric != "shared-alt":
         parser.error(
             "pca computes the shared-alt similarity by definition; "
@@ -613,19 +701,90 @@ def main(argv: list[str] | None = None) -> int:
         job = _job_from_args(args)
     except ValueError as e:
         parser.error(str(e))
+    if args.supervise:
+        return _supervise(args, argv, job)
     with contextlib.ExitStack() as stack:
         _observe(stack, args, job)
         return _dispatch(args, job, parser)
 
 
+def _supervise(args, argv, job: JobConfig) -> int:
+    """``--supervise``: re-invoke this command (the flags stripped) as a
+    watched child and restart it on crash, hang or stall. The flags the
+    child reads are validated here first, and whether the device is
+    there (``resolve_device``, which creates no CUDA context), so a bad
+    flag or a missing card fails once, not once per restart; the parent
+    does no job work and holds no device. ``--live-port`` moves to the
+    parent, which proxies the children's ephemeral sidecars so the
+    scrape endpoint survives restarts; ``--telemetry-dir`` (kept on the
+    child) names where the parent writes its incident ledger."""
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.core.supervisor import supervise_cli
+
+    resolve_device(job.compute.device)
+    return supervise_cli(
+        list(argv) if argv is not None else sys.argv[1:],
+        max_restarts=args.supervise_max_restarts,
+        stall_timeout_s=args.supervise_stall_timeout,
+        live_port=job.telemetry.live_port,
+        telemetry_dir=job.telemetry.dir,
+    )
+
+
+def _run_telemetry_admin(args, parser: argparse.ArgumentParser) -> int:
+    """``telemetry stitch``: merge a job's attempt/rank exports into one
+    trace and print the report as JSON; exit 0 iff something was read.
+    ``timeline`` and ``--fleet`` read the fleet controller's files and
+    are refused by name."""
+    from spark_examples_tpu_torch.core.stitch import StitchError, stitch
+
+    if args.verb == "timeline":
+        parser.error("telemetry timeline is not yet ported to the PyTorch "
+                     "package (it reads the fleet controller's "
+                     "timeline.jsonl)")
+    if args.fleet:
+        parser.error("telemetry stitch --fleet is not yet ported to the "
+                     "PyTorch package (it reads the fleet controller's "
+                     "per-slot exports and ledger)")
+    try:
+        report = stitch(args.path, output=args.output)
+    except StitchError as e:
+        print(f"telemetry stitch: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(report, sort_keys=True))
+    if report["mixed_run_ids"]:
+        print(
+            f"telemetry stitch: WARNING — {len(report['run_ids'])} "
+            "distinct run_ids merged; this directory holds exports "
+            "from more than one logical job",
+            file=sys.stderr,
+        )
+    print(
+        f"telemetry stitch: {report['events']} events from "
+        f"{len(report['attempts'])} attempt(s) x "
+        f"{len(report['ranks'])} rank(s), "
+        f"{report['restart_markers']} restart marker(s) -> "
+        f"{report['output']} (open in https://ui.perfetto.dev)",
+        file=sys.stderr,
+    )
+    return 0
+
+
 def _observe(stack: contextlib.ExitStack, args, job: JobConfig) -> None:
     """Arm the job's observability on ``stack``: the ``--trace-dir``
-    capture around everything, the telemetry export (configured before
-    the job, written on every way out, after the flusher's final
-    publish) and the ``--live-port`` sidecar."""
+    capture around everything, the supervised child's heartbeat (a
+    no-op unless the parent named a heartbeat file), the telemetry
+    export (configured before the job, written on every way out, after
+    the flusher's final publish) and the ``--live-port`` sidecar."""
     from spark_examples_tpu_torch.core import live, profiling, telemetry
+    from spark_examples_tpu_torch.core.supervisor import (
+        maybe_start_heartbeat,
+    )
 
     stack.enter_context(profiling.trace(args.trace_dir, job.compute.device))
+    hb = maybe_start_heartbeat()
+    if hb is not None:
+        stack.callback(hb.stop)
     if job.telemetry.dir:
         telemetry.configure(dir=job.telemetry.dir,
                             trace_events=job.telemetry.trace_events,
@@ -1017,10 +1176,13 @@ def _serve(args, job: JobConfig, parser: argparse.ArgumentParser) -> int:
         run_loadgen,
     )
 
-    if not args.model:
-        parser.error("serve needs --model MODEL.npz (the fitted panel "
-                     "model to serve)")
-    if _needs_ref_path(args):
+    if not args.fleet and not args.model:
+        parser.error("serve needs --model MODEL.npz (single-model "
+                     "mode) or --fleet fleet.json (multi-model mode)")
+    if args.fleet and args.model:
+        parser.error("--fleet and --model are mutually exclusive: the "
+                     "fleet manifest names every route's model")
+    if not args.fleet and _needs_ref_path(args):
         parser.error("serve requires --ref-path (the panel genotypes "
                      "the model was fitted on)")
     try:
@@ -1033,12 +1195,21 @@ def _serve(args, job: JobConfig, parser: argparse.ArgumentParser) -> int:
             deadline_ms=args.deadline_ms,
             host=args.host,
             port=args.port,
+            fleet_manifest=args.fleet,
+            fleet_budget_mb=args.fleet_budget_mb,
+            queue_interactive=args.queue_interactive,
+            queue_batch=args.queue_batch,
+            deadline_interactive_ms=args.deadline_interactive_ms,
+            deadline_batch_ms=args.deadline_batch_ms,
             drain_timeout_s=args.drain_timeout_s,
+            loadgen_seed=args.loadgen_seed,
         )
         ref_cfg = dataclasses.replace(job.ingest, source=args.ref_source,
                                       path=args.ref_path)
     except ValueError as e:
         parser.error(str(e))
+    if args.fleet:
+        return _serve_fleet(args, job, cfg, parser)
     device = job.compute.device
     src_ref = build_source(ref_cfg, device)
     try:
@@ -1067,7 +1238,18 @@ def _serve(args, job: JobConfig, parser: argparse.ArgumentParser) -> int:
                 )
                 print(json.dumps(report, sort_keys=True))
             else:
-                _serve_http(args, cfg, server)
+                from spark_examples_tpu_torch.serve.http import (
+                    ProjectionHTTPServer,
+                )
+
+                http = ProjectionHTTPServer(server, host=cfg.host,
+                                            port=cfg.port)
+                _serve_http(
+                    args, http,
+                    f"serving projections on http://{http.host}:"
+                    f"{http.port} (POST /project, GET /healthz, GET "
+                    f"/stats; {engine.n_variants} variants x "
+                    f"{engine.n_components} components; Ctrl-C drains)")
         finally:
             server.close()
     finally:
@@ -1075,15 +1257,65 @@ def _serve(args, job: JobConfig, parser: argparse.ArgumentParser) -> int:
     return 0
 
 
-def _serve_http(args, cfg, server) -> None:
-    """Serve ``server`` over HTTP in the foreground until SIGTERM or
-    Ctrl-C, which drain rather than kill: admitted requests are
-    answered before the process exits."""
+def _serve_fleet(args, job: JobConfig, cfg,
+                 parser: argparse.ArgumentParser) -> int:
+    """``serve --fleet``: manifest -> FleetRouter on the job's device;
+    then either the fleet HTTP front (SIGTERM or Ctrl-C drains) or a
+    multi-tenant loadgen mix (per route: --loadgen interactive and
+    --loadgen batch clients) whose JSON report goes to stdout."""
+    from spark_examples_tpu_torch.serve import (
+        FleetFormatError,
+        FleetManifest,
+        build_fleet,
+        run_fleet_loadgen,
+    )
+    from spark_examples_tpu_torch.serve.http import fleet_http_server
+
+    try:
+        manifest = FleetManifest.load(cfg.fleet_manifest)
+        fleet = build_fleet(manifest, cfg, ingest_defaults=job.ingest,
+                            block_variants=job.ingest.block_variants,
+                            device=job.compute.device)
+    except (FleetFormatError, ValueError, OSError) as e:
+        parser.error(str(e))
+    fleet.start()
+    try:
+        if args.loadgen > 0:
+            pools = {
+                name: _query_pool(
+                    job, route.n_variants or job.ingest.n_variants,
+                    parser, f"loadgen query pool of route {name!r}")[0]
+                for name, route in fleet.routes.items()
+            }
+            mix = [(name, cls, args.loadgen)
+                   for name in sorted(fleet.routes)
+                   for cls in config.PRIORITY_CLASSES]
+            report = run_fleet_loadgen(
+                fleet, pools, mix,
+                requests_per_client=args.loadgen_requests,
+            )
+            report["stats"] = fleet.stats_payload()
+            print(json.dumps(report, sort_keys=True))
+        else:
+            http = fleet_http_server(fleet, host=cfg.host, port=cfg.port)
+            _serve_http(
+                args, http,
+                f"serving fleet of {len(fleet.routes)} route(s) on "
+                f"http://{http.host}:{http.port} (POST /project "
+                "{'route': ..., 'genotypes': [...], 'priority': ...}, "
+                "GET /routes, /healthz, /stats, /metrics; pool budget "
+                f"{fleet.pool.budget_bytes / 1e6:.0f} MB; Ctrl-C drains)")
+    finally:
+        fleet.close()
+    return 0
+
+
+def _serve_http(args, http, banner: str) -> None:
+    """Serve ``http`` in the foreground until SIGTERM or Ctrl-C, which
+    drain rather than kill: admitted requests are answered before the
+    process exits."""
     import signal
 
-    from spark_examples_tpu_torch.serve.http import ProjectionHTTPServer
-
-    http = ProjectionHTTPServer(server, host=cfg.host, port=cfg.port)
     _write_port_file(args.port_file, http.port)
 
     def _sigterm(signum, frame):
@@ -1093,14 +1325,7 @@ def _serve_http(args, cfg, server) -> None:
         signal.signal(signal.SIGTERM, _sigterm)
     except ValueError:
         pass  # not the main thread (embedded use)
-    engine = server.engine
-    print(
-        f"serving projections on http://{http.host}:{http.port} "
-        f"(POST /project, GET /healthz, GET /stats; "
-        f"{engine.n_variants} variants x {engine.n_components} "
-        f"components; Ctrl-C drains)",
-        file=sys.stderr, flush=True,
-    )
+    print(banner, file=sys.stderr, flush=True)
     try:
         http.serve_forever()
     except KeyboardInterrupt:

@@ -54,6 +54,12 @@ GRAM_MODES = ("auto", "replicated", "variant", "tile2d")
 # flag): "topk" writes per-sample k-nearest rows (TopKResult), "pairs"
 # the deduplicated candidate pair list with exact similarities.
 NEIGHBORS_OUTPUTS = ("topk", "pairs")
+# Admission priority classes of the fleet router (serve/router.py):
+# "interactive" requests drain strictly before "batch" backfill, and each
+# class has its own shed threshold and default deadline (ServeConfig).
+# Earlier is higher priority; PRIORITY_CLASSES[0] is the default class.
+PRIORITY_CLASSES = ("interactive", "batch")
+DEFAULT_PRIORITY = PRIORITY_CLASSES[0]
 
 # Randomized-eigh defaults (power iterations / subspace oversample).
 EIGH_ITERS_DEFAULT = 8
@@ -451,6 +457,16 @@ class ServeConfig:
     (0 = off) sizes the LRU result cache keyed by genotype digest.
     ``drain_timeout_s`` is the SIGTERM drain budget: stragglers past it
     fail loudly (ServerClosed) and count in ``serve.drain_abandoned``.
+
+    Fleet mode (``serve --fleet fleet.json``, serve/fleet.py): one
+    process routes requests over many named (model, panel) routes.
+    ``fleet_manifest`` names the route registry; ``fleet_budget_mb``
+    bounds the warm panel pool (panels past it are LRU-evicted and
+    re-stage on demand, counted in ``fleet.restage_total``). Admission
+    gains the PRIORITY_CLASSES: per-class shed thresholds
+    (``queue_interactive``/``queue_batch``) and default deadlines
+    (``deadline_interactive_ms``/``deadline_batch_ms``; 0 = none).
+    ``loadgen_seed`` seeds the hedge-delay ring and the burst schedule.
     """
 
     model_path: str | None = None
@@ -461,7 +477,14 @@ class ServeConfig:
     deadline_ms: float = 0.0
     host: str = "127.0.0.1"
     port: int = 8777
+    fleet_manifest: str | None = None
+    fleet_budget_mb: float = 1024.0
+    queue_interactive: int = 64
+    queue_batch: int = 256
+    deadline_interactive_ms: float = 0.0
+    deadline_batch_ms: float = 0.0
     drain_timeout_s: float = 60.0
+    loadgen_seed: int = 0
 
     def __post_init__(self):
         def _check(flag, value, lo, hi, why):
@@ -481,8 +504,27 @@ class ServeConfig:
                "LRU result cache size; 0 disables")
         _check("--deadline-ms", self.deadline_ms, 0.0, 86_400_000.0,
                "default per-request deadline; 0 = none")
+        _check("--fleet-budget-mb", self.fleet_budget_mb, 0.001, 1 << 24,
+               "warm panel pool budget for fleet mode")
+        _check("--queue-interactive", self.queue_interactive, 1, 1 << 20,
+               "interactive-class shed threshold (fleet admission)")
+        _check("--queue-batch", self.queue_batch, 1, 1 << 20,
+               "batch-class shed threshold (fleet admission)")
+        _check("--deadline-interactive-ms", self.deadline_interactive_ms,
+               0.0, 86_400_000.0,
+               "interactive-class default deadline; 0 = none")
+        _check("--deadline-batch-ms", self.deadline_batch_ms,
+               0.0, 86_400_000.0,
+               "batch-class default deadline; 0 = none")
         _check("--drain-timeout-s", self.drain_timeout_s, 0.1, 86_400.0,
                "SIGTERM drain budget before stragglers fail loudly")
+        _check("--loadgen-seed", self.loadgen_seed, 0, 2**63 - 1,
+               "seeds the hedge-delay ring and burst schedule")
+        if not isinstance(self.loadgen_seed, int):
+            raise ValueError(
+                f"bad serve config: --loadgen-seed={self.loadgen_seed!r} "
+                "— expected an integer seed (deterministic replay needs "
+                "an exact value)")
 
 
 @dataclass

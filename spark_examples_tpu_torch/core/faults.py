@@ -38,6 +38,14 @@ more; only the ones the ported modules cross are here):
                             ``metrics.json`` is rewritten
 ``trace.export``            before ``requests.json`` (the slowest-request
                             exemplars) is written
+``supervisor.heartbeat``    before each heartbeat file write of a supervised
+                            child (``core/supervisor.py``): a delay freezes
+                            the heartbeat thread, an io_error fails one
+                            write with a warning
+``fleet.stage``             before each panel (or shard) stage of the fleet's
+                            warm pool (``serve/pool.py``, ``serve/router.py``),
+                            inside the ``fleet.stage`` span and the route's
+                            breaker
 ==========================  ================================================
 
 Env grammar (``;``-separated specs, ``:``-separated fields), read
@@ -81,6 +89,8 @@ SITES = (
     "serve.request",
     "telemetry.flush",
     "trace.export",
+    "supervisor.heartbeat",
+    "fleet.stage",
 )
 
 # Exit code of the "kill" kind, so a test can tell an injected kill from

@@ -13,6 +13,11 @@ operator or an autoscaler scrapes while the job runs:
   :func:`telemetry.live_snapshot` JSON) and ``/healthz``, served from a
   daemon thread. Port 0 binds an ephemeral port, written to the
   :data:`ENV_PORT_FILE` / :data:`ENV_ANNOUNCE` paths when they are set.
+- :class:`SupervisorLiveProxy`: a supervised job's public endpoint,
+  owned by the ``--supervise`` parent. It forwards each scrape to the
+  current child's ephemeral sidecar, answers from the last good body
+  (marked stale) while the child is down, and appends the parent's
+  ``supervisor_*`` series.
 
 Environment arming (any process can set these)::
 
@@ -27,6 +32,7 @@ import json
 import os
 import re
 import threading
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from spark_examples_tpu_torch.core import telemetry
@@ -184,3 +190,148 @@ def maybe_start_live(port: int | None = None, host: str = "127.0.0.1",
         announce_path=env.get(ENV_ANNOUNCE, "").strip() or None,
     )
     return server.serve_in_thread()
+
+
+# ---------------------------------------------------------------------------
+# Supervisor-side proxy.
+
+
+class SupervisorLiveProxy:
+    """The supervised job's public live endpoint, owned by the parent.
+
+    Scrapes are forwarded to the current child's sidecar (its ephemeral
+    port read from ``child_port_file`` on every request — a restarted
+    child lands on a new port and the very next scrape follows it). A
+    child that is down mid-restart answers with the last-good cached
+    body, marked stale, so "is the endpoint up" and "is the child up"
+    stay separate questions. Every ``/metrics`` answer appends the
+    parent's own ``supervisor_*`` series — the restart visibility no
+    child can report about itself.
+    """
+
+    def __init__(self, host: str, port: int, child_port_file: str,
+                 state_fn, announce_path: str | None = None):
+        self.child_port_file = child_port_file
+        self.state_fn = state_fn  # () -> dict (attempt/restarts/...)
+        self._cache: dict[str, bytes] = {}
+        self._cache_type: dict[str, str] = {}
+        self._cache_lock = threading.Lock()
+        proxy = self
+
+        class _ProxyHandler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                pass
+
+            def do_GET(self):  # noqa: N802 (stdlib API)
+                proxy._handle(self)
+
+        self._httpd = ThreadingHTTPServer((host, port), _ProxyHandler)
+        self._httpd.daemon_threads = True
+        self.host, self.port = self._httpd.server_address[:2]
+        self._thread: threading.Thread | None = None
+        if announce_path:
+            telemetry._atomic_write(announce_path,
+                                    f"{self.host}:{self.port}")
+
+    # -- child fetch --------------------------------------------------------
+
+    def _child_port(self) -> int | None:
+        try:
+            with open(self.child_port_file) as f:
+                return int(f.read().strip())
+        except (OSError, ValueError):
+            return None
+
+    def _fetch_child(self, path: str) -> tuple[bytes, str] | None:
+        port = self._child_port()
+        if port is None:
+            return None
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}{path}", timeout=2.0) as r:
+                body = r.read()
+                ctype = r.headers.get("Content-Type", "application/json")
+        except Exception:
+            return None
+        with self._cache_lock:
+            self._cache[path] = body
+            self._cache_type[path] = ctype
+        return body, ctype
+
+    def _cached(self, path: str) -> tuple[bytes, str] | None:
+        with self._cache_lock:
+            if path in self._cache:
+                return self._cache[path], self._cache_type[path]
+        return None
+
+    # -- request handling ---------------------------------------------------
+
+    def _supervisor_lines(self, state: dict, child_up: bool,
+                          stale: bool) -> str:
+        return "\n".join([
+            "# TYPE supervisor_restarts counter",
+            f"supervisor_restarts {state.get('restarts', 0)}",
+            f"supervisor_watchdog_kills {state.get('watchdog_kills', 0)}",
+            f"supervisor_attempt {state.get('attempt', 0)}",
+            f"supervisor_child_up {int(child_up)}",
+            f"supervisor_scrape_stale {int(stale)}",
+            'supervisor_info{run_id="%s"} 1' % _esc(state.get("run_id", "")),
+        ]) + "\n"
+
+    def _handle(self, handler: BaseHTTPRequestHandler) -> None:
+        telemetry.count("live.proxy_requests")
+        path = handler.path
+        state = self.state_fn()
+        if path == "/healthz":
+            # The parent answers liveness itself: the proxy being up IS
+            # the supervised job being alive (restarting included).
+            child_up = self._fetch_child("/healthz") is not None
+            _reply(handler, 200,
+                   json.dumps({"ok": True, "child_up": child_up,
+                               **state}).encode(),
+                   "application/json")
+            return
+        if path not in ("/metrics", "/debug/telemetry"):
+            _reply(handler, 404,
+                   json.dumps({"error": f"unknown path {path!r}"}).encode(),
+                   "application/json")
+            return
+        got = self._fetch_child(path)
+        stale = got is None
+        if stale:
+            telemetry.count("live.proxy_stale")
+            got = self._cached(path)
+        if path == "/metrics":
+            body = got[0].decode(errors="replace") if got else ""
+            body += self._supervisor_lines(state, child_up=not stale,
+                                           stale=stale)
+            _reply(handler, 200, body.encode(),
+                   "text/plain; version=0.0.4; charset=utf-8")
+            return
+        child_payload = None
+        if got is not None:
+            try:
+                child_payload = json.loads(got[0])
+            except ValueError:
+                child_payload = None
+        _reply(handler, 200, json.dumps({
+            "supervisor": state,
+            "stale": stale,
+            "child": child_payload,
+        }, default=str).encode(), "application/json")
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def serve_in_thread(self) -> "SupervisorLiveProxy":
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="supervisor-live-proxy",
+            daemon=True)
+        self._thread.start()
+        return self
+
+    def shutdown(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None

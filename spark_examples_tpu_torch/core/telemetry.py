@@ -273,6 +273,13 @@ NAMES: dict[str, tuple[str, str]] = {
         "pass), 0 = the reference unpack-then-contract path — the auto "
         "choice made observable (--gram-lowering)",
     ),
+    "gram.fused_blocks": (
+        "counter",
+        "launches of the fused packed CUDA kernel (csrc/packed_gram.cu), "
+        "counted where its wrapper launches it — nonzero proves the fused "
+        "kernel, not the plain unpack-then-contract path, is the one "
+        "contracting (pairs with gram.lowering)",
+    ),
     "gram_flops": ("counter", "FLOPs credited to the gram accumulation"),
     "ingest_bytes": ("counter", "bytes actually shipped host->device"),
     "eigh_flops": ("counter", "FLOPs credited to the eigensolve"),
@@ -454,6 +461,180 @@ NAMES: dict[str, tuple[str, str]] = {
         "live (non-padding) queries per executed micro-batch: mean near "
         "max_batch means coalescing is working; 1 means linger is too "
         "short for the offered load",
+    ),
+    # -- supervision and fleet serving ---------------------------------
+    "supervisor.restarts": (
+        "counter",
+        "supervised-child restarts (crash, injected kill, or watchdog "
+        "hang/stall kill) — each resumes from the latest verified "
+        "checkpoint; a clean supervised run counts 0",
+    ),
+    "supervisor.stalls": (
+        "counter",
+        "watchdog interventions: heartbeats stopped arriving or "
+        "arrived with frozen progress past the stall budget, and the "
+        "child was killed for restart",
+    ),
+    "supervisor.heartbeats": (
+        "counter",
+        "heartbeat files written by this supervised child (the "
+        "liveness/progress signal core/supervisor.py's watchdog reads)",
+    ),
+    "live.proxy_requests": (
+        "counter",
+        "scrapes answered by a supervisor parent's live proxy on "
+        "behalf of its supervised child (the endpoint that stays up "
+        "across child restarts)",
+    ),
+    "live.proxy_stale": (
+        "counter",
+        "proxy answers served from the last-good cached child "
+        "snapshot because the child was down (mid-restart) or "
+        "unreachable — the scrape succeeds, marked stale, instead of "
+        "erroring during the exact window an operator most wants data",
+    ),
+    "fleet.stage": (
+        "span",
+        "one reference panel staged (or re-staged after an LRU "
+        "eviction) into the fleet serving warm pool through the store "
+        "read path (serve/pool.py) — the cold-start cost the pool's "
+        "budget trades against panel residency",
+    ),
+    "fleet.restage_total": (
+        "counter",
+        "panel stages of a route that had been staged before and was "
+        "LRU-evicted from the warm pool — each is a cold start paid to "
+        "the HBM budget (a climbing rate under steady traffic means "
+        "the budget is too small for the working set)",
+    ),
+    "fleet.evictions": (
+        "counter",
+        "panels LRU-evicted from the fleet warm pool to fit a newly "
+        "staged route under the configured budget (the panel re-stages "
+        "on demand through the store — nothing is lost, only warmth)",
+    ),
+    "fleet.shard_stages": (
+        "counter",
+        "shards staged while serving a panel that exceeds the pool "
+        "budget (serve/router.py _sharded_blocks): each is one "
+        "budget-sized slice of the panel streamed from the store, "
+        "charged transiently against the pool, and dropped after its "
+        "blocks are consumed — the request count times the shard "
+        "count, since over-budget panels cannot be kept warm",
+    ),
+    "fleet.cache_namespace_evictions": (
+        "counter",
+        "result-cache entries reclaimed because their route was "
+        "unloaded (the cache is namespaced by model fingerprint; an "
+        "unloaded route's namespace is evicted whole, so cache bytes "
+        "stay flat across load/unload cycles)",
+    ),
+    "fleet.hedge_launched": (
+        "counter",
+        "hedge requests the loadgen client sent to a second replica "
+        "after the p95-derived hedge delay passed without a primary "
+        "answer (serve/loadgen.py run_hedged_loadgen)",
+    ),
+    "fleet.hedge_wins": (
+        "counter",
+        "hedged requests whose SECOND replica answered first (the "
+        "primary was the straggler; the loser future is cancelled) — "
+        "hedge_wins / hedge_launched is the tail-latency relief rate",
+    ),
+    "fleet.failovers": (
+        "counter",
+        "hedged-client re-admissions after a replica loss: a request "
+        "refused or failed with ServerClosed (kill, preemption, drain) "
+        "is re-sent to the hedge partner instead of erroring — the "
+        "zero-lost-admitted-requests contract exercised (latency paid, "
+        "answer kept)",
+    ),
+    "fleet.routes": (
+        "gauge",
+        "routes currently loaded in the fleet server (each = one "
+        "(model, panel) pair addressable by name)",
+    ),
+    "fleet.pool_bytes": (
+        "gauge",
+        "staged panel bytes resident in the fleet warm pool (dense "
+        "device-resident blocks); bounded by the configured "
+        "--fleet-budget-mb via LRU eviction",
+    ),
+    "fleet.pool_pressure": (
+        "gauge",
+        "resident / budget of the fleet warm pool (1.0 = at budget; "
+        "sustained ~1.0 with climbing fleet.restage_total means the "
+        "working set does not fit and cold starts are being paid)",
+    ),
+    "fleet.panel_over_budget_x": (
+        "gauge",
+        "panel bytes / pool budget of the last shard-staged route "
+        "served (>1.0 by construction): how many budgets' worth of "
+        "panel each request streams through — ceil of it is the shard "
+        "count per request; raise --fleet-budget-mb above it to serve "
+        "the route warm instead",
+    ),
+    "fleet.route.*": (
+        "gauge",
+        "per-route autoscale signals, one gauge per "
+        "fleet.route.<name>.<signal>: queue_depth (admitted waiting), "
+        "p99_s (served latency), shed_rate (shed / offered), staged "
+        "(1 = panel warm in the pool) — the series an autoscaler "
+        "scales replica counts on (GET /metrics)",
+    ),
+    "serve.priority.preemptions": (
+        "counter",
+        "dequeues where an interactive request jumped ahead of an "
+        "older batch-class request waiting in admission — the priority "
+        "contract (interactive before batch) actually exercised",
+    ),
+    "serve.priority.shed_interactive": (
+        "counter",
+        "interactive-class requests shed at admission (the "
+        "--queue-interactive threshold; nonzero means even the "
+        "protected class is past capacity — scale out)",
+    ),
+    "serve.priority.shed_batch": (
+        "counter",
+        "batch-class requests shed at admission (the --queue-batch "
+        "threshold) — expected first under overload, while the "
+        "interactive class keeps admitting",
+    ),
+    "serve.priority.depth_interactive": (
+        "gauge",
+        "interactive-class admission queue depth (published at every "
+        "put/take; pinned at the --queue-interactive bound means the "
+        "protected class itself is saturated)",
+    ),
+    "serve.priority.depth_batch": (
+        "gauge",
+        "batch-class admission queue depth — deep-and-draining is the "
+        "designed steady state under mixed load (backfill absorbs the "
+        "slack the interactive class leaves)",
+    ),
+    "trace.queue": (
+        "span",
+        "one sampled request's admission-to-batch-pickup wait inside "
+        "the router (args: trace_id, route, class) — the per-request "
+        "leg of serve.enqueue_wait_s, placed on the waterfall",
+    ),
+    "trace.compute": (
+        "span",
+        "the device-step wall attributed to one sampled request of the "
+        "executed micro-batch (args: trace_id, rows, cold_start, "
+        "stage_s — stage_s > 0 is the cold-start cost this request "
+        "paid waiting on a panel re-stage)",
+    ),
+    "trace.hedge": (
+        "event",
+        "hedge resolution for a traced request: both legs share one "
+        "trace_id with distinct span ids; args record the winning leg "
+        "(primary/hedge) and whether the loser was cancelled",
+    ),
+    "neighbors.requests": (
+        "counter",
+        "top-k neighbor requests answered by the serving layer (the "
+        "/neighbors endpoint and the in-process fleet.topk path)",
     ),
 }
 

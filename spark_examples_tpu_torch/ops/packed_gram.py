@@ -17,7 +17,9 @@ int32}``, decode + mask + contract without materialising a dosage block.
   I <= J and mirrors each into [J, I] from the plan.
 
 ``launches`` counts the CUDA kernel's launches (one per call on CUDA
-tensors), so a run can show that its main path went through the kernel.
+tensors), so a run can show that its main path went through the kernel;
+each launch also counts ``gram.fused_blocks`` in the telemetry registry,
+so a job run as a subprocess exports its count in ``metrics.json``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import ctypes
 
 import torch
 
+from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.ops.genotype import PRODUCT_OPERANDS, int_dot
 
 # Operands the 2-bit decode can form; the kernel's operand codes.
@@ -187,6 +190,7 @@ def _launch(rows: torch.Tensor, cols: torch.Tensor,
             f"products {products}"
         )
     launches += 1
+    telemetry.count("gram.fused_blocks")
     return {p: out[i] for i, p in enumerate(products)}
 
 

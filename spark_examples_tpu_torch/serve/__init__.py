@@ -15,18 +15,43 @@ bit for bit the offline single-query ``project`` of that sample
   micro-batching worker and admission envelope over one engine.
 - :mod:`~spark_examples_tpu_torch.serve.http`: a stdlib HTTP front.
 - :mod:`~spark_examples_tpu_torch.serve.loadgen`: the closed-loop load
-  generator behind ``serve --loadgen``.
+  generators behind ``serve --loadgen`` (single-model and the fleet's
+  multi-tenant mix) and replica hedging.
+
+Fleet serving (``serve --fleet fleet.json``) routes many named
+(model, panel) pairs through one process:
+
+- :mod:`~spark_examples_tpu_torch.serve.pool`: the warm panel pool,
+  staged panels under an explicit budget with LRU eviction; an evicted
+  panel re-stages on demand from its store.
+- :mod:`~spark_examples_tpu_torch.serve.router`: priority-class
+  admission (interactive before batch) and the fleet's one batching
+  worker.
+- :mod:`~spark_examples_tpu_torch.serve.fleet`: the manifest registry
+  and fleet assembly.
 """
 
 from spark_examples_tpu_torch.serve.cache import ResultCache, genotype_digest
 from spark_examples_tpu_torch.serve.engine import ProjectionEngine
+from spark_examples_tpu_torch.serve.fleet import (
+    FleetFormatError,
+    FleetManifest,
+    build_fleet,
+)
 from spark_examples_tpu_torch.serve.health import (
     DEGRADED,
     DRAINING,
     HEALTHY,
     CircuitBreaker,
 )
-from spark_examples_tpu_torch.serve.loadgen import run_loadgen
+from spark_examples_tpu_torch.serve.loadgen import (
+    BurstSchedule,
+    run_fleet_loadgen,
+    run_hedged_loadgen,
+    run_loadgen,
+)
+from spark_examples_tpu_torch.serve.pool import PanelPool, PanelUnavailable
+from spark_examples_tpu_torch.serve.router import FleetRouter, UnknownRoute
 from spark_examples_tpu_torch.serve.server import (
     DeadlineExceeded,
     ProjectionServer,
@@ -35,16 +60,26 @@ from spark_examples_tpu_torch.serve.server import (
 )
 
 __all__ = [
+    "BurstSchedule",
     "CircuitBreaker",
     "DEGRADED",
     "DRAINING",
     "DeadlineExceeded",
+    "FleetFormatError",
+    "FleetManifest",
+    "FleetRouter",
     "HEALTHY",
+    "PanelPool",
+    "PanelUnavailable",
     "ProjectionEngine",
     "ProjectionServer",
     "ResultCache",
     "ServerClosed",
     "ServerOverloaded",
+    "UnknownRoute",
+    "build_fleet",
     "genotype_digest",
+    "run_fleet_loadgen",
+    "run_hedged_loadgen",
     "run_loadgen",
 ]

@@ -23,7 +23,7 @@ The engine keeps no queue and is not thread-safe: the server
 (serve/server.py) owns one and runs all its device work on one worker
 thread. On a CUDA device every tensor of the engine lives on the
 engine's own stream, which that worker makes current
-(:meth:`ProjectionEngine.bind_thread`).
+(:func:`bind_stream`).
 """
 
 from __future__ import annotations
@@ -246,6 +246,34 @@ def shard_stream(source_ref, block_variants: int, max_shard_bytes: int,
         yield stage(pending), nbytes
 
 
+def device_stream(device) -> tuple[torch.device, "torch.cuda.Stream | None"]:
+    """A server's device (a name, which raises for a missing card) and,
+    on CUDA, the stream all its device work runs on. The device is
+    indexed: the worker thread makes it current, and a bare ``cuda``
+    cannot be."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return device, None
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device, torch.cuda.Stream(device)
+
+
+def on_stream(stream):
+    """``stream`` as the current one (CUDA), else nothing."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
+
+
+def bind_stream(device: torch.device, stream) -> None:
+    """Make ``device`` and ``stream`` current on the calling thread (a
+    no-op off CUDA): a serving worker's first act."""
+    if stream is not None:
+        torch.cuda.set_device(device)
+        torch.cuda.set_stream(stream)
+
+
 def _store_cache_of(source):
     """The decode cache behind a (possibly wrapped) dataset-store
     source, or None."""
@@ -278,14 +306,7 @@ class ProjectionEngine:
             model = P.load_model(model)
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        self.device = resolve_device(device)
-        self.stream = None
-        if self.device.type == "cuda":
-            # An indexed device: the worker thread sets it current.
-            if self.device.index is None:
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
-            self.stream = torch.cuda.Stream(self.device)
+        self.device, self.stream = device_stream(device)
         self.max_batch = int(max_batch)
         self.block_variants = int(block_variants)
         self._install_model(model)
@@ -300,21 +321,8 @@ class ProjectionEngine:
         if warm:
             self.warmup()
 
-    def _on_stream(self):
-        """The engine's stream as the current one (CUDA), else nothing."""
-        if self.stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
-
-    def bind_thread(self) -> None:
-        """Make the engine's device and stream current on the calling
-        thread: the serving worker's first act."""
-        if self.stream is not None:
-            torch.cuda.set_device(self.device)
-            torch.cuda.set_stream(self.stream)
-
     def _stage_panel(self, source_ref) -> tuple[list, int]:
-        with self._on_stream():
+        with on_stream(self.stream):
             blocks, n_variants, _nbytes = stage_blocks(
                 source_ref, self.block_variants, self.device)
         return blocks, n_variants
@@ -368,7 +376,7 @@ class ProjectionEngine:
         return "staged" if self.breaker.state == "closed" else "cached-only"
 
     def _install_model(self, model) -> None:
-        with self._on_stream():
+        with on_stream(self.stream):
             self._ctx = ModelContext(model, self.device)
 
     @property
@@ -426,6 +434,6 @@ class ProjectionEngine:
         """(b, V) int8 query genotypes -> (b, k) f32 coordinates,
         b <= max_batch; each row bitwise the offline single-query
         ``pcoa_project_job``."""
-        with self._on_stream():
+        with on_stream(self.stream):
             return batch_coords(self._ctx, self._ref_blocks, genotypes,
                                 self.max_batch, self.n_variants)

@@ -44,7 +44,7 @@ import numpy as np
 from spark_examples_tpu_torch.core import faults, telemetry
 from spark_examples_tpu_torch.serve import health as H
 from spark_examples_tpu_torch.serve.cache import ResultCache, genotype_digest
-from spark_examples_tpu_torch.serve.engine import ProjectionEngine
+from spark_examples_tpu_torch.serve.engine import ProjectionEngine, bind_stream
 
 
 class ServerOverloaded(RuntimeError):
@@ -500,9 +500,7 @@ class ProjectionServer:
         self._finish(p)
 
     def _run(self) -> None:
-        bind = getattr(self.engine, "bind_thread", None)
-        if bind is not None:
-            bind()
+        bind_stream(self.engine.device, self.engine.stream)
         while not self._stop.is_set():
             try:
                 batch = self._collect()

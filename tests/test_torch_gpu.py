@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from spark_examples_tpu_torch import kernels
+from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.core.config import (
     ComputeConfig,
     IngestConfig,
@@ -57,8 +58,10 @@ def test_cuda_kernel_matches_plain_bitwise(cuda_device, metric, nr, nc, w):
     cols = _random_packed(rng, nc, w, cuda_device)
     pieces = kernels.get(metric).pieces
     before = packed_gram.launches
+    counted = telemetry.counter_value("gram.fused_blocks")
     got = packed_gram.fused_tile_products(rows, cols, pieces)
     assert packed_gram.launches == before + 1
+    assert telemetry.counter_value("gram.fused_blocks") == counted + 1
     want = packed_gram.fused_tile_products_plain(rows, cols, pieces)
     torch.cuda.synchronize()
     for p in pieces:
@@ -780,3 +783,177 @@ def test_trace_dir_captures_the_card_s_kernels(cuda_device, tmp_path):
     assert profiling.kernel_events(prof)
     trace = json.load(open(os.path.join(tmp_path, "trace_rank0.json")))
     assert any(e.get("cat") == "kernel" for e in trace["traceEvents"])
+
+
+def _fleet_routes(tmp_path):
+    """Three fitted routes over dataset stores — pcoa ibs (with the topk
+    capability), pca and pcoa jaccard — as a manifest document, with
+    each route's panel source and model."""
+    routes = []
+    for i, (kind, metric) in enumerate((("pcoa", "ibs"), ("pca", None),
+                                        ("pcoa", "jaccard"))):
+        panel = SyntheticSource(n_samples=96, n_variants=3000, seed=20 + i)
+        model = str(tmp_path / f"fleet{i}.npz")
+        fit = JobConfig(ingest=IngestConfig(block_variants=1024),
+                        compute=ComputeConfig(num_pc=4, device="cpu",
+                                              metric=metric),
+                        model_path=model)
+        (jobs.variants_pca_job if kind == "pca" else jobs.pcoa_job)(
+            fit, source=panel)
+        store = str(tmp_path / f"fleet_store{i}")
+        compact(store, panel, chunk_variants=1024)
+        routes.append({"name": f"r{i}", "model": model,
+                       "source": f"store:{store}",
+                       **({"topk": True} if i == 0 else {})})
+    return {"routes": routes}
+
+
+def _fleet(doc, device, budget_bytes=None, **cfg):
+    from spark_examples_tpu_torch.core.config import ServeConfig
+    from spark_examples_tpu_torch.serve import FleetManifest, build_fleet
+
+    if budget_bytes is not None:
+        doc = {**doc, "budget_mb": budget_bytes / 1e6}
+    return build_fleet(FleetManifest.parse(doc),
+                       ServeConfig(cache_entries=0, **cfg),
+                       ingest_defaults=IngestConfig(block_variants=1024),
+                       device=device)
+
+
+def _store_source(spec: str):
+    from spark_examples_tpu_torch.store import open_store
+
+    return open_store(spec.split(":", 1)[1], readahead_chunks=0,
+                      device="cuda")
+
+
+@pytest.mark.gpu
+def test_fleet_rows_on_cuda_match_the_cpu(cuda_device, tmp_path):
+    """One manifest served on the card and on the CPU: every route's
+    padded-batch int32 cross statistics bitwise equal, the rows within
+    1e-5 of max|coords|, the topk route's neighbor ids equal; each card
+    row bitwise the card's single-model server's."""
+    from spark_examples_tpu_torch.serve import (
+        ProjectionEngine,
+        ProjectionServer,
+    )
+    from spark_examples_tpu_torch.serve import engine as E
+
+    doc = _fleet_routes(tmp_path)
+    fleets = {d: _fleet(doc, d) for d in ("cuda", "cpu")}
+    queries = np.concatenate(
+        [b for b, _ in SyntheticSource(n_samples=5, n_variants=3000,
+                                       seed=8).blocks(1024)], axis=1)
+    try:
+        g, _b = E._padded_batch(queries, 8, 3000)
+        for name in fleets["cpu"].routes:
+            accs = {}
+            for d, fleet in fleets.items():
+                route = fleet.routes[name]
+                with E.on_stream(fleet.stream):
+                    panel = fleet.pool.acquire(name, route.stage)
+                    accs[d] = E._cross_batch(route.ctx, panel.blocks, g,
+                                             route.ctx.stats)[0]
+            for k in accs["cpu"]:
+                assert torch.equal(accs["cuda"][k].cpu(), accs["cpu"][k])
+        for fleet in fleets.values():
+            fleet.start()
+        for spec in doc["routes"]:
+            name = spec["name"]
+            rows = {d: np.concatenate([f.project(name, q, timeout=120)
+                                       for q in queries])
+                    for d, f in fleets.items()}
+            scale = np.abs(rows["cpu"]).max()
+            assert np.abs(rows["cuda"] - rows["cpu"]).max() <= 1e-5 * scale
+            engine = ProjectionEngine(spec["model"],
+                                      _store_source(spec["source"]),
+                                      block_variants=1024, max_batch=8)
+            with ProjectionServer(engine, cache_entries=0) as single:
+                want = np.concatenate([single.project(q, timeout=120)
+                                       for q in queries])
+            assert np.array_equal(rows["cuda"], want), name
+        for q in queries:
+            ids = {d: f.topk("r0", q, 5, timeout=120)[0]
+                   for d, f in fleets.items()}
+            assert np.array_equal(ids["cuda"], ids["cpu"])
+    finally:
+        for fleet in fleets.values():
+            fleet.close()
+
+
+@pytest.mark.gpu
+def test_fleet_worker_runs_on_the_fleet_s_stream(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """Every fleet batch runs on the fleet worker with the router's
+    device and CUDA stream current, and its panels are staged there;
+    an admin warm from another thread stages on the same stream."""
+    import threading
+
+    from spark_examples_tpu_torch.serve import engine as E
+
+    seen = []
+    for fn in ("batch_coords", "stage_blocks"):
+        real = getattr(E, fn)
+
+        def recording(*a, _real=real, _fn=fn, **k):
+            seen.append((_fn, threading.current_thread().name,
+                         torch.cuda.current_stream() == fleet.stream))
+            return _real(*a, **k)
+
+        monkeypatch.setattr(E, fn, recording)
+    fleet = _fleet(_fleet_routes(tmp_path), "cuda")
+    assert fleet.stream is not None and fleet.device.index is not None
+    queries = np.concatenate(
+        [b for b, _ in SyntheticSource(n_samples=6, n_variants=3000,
+                                       seed=9).blocks(1024)], axis=1)
+    try:
+        fleet.warm_route("r2")
+        fleet.start()
+        for i, q in enumerate(queries):
+            fleet.project(f"r{i % 3}", q, timeout=120)
+    finally:
+        fleet.close()
+    assert [s for s in seen if s[0] == "stage_blocks"][0][1:] == \
+        ("MainThread", True)
+    work = [s for s in seen if s[1] != "MainThread"]
+    assert len([s for s in work if s[0] == "batch_coords"]) == 6
+    assert all(name == "fleet-serve-worker" and on_stream
+               for _fn, name, on_stream in work), work
+
+
+@pytest.mark.gpu
+def test_fleet_eviction_and_restage_under_traffic_bitwise(cuda_device,
+                                                          tmp_path):
+    """A pool that holds one panel and a half, three routes under
+    concurrent traffic: panels are evicted and re-staged while batches
+    run, and every answer stays bitwise equal to the route's answer
+    from a pool that never evicts."""
+    import concurrent.futures
+
+    from spark_examples_tpu_torch.core import telemetry
+
+    doc = _fleet_routes(tmp_path)
+    queries = np.concatenate(
+        [b for b, _ in SyntheticSource(n_samples=24, n_variants=3000,
+                                       seed=10).blocks(1024)], axis=1)
+    warm = _fleet(doc, "cuda").start()
+    try:
+        want = {(i, f"r{i % 3}"): warm.project(f"r{i % 3}", q, timeout=120)
+                for i, q in enumerate(queries)}
+    finally:
+        warm.close()
+    telemetry.reset()
+    fleet = _fleet(doc, "cuda", budget_bytes=int(96 * 3000 * 1.5),
+                   max_linger_ms=1.0).start()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(6) as pool:
+            got = dict(zip(want, pool.map(
+                lambda key: fleet.project(key[1], queries[key[0]],
+                                          timeout=120), want)))
+        assert fleet.pool.resident_bytes() <= int(96 * 3000 * 1.5)
+    finally:
+        fleet.close()
+    assert telemetry.counter_value("fleet.evictions") >= 1
+    assert telemetry.counter_value("fleet.restage_total") >= 1
+    for key, rows in want.items():
+        assert np.array_equal(got[key], rows), key

@@ -8,6 +8,12 @@ the JAX package's, on the CPU.
 - ``live_snapshot`` identity and the recent-event ring; the flusher's
   atomic, monotonic snapshots under concurrent writers; a hard kill
   between flushes leaves the last snapshot readable.
+- The ``--supervise`` parent's ``SupervisorLiveProxy``: it follows the
+  child's sidecar and answers stale from the last good body while the
+  child is down, its ``supervisor_*`` series byte-identical to JAX's for
+  the same state; and the acceptance run: a supervised job killed and
+  restarted stays scrapeable through the proxy, and ``telemetry
+  stitch`` merges both attempts with a restart marker.
 """
 
 import json
@@ -16,13 +22,14 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import pytest
 
 from spark_examples_tpu.core import live as jlive
 from spark_examples_tpu.core import telemetry as jtelemetry
-from spark_examples_tpu_torch.core import live, telemetry
+from spark_examples_tpu_torch.core import faults, live, supervisor, telemetry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -267,3 +274,166 @@ def test_cli_live_port_sidecar_runs_for_the_job(capsys):
             if t not in before and t.name == "live-telemetry-http"
             and t.is_alive()]
     assert not left
+
+
+# ---------------------------------------------------------------------- proxy
+
+
+def test_proxy_follows_child_and_serves_stale_when_down(tmp_path):
+    """The proxy answers from the live child when it is up, and from
+    the last-good cache (marked stale, supervisor series appended)
+    when it is down — the scrape that lands mid-restart succeeds."""
+    telemetry.count("faults.fired")
+    port_file = tmp_path / "child.port"
+    child = live.LiveTelemetryServer(port=0, port_file=str(port_file))
+    child.serve_in_thread()
+    state = {"run_id": "testrun", "attempt": 0, "restarts": 0,
+             "watchdog_kills": 0}
+    proxy = live.SupervisorLiveProxy(
+        "127.0.0.1", 0, str(port_file), lambda: dict(state))
+    proxy.serve_in_thread()
+    base = f"http://127.0.0.1:{proxy.port}"
+    try:
+        body = _get(f"{base}/metrics").decode()
+        assert "faults_fired_total" in body  # the child's series
+        assert "supervisor_restarts 0" in body
+        assert "supervisor_scrape_stale 0" in body
+        debug = json.loads(_get(f"{base}/debug/telemetry"))
+        assert debug["stale"] is False
+        assert debug["child"]["counters"]["faults.fired"] == 1
+
+        child.shutdown()  # the restart window
+        state["restarts"] = 1
+        state["attempt"] = 1
+        body = _get(f"{base}/metrics").decode()
+        assert "faults_fired_total" in body  # last-good cache
+        assert "supervisor_scrape_stale 1" in body
+        assert "supervisor_restarts 1" in body
+        assert "supervisor_child_up 0" in body
+        debug = json.loads(_get(f"{base}/debug/telemetry"))
+        assert debug["stale"] is True
+        assert debug["supervisor"]["restarts"] == 1
+        health = json.loads(_get(f"{base}/healthz"))
+        assert health["ok"] and health["child_up"] is False
+        assert telemetry.counter_value("live.proxy_stale") >= 2
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _get(f"{base}/nope")
+        assert err.value.code == 404
+    finally:
+        proxy.shutdown()
+        child.shutdown()
+
+
+@pytest.mark.parametrize("child_up,stale", [(True, False), (False, True)])
+def test_proxy_supervisor_series_are_jax_s(tmp_path, child_up, stale):
+    """The parent's own series, for one state, byte-identical to the
+    JAX package's proxy's (a run id that needs escaping included)."""
+    state = {"run_id": 'r"id\\1', "attempt": 2, "restarts": 2,
+             "watchdog_kills": 1}
+    ours = live.SupervisorLiveProxy(
+        "127.0.0.1", 0, str(tmp_path / "p"), lambda: state).serve_in_thread()
+    theirs = jlive.SupervisorLiveProxy(
+        "127.0.0.1", 0, str(tmp_path / "p"), lambda: state).serve_in_thread()
+    try:
+        assert ours._supervisor_lines(state, child_up, stale) == \
+            theirs._supervisor_lines(state, child_up, stale)
+    finally:
+        ours.shutdown()
+        theirs.shutdown()
+
+
+def test_proxy_announces_its_endpoint(tmp_path):
+    announce = tmp_path / "announce"
+    proxy = live.SupervisorLiveProxy(
+        "127.0.0.1", 0, str(tmp_path / "child.port"), dict,
+        announce_path=str(announce)).serve_in_thread()
+    try:
+        assert announce.read_text() == f"127.0.0.1:{proxy.port}"
+    finally:
+        proxy.shutdown()
+
+
+def _cli_env(**extra):
+    env = dict(
+        os.environ,
+        PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+        **{supervisor.ENV_HEARTBEAT_INTERVAL: "0.1"},
+    )
+    env.update(extra)
+    return env
+
+
+def test_supervised_kill_restart_proxy_and_stitch(tmp_path):
+    """The acceptance run: a supervised job is killed mid-run by an
+    injected fault and restarted; the parent's /metrics proxy answers
+    before, during and after the restart (the restart visible in the
+    supervisor series), and `telemetry stitch` yields one trace
+    spanning both attempts with a restart marker."""
+    tel = str(tmp_path / "tel")
+    announce = tmp_path / "announce"
+    env = _cli_env(**{
+        # kill at the 4th host->device transfer; a per-block delay
+        # widens the scrape window (stripped, like the kill, on the
+        # restarted attempt)
+        faults.ENV_SPECS: ("device.put:kill:after=3;"
+                           "device.put:delay:delay=0.05:max=0"),
+        live.ENV_ANNOUNCE: str(announce),
+    })
+    cmd = [
+        sys.executable, "-m", "spark_examples_tpu_torch", "similarity",
+        "--device", "cpu", "--n-samples", "16", "--n-variants", "2048",
+        "--block-variants", "128",
+        "--checkpoint-dir", str(tmp_path / "ck"),
+        "--checkpoint-every-blocks", "2",
+        "--telemetry-dir", tel, "--telemetry-flush-s", "0.05",
+        "--live-port", "0", "--supervise",
+        "--output-path", str(tmp_path / "out.npy"),
+    ]
+    proc = subprocess.Popen(cmd, env=env, cwd=str(tmp_path),
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        base = None
+        deadline = time.time() + 60
+        while base is None and time.time() < deadline:
+            try:
+                base = "http://" + announce.read_text().strip()
+            except OSError:
+                time.sleep(0.05)
+        assert base, "proxy never announced its endpoint"
+        scrapes = restart_seen = child_metric_seen = 0
+        while proc.poll() is None and time.time() - deadline < 240:
+            try:
+                body = _get(f"{base}/metrics", timeout=2).decode()
+            except Exception:
+                time.sleep(0.05)
+                continue  # transient socket teardown, keep polling
+            scrapes += 1
+            if "supervisor_restarts 1" in body:
+                restart_seen += 1
+            if "gram_block" in body:
+                child_metric_seen += 1
+            time.sleep(0.05)
+        _, stderr = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, stderr[-2000:]
+    assert "supervisor: attempt 0: crash: exit code 113" in stderr
+    assert scrapes >= 5
+    assert restart_seen >= 1, "restart never visible on /metrics"
+    assert child_metric_seen >= 1, "child series never proxied"
+    p = subprocess.run(
+        [sys.executable, "-m", "spark_examples_tpu_torch", "telemetry",
+         "stitch", "--path", tel],
+        env=_cli_env(), capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    report = json.loads(p.stdout)
+    assert report["attempts"] == [0, 1]
+    assert report["restart_markers"] == 1
+    assert not report["mixed_run_ids"]
+    lines = [json.loads(line)
+             for line in open(report["output"]) if line.strip()]
+    pids = {e["pid"] for e in lines if e.get("name") == "gram.block"}
+    assert len(pids) == 2, "blocks from both attempts on their tracks"
+    assert any(e.get("cat") == "supervisor" for e in lines)

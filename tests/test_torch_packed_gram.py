@@ -99,6 +99,18 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     assert out["t2t2"].tolist() == [[2] * 3] * 3
 
 
+def test_plain_version_counts_no_fused_blocks():
+    """``gram.fused_blocks`` counts the kernel's launches (the exported
+    count a supervised child reports), so the plain version adds none."""
+    from spark_examples_tpu_torch.core import telemetry
+
+    before = telemetry.counter_value("gram.fused_blocks")
+    t = torch.full((5, 3), 0x1B, dtype=torch.uint8)
+    tpacked.fused_tile_products(t, t, ("cc", "t1t1"))
+    assert telemetry.counter_value("gram.fused_blocks") == before
+    assert telemetry.is_declared("gram.fused_blocks")
+
+
 def _run_plan_tile_by_tile(packed: torch.Tensor, products, tile: int):
     """The symmetric launch in plain torch: every contraction of the plan
     on each tile with I <= J, its tile stored at [I, J] of ``direct`` and

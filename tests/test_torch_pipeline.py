@@ -240,7 +240,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     native codec, the parquet source, projection and the factorized
     model, and since the streaming/neighbors slice streaming PCoA, the
     example tier, coverage, the reads sources and the neighbors
-    package, and the serve package and the live telemetry plane."""
+    package, and the serve package and the live telemetry plane, and
+    since the supervision/fleet slice the supervisor, the stitcher and
+    the fleet's pool, router and manifest."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import spark_examples_tpu_torch as p\n"
@@ -257,7 +259,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'neighbors', 'neighbors.engine', 'neighbors.minhash', "
         "'neighbors.lsh', 'neighbors.output', 'serve', 'serve.cache', "
         "'serve.health', 'serve.engine', 'serve.server', 'serve.http', "
-        "'serve.loadgen', 'core.live', 'core.profiling']\n"
+        "'serve.loadgen', 'core.live', 'core.profiling', "
+        "'core.supervisor', 'core.stitch', 'serve.pool', 'serve.router', "
+        "'serve.fleet']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"

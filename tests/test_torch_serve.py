@@ -690,7 +690,7 @@ def test_serve_cli_loadgen_mode(rng, tmp_path, capsys):
     (["serve", "--device", "cpu", "--model", "m.npz", "--ref-path", "p",
       "--max-batch", "0"], "--max-batch=0"),
     (["serve", "--device", "cpu", "--model", "m.npz", "--ref-path", "p",
-      "--fleet", "f.json"], "unrecognized arguments: --fleet"),
+      "--fleet", "f.json"], "--fleet and --model are mutually exclusive"),
     (["pcoa", "--device", "cpu", "--trace-sample", "2"], "--trace-sample=2"),
     (["pcoa", "--device", "cpu", "--telemetry-flush-s", "1"],
      "--telemetry-flush-s needs --telemetry-dir"),

@@ -115,3 +115,28 @@ def test_registry_is_well_formed():
             assert len(name) > 2, name
         if kind == "span" and not name.endswith(".*"):
             assert jtelemetry.NAMES[name][0] == "span", name
+
+
+SLICE_NAMES = (
+    "supervisor.restarts", "supervisor.stalls", "supervisor.heartbeats",
+    "live.proxy_requests", "live.proxy_stale", "fleet.stage",
+    "fleet.restage_total", "fleet.evictions", "fleet.shard_stages",
+    "fleet.cache_namespace_evictions", "fleet.hedge_launched",
+    "fleet.hedge_wins", "fleet.failovers", "fleet.routes",
+    "fleet.pool_bytes", "fleet.pool_pressure", "fleet.panel_over_budget_x",
+    "fleet.route.*", "serve.priority.preemptions",
+    "serve.priority.shed_interactive", "serve.priority.shed_batch",
+    "serve.priority.depth_interactive", "serve.priority.depth_batch",
+    "trace.queue", "trace.compute", "trace.hedge", "neighbors.requests",
+)
+
+
+def test_supervision_and_fleet_names_are_jax_s():
+    """The supervision, live-proxy, fleet and priority names the slice's
+    modules emit: declared with the JAX package's kind and help text,
+    and the two new fault sites beside the earlier eleven."""
+    for name in SLICE_NAMES:
+        assert telemetry.NAMES[name] == jtelemetry.NAMES[name], name
+    assert telemetry.is_declared("fleet.route.r-ibs.queue_depth")
+    assert {"supervisor.heartbeat", "fleet.stage"} <= set(faults.SITES)
+    assert len(faults.SITES) == 13
