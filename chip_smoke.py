@@ -192,7 +192,7 @@ Phases (any failure exits non-zero; none is caught and ignored):
     that pair and within 1e-6 of phase 6's f32 similarity; the job
     killed in its MinHash pass under ``--checkpoint-dir`` (through the
     library) resumes through the CLI to a byte-identical file.
-36. (Retired number: the closing print is phase 45.)
+36. (Retired number: the closing print is phase 48.)
 37. A traced gram job: ``pcoa --source packed --metric ibs --num-pc 10``
     on phase 14's store through the CLI, once with ``--telemetry-dir``
     and once with ``--telemetry-dir`` and ``--trace-dir`` (a
@@ -258,7 +258,38 @@ Phases (any failure exits non-zero; none is caught and ignored):
     /project/<route>`` and ``/neighbors/pcoa`` equal phase 43's
     in-process answers, ``/metrics`` carries ``fleet_pool_bytes``,
     SIGTERM drains with exit 0.
-45. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+45. ``--backend cpu-reference`` against K1, at the Quickstart width cut
+    to 16,384 variants (2 blocks; the oracle's float64 host products stay
+    within seconds): ``pcoa --metric ibs`` and ``pca`` through the CLI
+    with the host oracle (K1 launches 0, K2 0) and on the default route
+    (K1 2 launches); the oracle's float64 products summed over its blocks
+    equal K1's int32 accumulators exactly (cast both ways), and its
+    pieces ``m``, ``d1`` equal K1's; the f64 host and f32 device ibs
+    distances within 1e-6; the top 4 coordinates per column up to sign
+    within 1e-3 of the column scale. Both walls printed with their
+    phases, beside the card line and the host's CPU model and ``nproc``
+    (the host route's time is the host's: the measured stand-in for
+    BASELINE config 1). Then ``pcoa --debug-nans``: the same coordinates,
+    byte for byte, and 2 K1 launches.
+46. Bray-Curtis at 1,000 x 4,096: ``pcoa --metric braycurtis
+    --backend cpu-reference`` (scipy's ``pdist``, 0 K2 launches) against
+    the default route (1 K2 launch): distances within 1e-6 on the
+    integer table, coordinates as phase 45's.
+47. The fleet controller on the card, in a process of its own
+    (``controller_process``): a ``FleetController`` over two
+    ``ProcessReplica`` children (``serve --fleet --device cuda`` of phase
+    43's manifest with an ``slos`` block, each exporting telemetry under
+    ``<workdir>/<slot>``), started side by side and stepped until both
+    are ready; 16 new samples a route through each equal phase 43's rows
+    bitwise; one child SIGKILLed, the controller steps to a ``respawn``
+    decision and the respawned child answers bitwise again.
+    ``controller.json`` holds the ``crash`` incident; ``telemetry
+    timeline --path`` prints rows; ``telemetry stitch --fleet`` gives one
+    pid block per slot and a controller marker; every child got
+    ``--device cuda``; K1 launches 0 (here and as the children export
+    it); the controller process never initialised CUDA, and the card
+    never held more processes than this script and two children.
+48. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -3036,6 +3067,9 @@ def fleet_phases(cli_main, launch_counters: dict, card: str, files: dict,
         fail("fleet in-process: " + ", ".join(
             k for k, v in checks.items() if not v)
              + f"; evictions {evictions}, restages {restages}")
+    # Phase 47 serves these samples through process replicas.
+    files["fleet"] = {"doc": doc, "rows": rows, "queries": new_rows[picks],
+                      "budget": budget, "panel_bytes": panel_bytes}
     print(f"FleetRouter in-process, 3 routes over the {PANEL_SAMPLES}-"
           f"sample panel, budget {FLEET_BUDGET_PANELS} panels "
           f"({budget / 1e6:.1f} MB) [{card}]: built in {build_s:.3f} s; "
@@ -3201,6 +3235,459 @@ def fleet_phases(cli_main, launch_counters: dict, card: str, files: dict,
           f"in {bind_s:.3f} s; {len(jobs)} POSTs from 8 threads in "
           f"{http_s:.3f} s; " + ", ".join(f"{k}: ok" for k in http_checks))
     return paths
+
+
+# Phases 45-46: --backend cpu-reference (the host NumPy oracle, the
+# measured stand-in for the Spark MLlib baseline) held against the device
+# route. The Quickstart width, cut to 16,384 variants (2 blocks of 8192)
+# so that the oracle's float64 host products stay within seconds; the
+# Bray-Curtis table cut to 1,000 x 4,096 (scipy's pdist runs on one core).
+BACKEND_VARIANTS = 16_384
+BACKEND_BC_SAMPLES = 1000
+BACKEND_BC_FEATURES = 4096
+# f32 device finalize against the f64 host one (ibs d1 / 2m and the
+# Bray-Curtis ratio of exact integer sums are within an f32 rounding).
+BACKEND_DIST_ATOL = 1e-6
+# The top NUM_POP_PCS coordinates per column up to sign, as a fraction of
+# the column's largest entry: an f32 cuSOLVER eigh against a float64
+# LAPACK one (the CPU rehearsal at these shapes gave 4.4e-5 at most).
+BACKEND_COORD_TOL = 1e-3
+BACKEND_EIG_RTOL = 1e-4
+# Phase 47: the controller's wait for its children (process start, the
+# card, lazy panel staging) and its knobs.
+CONTROLLER_WAIT_S = 300
+CONTROLLER_SLOS = [{"route": "*", "p99_ms": 60_000, "availability": 0.5}]
+
+
+def host_cpu_line() -> str:
+    """The host's CPU and the cores this process may use (what ``nproc``
+    prints): the cpu-reference route runs there. From the first
+    processor of ``/proc/cpuinfo``: its model name, and its vendor,
+    family and model numbers (a virtualised host may report the name as
+    unknown)."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            fields[key.strip()] = value.strip()
+    ident = ", ".join(f"{k} {fields[k]}" for k in
+                      ("vendor_id", "cpu family", "model") if k in fields)
+    return (f"{fields.get('model name', 'no model name')} ({ident}), "
+            f"nproc {len(os.sched_getaffinity(0))}")
+
+
+def backend_run(cli_main, argv: list[str], counters: dict, module,
+                name: str, output: str):
+    """One coordinates job through :func:`run_job`, keeping each result
+    of ``module.name`` (a host oracle product, a device run's
+    accumulators) that the job computes. Returns (launches by kernel,
+    phase timings, coords, wall s, the kept results)."""
+    kept: list = []
+    original = keeping(module, name, kept)
+    try:
+        launches, timings, _, wall = run_job(cli_main, argv, counters,
+                                             output)
+    finally:
+        setattr(module, name, original)
+    with open(output) as f:
+        f.readline()
+        coords = np.asarray([line.rstrip("\n").split("\t")[1:]
+                             for line in f], dtype=np.float64)
+    if not np.isfinite(coords).all():
+        fail(f"{' '.join(argv)}: non-finite coordinates")
+    return launches, timings, coords, wall, kept
+
+
+def backend_phases(cli_main, launch_counters: dict, card: str,
+                   tmp: str) -> dict:
+    """Phases 45-46: ``pcoa``/``pca --backend cpu-reference`` against the
+    default route on one cohort (K1's int32 accumulators equal to the
+    oracle's float64 products, distances, coordinates), ``--debug-nans``
+    writing the same bytes, then Bray-Curtis against K2. Returns the
+    launches by kernel of each CLI run."""
+    import torch
+
+    from spark_examples_tpu_torch.ops import distances, genotype
+    from spark_examples_tpu_torch.pipelines import runner
+    from spark_examples_tpu_torch.utils import oracle
+
+    paths = {}
+    host = host_cpu_line()
+    blocks = math.ceil(BACKEND_VARIANTS / BLOCK_VARIANTS)
+    cohort = ["--n-samples", str(N_SAMPLES), "--n-variants",
+              str(BACKEND_VARIANTS), "--block-variants",
+              str(BLOCK_VARIANTS), "--num-pc", str(NUM_PC), "--device",
+              DEVICE]
+    ibs = ("cc", "yc", "t1t1", "t2t2")
+
+    # -- 45. pcoa ibs and pca: the host oracle against K1 ------------------
+    runs = {}
+    for command, metric in (("pcoa", "ibs"), ("pca", None)):
+        argv = [command, *cohort] + (["--metric", metric] if metric else [])
+        out_h = os.path.join(tmp, f"{command}45_host.tsv")
+        out_d = os.path.join(tmp, f"{command}45_device.tsv")
+        h = backend_run(cli_main, argv + ["--backend", "cpu-reference"],
+                        launch_counters, oracle, "cpu_gram_products", out_h)
+        d = backend_run(cli_main, argv, launch_counters, runner, "run_gram",
+                        out_d)
+        runs[command] = (d[3], out_d, argv)
+        label = f"{command} {metric or 'shared-alt'} ({N_SAMPLES} x " \
+                f"{BACKEND_VARIANTS})"
+        paths[f"{label} cpu-reference"] = h[0]
+        paths[label] = d[0]
+        # The oracle's products, summed over its blocks, and K1's int32
+        # accumulators of the device run, on the host.
+        host_prod = {p: sum(b[p] for b in h[4]) for p in h[4][0]}
+        dev_acc = d[4][0].acc
+        acc_host = {p: v.cpu() for p, v in dev_acc.items()}
+        exact = (host_prod.keys() == acc_host.keys() and all(
+            np.array_equal(acc_host[p].numpy().astype(np.float64),
+                           host_prod[p])
+            and np.array_equal(acc_host[p].numpy(),
+                               host_prod[p].astype(np.int32))
+            for p in host_prod))
+        checks = {
+            "cpu-reference: K1 launches == 0, K2 == 0":
+                not any(h[0].values()),
+            f"default route: K1 launches == {blocks}":
+                d[0]["packed_gram"] == blocks and d[0]["braycurtis"] == 0,
+            "the default route ran K1": d[4][0].lowering == "fused",
+            "K1's int32 accumulators == the oracle's float64 products "
+            f"({', '.join(host_prod)}), exactly": exact,
+        }
+        if command == "pcoa":
+            pieces = ("m", "d1")
+            host_pieces = oracle.combine_products(host_prod, pieces)
+            dev_pieces = genotype.combine_products(dev_acc, pieces)
+            checks["the oracle's pieces m, d1 == K1's, exactly"] = all(
+                np.array_equal(dev_pieces[k].cpu().numpy().astype(
+                    np.float64), host_pieces[k]) for k in pieces)
+            d_host = oracle.cpu_finalize(host_pieces, "ibs")["distance"]
+            d_dev = distances.finalize(dev_acc, "ibs")["distance"]
+            dist_err = float(np.abs(d_dev.cpu().numpy().astype(np.float64)
+                                    - d_host).max())
+            checks[f"distances within {BACKEND_DIST_ATOL}"] = (
+                dist_err <= BACKEND_DIST_ATOL)
+        coord_err = same_columns(d[2], h[2], NUM_POP_PCS, BACKEND_COORD_TOL)
+        if not all(checks.values()):
+            fail(f"{command} --backend cpu-reference vs the device route: "
+                 + ", ".join(k for k, v in checks.items() if not v))
+        del dev_acc, acc_host
+        print(f"{command} {N_SAMPLES} x {BACKEND_VARIANTS} "
+              f"{metric or 'shared-alt'}, cpu-reference vs default "
+              f"[{card}; host {host}]: wall host {h[3]:.3f} s ("
+              + phases_line(h[1], ("ingest_setup", "gram", "finalize",
+                                   "eigh"))
+              + f"), device {d[3]:.3f} s ("
+              + phases_line(d[1], ("ingest_setup", "gram", "finalize",
+                                   "eigh"))
+              + f"); launches host {h[0]}, device {d[0]}; "
+              + (f"max |d_host - d_device| {dist_err:.3g}; "
+                 if command == "pcoa" else "")
+              + f"top {NUM_POP_PCS} coordinates per column up to sign "
+              f"within {coord_err:.3g} of the column scale (tolerance "
+              f"{BACKEND_COORD_TOL}); " + ", ".join(f"{k}: ok"
+                                                    for k in checks))
+        del h, d
+
+    # --debug-nans: the same job writes the same bytes (and still K1).
+    wall, out_d, argv = runs["pcoa"]
+    out_n = os.path.join(tmp, "pcoa45_debug_nans.tsv")
+    nan_counts, nan_timings, _, nan_wall = run_job(
+        cli_main, argv + ["--debug-nans"], launch_counters, out_n)
+    paths[f"pcoa ibs --debug-nans ({N_SAMPLES} x {BACKEND_VARIANTS})"] = \
+        nan_counts
+    same = open(out_n, "rb").read() == open(out_d, "rb").read()
+    if not same or nan_counts["packed_gram"] != blocks:
+        fail(f"pcoa --debug-nans: same bytes {same}, launches {nan_counts}")
+    print(f"pcoa --debug-nans [{card}]: coordinates byte for byte the "
+          f"run without the flag; wall {nan_wall:.3f} s against "
+          f"{wall:.3f} s (" + phases_line(
+              nan_timings, ("gram", "finalize", "eigh"))
+          + f"); launches {nan_counts}")
+
+    # -- 46. Bray-Curtis: scipy against K2 ---------------------------------
+    argv = ["pcoa", "--metric", "braycurtis", "--n-samples",
+            str(BACKEND_BC_SAMPLES), "--n-variants",
+            str(BACKEND_BC_FEATURES), "--num-pc", str(NUM_PC), "--device",
+            DEVICE]
+    from spark_examples_tpu_torch.ops import braycurtis_kernel
+
+    h = backend_run(cli_main, argv + ["--backend", "cpu-reference"],
+                    launch_counters, oracle, "cpu_braycurtis",
+                    os.path.join(tmp, "bc46_host.tsv"))
+    d = backend_run(cli_main, argv, launch_counters, braycurtis_kernel,
+                    "braycurtis_kernel", os.path.join(tmp, "bc46_dev.tsv"))
+    label = f"pcoa braycurtis ({BACKEND_BC_SAMPLES} x {BACKEND_BC_FEATURES})"
+    paths[f"{label} cpu-reference"] = h[0]
+    paths[label] = d[0]
+    d_host, d_dev = h[4][0], d[4][0].cpu().numpy().astype(np.float64)
+    bc_err = float(np.abs(d_dev - d_host).max())
+    coord_err = same_columns(d[2], h[2], NUM_POP_PCS, BACKEND_COORD_TOL)
+    checks = {
+        "cpu-reference: K2 launches == 0, K1 == 0": not any(h[0].values()),
+        "default route: K2 launches == 1":
+            d[0]["braycurtis"] == 1 and d[0]["packed_gram"] == 0,
+        f"distances within {BACKEND_DIST_ATOL}": bc_err <= BACKEND_DIST_ATOL,
+    }
+    if not all(checks.values()):
+        fail(f"Bray-Curtis cpu-reference vs K2: {checks}, max |diff| "
+             f"{bc_err}")
+    print(f"pcoa braycurtis {BACKEND_BC_SAMPLES} x {BACKEND_BC_FEATURES}, "
+          f"cpu-reference (scipy pdist) vs default (K2) [{card}; host "
+          f"{host}]: wall host {h[3]:.3f} s (" + phases_line(
+              h[1], ("ingest", "distance", "eigh"))
+          + f"), device {d[3]:.3f} s (" + phases_line(
+              d[1], ("ingest", "distance", "eigh"))
+          + f"); launches host {h[0]}, device {d[0]}; max |d_host - "
+          f"d_device| {bc_err:.3g}; top {NUM_POP_PCS} coordinates within "
+          f"{coord_err:.3g} of the column scale; "
+          + ", ".join(f"{k}: ok" for k in checks))
+    del d, h
+    torch.cuda.empty_cache()
+    return paths
+
+
+def controller_process(cfg_path: str) -> int:
+    """Phase 47's controller process, started by :func:`controller_phase`
+    as ``python -c "... chip_smoke.controller_process(cfg)"``: a
+    ``FleetController`` over two ``ProcessReplica`` serve children on the
+    card. It waits for both, checks their rows bitwise, SIGKILLs one,
+    steps until the respawn answers bitwise again, and writes what it
+    saw to ``cfg["result"]``. It never touches the card itself."""
+    import concurrent.futures
+
+    from spark_examples_tpu_torch.fleet import (
+        ControllerConfig,
+        FleetController,
+        ProcessReplica,
+    )
+    from spark_examples_tpu_torch.serve import FleetManifest
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    work = cfg["workdir"]
+    manifest = FleetManifest.load(cfg["manifest"])
+    routes = [r.name for r in manifest.routes]
+    queries = np.load(cfg["queries"])
+    want = dict(np.load(cfg["rows"]))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    spawned = []
+
+    def factory(name, generation):
+        r = ProcessReplica.serving(
+            name, cfg["manifest"], cfg["device"], work, cfg["budget"],
+            routes, env=env, generation=generation,
+            extra_args=["--telemetry-dir", os.path.join(work, name),
+                        "--telemetry-flush-s", "0.5", "--cache-entries",
+                        "0", "--block-variants", str(BLOCK_VARIANTS)])
+        spawned.append(r)
+        return r
+
+    ctrl = FleetController(
+        factory, {r: cfg["panel_bytes"] for r in routes},
+        ControllerConfig(
+            min_replicas=2, max_replicas=2, stale_scrapes=5,
+            startup_grace_s=CONTROLLER_WAIT_S, hang_heartbeat_s=120.0,
+            backoff_initial_s=0.05, backoff_max_s=1.0,
+            drain_timeout_s=60.0, slos=manifest.slos,
+            ledger_path=os.path.join(work, "controller.json")))
+    apps = []
+
+    def step_until(cond, what: str) -> float:
+        t0 = time.perf_counter()
+        while True:
+            ctrl.step()
+            apps.append(compute_apps())
+            if cond():
+                return time.perf_counter() - t0
+            if time.perf_counter() - t0 > CONTROLLER_WAIT_S:
+                fail(f"controller: {what} not reached in "
+                     f"{CONTROLLER_WAIT_S} s: "
+                     + json.dumps(ctrl.describe(), default=str)[-3000:])
+            time.sleep(0.2)
+
+    def bitwise(replica) -> bool:
+        base = f"http://127.0.0.1:{replica.port()}"
+
+        def post(job):
+            route, j = job
+            out, _h = http_json(
+                f"{base}/project/{route}",
+                json.dumps({"genotypes": queries[j].tolist()}).encode(),
+                timeout=600)
+            return job, np.asarray(out["coords"], np.float32)
+
+        jobs = [(r, j) for r in routes for j in range(len(queries))]
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            got = dict(pool.map(post, jobs))
+        return all(np.array_equal(got[(r, j)], want[r][j:j + 1])
+                   for r, j in jobs)
+
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        ctrl.start()
+        res["ready_s"] = step_until(lambda: ctrl.ready_count() == 2,
+                                    "both replicas ready")
+        res["rows_before"] = [bitwise(r) for r in ctrl.replicas()]
+        victim = ctrl.replicas()[0]
+        time.sleep(1.0)  # one live flush of the victim's ring
+        t_kill = time.perf_counter()
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        res["detect_s"] = step_until(lambda: any(
+            d["action"] == "respawn" for d in ctrl.describe()["decisions"]),
+            "a respawn decision")
+        res["respawn_ready_s"] = step_until(
+            lambda: ctrl.ready_count() == 2, "the respawned replica ready")
+        respawned = [r for r in ctrl.replicas() if r.generation == 1]
+        res["rows_after"] = [bitwise(r) for r in respawned]
+        res["kill_to_bitwise_s"] = time.perf_counter() - t_kill
+        res["wall_s"] = time.perf_counter() - t0
+    finally:
+        ctrl.close()
+        for r in spawned:
+            r.kill()
+    desc = ctrl.describe()
+    import torch
+
+    res.update(
+        incidents=[(i["who"], i["kind"]) for i in desc["incidents"]],
+        decisions=[(d["who"], d["action"]) for d in desc["decisions"]],
+        spawned=[r.argv for r in spawned],
+        generations=[(r.name, r.generation) for r in spawned],
+        rounds=desc["rounds"], apps_max=max(apps), apps_min=min(apps),
+        cuda_initialized=torch.cuda.is_initialized())
+    with open(cfg["result"], "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def controller_phase(cli_main, launch_counters: dict, card: str,
+                     files: dict, tmp: str) -> dict:
+    """Phase 47: the fleet controller on the card, in a process of its
+    own (:func:`controller_process`) over two ``ProcessReplica`` serve
+    children of phase 43's manifest (an ``slos`` block added): both
+    answer phase 43's rows bitwise, one is SIGKILLed and respawned and
+    answers bitwise again; then the workdir through ``telemetry
+    timeline`` and ``telemetry stitch --fleet``. Returns the launches by
+    kernel of the phase in this process and K1's exported by the
+    children."""
+    from spark_examples_tpu_torch.core import telemetry
+
+    fleet = files["fleet"]
+    work = os.path.join(tmp, "fleet47")
+    os.makedirs(work)
+    manifest = os.path.join(tmp, "fleet47.json")
+    with open(manifest, "w") as f:
+        json.dump({**fleet["doc"], "slos": CONTROLLER_SLOS}, f)
+    queries = os.path.join(tmp, "queries47.npy")
+    np.save(queries, fleet["queries"])
+    rows = os.path.join(tmp, "rows47.npz")
+    np.savez(rows, **fleet["rows"])
+    cfg = {"workdir": work, "manifest": manifest, "queries": queries,
+           "rows": rows, "device": DEVICE, "budget": fleet["budget"],
+           "panel_bytes": fleet["panel_bytes"],
+           "result": os.path.join(tmp, "controller47.json")}
+    cfg_path = os.path.join(tmp, "controller47_cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    for mod in launch_counters.values():
+        mod.launches = 0
+    apps_before = compute_apps()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         "chip_smoke.controller_process(sys.argv[1]))", cfg_path],
+        cwd=here, capture_output=True, text=True,
+        timeout=4 * CONTROLLER_WAIT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"controller process exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    with open(cfg["result"]) as f:
+        res = json.load(f)
+
+    # The workdir through the CLI: the timeline and the fleet stitch.
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc_tl = cli_main(["telemetry", "timeline", "--path", work])
+    timeline = json.loads(out.getvalue().strip().splitlines()[-1])
+    timeline_rows = [line for line in err.getvalue().splitlines()
+                     if " round " in line]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc_st = cli_main(["telemetry", "stitch", "--fleet", "--path", work])
+    stitch = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(stitch["output"]) as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    slot_blocks = {e["pid"] // 1_000_000 for e in events
+                   if e.get("ph") != "M" and e["pid"] < 999_999_998}
+    markers = [e for e in events if e.get("cat") == "controller"
+               and e.get("ph") == "i"]
+    launches = {k: mod.launches for k, mod in launch_counters.items()}
+    # K1's launches in the children, as each generation exported them.
+    child_k1 = 0
+    for slot in ("replica-0", "replica-1"):
+        for att in sorted(os.listdir(os.path.join(work, slot))):
+            path = os.path.join(work, slot, att, "rank0", "metrics.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    child_k1 += int(json.load(f)["counters"].get(
+                        "gram.fused_blocks", 0))
+    devices = [argv[argv.index("--device") + 1] for argv in res["spawned"]]
+    checks = {
+        "both replicas answered phase 43's rows bitwise":
+            res["rows_before"] == [True, True],
+        "a crash incident, then a respawn decision":
+            ["replica-0", "crash"] in res["incidents"]
+            and ["replica-0", "respawn"] in res["decisions"],
+        "the respawned replica answered bitwise": res["rows_after"] == [True],
+        f"3 children spawned, each with --device {DEVICE}":
+            len(devices) == 3 and set(devices) == {DEVICE},
+        "controller.json holds the crash incident": any(
+            i.get("kind") == "crash" for i in json.load(open(os.path.join(
+                work, "controller.json")))["incidents"]),
+        "telemetry timeline printed rows": rc_tl == 0 and len(
+            timeline_rows) > 0 and timeline["rounds"] == res["rounds"],
+        "telemetry stitch --fleet: one pid block per slot": rc_st == 0
+            and stitch["slots"] == ["replica-0", "replica-1"]
+            and slot_blocks == {0, 1},
+        "telemetry stitch --fleet: a controller marker": len(markers) >= 1
+            and stitch["incident_markers"] >= 1,
+        "the controller holds no CUDA context (never more processes on "
+        "the card than this script and two children)":
+            not res["cuda_initialized"]
+            and res["apps_max"] <= apps_before + 2,
+        "K1 launches == 0 (here and in the children)":
+            not any(launches.values()) and child_k1 == 0,
+    }
+    if not all(checks.values()):
+        fail("fleet controller: " + ", ".join(
+            k for k, v in checks.items() if not v) + f"; {res}")
+    print(f"fleet controller over 2 process replicas (serve --fleet "
+          f"--device {DEVICE}, 3 routes, slos) [{card}]: both ready in "
+          f"{res['ready_s']:.3f} s; SIGKILL -> respawn decision in "
+          f"{res['detect_s']:.3f} s, respawned replica ready "
+          f"{res['respawn_ready_s']:.3f} s later, kill to bitwise rows "
+          f"{res['kill_to_bitwise_s']:.3f} s; {res['rounds']} control "
+          f"rounds; processes on the card {res['apps_min']}-"
+          f"{res['apps_max']} (this script's {apps_before} before); "
+          f"stitch {stitch['events']} events, {stitch['incident_markers']} "
+          f"incident marker(s); timeline {timeline['rounds']} rounds, "
+          f"{timeline['markers']} markers; controller process wall "
+          f"{wall:.3f} s; "
+          + ", ".join(f"{k}: ok" for k in checks))
+    telemetry.reset()
+    return {"fleet controller, 2 process replicas": launches,
+            "fleet controller, the children (exported gram.fused_blocks)":
+            {"packed_gram": child_k1}}
 
 
 def flip_file(path: str) -> None:
@@ -3630,9 +4117,16 @@ def main() -> int:
             cli_main, launch_counters, card, files, tmp))
         print(f"phases 41-44 took {time.perf_counter() - phases_t0:.1f} s "
               f"[{card}]")
+        phases_t0 = time.perf_counter()
+        new_paths.update(backend_phases(cli_main, launch_counters, card,
+                                        tmp))
+        new_paths.update(controller_phase(cli_main, launch_counters, card,
+                                          files, tmp))
+        print(f"phases 45-47 took {time.perf_counter() - phases_t0:.1f} s "
+              f"[{card}]")
 
-    # -- 45. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-44 took "
+    # -- 48. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-47 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",

@@ -7,7 +7,10 @@ ported paths read, plus ``--device {cuda,cpu}`` (default cuda; a missing
 card raises). Every job command takes the telemetry flags
 (``--telemetry-dir``, ``--trace-events``, ``--trace-sample``,
 ``--telemetry-flush-s``, ``--live-port``) and ``--trace-dir``, a
-``torch.profiler`` capture of the whole job.
+``torch.profiler`` capture of the whole job, and ``--debug-nans`` (a NaN
+check at each phase boundary). ``--backend cpu-reference`` runs
+similarity, pcoa and pca on the host NumPy oracle instead of the device
+route (``--backend jax-tpu``, the JAX package's name for it).
 
     python -m spark_examples_tpu_torch pcoa --n-samples 2504 \\
         --n-variants 100000 --metric ibs --num-pc 10 --output-path coords.tsv
@@ -60,6 +63,10 @@ card raises). Every job command takes the telemetry flags
     python -m spark_examples_tpu_torch telemetry stitch --path tel/
     python -m spark_examples_tpu_torch serve --fleet fleet.json \\
         --port 8777 --fleet-budget-mb 512
+    python -m spark_examples_tpu_torch pcoa --backend cpu-reference
+    python -m spark_examples_tpu_torch telemetry timeline --path fleetdir/
+    python -m spark_examples_tpu_torch telemetry stitch --fleet \\
+        --path fleetdir/     # a fleet controller's workdir (fleet/)
 
 ``--supervise`` re-invokes the command as a watched child and restarts
 it on a crash, hang or stall (it resumes from its checkpoint); the
@@ -211,6 +218,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    "50 block-periods of the job's own reported block "
                    "p95")
     c = p.add_argument_group("compute")
+    c.add_argument("--backend", default="jax-tpu",
+                   choices=list(config.BACKENDS),
+                   help="jax-tpu (the JAX package's name, kept so its "
+                   "command lines carry over) = this package's device "
+                   "route on --device: the CUDA kernels on a card; "
+                   "cpu-reference = the NumPy/SciPy oracle on the host "
+                   "(float64 counts, scipy Bray-Curtis), the measured "
+                   "stand-in for the Spark MLlib baseline; --device is "
+                   "still resolved")
     c.add_argument("--device", default="cuda", choices=list(DEVICES),
                    help="where the job runs; cuda raises when no card is "
                    "visible")
@@ -315,6 +331,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="capture a torch.profiler trace of the job into "
                    "this directory (a Chrome trace: host activity, and "
                    "the card's kernels on --device cuda)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail loudly (FloatingPointError naming the "
+                   "phase) when finalize, distance, centering, eigh, the "
+                   "sketch or a served batch produces a NaN, instead of "
+                   "emitting NaN coordinates; checked at those phase "
+                   "boundaries, not at every operation (one device sync "
+                   "each; off, none)")
 
 
 def _add_ref_source(p: argparse.ArgumentParser) -> None:
@@ -366,6 +389,7 @@ def _job_from_args(args) -> JobConfig:
             store_replicas=list(args.store_replicas),
         ),
         compute=ComputeConfig(
+            backend=args.backend,
             metric=args.metric,
             braycurtis_method=args.braycurtis_method,
             braycurtis_levels=args.braycurtis_levels,
@@ -574,19 +598,31 @@ def main(argv: list[str] | None = None) -> int:
         "(attempt<a>/rank<r>/trace.jsonl from supervised restarts, "
         "rank<r>/ otherwise) into ONE Perfetto-loadable session trace "
         "on a shared wall-clock timeline, with the supervisor's "
-        "crash/hang/stall incidents as restart markers. The verb "
-        "`timeline` and `stitch --fleet` read the fleet controller's "
-        "files and are not yet ported",
+        "crash/hang/stall incidents as restart markers. `telemetry "
+        "timeline --path <dir|file>`: render the fleet controller's "
+        "timeline.jsonl ring (route p99 / queue depth / replica counts "
+        "with incident and decision markers interleaved)",
     )
     p_tel.add_argument("verb", choices=["stitch", "timeline"],
                        help="maintenance action")
     p_tel.add_argument("--path", required=True,
-                       help="the --telemetry-dir of the job to stitch")
+                       help="stitch: the --telemetry-dir of the job (or, "
+                       "with --fleet, the fleet controller's workdir); "
+                       "timeline: the controller's workdir or its "
+                       "timeline.jsonl")
     p_tel.add_argument("--output", default=None,
                        help="stitched trace path (default: "
-                       "<path>/stitched_trace.jsonl)")
+                       "<path>/stitched_trace.jsonl, or "
+                       "<path>/stitched_fleet_trace.jsonl with --fleet)")
     p_tel.add_argument("--fleet", action="store_true",
-                       help="stitch a fleet workdir (not yet ported)")
+                       help="stitch a fleet workdir: every replica "
+                       "slot's attempt/rank exports on one Perfetto "
+                       "timeline, one pid block per slot, controller "
+                       "incidents (controller.json + rotated .old) as "
+                       "global markers")
+    p_tel.add_argument("--last", type=int, default=30, metavar="N",
+                       help="timeline verb: rows rendered from the "
+                       "tail of the ring (default 30)")
     p_srv = sub.add_parser(
         "serve",
         help="long-lived online projection server: model + reference "
@@ -690,7 +726,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "coverage":
         return _run_coverage(args)
     if args.command == "telemetry":
-        return _run_telemetry_admin(args, parser)
+        return _run_telemetry_admin(args)
     if args.command == "pca" and args.metric != "shared-alt":
         parser.error(
             "pca computes the shared-alt similarity by definition; "
@@ -731,21 +767,33 @@ def _supervise(args, argv, job: JobConfig) -> int:
     )
 
 
-def _run_telemetry_admin(args, parser: argparse.ArgumentParser) -> int:
-    """``telemetry stitch``: merge a job's attempt/rank exports into one
-    trace and print the report as JSON; exit 0 iff something was read.
-    ``timeline`` and ``--fleet`` read the fleet controller's files and
-    are refused by name."""
-    from spark_examples_tpu_torch.core.stitch import StitchError, stitch
+def _run_telemetry_admin(args) -> int:
+    """The ``telemetry`` maintenance subcommand (``stitch`` — single job
+    or ``--fleet`` — and ``timeline``). Prints the report as JSON; exit 0
+    iff something was read."""
+    from spark_examples_tpu_torch.core.stitch import (
+        StitchError,
+        stitch,
+        stitch_fleet,
+    )
 
     if args.verb == "timeline":
-        parser.error("telemetry timeline is not yet ported to the PyTorch "
-                     "package (it reads the fleet controller's "
-                     "timeline.jsonl)")
+        return _run_telemetry_timeline(args)
     if args.fleet:
-        parser.error("telemetry stitch --fleet is not yet ported to the "
-                     "PyTorch package (it reads the fleet controller's "
-                     "per-slot exports and ledger)")
+        try:
+            report = stitch_fleet(args.path, output=args.output)
+        except StitchError as e:
+            print(f"telemetry stitch --fleet: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps(report, sort_keys=True))
+        print(
+            f"telemetry stitch --fleet: {report['events']} events "
+            f"from {len(report['slots'])} replica slot(s), "
+            f"{report['incident_markers']} incident marker(s) -> "
+            f"{report['output']} (open in https://ui.perfetto.dev)",
+            file=sys.stderr,
+        )
+        return 0
     try:
         report = stitch(args.path, output=args.output)
     except StitchError as e:
@@ -770,6 +818,73 @@ def _run_telemetry_admin(args, parser: argparse.ArgumentParser) -> int:
     return 0
 
 
+def _run_telemetry_timeline(args) -> int:
+    """``telemetry timeline --path <dir|file>``: the fleet flight
+    recorder's read side — route p99 / queue-depth / replica-count
+    history from the controller's timeline.jsonl ring, incident and
+    decision markers interleaved where they happened."""
+    import os
+
+    from spark_examples_tpu_torch.fleet.timeline import read_timeline
+
+    path = args.path
+    if os.path.isdir(path):
+        path = os.path.join(path, "timeline.jsonl")
+    records = read_timeline(path)
+    if not records:
+        print(f"telemetry timeline: no readable records in {path!r} "
+              "(run the fleet controller with a ledger/timeline path)",
+              file=sys.stderr)
+        return 1
+    rounds = [r for r in records if r.get("type") == "round"]
+    markers = [r for r in records if r.get("type") == "marker"]
+    routes: dict[str, dict] = {}
+    for rec in rounds:
+        for s in rec.get("slots", {}).values():
+            if not s.get("present"):
+                continue
+            for name, r in s.get("routes", {}).items():
+                agg = routes.setdefault(
+                    name, {"p99_max_ms": 0.0, "p99_last_ms": 0.0})
+                p99_ms = r.get("p99_s", 0.0) * 1e3
+                agg["p99_max_ms"] = max(agg["p99_max_ms"], p99_ms)
+                agg["p99_last_ms"] = p99_ms
+    report = {
+        "path": path,
+        "rounds": len(rounds),
+        "markers": len(markers),
+        "replicas_last": rounds[-1]["replicas"] if rounds else 0,
+        "ready_last": rounds[-1]["ready"] if rounds else 0,
+        "routes": {k: {kk: round(vv, 3) for kk, vv in v.items()}
+                   for k, v in sorted(routes.items())},
+        "marker_kinds": sorted({m.get("kind", "?") for m in markers}),
+    }
+    print(json.dumps(report, sort_keys=True))
+    t0 = records[0].get("t_unix", 0.0)
+    tail = sorted(records, key=lambda r: r.get("seq", 0))[-args.last:]
+    for rec in tail:
+        dt = rec.get("t_unix", t0) - t0
+        if rec.get("type") == "round":
+            slots = [s for s in rec.get("slots", {}).values()
+                     if s.get("present")]
+            p99 = max((s.get("p99_s", 0.0) for s in slots), default=0.0)
+            depth = sum(s.get("queue_interactive", 0)
+                        + s.get("queue_batch", 0) for s in slots)
+            shed = max((s.get("shed_rate", 0.0) for s in slots),
+                       default=0.0)
+            print(f"t+{dt:7.2f}s round {rec.get('round', 0):>4} "
+                  f"replicas={rec.get('replicas', 0)} "
+                  f"ready={rec.get('ready', 0)} "
+                  f"p99={p99 * 1e3:8.1f}ms depth={depth:>3} "
+                  f"shed={shed:6.1%}", file=sys.stderr)
+        else:
+            print(f"t+{dt:7.2f}s !! [{rec.get('kind', '?')}] "
+                  f"{rec.get('who', '?')}: "
+                  f"{str(rec.get('detail', ''))[:90]}",
+                  file=sys.stderr)
+    return 0
+
+
 def _observe(stack: contextlib.ExitStack, args, job: JobConfig) -> None:
     """Arm the job's observability on ``stack``: the ``--trace-dir``
     capture around everything, the supervised child's heartbeat (a
@@ -782,6 +897,9 @@ def _observe(stack: contextlib.ExitStack, args, job: JobConfig) -> None:
     )
 
     stack.enter_context(profiling.trace(args.trace_dir, job.compute.device))
+    if args.debug_nans:
+        profiling.set_debug_nans(True)
+        stack.callback(profiling.set_debug_nans, False)
     hb = maybe_start_heartbeat()
     if hb is not None:
         stack.callback(hb.stop)

@@ -13,6 +13,12 @@ from dataclasses import dataclass, field
 from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.core.device import DEVICES
 
+# Compute backends (--backend): the JAX package's names, so its command
+# lines carry over. "jax-tpu" is the port's device route (the job's
+# --device, the CUDA kernels on a card); "cpu-reference" is the NumPy /
+# SciPy oracle (utils/oracle.py), a host route chosen explicitly, never
+# a fallback.
+BACKENDS = ("jax-tpu", "cpu-reference")
 # Count-family contraction lowering (--gram-lowering): "reference" = the
 # plain unpack-then-contract path, "fused" = the packed CUDA kernel
 # (ops/packed_gram.py), "auto" = fused on a CUDA device for a packed
@@ -237,6 +243,7 @@ class IngestConfig:
 class ComputeConfig:
     """Compute-path knobs."""
 
+    backend: str = "jax-tpu"  # jax-tpu (the device route) | cpu-reference
     # None = the job's default (ibs; the pca job always uses shared-alt).
     metric: str | None = None
     braycurtis_method: str = "auto"
@@ -284,6 +291,9 @@ class ComputeConfig:
     minhash_bucket_cap: int = 64  # max samples per band bucket
 
     def __post_init__(self):
+        _check_enum("compute", "--backend", self.backend, BACKENDS,
+                    "jax-tpu = the accelerator path, cpu-reference = "
+                    "the NumPy/SciPy oracle")
         _check_enum("compute", "--gram-lowering", self.gram_lowering,
                     GRAM_LOWERINGS, "reference = plain unpack-then-contract, "
                     "fused = the packed CUDA kernel, auto = fused on CUDA")

@@ -46,6 +46,16 @@ more; only the ones the ported modules cross are here):
                             warm pool (``serve/pool.py``, ``serve/router.py``),
                             inside the ``fleet.stage`` span and the route's
                             breaker
+``controller.scrape``       per replica scrape in the fleet controller's watch
+                            loop (``fleet/controller.py``): an io_error
+                            blackholes /metrics, so the slot acts on its
+                            last-good snapshot marked stale until
+                            stale_scrapes consecutive failures declare the
+                            replica lost
+``controller.spawn``        per replica spawn (bootstrap, respawn, scale-up)
+                            in the fleet controller: an io_error is a
+                            spawn-failure cascade, which backs the slot off
+                            and, repeated, parks it behind the flap breaker
 ==========================  ================================================
 
 Env grammar (``;``-separated specs, ``:``-separated fields), read
@@ -91,6 +101,8 @@ SITES = (
     "trace.export",
     "supervisor.heartbeat",
     "fleet.stage",
+    "controller.scrape",
+    "controller.spawn",
 )
 
 # Exit code of the "kill" kind, so a test can tell an injected kill from

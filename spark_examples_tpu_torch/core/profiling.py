@@ -11,7 +11,8 @@ seconds) and every counter it adds, and reports its derived throughputs
 through :func:`telemetry.derive_throughputs`, the formula the exported
 ``metrics.json`` uses too. :func:`trace` (``--trace-dir``) captures a
 ``torch.profiler`` trace of a whole job, in which each phase is a named
-range (``phase.<name>``).
+range (``phase.<name>``). :func:`check_nans` is ``--debug-nans``: a NaN
+check at the job's phase boundaries.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import dataclasses
 import os
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from spark_examples_tpu_torch.core import telemetry
@@ -49,6 +51,43 @@ def hard_sync(tree):
     for d in devices:
         torch.cuda.synchronize(d)
     return tree
+
+
+# --debug-nans (set by the CLI): PyTorch has no counterpart of
+# jax_debug_nans, which traps the first NaN-producing primitive, so the
+# port checks what each phase produced instead.
+_DEBUG_NANS = False
+
+
+def set_debug_nans(on: bool) -> None:
+    global _DEBUG_NANS
+    _DEBUG_NANS = bool(on)
+
+
+def check_nans(phase: str, *trees) -> None:
+    """With ``--debug-nans``, raise ``FloatingPointError`` naming
+    ``phase`` when a floating tensor or array in ``trees`` holds a NaN
+    (NaN only, as ``jax_debug_nans``: an inf passes). The phases checked
+    are finalize, distance, centering, eigh, the sketch outputs and a
+    served batch. Off, it returns at once: no device synchronisation."""
+    if not _DEBUG_NANS:
+        return
+    for tree in trees:
+        if isinstance(tree, np.ndarray):
+            arrays = [tree]
+        elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            arrays = [getattr(tree, f.name) for f in dataclasses.fields(tree)
+                      if isinstance(getattr(tree, f.name), np.ndarray)]
+        else:
+            arrays = []
+        bad = [t for t in _tensors(tree)
+               if t.is_floating_point() and bool(torch.isnan(t).any())]
+        bad += [a for a in arrays if np.issubdtype(a.dtype, np.floating)
+                and bool(np.isnan(a).any())]
+        if bad:
+            raise FloatingPointError(
+                f"--debug-nans: NaN in the {phase} output "
+                f"{tuple(bad[0].shape)} {bad[0].dtype}")
 
 
 # Registry counter -> report key of the resilience incidents a report

@@ -31,8 +31,9 @@ directory into one Chrome-trace JSONL:
 Exposed as the ``telemetry stitch`` CLI verb (cli/main.py). The export
 layout and event keys are the JAX package's, so this stitcher reads
 either package's directories and the JAX package's reads this one's.
-The fleet-wide stitch (one track block per replica slot, the fleet
-controller's incidents) belongs with the fleet controller.
+:func:`stitch_fleet` (``telemetry stitch --fleet``) does the same for a
+fleet controller's workdir: one pid block per replica slot, the
+controller ledger's incidents as markers on a ``controller`` track.
 """
 
 from __future__ import annotations
@@ -44,11 +45,16 @@ import re
 from spark_examples_tpu_torch.core import telemetry
 
 SUPERVISOR_LEDGER = "supervisor.json"
+CONTROLLER_LEDGER = "controller.json"
 
 # pid remap: attempts land far apart so rank tracks can't collide
 # (rank counts are bounded by pod size, nowhere near 10k).
 _ATTEMPT_STRIDE = 10_000
+# Fleet mode: one pid block per replica slot, far above any
+# slot-internal attempt*stride+rank remap.
+_SLOT_STRIDE = 1_000_000
 _SUPERVISOR_PID = 999_999_999
+_CONTROLLER_PID = 999_999_998
 
 _RANK_RE = re.compile(r"^rank(\d+)$")
 _ATTEMPT_RE = re.compile(r"^attempt(\d+)$")
@@ -188,6 +194,134 @@ def stitch(base: str, output: str | None = None) -> dict:
         "run_ids": run_ids,
         "mixed_run_ids": len(run_ids) > 1,
     }
+
+
+def stitch_fleet(base: str, output: str | None = None) -> dict:
+    """Fleet mode: merge EVERY replica slot's attempt/rank exports
+    under ``base/<slot>/`` onto one Perfetto timeline — one pid block
+    per slot — with the controller ledger's incidents (current
+    generation plus the rotated ``controller.json.old``) as global
+    markers on a dedicated ``controller`` track.
+
+    This is the whole-fleet waterfall view: a request hedged across
+    two replicas shows both legs (same ``trace_id`` in the span args,
+    distinct span ids), and a kill/respawn incident marker sits at the
+    wall-clock instant the surviving leg's spans route around it."""
+    slots = []
+    try:
+        entries = sorted(os.listdir(base))
+    except OSError as e:
+        raise StitchError(f"cannot read fleet dir {base!r}: {e}") from e
+    for entry in entries:
+        full = os.path.join(base, entry)
+        if not os.path.isdir(full):
+            continue
+        exports = []
+        try:
+            for att, rank, rank_dir in _iter_exports(full):
+                meta, events = _load_export(rank_dir)
+                if att is None:
+                    att = int(meta.get("attempt", 0) or 0)
+                exports.append((att, rank, meta, events))
+        except StitchError:
+            continue
+        if exports:
+            exports.sort(key=lambda e: (e[0], e[1]))
+            slots.append((entry, exports))
+    if not slots:
+        raise StitchError(
+            f"no <slot>/rank<k> or <slot>/attempt<a>/rank<k> exports "
+            f"under {base!r} — is this a fleet workdir?")
+
+    run_ids = sorted({m.get("run_id")
+                      for _slot, exports in slots
+                      for _a, _r, m, _e in exports if m.get("run_id")})
+    epochs = [m.get("epoch_unix_s")
+              for _slot, exports in slots
+              for _a, _r, m, _e in exports
+              if isinstance(m.get("epoch_unix_s"), (int, float))]
+    epoch0 = min(epochs) if epochs else 0.0
+
+    markers = _controller_markers(base, epoch0)
+    counted = [0]
+
+    def _lines():
+        for slot_idx, (slot, exports) in enumerate(slots):
+            for att, rank, meta, events in exports:
+                pid = (slot_idx * _SLOT_STRIDE
+                       + att * _ATTEMPT_STRIDE + rank)
+                shift_us = (float(meta.get("epoch_unix_s", epoch0))
+                            - epoch0) * 1e6
+                yield json.dumps({
+                    "name": "process_name", "ph": "M", "pid": pid,
+                    "tid": 0, "ts": 0,
+                    "args": {"name":
+                             f"{slot} attempt {att} rank {rank}"}})
+                yield json.dumps({
+                    "name": "process_sort_index", "ph": "M", "pid": pid,
+                    "tid": 0, "ts": 0, "args": {"sort_index": pid}})
+                for ev in events:
+                    ev = dict(ev)
+                    ev["pid"] = pid
+                    ev["ts"] = float(ev.get("ts", 0.0)) + shift_us
+                    counted[0] += 1
+                    yield json.dumps(ev, default=str)
+        if markers:
+            yield json.dumps({
+                "name": "process_name", "ph": "M",
+                "pid": _CONTROLLER_PID, "tid": 0, "ts": 0,
+                "args": {"name": "controller"}})
+            for m in markers:
+                yield json.dumps(m, default=str)
+
+    out_path = output or os.path.join(base, "stitched_fleet_trace.jsonl")
+    telemetry._atomic_write_lines(out_path, _lines())
+    return {
+        "output": out_path,
+        "slots": [slot for slot, _e in slots],
+        "events": counted[0],
+        "incident_markers": len(markers),
+        "run_ids": run_ids,
+        "mixed_run_ids": len(run_ids) > 1,
+    }
+
+
+def _controller_markers(base: str, epoch0: float) -> list[dict]:
+    """Controller ledger incidents (current + rotated ``.old``
+    generation, deduplicated) -> global markers on the controller
+    track."""
+    incidents: list[dict] = []
+    seen: set[tuple] = set()
+    for name in (CONTROLLER_LEDGER + ".old", CONTROLLER_LEDGER):
+        try:
+            with open(os.path.join(base, name)) as f:
+                ledger = json.load(f)
+        except (OSError, ValueError):
+            continue
+        for inc in ledger.get("incidents", []):
+            key = (inc.get("t_unix"), inc.get("who"), inc.get("kind"),
+                   inc.get("detail"))
+            if key in seen:
+                continue
+            seen.add(key)
+            incidents.append(inc)
+    markers = []
+    for inc in incidents:
+        ts = max(0.0, (float(inc.get("t_unix", epoch0)) - epoch0) * 1e6)
+        kind = inc.get("kind", "incident")
+        markers.append({
+            "name": f"incident: {kind}",
+            "cat": "controller",
+            "ph": "i",
+            "s": "g",
+            "ts": ts,
+            "pid": _CONTROLLER_PID,
+            "tid": 0,
+            "args": {k: inc.get(k)
+                     for k in ("round", "who", "kind", "detail")},
+        })
+    markers.sort(key=lambda m: m["ts"])
+    return markers
 
 
 def _ledger_markers(base: str, epoch0: float) -> list[dict]:

@@ -636,6 +636,160 @@ NAMES: dict[str, tuple[str, str]] = {
         "top-k neighbor requests answered by the serving layer (the "
         "/neighbors endpoint and the in-process fleet.topk path)",
     ),
+    "controller.step": (
+        "span",
+        "one fleet-controller control round (fleet/controller.py): "
+        "watch every replica slot (crash/hang/stale-scrape "
+        "classification), run the autoscale rules, publish gauges, and "
+        "rewrite the atomic controller.json incident ledger",
+    ),
+    "controller.spawn": (
+        "span",
+        "one replica spawned by the fleet controller (bootstrap, "
+        "respawn after a loss, scale-up, or preemption respawn) "
+        "including its warm-set staging — the time-to-ready cost the "
+        "scale-up bench measures (args: slot, reason)",
+    ),
+    "controller.scrapes": (
+        "counter",
+        "successful replica /metrics (or in-process stats) scrapes by "
+        "the fleet controller — the denominator against "
+        "controller.scrape_stale for scrape-path health",
+    ),
+    "controller.scrape_stale": (
+        "counter",
+        "controller scrape attempts that failed (blackholed endpoint, "
+        "parse error, injected controller.scrape fault): the slot "
+        "keeps acting on its last-good snapshot marked stale until "
+        "stale_scrapes consecutive failures declare the replica lost",
+    ),
+    "controller.respawns": (
+        "counter",
+        "replicas respawned by the controller after a loss (crash/"
+        "hang/stale) or preemption — each lands after the slot's "
+        "bounded exponential backoff, and too many inside the flap "
+        "window park the slot instead",
+    ),
+    "controller.scale_ups": (
+        "counter",
+        "replicas added by the autoscale rule: sustained interactive "
+        "queue depth per ready replica (or worst-route p99) over "
+        "pressure_rounds consecutive control rounds",
+    ),
+    "controller.retires": (
+        "counter",
+        "replicas retired by the autoscale rule after idle_rounds "
+        "consecutive all-idle rounds — SIGTERM drain within "
+        "--drain-timeout-s, hedging covers the window",
+    ),
+    "controller.preemptions": (
+        "counter",
+        "graceful preemptions handled (preempt(): drain within budget "
+        "+ immediate respawn, no backoff — the platform's fault, not "
+        "the replica's)",
+    ),
+    "controller.incidents": (
+        "counter",
+        "incidents appended to the controller's atomic controller.json "
+        "ledger (crash/hang/stale losses, spawn failures, flap-breaker "
+        "trips, dirty drains, placement overflow)",
+    ),
+    "controller.ledger_rotations": (
+        "counter",
+        "full-ledger generations rotated to controller.json.old "
+        "(atomic tmp+rename) before the bounded incident/decision "
+        "deques started dropping their oldest entries — history is "
+        "archived, never silently discarded",
+    ),
+    "controller.replicas": (
+        "gauge",
+        "replica slots currently up under the fleet controller "
+        "(spawned and not lost/retired/parked) — the autoscale loop's "
+        "actuated value, between min_replicas and max_replicas",
+    ),
+    "controller.ready": (
+        "gauge",
+        "up replicas whose latest fresh scrape reported ready (worker "
+        "alive, not draining, warm set staged — the /readyz rule); "
+        "ready < replicas marks a warmup or degradation window",
+    ),
+    "controller.flap_breaker_open": (
+        "gauge",
+        "replica slots parked by the flap breaker (more than "
+        "flap_max_respawns respawns inside flap_window_s): a crash-"
+        "looping slot stops burning spawns until an operator "
+        "reset_flap_breaker() — nonzero demands attention",
+    ),
+    "timeline.rounds": (
+        "counter",
+        "control rounds persisted into the fleet timeline ring "
+        "(fleet/timeline.py timeline.jsonl — one line per scrape round "
+        "with every slot's ReplicaSnapshot folded in)",
+    ),
+    "timeline.markers": (
+        "counter",
+        "replica lifecycle incidents (crash/respawn/preempt/park/"
+        "scale) aligned onto the fleet timeline as markers",
+    ),
+    "timeline.compactions": (
+        "counter",
+        "timeline ring compactions: the append-only timeline.jsonl hit "
+        "its size bound and was atomically rewritten (tmp+rename) with "
+        "only the newest rounds kept",
+    ),
+    "timeline.write_errors": (
+        "counter",
+        "timeline appends/compactions that failed (full disk, injected "
+        "trace.export fault) — absorbed, the controller keeps stepping "
+        "and the last-good timeline stays readable",
+    ),
+    "timeline.bytes": (
+        "gauge",
+        "current byte size of the fleet timeline ring file (bounded by "
+        "max_bytes via compaction)",
+    ),
+    "timeline.fleet_p99_s": (
+        "gauge",
+        "fleet-wide served p99 folded across every fresh replica "
+        "snapshot this round (Histogram.merge over per-slot series; "
+        "served as fleet_timeline_fleet_p99_s on GET /fleet/metrics)",
+    ),
+    "timeline.fleet_queue_depth": (
+        "gauge",
+        "fleet-wide interactive+batch admission queue depth summed "
+        "across every fresh replica snapshot this round",
+    ),
+    "timeline.fleet_shed_rate": (
+        "gauge",
+        "worst per-replica shed rate across the fleet this round (the "
+        "load-shedding hot spot, not the average)",
+    ),
+    "timeline.route.*": (
+        "gauge",
+        "cross-replica folded per-route series, one gauge per "
+        "timeline.route.<name>.<signal>: p99_s (max across replicas), "
+        "queue_depth (sum), staged (replicas holding the panel warm) — "
+        "the fleet-wide view GET /fleet/metrics serves",
+    ),
+    "slo.breaches": (
+        "counter",
+        "SLO burn-rate breaches recorded by the controller's evaluator "
+        "(fast AND slow windows both burning): each lands as a ledger "
+        "incident and registers scale-up pressure in the same round",
+    ),
+    "slo.ok": (
+        "gauge",
+        "1 while no declared SLO is breaching, 0 while any objective's "
+        "fast+slow burn windows are both over budget",
+    ),
+    "slo.*": (
+        "gauge",
+        "per-objective burn-rate gauges, one per "
+        "slo.<route>.<class>.<window>: fast_burn / slow_burn (observed "
+        "violation fraction over the window divided by the objective's "
+        "error budget; >= 1.0 means the budget is burning at alert "
+        "rate) and breach (1 while both windows burn)",
+    ),
 }
 
 _FAMILIES = tuple(n[:-1] for n in NAMES if n.endswith(".*"))  # "phase."

@@ -30,7 +30,13 @@ makes it top-k-able (``neighbors/``): which statistics to accumulate
 per candidate pair, and how they map to similarities.
 
 Each finalize is the counterpart of the JAX package's registration
-(``kernels/builtin.py``), whose ``np_finalize`` twins are the spec.
+(``kernels/builtin.py``), whose ``np_finalize`` twins are the spec. A
+gram kernel also declares its own NumPy twin (``np_finalize``), the
+finalize of ``--backend cpu-reference`` (``utils/oracle.py``): a count
+or float kernel that omits it is refused at registration, as in the
+JAX package. A float kernel whose statistics are not additive raw
+products also declares its whole-matrix host route
+(``oracle_similarity``: grm's in-matrix allele frequencies).
 """
 
 from __future__ import annotations
@@ -113,6 +119,12 @@ class Kernel:
     stats: tuple[str, ...] = ()
     max_increment: int | None = None
     finalize: Callable | None = None  # stats -> {"similarity", "distance"}
+    # The NumPy twin of ``finalize`` on float64 statistics
+    # (--backend cpu-reference).
+    np_finalize: Callable | None = None
+    # float family: (N, V) int8 table -> (N, N) float64 similarity, the
+    # host oracle's whole-matrix route.
+    oracle_similarity: Callable | None = None
     # Inputs are genotype dosages by definition, so pack_stream="auto"
     # ships them 2-bit packed.
     pack_auto: bool = True
@@ -233,6 +245,89 @@ def _grm_finalize(stats):
     return {"similarity": g, "distance": _similarity_to_distance(g)}
 
 
+def _np_gower(sim):
+    """NumPy twin of ``ops.distances.similarity_to_distance``: the Gower
+    transform ``d = sqrt(s_ii + s_jj - 2 s_ij)`` clamped at 0, one
+    definition for every ``np_finalize`` below."""
+    import numpy as np
+
+    diag = np.diagonal(sim)
+    return np.sqrt(np.maximum(diag[:, None] + diag[None, :] - 2 * sim, 0.0))
+
+
+def _ibs_np_finalize(acc):
+    import numpy as np
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        dist = np.where(acc["m"] > 0, acc["d1"] / (2.0 * acc["m"]), 0.0)
+    return {"similarity": 1.0 - dist, "distance": dist}
+
+
+def _ibs2_np_finalize(acc):
+    import numpy as np
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sim = np.where(acc["m"] > 0, acc["ibs2"] / acc["m"], 1.0)
+    return {"similarity": sim, "distance": 1.0 - sim}
+
+
+def _shared_alt_np_finalize(acc):
+    return {"similarity": acc["s"], "distance": _np_gower(acc["s"])}
+
+
+def _euclidean_np_finalize(acc):
+    import numpy as np
+
+    d = np.sqrt(np.maximum(acc["e2"], 0.0))
+    return {"similarity": -d, "distance": d}
+
+
+def _dot_np_finalize(acc):
+    return {"similarity": acc["dot"], "distance": _np_gower(acc["dot"])}
+
+
+def _king_np_finalize(acc):
+    import numpy as np
+
+    den = acc["hc"] + acc["hc"].T
+    with np.errstate(invalid="ignore", divide="ignore"):
+        phi = np.where(den > 0, (acc["hh"] - 2 * acc["opp"]) / den, 0.0)
+    np.fill_diagonal(phi, 0.5)  # self-kinship even with zero hets
+    return {"similarity": phi, "distance": np.maximum(0.5 - phi, 0.0)}
+
+
+def _jaccard_np_finalize(acc):
+    import numpy as np
+
+    s = acc["s"]
+    union = acc["sc"] + acc["sc"].T - s
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sim = np.where(union > 0, s / union, 1.0)
+    return {"similarity": sim, "distance": _np_gower(sim)}
+
+
+def _pc_invariant_np_finalize(acc):
+    import numpy as np
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sim = np.where(acc["m"] > 0,
+                       (acc["ibs2"] - acc["opp"]) / acc["m"], 1.0)
+    return {"similarity": sim, "distance": (1.0 - sim) / 2.0}
+
+
+def _grm_np_finalize(acc):
+    import numpy as np
+
+    g = acc["zz"] / np.maximum(acc["nvar"], 1.0)
+    return {"similarity": g, "distance": _np_gower(g)}
+
+
+def _grm_oracle(x):
+    from spark_examples_tpu_torch.utils import oracle
+
+    return oracle.naive_grm(x)
+
+
 def _grm_init(n, device):
     from spark_examples_tpu_torch.ops import gram
 
@@ -351,6 +446,35 @@ _REGISTRY: dict[str, Kernel] = {}
 
 
 def _register(kernel: Kernel) -> None:
+    """Add a kernel, refusing a half-declared one at import (the JAX
+    package's rule, ``kernels/base.py::register``): a gram kernel without
+    its NumPy twin would fail only when ``--backend cpu-reference`` runs
+    it."""
+    if kernel.name in _REGISTRY:
+        raise ValueError(f"kernel {kernel.name!r} is already registered")
+    if kernel.family not in ("count", "float", "table"):
+        raise ValueError(
+            f"kernel {kernel.name!r}: unknown family {kernel.family!r} "
+            "(count | float | table)"
+        )
+    if kernel.family == "count":
+        missing = [f for f in ("pieces", "stats", "finalize", "np_finalize")
+                   if not getattr(kernel, f)]
+        if kernel.max_increment is None:
+            missing.append("max_increment")
+        if missing:
+            raise ValueError(
+                f"count kernel {kernel.name!r} is missing {missing}")
+    if kernel.family == "float":
+        missing = [f for f in ("init", "update", "finalize", "np_finalize",
+                               "oracle_similarity")
+                   if getattr(kernel, f) is None]
+        if missing:
+            raise ValueError(
+                f"float kernel {kernel.name!r} is missing {missing}")
+    if kernel.family == "table" and kernel.table_runner is None:
+        raise ValueError(
+            f"table kernel {kernel.name!r} declares no table_runner")
     _REGISTRY[kernel.name] = kernel
 
 
@@ -362,6 +486,7 @@ _register(Kernel(
     stats=("m", "d1"),
     max_increment=2,  # yc with y <= 2
     finalize=_ibs_finalize,
+    np_finalize=_ibs_np_finalize,
     # NUM = 2m - d1 = sum_v c_i c_j (2 - |a - b|), a PSD kernel per
     # variant, over DEN = 2m (exactly rank-1 when no call is missing).
     sketch=DualSketch(
@@ -382,6 +507,7 @@ _register(Kernel(
     stats=("m", "ibs2"),
     max_increment=2,
     finalize=_ibs2_finalize,
+    np_finalize=_ibs2_np_finalize,
 ))
 _register(Kernel(
     name="shared-alt",
@@ -391,6 +517,7 @@ _register(Kernel(
     stats=("s",),
     max_increment=1,
     finalize=_shared_alt_finalize,
+    np_finalize=_shared_alt_np_finalize,
     sketch=FactorSketch(features=_shared_alt_features, pca_family=True),
 ))
 _register(Kernel(
@@ -401,6 +528,7 @@ _register(Kernel(
     stats=("hh", "opp", "hc"),
     max_increment=2,
     finalize=_king_finalize,
+    np_finalize=_king_np_finalize,
     pair=PairSpec(stats=("hh", "opp", "hcn", "hcr"), sim=_king_pair_sim),
 ))
 _register(Kernel(
@@ -411,6 +539,7 @@ _register(Kernel(
     stats=("s", "sc"),
     max_increment=2,  # the finalize's union sc + sc^T - s in int32
     finalize=_jaccard_finalize,
+    np_finalize=_jaccard_np_finalize,
     # NUM = intersection counts T1 T1^T (PSD); DEN = the union counts.
     sketch=DualSketch(
         operands=_jaccard_dual_operands,
@@ -429,6 +558,7 @@ _register(Kernel(
     stats=("m", "ibs2", "opp"),
     max_increment=2,
     finalize=_pc_invariant_finalize,
+    np_finalize=_pc_invariant_np_finalize,
 ))
 _register(Kernel(
     name="euclidean",
@@ -439,6 +569,7 @@ _register(Kernel(
     max_increment=4,  # qc/yy at dosage values; m^2 in general
     value_scaled_budget=True,
     finalize=_euclidean_finalize,
+    np_finalize=_euclidean_np_finalize,
     sketch=FactorSketch(features=_raw_value_features),
 ))
 _register(Kernel(
@@ -450,12 +581,15 @@ _register(Kernel(
     max_increment=4,
     value_scaled_budget=True,
     finalize=_dot_finalize,
+    np_finalize=_dot_np_finalize,
     sketch=FactorSketch(features=_raw_value_features),
 ))
 _register(Kernel(
     name="grm",
     family="float",
     finalize=_grm_finalize,
+    np_finalize=_grm_np_finalize,
+    oracle_similarity=_grm_oracle,
     init=_grm_init,
     update=_grm_update,
     sketch=FactorSketch(features=_grm_features, uses_nvar=True),

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from spark_examples_tpu_torch.core.profiling import check_nans
 from spark_examples_tpu_torch.ops.centering import center_matrix
 
 
@@ -27,8 +28,10 @@ class PCAResult:
 def fit_pca(similarity: torch.Tensor, k: int = 10) -> PCAResult:
     c = center_matrix(similarity)
     c = 0.5 * (c + c.T)  # guard symmetry against accumulation round-off
+    check_nans("centering", c)
     vals, vecs = torch.linalg.eigh(c)
     order = torch.argsort(-torch.abs(vals), stable=True)[:k]
     vals_k = vals[order]
     coords = vecs[:, order] * vals_k[None, :]  # projection C v = lambda v
+    check_nans("eigh", vals_k, coords)
     return PCAResult(coords, vals_k)

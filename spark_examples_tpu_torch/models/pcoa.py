@@ -12,6 +12,7 @@ from spark_examples_tpu_torch.core.config import (
     EIGH_ITERS_DEFAULT,
     EIGH_OVERSAMPLE_DEFAULT,
 )
+from spark_examples_tpu_torch.core.profiling import check_nans
 from spark_examples_tpu_torch.ops.centering import gower_center
 from spark_examples_tpu_torch.ops.eigh import (
     coords_from_eigpairs,
@@ -41,6 +42,7 @@ def fit_pcoa(
     package's (whose probes come from ``jax.random.key(0)``); pass
     ``probes`` to fix them."""
     b = gower_center(distance)
+    check_nans("centering", b)
     trace = torch.trace(b)  # total inertia = sum of all eigenvalues
     if method == "dense":
         vals, vecs = top_k_eigh(b, k)
@@ -49,6 +51,7 @@ def fit_pcoa(
                                      oversample=oversample, iters=iters)
     else:
         raise ValueError(f"unknown eigh method {method!r}")
+    check_nans("eigh", vals, vecs)
     coords = coords_from_eigpairs(vals, vecs)
     prop = torch.clamp(vals, min=0.0) / torch.clamp(trace, min=1e-30)
     return PCoAResult(coords, vals, prop)

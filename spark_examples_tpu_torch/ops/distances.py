@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from spark_examples_tpu_torch import kernels
+from spark_examples_tpu_torch.core.profiling import check_nans
 from spark_examples_tpu_torch.ops import gram
 
 
@@ -22,7 +23,9 @@ def finalize(acc: dict, metric: str) -> dict[str, torch.Tensor]:
             "family kernel); gram-finalizable kernels: "
             f"{' | '.join(kernels.gram_names())}"
         )
-    return kern.finalize(gram.combine(acc, metric))
+    out = kern.finalize(gram.combine(acc, metric))
+    check_nans("finalize", out)
+    return out
 
 
 def similarity_to_distance(s: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,12 @@
 - :func:`variants_pca_job` — the flagship job: shared-alt similarity
   -> centered PCA, on the device.
 
+``--backend cpu-reference`` runs both coordinates jobs on the host
+oracle (``utils/oracle.py``): the similarity job's float64 route, then
+the oracle's classical MDS (pcoa) or the MLlib covariance route (pca).
+The sketch rungs, like streaming, run on the device route only, and say
+so.
+
 Both coordinates jobs take the sketch rungs of the accuracy ladder
 (``--solver sketch|corrected``, ``solvers/``): streamed (N, rank) state
 and a Nystrom or Rayleigh solve, no N x N anywhere. With
@@ -35,13 +41,18 @@ from spark_examples_tpu_torch.core.config import (
     JobConfig,
 )
 from spark_examples_tpu_torch.core.device import resolve_device
-from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
+from spark_examples_tpu_torch.core.profiling import (
+    PhaseTimer,
+    check_nans,
+    hard_sync,
+)
 from spark_examples_tpu_torch.models.pca import fit_pca
 from spark_examples_tpu_torch.models.pcoa import fit_pcoa
 from spark_examples_tpu_torch.ops.distances import similarity_to_distance
 from spark_examples_tpu_torch.ops.eigh import eigh_flops
 from spark_examples_tpu_torch.pipelines import io as pio
 from spark_examples_tpu_torch.pipelines import runner
+from spark_examples_tpu_torch.utils import oracle
 
 
 @dataclass
@@ -82,6 +93,8 @@ def pcoa_job(job: JobConfig, source=None, matrix_path: str | None = None,
     with runner.job_source(job, source, timer) as source:
         if cfg.solver != "exact":
             return _sketch_route(job, source, timer, kind="pcoa")
+        if cfg.backend == "cpu-reference":
+            return _pcoa_host(job, source, timer)
         if table is not None:
             dist = table(job, source, timer)
             sample_ids, n_variants = source.sample_ids, source.n_variants
@@ -105,6 +118,13 @@ def pcoa_job(job: JobConfig, source=None, matrix_path: str | None = None,
                         proportion=res.proportion_explained.cpu().numpy())
 
 
+def _host(matrix) -> np.ndarray:
+    """A device tensor, or the host oracle's array, as a host array."""
+    if isinstance(matrix, np.ndarray):
+        return matrix
+    return matrix.cpu().numpy()
+
+
 def _maybe_save_model(job: JobConfig, dist, coords, vals,
                       sample_ids) -> None:
     """Persist the fitted PCoA embedding when the job asks for it; the
@@ -113,7 +133,7 @@ def _maybe_save_model(job: JobConfig, dist, coords, vals,
         return
     from spark_examples_tpu_torch.pipelines.project import save_model
 
-    save_model(job.model_path, coords, vals, dist.cpu().numpy(),
+    save_model(job.model_path, coords, vals, _host(dist),
                sample_ids, job.compute.metric or "ibs",
                solver=job.compute.solver)
 
@@ -125,8 +145,22 @@ def _maybe_save_pca_model(job: JobConfig, sim, coords, vals,
         return
     from spark_examples_tpu_torch.pipelines.project import save_pca_model
 
-    save_pca_model(job.model_path, coords, vals, sim.cpu().numpy(),
+    save_pca_model(job.model_path, coords, vals, _host(sim),
                    sample_ids, solver=job.compute.solver)
+
+
+def _pcoa_host(job: JobConfig, source, timer) -> CoordsOutput:
+    """``--backend cpu-reference``: the oracle's host similarity job,
+    then its float64 classical MDS (``oracle.pcoa``); nothing touches
+    the device."""
+    sim = runner.run_similarity(job, source=source)
+    sim.timer.phases.update(timer.phases)  # ingest_setup
+    with sim.timer.phase("eigh"):
+        coords, vals, prop = oracle.pcoa(sim.distance, k=job.compute.num_pc)
+    _maybe_save_model(job, sim.distance, coords, vals, sim.sample_ids)
+    return _emit_coords(job, sim.sample_ids, coords, vals, sim.timer,
+                        sim.n_variants, method="dense",
+                        eigh_iters=job.compute.eigh_iters, proportion=prop)
 
 
 def _maybe_save_factorized_model(job: JobConfig, kind: str, res) -> None:
@@ -183,6 +217,14 @@ def _pcoa_from_matrix(job: JobConfig, matrix_path: str,
     if kind not in ("distance", "similarity"):
         raise ValueError(
             f"matrix_kind must be distance|similarity, got {kind!r}")
+    if cfg.backend == "cpu-reference":
+        timer = PhaseTimer()
+        dist = m if kind == "distance" else oracle.gower_f32(m)
+        with timer.phase("eigh"):
+            coords, vals, prop = oracle.pcoa(dist, k=cfg.num_pc)
+        return _emit_coords(job, sample_ids, coords, vals, timer, 0,
+                            method="dense", eigh_iters=cfg.eigh_iters,
+                            proportion=prop)
     mat = torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(device)
     dist = mat if kind == "distance" else similarity_to_distance(mat)
     timer = PhaseTimer()
@@ -205,6 +247,7 @@ def _sketch_route(job: JobConfig, source, timer, kind: str) -> CoordsOutput:
     from spark_examples_tpu_torch.solvers import run_sketch_solve
 
     res = run_sketch_solve(job, source, timer, kind=kind)
+    check_nans("sketch", res)
     _maybe_save_factorized_model(job, kind, res)
     return _emit_coords(job, res.sample_ids, res.coords, res.eigenvalues,
                         timer, res.n_variants, method="sketch",
@@ -232,6 +275,8 @@ def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
         compute=dataclasses.replace(job.compute, metric="shared-alt"))
     timer = PhaseTimer()
     with runner.job_source(job, source, timer) as source:
+        if job.compute.backend == "cpu-reference":
+            return _pca_host(job, source, timer)
         if job.compute.solver != "exact":
             return _sketch_route(job, source, timer, kind="pca")
         grun = runner.run_gram(job, source, timer)
@@ -245,6 +290,26 @@ def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
     _maybe_save_pca_model(job, sim, coords, vals, grun.sample_ids)
     return _emit_coords(job, grun.sample_ids, coords, vals, timer,
                         grun.n_variants, method="dense")
+
+
+def _pca_host(job: JobConfig, source, timer) -> CoordsOutput:
+    """``--backend cpu-reference``: the oracle's shared-alt similarity,
+    then the reference's MLlib route (center, column covariance,
+    eigenvectors, projections) with its signed matrix eigenvalues."""
+    if job.compute.solver != "exact":
+        raise ValueError(
+            "--solver sketch/corrected runs on the jax backend; the CPU "
+            "oracle implements the dense reference route only"
+        )
+    sim = runner.run_similarity(job, source=source)
+    sim.timer.phases.update(timer.phases)  # ingest_setup
+    with sim.timer.phase("eigh"):
+        coords, vals = oracle.pca_mllib_route(
+            sim.similarity, k=job.compute.num_pc, return_values=True)
+    _maybe_save_pca_model(job, sim.similarity, coords, vals,
+                          sim.sample_ids)
+    return _emit_coords(job, sim.sample_ids, coords, vals, sim.timer,
+                        sim.n_variants, method="dense")
 
 
 def _emit_coords(job: JobConfig, sample_ids, coords, vals, timer,

@@ -12,6 +12,13 @@ pass of the sketch solver stream through one loop, :func:`run_pass`
 share the feed, the cursor and the checkpoint cadence, and the
 ``gram.block`` span of each block period (producer wait, copy, update,
 hooks and checkpoint) under the ``phase.gram`` span.
+
+``--backend cpu-reference`` routes a similarity through the NumPy
+oracle instead (``utils/oracle.py``): host blocks from
+``source.blocks()``, float64 products, the kernels' ``np_finalize``
+twins, scipy's Bray-Curtis. It touches no device; the job's
+``--device`` is still resolved, so a missing card fails as it does on
+the device route.
 """
 
 from __future__ import annotations
@@ -28,7 +35,11 @@ from spark_examples_tpu_torch.core import checkpoint as ckpt
 from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.core.config import IngestConfig, JobConfig
 from spark_examples_tpu_torch.core.device import resolve_device
-from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
+from spark_examples_tpu_torch.core.profiling import (
+    PhaseTimer,
+    check_nans,
+    hard_sync,
+)
 from spark_examples_tpu_torch.ingest.filters import FilteredSource
 from spark_examples_tpu_torch.ingest.ldprune import LdPruneSource
 from spark_examples_tpu_torch.ingest.packed import load_packed
@@ -43,6 +54,7 @@ from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
 from spark_examples_tpu_torch.ingest.vcf import VcfSource
 from spark_examples_tpu_torch.ops import braycurtis_kernel, distances, gram
 from spark_examples_tpu_torch.store import open_store
+from spark_examples_tpu_torch.utils import oracle
 
 
 def finalize_field(acc: dict, metric: str, field: str) -> torch.Tensor:
@@ -297,6 +309,8 @@ def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
             dist = table(job, source, timer).cpu().numpy()
             return SimilarityResult(1.0 - dist, dist, source.sample_ids,
                                     metric, timer, source.n_variants)
+        if job.compute.backend == "cpu-reference":
+            return _run_similarity_cpu(job, source, timer)
         g = run_gram(job, source, timer)
     with timer.phase("finalize"):
         out = hard_sync(distances.finalize(g.acc, metric))
@@ -304,6 +318,40 @@ def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
         dist = out["distance"].cpu().numpy()
     return SimilarityResult(sim, dist, g.sample_ids, metric, timer,
                             g.n_variants)
+
+
+def _run_similarity_cpu(job: JobConfig, source,
+                        timer: PhaseTimer) -> SimilarityResult:
+    """The host oracle's similarity (``--backend cpu-reference``, the
+    measured stand-in for the Spark MLlib baseline): float64 raw
+    products accumulated block by block from ``source.blocks()``, the
+    oracle's combine, the kernel's ``np_finalize``. A float kernel (grm)
+    takes its whole-matrix oracle instead (its allele frequencies need
+    the full table) and the f32 Gower transform of the JAX package's
+    route."""
+    resolve_device(job.compute.device)
+    metric = job.compute.metric or "ibs"
+    n = source.n_samples
+    kern = kernels.get(metric)
+    if kern.family == "float":
+        with timer.phase("gram"):
+            g = kern.oracle_similarity(
+                _materialize(source, job.ingest.block_variants))
+        return SimilarityResult(g, oracle.gower_f32(g), source.sample_ids,
+                                metric, timer, source.n_variants)
+    acc = {k: np.zeros((n, n)) for k in kern.pieces}
+    with timer.phase("gram"):
+        for block, _meta in source.blocks(job.ingest.block_variants):
+            prods = oracle.cpu_gram_products(block, kern.pieces)
+            for k in acc:
+                acc[k] += prods[k]
+            timer.add("gram_flops", kern.flops(n, block.shape[1]))
+    with timer.phase("finalize"):
+        out = oracle.cpu_finalize(
+            oracle.combine_products(acc, kern.stats), metric)
+    return SimilarityResult(out["similarity"], out["distance"],
+                            source.sample_ids, metric, timer,
+                            source.n_variants)
 
 
 def _materialize(source, block_variants: int) -> np.ndarray:
@@ -317,15 +365,22 @@ def braycurtis_distance(job: JobConfig, source,
     """The Bray-Curtis (N, N) distance, left on the job's device: the
     dense (N, F) table (the dosage matrix doubles as the count table;
     missing counts as absence), lowered by the resolved
-    ``--braycurtis-method``."""
+    ``--braycurtis-method``. Under ``--backend cpu-reference`` it is
+    scipy's float64 ``pdist`` on the host (a CPU tensor)."""
     cfg = job.compute
     device = resolve_device(cfg.device)
     method = distances.resolve_braycurtis_method(cfg.braycurtis_method,
                                                  device)
+    host = cfg.backend == "cpu-reference"
     with timer.phase("ingest"):
         x = np.maximum(_materialize(source, job.ingest.block_variants), 0)
-        # int8 over the link, widened on the device.
-        table = hard_sync(torch.from_numpy(x).to(device).to(torch.float32))
+        if not host:
+            # int8 over the link, widened on the device.
+            table = hard_sync(
+                torch.from_numpy(x).to(device).to(torch.float32))
+    if host:
+        with timer.phase("distance"):
+            return torch.from_numpy(oracle.cpu_braycurtis(x))
     with timer.phase("distance"):
         if method == "matmul":
             d = distances.braycurtis_matmul(table,
@@ -335,6 +390,7 @@ def braycurtis_distance(job: JobConfig, source,
         else:
             d = distances.braycurtis(table)
         d = hard_sync(d)
+    check_nans("distance", d)
     return d
 
 

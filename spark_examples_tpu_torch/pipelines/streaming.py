@@ -98,10 +98,14 @@ def _center(acc: dict, metric: str) -> torch.Tensor:
 
 def _check_streamable(cfg) -> None:
     """Raise unless the compute config can run the streaming route (the
-    JAX package's refusals; the port has no ``--backend``)."""
+    JAX package's refusals)."""
     if cfg.stream_refresh_blocks <= 0:
         raise ValueError(
             "incremental_pcoa_job requires compute.stream_refresh_blocks > 0"
+        )
+    if cfg.backend == "cpu-reference":
+        raise ValueError(
+            "streaming pcoa runs on the jax backend with a gram metric"
         )
     metric = cfg.metric or "ibs"
     if metric == "braycurtis":

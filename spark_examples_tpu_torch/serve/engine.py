@@ -36,6 +36,7 @@ import torch
 
 from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.core.device import resolve_device
+from spark_examples_tpu_torch.core.profiling import check_nans
 from spark_examples_tpu_torch.pipelines import project as P
 from spark_examples_tpu_torch.serve.health import CircuitBreaker
 
@@ -145,7 +146,9 @@ def batch_coords(ctx: ModelContext, ref_blocks, genotypes: np.ndarray,
         ctx, ref_blocks, g, ctx.stats,
         ctx.model.metric if ctx.needs_qden else None)
     rows = [ctx.finalize_row(acc, i, qden) for i in range(b)]
-    return torch.cat(rows, dim=0).cpu().numpy()
+    out = torch.cat(rows, dim=0).cpu().numpy()
+    check_nans("served batch", out)
+    return out
 
 
 def check_topkable(model) -> "kernels.PairSpec":

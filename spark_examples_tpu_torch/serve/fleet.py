@@ -35,8 +35,10 @@ Malformed manifests die as :class:`FleetFormatError` with the offending
 route/field named (the load_model/StoreFormatError convention) — a
 fleet process must refuse a half-valid registry at startup, not 404 on
 its first unlucky request. The messages are the JAX package's. A
-manifest's ``slos`` (objectives the fleet controller evaluates) are
-refused by name: the controller is not yet ported.
+manifest's ``slos`` (per-route p99 and availability objectives) are
+parsed by ``fleet/slo.py::parse_slos`` into the specs the fleet
+controller evaluates as burn rates (``ControllerConfig.slos``); the
+serve process itself only validates them.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ class FleetManifest:
     budget_mb: float | None = None
     max_batch: int | None = None
     block_variants: int | None = None
+    slos: tuple = ()
 
     @classmethod
     def parse(cls, doc: dict, origin: str = "<manifest>") -> "FleetManifest":
@@ -173,17 +176,21 @@ class FleetManifest:
                     f"({spec.name!r}) block_variants={bv!r} — expected "
                     "an integer >= 1"
                 )
+        slos: tuple = ()
         if doc.get("slos") is not None:
-            raise FleetFormatError(
-                f"fleet manifest {origin}: 'slos' are evaluated by the "
-                "fleet controller, which is not yet ported to the PyTorch "
-                "package — drop the field to serve this manifest"
-            )
+            from spark_examples_tpu_torch.fleet import slo as SLO
+
+            def _err(msg: str) -> FleetFormatError:
+                return FleetFormatError(
+                    f"fleet manifest {origin}: {msg}")
+
+            slos = SLO.parse_slos(doc["slos"], seen, error=_err)
         return cls(
             routes=tuple(specs),
             budget_mb=doc.get("budget_mb"),
             max_batch=doc.get("max_batch"),
             block_variants=doc.get("block_variants"),
+            slos=slos,
         )
 
     @classmethod

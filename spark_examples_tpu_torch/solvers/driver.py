@@ -125,6 +125,11 @@ def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
     cfg = job.compute
     metric = "shared-alt" if kind == "pca" else (cfg.metric or "ibs")
     kernels.check_sketchable(metric, cfg.solver)
+    if cfg.backend == "cpu-reference":
+        raise ValueError(
+            "--solver sketch/corrected runs on the jax backend; the CPU "
+            "oracle implements the dense reference route only"
+        )
     if job.model_path:
         # The config checked what it could; the job also knows its kind,
         # so a pcoa fit of a pca-family metric is refused here.

@@ -200,10 +200,19 @@ def test_manifest_validation_names_the_problem(tmp_path):
         FleetManifest.parse({"routes": [
             {"name": "a", "model": "m", "source": "s",
              "block_variants": "4096"}]})
-    # The fleet controller's objectives are refused by name, never
-    # accepted and ignored.
-    with pytest.raises(FleetFormatError, match="'slos'.*not yet ported"):
-        FleetManifest.parse({"routes": good_routes, "slos": []})
+    # The fleet controller's objectives parse as the JAX package's
+    # manifest parses them (fleet/slo.py), and a bad one is refused
+    # with its text.
+    slos = [{"route": "a", "p99_ms": 50, "budget": 0.2},
+            {"route": "*", "availability": 0.99}]
+    got = FleetManifest.parse({"routes": good_routes, "slos": slos}).slos
+    want = JFleetManifest.parse({"routes": good_routes, "slos": slos}).slos
+    assert [dataclasses.asdict(s) for s in got] == [
+        dataclasses.asdict(s) for s in want]
+    assert FleetManifest.parse({"routes": good_routes, "slos": []}).slos == ()
+    with pytest.raises(FleetFormatError, match="names no declared route"):
+        FleetManifest.parse({"routes": good_routes,
+                             "slos": [{"route": "b", "p99_ms": 5}]})
 
 
 _GOOD = {"name": "a", "model": "m.npz", "source": "synthetic"}

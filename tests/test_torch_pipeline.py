@@ -242,7 +242,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     example tier, coverage, the reads sources and the neighbors
     package, and the serve package and the live telemetry plane, and
     since the supervision/fleet slice the supervisor, the stitcher and
-    the fleet's pool, router and manifest."""
+    the fleet's pool, router and manifest, and since the fleet-control
+    slice the fleet controller package and the host oracle."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import spark_examples_tpu_torch as p\n"
@@ -261,7 +262,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'serve.health', 'serve.engine', 'serve.server', 'serve.http', "
         "'serve.loadgen', 'core.live', 'core.profiling', "
         "'core.supervisor', 'core.stitch', 'serve.pool', 'serve.router', "
-        "'serve.fleet']\n"
+        "'serve.fleet', 'fleet', 'fleet.controller', 'fleet.replica', "
+        "'fleet.placement', 'fleet.slo', 'fleet.timeline', "
+        "'utils.oracle']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"

@@ -107,9 +107,10 @@ def test_stitch_falls_back_to_live_ring_for_killed_attempt(tmp_path):
 
 
 def test_cli_stitch_and_refusals(tmp_path, capsys):
-    """``telemetry stitch`` prints the report; ``timeline`` and
-    ``--fleet`` (the fleet controller's files) are refused by name; an
-    empty directory exits 1."""
+    """``telemetry stitch`` prints the report; ``timeline`` on a
+    directory without a controller tape and ``stitch --fleet`` on one
+    without slot exports say so and exit 1; an empty directory exits
+    1."""
     from spark_examples_tpu_torch.cli.main import main
 
     base = str(tmp_path / "tel")
@@ -123,13 +124,13 @@ def test_cli_stitch_and_refusals(tmp_path, capsys):
     report = json.loads(cap.out.strip().splitlines()[-1])
     assert report["output"] == out and report["events"] == 1
     assert "1 events from 1 attempt(s)" in cap.err
+    empty = str(tmp_path / "empty")
+    os.makedirs(empty)
     for argv, match in ((["telemetry", "timeline", "--path", base],
-                         "telemetry timeline is not yet ported"),
-                        (["telemetry", "stitch", "--fleet", "--path", base],
-                         "stitch --fleet is not yet ported")):
-        with pytest.raises(SystemExit) as err:
-            main(argv)
-        assert err.value.code == 2
+                         "telemetry timeline: no readable records"),
+                        (["telemetry", "stitch", "--fleet", "--path", empty],
+                         "is this a fleet workdir?")):
+        assert main(argv) == 1
         assert match in capsys.readouterr().err
     assert main(["telemetry", "stitch", "--path", str(tmp_path)]) == 1
 

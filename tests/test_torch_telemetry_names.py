@@ -134,9 +134,41 @@ SLICE_NAMES = (
 def test_supervision_and_fleet_names_are_jax_s():
     """The supervision, live-proxy, fleet and priority names the slice's
     modules emit: declared with the JAX package's kind and help text,
-    and the two new fault sites beside the earlier eleven."""
+    and the supervision/fleet fault sites beside the earlier eleven (and
+    the fleet controller's two, which make 15 of JAX's 16)."""
     for name in SLICE_NAMES:
         assert telemetry.NAMES[name] == jtelemetry.NAMES[name], name
     assert telemetry.is_declared("fleet.route.r-ibs.queue_depth")
     assert {"supervisor.heartbeat", "fleet.stage"} <= set(faults.SITES)
-    assert len(faults.SITES) == 13
+    assert len(faults.SITES) == 15
+
+
+CONTROLLER_NAMES = (
+    "controller.step", "controller.spawn", "controller.scrapes",
+    "controller.scrape_stale", "controller.respawns",
+    "controller.scale_ups", "controller.retires", "controller.preemptions",
+    "controller.incidents", "controller.ledger_rotations",
+    "controller.replicas", "controller.ready",
+    "controller.flap_breaker_open", "timeline.rounds", "timeline.markers",
+    "timeline.compactions", "timeline.write_errors", "timeline.bytes",
+    "timeline.fleet_p99_s", "timeline.fleet_queue_depth",
+    "timeline.fleet_shed_rate", "timeline.route.*", "slo.breaches",
+    "slo.ok", "slo.*",
+)
+
+
+def test_controller_timeline_and_slo_names_are_jax_s():
+    """The fleet controller's, its timeline's and its SLO evaluator's
+    names: every one the JAX package declares under those prefixes,
+    with its kind and help text; the per-route and per-objective
+    families resolve; the controller's two fault sites are declared and
+    the one JAX site still missing is the multi-host consensus."""
+    for name in CONTROLLER_NAMES:
+        assert telemetry.NAMES[name] == jtelemetry.NAMES[name], name
+    jax_names = {n for n in jtelemetry.NAMES
+                 if n.split(".")[0] in ("controller", "timeline", "slo")}
+    assert jax_names == set(CONTROLLER_NAMES)
+    assert telemetry.is_declared("timeline.route.r-ibs.p99_s")
+    assert telemetry.is_declared("slo.fleet.fast_burn")
+    assert {"controller.scrape", "controller.spawn"} <= set(faults.SITES)
+    assert set(jfaults.SITES) - set(faults.SITES) == {"multihost.consensus"}
