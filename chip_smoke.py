@@ -192,7 +192,7 @@ Phases (any failure exits non-zero; none is caught and ignored):
     that pair and within 1e-6 of phase 6's f32 similarity; the job
     killed in its MinHash pass under ``--checkpoint-dir`` (through the
     library) resumes through the CLI to a byte-identical file.
-36. (Retired number: the closing print is phase 48.)
+36. (Retired number: the closing print is phase 54.)
 37. A traced gram job: ``pcoa --source packed --metric ibs --num-pc 10``
     on phase 14's store through the CLI, once with ``--telemetry-dir``
     and once with ``--telemetry-dir`` and ``--trace-dir`` (a
@@ -234,7 +234,8 @@ Phases (any failure exits non-zero; none is caught and ignored):
     bytes equal to the unsupervised run's, ``supervisor.json`` with 1
     restart, ``telemetry stitch`` giving tracks ``attempt 0 rank 0`` and
     ``attempt 1 rank 0`` and a restart marker, K1 in both attempts as
-    each attempt's own ``metrics.json`` counts it (``gram.fused_blocks``;
+    each attempt's own ``metrics.json`` counts it
+    (``kernel.packed_gram.launches``, counted where K1 launches;
     attempt 0 dies by ``os._exit``, so its count is that of its last
     live flush, a lower bound), the resumed attempt one launch a
     ``gram.block`` from a checkpoint generation, the kernels loaded
@@ -289,7 +290,41 @@ Phases (any failure exits non-zero; none is caught and ignored):
     ``--device cuda``; K1 launches 0 (here and as the children export
     it); the controller process never initialised CUDA, and the card
     never held more processes than this script and two children.
-48. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+48. The device mesh on one card: ``pcoa --metric ibs`` from phase 14's
+    packed store through the CLI with ``--gram-mode tile2d --mesh-shape
+    2x2 --tile2d-transport gather`` inside ``virtual.virtual_slots(4)``:
+    a 2 x 2 mesh of four virtual slots on cuda:0 (the route, not
+    scaling). K1 launches 4 a block (one per tile: the two diagonal
+    tiles symmetric, the two others rectangular) = 52, ``gram.fused_blocks`` 13 (one a block, the
+    JAX meaning), the run's plan tile2d with tiled accumulators, the
+    accumulators gathered from the slots bitwise phase 6's, and the
+    structure PCs of the tiled randomized solve within 1e-3 of phase
+    14's dense solve.
+49. The same with ``--tile2d-transport ring``: K1 16 a block (4 ring
+    steps x 4 tiles, on 512-byte shards) = 208, ``gram.ring_steps`` 52,
+    ``gram.fused_blocks`` 13; accumulators bitwise.
+50. ``--gram-mode variant``: each slot takes a quarter of the block and
+    computes the whole 2504 x 2504 partial (K1 symmetric on 512-byte
+    shards, 52 launches; the JAX package refuses the fused lowering
+    there); accumulators and coordinates bitwise phase 14's.
+51. ``pca --gram-mode tile2d`` on the mesh, the transport left at
+    ``auto`` (gather: the port's auto, ``resolve_transport``): 52 K1
+    launches, ``gram.ring_steps`` 0, ``t1t1`` bitwise phase 6's, the
+    structure PCs within 1e-3 of phase 11's.
+52. A tiled checkpoint: the tile2d ring job through the library, every 4
+    blocks, dying when asked for block 11 (160 K1 launches); 16 tile
+    files ``{leaf}.t{row0}_{col0}.npy``, manifest mesh ``[2, 2]`` mode
+    tile2d; the CLI resumes with 80 launches (5 blocks x 16) to
+    accumulators bitwise phase 6's and coordinates bitwise phase 49's.
+53. ``project`` of phase 29's 500 new samples with its pcoa model under
+    ``--gram-mode tile2d`` (a tile2d CrossPlan: the cross statistics
+    tiled over the mesh while they stream): 0 K1 launches, coordinates
+    bitwise phase 29's. Then K1 timed at the tile shapes those phases
+    launch it at (1252 x 1252 x 2048 bytes rectangular, the 1252-row
+    diagonal tile, 1252 x 1252 x 512-byte ring shards, 2504 x 512-byte
+    variant shards), bitwise against its plain version and
+    ``torch._int_mm`` x4, beside their bounds.
+54. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -2797,10 +2832,11 @@ def stitched(cli_main, tel: str) -> tuple[dict, list[dict]]:
 def attempt_counts(tel: str) -> tuple[dict, dict, dict]:
     """The ``metrics.json`` of attempts 0 and 1 under the telemetry
     directory ``tel``, and from each attempt's own: K1's launches
-    (``gram.fused_blocks``) and its ``gram.block`` spans."""
+    (``kernel.packed_gram.launches``, counted where K1's wrapper
+    launches it) and its ``gram.block`` spans."""
     metrics = {a: json.load(open(os.path.join(
         tel, f"attempt{a}", "rank0", "metrics.json"))) for a in (0, 1)}
-    k1 = {a: int(m["counters"].get("gram.fused_blocks", 0))
+    k1 = {a: int(m["counters"].get("kernel.packed_gram.launches", 0))
           for a, m in metrics.items()}
     blocks = {a: m["histograms"].get("gram.block", {}).get("count", 0)
               for a, m in metrics.items()}
@@ -2826,7 +2862,7 @@ def supervised_phases(cli_main, launch_counters: dict, card: str,
     one stalled, each restarted by the watchdog and resumed from its
     checkpoint to the uninterrupted run's bytes. Returns K1's launches
     in each attempt as that attempt's own ``metrics.json`` exports them
-    (``gram.fused_blocks``, counted where the wrapper launches K1):
+    (``kernel.packed_gram.launches``, counted where K1 launches):
     exact for an attempt that exported at its end (attempt 1; a child
     that died by TERM), a lower bound for one that died by
     ``os._exit`` or KILL, whose last export is its last live flush."""
@@ -3640,7 +3676,7 @@ def controller_phase(cli_main, launch_counters: dict, card: str,
             if os.path.exists(path):
                 with open(path) as f:
                     child_k1 += int(json.load(f)["counters"].get(
-                        "gram.fused_blocks", 0))
+                        "kernel.packed_gram.launches", 0))
     devices = [argv[argv.index("--device") + 1] for argv in res["spawned"]]
     checks = {
         "both replicas answered phase 43's rows bitwise":
@@ -3686,8 +3722,313 @@ def controller_phase(cli_main, launch_counters: dict, card: str,
           + ", ".join(f"{k}: ok" for k in checks))
     telemetry.reset()
     return {"fleet controller, 2 process replicas": launches,
-            "fleet controller, the children (exported gram.fused_blocks)":
+            "fleet controller, the children (exported "
+            "kernel.packed_gram.launches)":
             {"packed_gram": child_k1}}
+
+
+# Phases 48-53: the device mesh on one card. A 2 x 2 mesh of four
+# virtual slots on cuda:0 (each run inside virtual.virtual_slots(4)): the
+# route and K1's tile launches, not scaling (the four slots share the
+# card).
+MESH_ARGS = ["--mesh-shape", "2x2"]
+MESH_SLOTS = 4
+# The tiled route's randomized solve against phase 14's dense one on the
+# structure PCs (the JAX package's bound for the randomized solver above
+# the bulk is ~3e-4 relative; the CPU rehearsal at 96 samples gave 2e-6).
+MESH_COORD_TOL = 1e-3
+# Phase 52: the ring job dies when asked for block 11 (checkpoints every
+# 4 blocks: generations at 32,768 and 65,536 variants).
+MESH_KILL_AT_BLOCK = 10
+
+
+def k1_rect_bounds(nr: int, nc: int, w: int, products) -> dict:
+    """K1's least time for a rectangular launch (rows and cols different
+    samples): every product needs all nr x nc pairs, 2 int8 operations a
+    pair and variant; the bytes are both operands read once and every
+    output written once."""
+    ops = 2.0 * 4 * w * nr * nc * len(products)
+    byte_count = 1.0 * (nr + nc) * w + 4.0 * nr * nc * len(products)
+    ops_ms = ops / PEAK_INT8_OPS * 1e3
+    bytes_ms = byte_count / PEAK_BYTES_S * 1e3
+    return {"ops": ops, "bytes": byte_count,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def mesh_phases(cli_main, launch_counters: dict, card: str, dev,
+                synthetic_acc: dict, pca_coords: np.ndarray, files: dict,
+                tmp: str) -> tuple[dict, dict]:
+    """Phases 48-53: the tile2d gram route (gather, ring), variant mode,
+    pca under tile2d, a tiled checkpoint killed and resumed, and project
+    under a tile2d CrossPlan, each through the CLI on phase 14's packed
+    store over 2 x 2 virtual slots of cuda:0; then K1 timed at the tile
+    shapes those runs launch it at. Returns (the launches by kernel of
+    each run, by path name; K1's tile-shape timings)."""
+    import torch
+
+    from spark_examples_tpu_torch import kernels
+    from spark_examples_tpu_torch.core import telemetry, virtual
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+    )
+    from spark_examples_tpu_torch.core.meshes import Tiled
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ingest import bitpack
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+    from spark_examples_tpu_torch.ops import genotype, packed_gram
+    from spark_examples_tpu_torch.pipelines import project as P
+    from spark_examples_tpu_torch.pipelines import runner
+    from spark_examples_tpu_torch.pipelines.project import load_model
+
+    paths = {}
+    store = files["packed_store"]
+    blocks = math.ceil(N_VARIANTS / BLOCK_VARIANTS)
+    counters = ("gram.fused_blocks", "gram.ring_steps")
+    store_args = ["--source", "packed", "--path", store, "--block-variants",
+                  str(BLOCK_VARIANTS), "--device", DEVICE, "--num-pc",
+                  str(NUM_PC)]
+
+    def host_acc(acc: dict) -> dict:
+        return {k: (v.full("cpu") if isinstance(v, Tiled) else v.cpu())
+                for k, v in acc.items()}
+
+    def mesh_run(argv: list[str], n_pc: int = NUM_PC, module=runner,
+                 name="run_gram"):
+        """A CLI run on the mesh: (launches, counter deltas, timings,
+        coords, wall, what ``module.name`` returned)."""
+        before = {n: telemetry.counter_value(n) for n in counters}
+        kept: list = []
+        orig = keeping(module, name, kept)
+        try:
+            with virtual.virtual_slots(MESH_SLOTS):
+                counts, timings, coords, wall = run_cli(
+                    cli_main, argv + MESH_ARGS, launch_counters, n_pc)
+        finally:
+            setattr(module, name, orig)
+        deltas = {n: int(telemetry.counter_value(n) - before[n])
+                  for n in counters}
+        return counts, deltas, timings, coords, wall, kept[-1]
+
+    # -- 48-50. pcoa ibs under tile2d gather, tile2d ring and variant ------
+    lines = []
+    mesh_coords = {}
+    for label, extra, per_block, steps, mode in (
+            ("tile2d gather", ["--gram-mode", "tile2d",
+                               "--tile2d-transport", "gather"],
+             MESH_SLOTS, 0, "tile2d"),
+            ("tile2d ring", ["--gram-mode", "tile2d",
+                             "--tile2d-transport", "ring"],
+             MESH_SLOTS * MESH_SLOTS, MESH_SLOTS, "tile2d"),
+            ("variant", ["--gram-mode", "variant"], MESH_SLOTS, 0,
+             "variant")):
+        counts, deltas, timings, coords, wall, grun = mesh_run(
+            ["pcoa", "--metric", "ibs"] + store_args + extra)
+        want = {"gram.fused_blocks": blocks, "gram.ring_steps": steps * blocks}
+        if (counts["packed_gram"] != per_block * blocks or deltas != want
+                or grun.plan.mode != mode or grun.plan.mesh.shape != (2, 2)
+                or not grun.plan.mesh.virtual):
+            fail(f"pcoa {label}: K1 launches {counts}, counters {deltas} "
+                 f"(want {per_block * blocks}, {want}), plan "
+                 f"{grun.plan.mode} {grun.plan.mesh.describe()}")
+        if mode == "tile2d" and not all(isinstance(v, Tiled)
+                                        for v in grun.acc.values()):
+            fail(f"pcoa {label}: the accumulators are not tiled")
+        if not equal_accumulators(host_acc(grun.acc), synthetic_acc):
+            fail(f"pcoa {label}: accumulators gathered from the slots differ "
+                 "from phase 6's")
+        del grun
+        if mode == "variant":
+            # The same accumulators, finalize and dense solve as phase 14.
+            if not np.array_equal(coords, files["packed_store_coords"]):
+                fail("pcoa variant: coordinates differ from phase 14's")
+            err = 0.0
+        else:
+            err = same_columns(coords, files["packed_store_coords"],
+                               NUM_POP_PCS, MESH_COORD_TOL)
+        mesh_coords[label] = coords
+        paths[f"pcoa ibs {label} (2x2 virtual slots)"] = counts
+        lines.append(
+            f"{label}: wall {wall:.3f} s, "
+            + phases_line(timings, ("gram", "finalize", "eigh"))
+            + f", K1 {counts['packed_gram']} launches, fused_blocks "
+            f"{deltas['gram.fused_blocks']}, ring_steps "
+            f"{deltas['gram.ring_steps']}; accumulators bitwise phase 6's; "
+            + ("coordinates bitwise phase 14's" if mode == "variant" else
+               f"structure PCs within {err:.2g} of phase 14's dense solve"))
+    print(f"pcoa ibs {N_SAMPLES} x {N_VARIANTS} from the packed store on a "
+          f"2x2 mesh of {MESH_SLOTS} virtual slots on cuda:0 [{card}]: "
+          + "; ".join(lines))
+
+    # -- 51. pca under tile2d (the auto transport) -------------------------
+    counts, deltas, timings, coords, wall, grun = mesh_run(
+        ["pca"] + store_args + ["--gram-mode", "tile2d"])
+    # auto resolves to the gather (one launch per tile a block).
+    if (counts["packed_gram"] != MESH_SLOTS * blocks
+            or deltas != {"gram.fused_blocks": blocks,
+                          "gram.ring_steps": 0}
+            or not torch.equal(grun.acc["t1t1"].full("cpu"),
+                               synthetic_acc["t1t1"])):
+        fail(f"pca tile2d: K1 launches {counts}, counters {deltas}, or "
+             "t1t1 differs from phase 6's")
+    del grun
+    pca_err = same_columns(coords, pca_coords, NUM_POP_PCS, MESH_COORD_TOL)
+    paths["pca tile2d (2x2 virtual slots)"] = counts
+    print(f"pca tile2d on the 2x2 mesh [{card}]: wall {wall:.3f} s, "
+          + phases_line(timings, ("gram", "finalize", "eigh"))
+          + f", --tile2d-transport auto -> gather: K1 "
+          f"{counts['packed_gram']} "
+          f"launches, fused_blocks {deltas['gram.fused_blocks']}, "
+          f"ring_steps {deltas['gram.ring_steps']}; t1t1 bitwise phase 6's; "
+          f"structure PCs within {pca_err:.2g} of phase 11's dense pca "
+          "(top-|lambda| randomized solve on the tiles)")
+
+    # -- 52. a tiled checkpoint, killed and resumed ------------------------
+    ck = os.path.join(tmp, "ck_mesh")
+    job = JobConfig(
+        ingest=IngestConfig(source="packed", path=store,
+                            block_variants=BLOCK_VARIANTS),
+        compute=ComputeConfig(metric="ibs", device=DEVICE,
+                              gram_mode="tile2d", mesh_shape=(2, 2),
+                              tile2d_transport="ring", checkpoint_dir=ck,
+                              checkpoint_every_blocks=CKPT_EVERY_BLOCKS))
+    for mod in launch_counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    with virtual.virtual_slots(MESH_SLOTS):
+        try:
+            runner.run_gram(job, DyingSource(load_packed(store),
+                                             MESH_KILL_AT_BLOCK),
+                            PhaseTimer())
+        except RuntimeError as e:
+            if "simulated preemption" not in str(e):
+                raise
+        else:
+            fail("the dying source did not stop the tile2d ring job")
+    kill_wall = time.perf_counter() - t0
+    kill_launches = packed_gram.launches
+    with open(os.path.join(ck, "manifest.json")) as f:
+        manifest = json.load(f)
+    tiles = sorted(f for f in os.listdir(ck) if ".t" in f)
+    if (kill_launches != MESH_KILL_AT_BLOCK * MESH_SLOTS ** 2
+            or manifest["mesh_shape"] != [2, 2]
+            or manifest["mode"] != "tile2d"
+            or set(manifest["layout"].values()) != {"tiles"}
+            or len(tiles) != 4 * MESH_SLOTS
+            or manifest["next_variant"] != 2 * CKPT_EVERY_BLOCKS
+            * BLOCK_VARIANTS):
+        keys = ("mesh_shape", "mode", "layout", "next_variant")
+        fail(f"killed tile2d ring job: {kill_launches} launches, manifest "
+             f"{ {k: manifest[k] for k in keys} }, {len(tiles)} tile files")
+    left = blocks - 2 * CKPT_EVERY_BLOCKS
+    counts, deltas, timings, coords, wall, grun = mesh_run(
+        ["pcoa", "--metric", "ibs"] + store_args
+        + ["--gram-mode", "tile2d", "--tile2d-transport", "ring",
+           "--checkpoint-dir", ck])
+    if (counts["packed_gram"] != left * MESH_SLOTS ** 2
+            or not equal_accumulators(host_acc(grun.acc), synthetic_acc)
+            or not np.array_equal(coords, mesh_coords["tile2d ring"])):
+        fail(f"tile2d ring resume: K1 launches {counts} (want "
+             f"{left * MESH_SLOTS ** 2}), or the accumulators or "
+             "coordinates differ from the uninterrupted run's")
+    del grun
+    paths["pcoa ibs tile2d ring, killed (library)"] = {
+        "packed_gram": kill_launches, "braycurtis": 0}
+    paths["pcoa ibs tile2d ring, resumed"] = counts
+    print(f"tiled checkpoint, kill and resume [{card}]: the ring job died "
+          f"when asked for block {MESH_KILL_AT_BLOCK + 1} ({kill_launches} "
+          f"K1 launches, wall {kill_wall:.3f} s); {len(tiles)} tile files "
+          f"({tiles[0]} ...), manifest mesh {manifest['mesh_shape']} mode "
+          f"{manifest['mode']} at variant {manifest['next_variant']}; the "
+          f"CLI resumed with {counts['packed_gram']} launches ({left} "
+          f"blocks x {MESH_SLOTS ** 2}), wall {wall:.3f} s; accumulators "
+          "bitwise phase 6's, coordinates bitwise the uninterrupted ring "
+          "run's")
+
+    # -- 53. project under a tile2d CrossPlan ------------------------------
+    proj = files["projection"]
+    model = proj["models"]["pcoa"]
+    k = load_model(model["model"]).n_components
+    counts, deltas, timings, coords, wall, out = mesh_run(
+        ["project", "--model", model["model"], "--source", "packed",
+         "--path", proj["new"], "--ref-source", "packed", "--ref-path",
+         proj["panel"], "--block-variants", str(BLOCK_VARIANTS), "--device",
+         DEVICE, "--gram-mode", "tile2d"], n_pc=k, module=P,
+        name="pcoa_project_job")
+    if any(counts.values()) or not np.array_equal(out.coords,
+                                                  model["new_coords"]):
+        fail(f"project under a tile2d CrossPlan: launches {counts}, or the "
+             "coordinates differ from phase 29's replicated run")
+    paths["project pcoa new (tile2d CrossPlan)"] = counts
+    print(f"project {N_SAMPLES - PANEL_SAMPLES} new samples under a tile2d "
+          f"CrossPlan on the 2x2 mesh [{card}]: wall {wall:.3f} s, "
+          + phases_line(timings, ("gram", "eigh"))
+          + f", launches {counts}; coordinates bitwise phase 29's "
+          "(int32 cross statistics tiled, then gathered)")
+
+    # -- K1 at the tile shapes ---------------------------------------------
+    ibs = kernels.get("ibs").pieces
+    block, _ = next(load_packed(store).packed_blocks(BLOCK_VARIANTS))
+    full = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
+    tn = N_SAMPLES // 2
+    shard = full[:, :full.shape[1] // MESH_SLOTS].contiguous()
+    shapes = (
+        ("tile rectangular", full[:tn], full[tn:]),
+        ("tile diagonal", full[:tn], None),
+        ("ring shard rectangular", shard[:tn], shard[tn:]),
+        ("variant shard", shard, None),
+    )
+    timings = {}
+    for name, rows, cols in shapes:
+        sym = cols is None
+        cols_ = rows if sym else cols
+        got = packed_gram.fused_tile_products(rows, cols_, ibs)
+        want = packed_gram.fused_tile_products_plain(rows, cols_, ibs)
+        if not all(torch.equal(got[p], want[p]) for p in ibs):
+            fail(f"K1 != plain at the {name} shape {tuple(rows.shape)}")
+        ms = cuda_ms(lambda: packed_gram.fused_tile_products(rows, cols_,
+                                                             ibs),
+                     reps=20, warmup=3)
+        plain_ms = cuda_ms(lambda: packed_gram.fused_tile_products_plain(
+            rows, cols_, ibs), reps=3, warmup=1)
+        ops_r = genotype.operands(bitpack.unpack_dosages(rows))
+        ops_c = ops_r if sym else genotype.operands(
+            bitpack.unpack_dosages(cols_))
+
+        def rows8(x):
+            # _int_mm wants both outer sizes multiples of 8: zero rows,
+            # which add nothing, padded once outside the timed calls.
+            return torch.nn.functional.pad(x, (0, 0, 0, -x.shape[0] % 8))
+
+        pairs = [(rows8(ops_r[genotype.PRODUCT_OPERANDS[p][0]]).contiguous(),
+                  rows8(ops_c[genotype.PRODUCT_OPERANDS[p][1]]).t())
+                 for p in ibs]
+        nr, nc = rows.shape[0], cols_.shape[0]
+        for p, (a, b) in zip(ibs, pairs):
+            if not torch.equal(torch._int_mm(a, b)[:nr, :nc], got[p]):
+                fail(f"torch._int_mm disagrees with K1 at the {name} shape")
+        lib_ms = cuda_ms(lambda: [torch._int_mm(a, b) for a, b in pairs],
+                         reps=20, warmup=3)
+        w = rows.shape[1]
+        bound = (k1_bounds(rows.shape[0], w, ibs) if sym
+                 else k1_rect_bounds(rows.shape[0], cols_.shape[0], w, ibs))
+        timings[name] = {
+            "rows": rows.shape[0], "cols": cols_.shape[0], "bytes": w,
+            "symmetric": sym, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"]}
+        print(f"K1 at the {name} shape ({rows.shape[0]} x {cols_.shape[0]} "
+              f"x {w} bytes, {'symmetric' if sym else 'asymmetric'}, ibs) "
+              f"[{card}]: {ms:.4f} ms/launch; bound {bound['bound_ms']:.4f} "
+              f"ms ({bound['bound_by']}: {bound['ops']:.4g} int8 ops, "
+              f"{bound['bytes']:.4g} bytes); plain {plain_ms:.4f} ms; "
+              f"torch._int_mm x{len(ibs)} on pre-decoded operands (outer "
+              f"sizes padded to multiples of 8) {lib_ms:.4f} ms; bitwise "
+              "equal to both")
+        del got, want, pairs, ops_r, ops_c
+    return paths, timings
 
 
 def flip_file(path: str) -> None:
@@ -3700,6 +4041,10 @@ def flip_file(path: str) -> None:
 
 
 def main() -> int:
+    # One card: with more visible, a job's default mesh would be every
+    # card (``core/meshes.py::default_devices``) and phases 1-47 would
+    # take the variant route; the mesh phases put their slots on it.
+    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
 
     script_t0 = time.perf_counter()
@@ -4076,6 +4421,7 @@ def main() -> int:
              f"job, expected {expected}")
     if coords.shape != (N_SAMPLES, NUM_PC):
         fail(f"pca coords shape {coords.shape}")
+    pca_coords = coords
     sep = separation(coords, source.populations)
     if not sep >= SEPARATION_MIN:
         fail(f"pca PC1-2 population separation {sep:.3f} < "
@@ -4124,9 +4470,16 @@ def main() -> int:
                                           files, tmp))
         print(f"phases 45-47 took {time.perf_counter() - phases_t0:.1f} s "
               f"[{card}]")
+        phases_t0 = time.perf_counter()
+        mesh_paths, tile_shapes = mesh_phases(
+            cli_main, launch_counters, card, dev, synthetic_acc, pca_coords,
+            files, tmp)
+        new_paths.update(mesh_paths)
+        print(f"phases 48-53 took {time.perf_counter() - phases_t0:.1f} s "
+              f"[{card}]")
 
-    # -- 48. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-47 took "
+    # -- 54. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-53 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
@@ -4150,6 +4503,7 @@ def main() -> int:
         f"library_ms_n{LARGE_SAMPLES}": library_big_ms,
         f"bound_ms_n{LARGE_SAMPLES}": k1_big_bound["bound_ms"],
         f"bound_full_ms_n{LARGE_SAMPLES}": k1_big_bound["bound_full_ms"],
+        "tile_shapes": tile_shapes,
         "parity": "bitwise",
         "parity_cases": cases,
     }, {

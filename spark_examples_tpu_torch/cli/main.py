@@ -84,7 +84,7 @@ import sys
 import numpy as np
 
 from spark_examples_tpu_torch import __version__, kernels
-from spark_examples_tpu_torch.core import config
+from spark_examples_tpu_torch.core import config, meshes, virtual
 from spark_examples_tpu_torch.core.config import (
     ComputeConfig,
     IngestConfig,
@@ -291,8 +291,36 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    "never save, only resume)")
     c.add_argument("--gram-mode", default="auto",
                    choices=list(config.GRAM_MODES),
-                   help="gram accumulation plan; one device holds the "
-                   "matrix ('tile2d' is refused)")
+                   help="gram accumulation plan over the device mesh: "
+                   "'replicated' = one device holds the N x N "
+                   "accumulators; 'variant' = each slot contracts a "
+                   "variant shard of every block, partials summed; "
+                   "'tile2d' = the accumulators tiled over the (i, j) "
+                   "mesh, finalize/center/eigensolve tiled too; 'auto' "
+                   "= replicated on one slot, variant while the "
+                   "accumulators fit a device, tile2d past it")
+    c.add_argument("--mesh-shape", default=None, type=_mesh_shape_arg,
+                   metavar="IxJ",
+                   help="IxJ, e.g. 2x4 (default: a near-square factoring "
+                   "of the slots: every visible card on --device cuda, "
+                   "or the --virtual-devices slots)")
+    c.add_argument("--tile2d-transport", default="auto",
+                   choices=list(config.TILE2D_TRANSPORTS),
+                   help="tile2d block reassembly: 'gather' = every slot "
+                   "copies every variant shard, then contracts its tile "
+                   "(one packed-gram kernel launch per tile a block); "
+                   "'ring' = the shards rotate one hop per step while "
+                   "each slot contracts the one it holds (D launches per "
+                   "tile a block, bitwise the gather for count kernels); "
+                   "'auto' = gather (no crossover where the ring wins "
+                   "has been measured on H100 cards)")
+    c.add_argument("--virtual-devices", type=int, default=0, metavar="N",
+                   help="rehearsal only: split the one --device into N "
+                   "mesh slots (the counterpart of the JAX package's "
+                   "forced virtual CPU devices): every slot holds its own "
+                   "tiles and runs its own launches, which shows the mesh "
+                   "route on one card or the CPU, not scaling; not part "
+                   "of the job's config (0 = off)")
     p.add_argument("--output-path", default=None)
     p.add_argument("--timings", action="store_true",
                    help="print per-phase timing JSON to stderr")
@@ -407,6 +435,8 @@ def _job_from_args(args) -> JobConfig:
             sketch_iters=args.sketch_iters,
             sketch_seed=args.sketch_seed,
             gram_mode=args.gram_mode,
+            mesh_shape=args.mesh_shape,
+            tile2d_transport=args.tile2d_transport,
             **{name: getattr(args, name, getattr(ComputeConfig, name))
                for name in _NEIGHBORS_FLAGS},
         ),
@@ -740,8 +770,37 @@ def main(argv: list[str] | None = None) -> int:
     if args.supervise:
         return _supervise(args, argv, job)
     with contextlib.ExitStack() as stack:
+        if args.virtual_devices:
+            stack.enter_context(virtual.virtual_slots(args.virtual_devices))
+        if args.virtual_devices or args.mesh_shape:
+            _print_mesh(job)
         _observe(stack, args, job)
         return _dispatch(args, job, parser)
+
+
+def _mesh_shape_arg(spec: str) -> tuple[int, int]:
+    """``IxJ`` -> (I, J), an argparse type."""
+    try:
+        i, j = spec.lower().split("x")
+        shape = (int(i), int(j))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"bad --mesh-shape {spec!r}: expected IxJ, e.g. 2x4") from None
+    if min(shape) < 1:
+        raise argparse.ArgumentTypeError(
+            f"bad --mesh-shape {spec!r}: both axes must be >= 1")
+    return shape
+
+
+def _print_mesh(job: JobConfig) -> None:
+    """Say on stderr what the job's mesh is: the slot count and the
+    physical devices behind them (a mesh of virtual slots says so)."""
+    from spark_examples_tpu_torch.core.device import resolve_device
+
+    mesh = meshes.make_mesh(
+        meshes.default_devices(resolve_device(job.compute.device)),
+        shape=job.compute.mesh_shape)
+    print(f"mesh: {mesh.describe()}", file=sys.stderr)
 
 
 def _supervise(args, argv, job: JobConfig) -> int:

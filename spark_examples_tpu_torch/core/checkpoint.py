@@ -1,4 +1,5 @@
-"""Accumulator checkpoint / resume for one process on one device.
+"""Accumulator checkpoint / resume for one process, on one device or a
+mesh of them.
 
 The gram accumulation is associative, so persisting (accumulators,
 variant cursor) every K blocks makes recovery "resume from the last
@@ -9,13 +10,23 @@ The on-disk layout is the JAX package's (``core/checkpoint.py``), so a
 checkpoint written by either package resumes under the other with
 bit-identical int32 accumulators:
 
-- one ``{leaf}.npy`` per accumulator leaf (``np.save`` of the leaf's
-  dtype and shape), every leaf saved whole (``layout: "full"``);
+- one ``{leaf}.npy`` per whole leaf (``np.save`` of the leaf's dtype and
+  shape; ``layout: "full"``): a replicated or variant-mode plan's
+  leaves, and the scalar leaves of any plan;
+- a tile2d plan's N x N leaves one file per tile,
+  ``{leaf}.t{row0}_{col0}.npy`` keyed by the tile's global offsets
+  (``layout: "tiles"``): no whole leaf is ever gathered on the host, and
+  each tile loads back onto its own slot's device;
 - ``manifest.json`` with the JAX keys: ``next_variant``, ``cursors``
   (``{"0": cursor}``), ``metric``, ``block_variants``, ``sample_hash``,
-  ``n_samples``, ``leaves``, ``layout``, ``mesh_shape`` and ``mode``
-  (None: one device, no plan), ``process_count`` (1),
-  ``stream_stats``, ``extra`` and ``sha256`` (one digest per file).
+  ``n_samples``, ``leaves``, ``layout``, ``mesh_shape`` and ``mode`` (the
+  plan's, ``[1, 1]`` and ``"replicated"`` on one device; None when saved
+  without a plan, as the sketch solver's state is), ``process_count``
+  (1), ``stream_stats``, ``extra`` and ``sha256`` (one digest per file).
+
+A tiled checkpoint resumes only under the same mesh shape and mode
+(re-tiling a partial sum is never implicit); whole leaves load under any
+plan, split into tiles when the plan is tile2d.
 
 Writes are atomic: a ``.tmp`` directory is written, then rotated into
 place, and the previous generation is kept as ``.old``. ``load``
@@ -25,10 +36,8 @@ back to the latest slot (the corrupt one is set aside as ``.corrupt``)
 so the next rotation never destroys the only good generation. Only when
 both generations fail does it raise :class:`CheckpointCorruptError`.
 
-The JAX package's tiled layout (one file per device tile under its
-tile2d plan) and its multi-process agreement rounds are not ported: a
-manifest holding a tiled leaf, or written by more than one process, is
-refused.
+The JAX package's multi-process agreement rounds are not ported: a
+manifest written by more than one process is refused.
 """
 
 from __future__ import annotations
@@ -41,7 +50,8 @@ import warnings
 import numpy as np
 import torch
 
-from spark_examples_tpu_torch.core import faults, telemetry
+from spark_examples_tpu_torch.core import faults, meshes, telemetry
+from spark_examples_tpu_torch.core.meshes import Tiled
 from spark_examples_tpu_torch.core.hashing import (
     TeeHashWriter,
     sample_hash,
@@ -66,11 +76,19 @@ def _host(value) -> np.ndarray:
     return np.require(np.asarray(value), requirements="C")
 
 
+def _tile_name(leaf: str, row0: int, col0: int) -> str:
+    return f"{leaf}.t{row0}_{col0}.npy"
+
+
 def save(path: str, acc: dict, next_variant: int, metric: str,
          block_variants: int, sample_ids: list[str],
          stream_stats: dict | None = None,
-         extra: dict | None = None) -> None:
+         extra: dict | None = None, plan=None) -> None:
     """Atomically persist accumulators + resume cursor.
+
+    ``plan``: the job's ``GramPlan``, recorded in the manifest
+    (``mesh_shape``, ``mode``); a :class:`~core.meshes.Tiled` leaf is
+    written one file per tile.
 
     ``stream_stats``: the feed's stream statistics (``max_value``),
     persisted so that a resumed dot/euclidean job's int32 guard still
@@ -88,9 +106,9 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
         # fires, so an injected truncation corrupts the file against its
         # recorded digest, as a torn write would.
         checksums: dict[str, str] = {}
-        for k, v in acc.items():
-            host = _host(v)
-            fname = f"{k}.npy"
+
+        def write(fname: str, value) -> None:
+            host = _host(value)
             fpath = os.path.join(tmp, fname)
             with telemetry.span("checkpoint.write"):
                 with open(fpath, "wb") as f:
@@ -99,6 +117,17 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
             telemetry.count("checkpoint.bytes_written", float(host.nbytes))
             checksums[fname] = tee.sha256.hexdigest()
             faults.fire("checkpoint.tile_write", path=fpath)
+
+        layout: dict[str, str] = {}
+        for k, v in acc.items():
+            if isinstance(v, Tiled):
+                layout[k] = "tiles"
+                for s, tile in enumerate(v.tiles):
+                    r0, _, c0, _ = v.spans(s)
+                    write(_tile_name(k, r0, c0), tile)
+            else:
+                layout[k] = "full"
+                write(f"{k}.npy", v)
         manifest = {
             "next_variant": int(next_variant),
             "cursors": {"0": int(next_variant)},
@@ -107,9 +136,10 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
             "sample_hash": sample_hash(sample_ids),
             "n_samples": len(sample_ids),
             "leaves": sorted(acc),
-            "layout": {k: "full" for k in acc},
-            "mesh_shape": None,
-            "mode": None,
+            "layout": layout,
+            "mesh_shape": (list(plan.mesh.shape) if plan is not None
+                           else None),
+            "mode": plan.mode if plan is not None else None,
             "process_count": 1,
             "stream_stats": dict(stream_stats or {}),
             "extra": dict(extra) if extra else None,
@@ -215,12 +245,37 @@ def _promote_fallback(path: str, found):
     return path, manifest
 
 
+def _load_leaf(path: str, k: str, layout: str, manifest: dict, plan,
+               device):
+    """One leaf back where the plan keeps it: whole on ``device`` (slot
+    0's under a plan), or one tile per slot on the slot's device."""
+    n = manifest["n_samples"]
+    if layout == "full":
+        host = torch.from_numpy(np.load(os.path.join(path, f"{k}.npy")))
+        if (plan is not None and plan.tiled and host.dim() == 2
+                and tuple(host.shape) == (n, n)):
+            return Tiled.from_full(plan.mesh, host)
+        return host.to(device)
+    if plan is None:
+        raise ValueError(
+            f"checkpoint at {path} holds tiled leaf {k!r} but no plan "
+            "was given to place it — pass the job's GramPlan"
+        )
+    return Tiled(plan.mesh, (n, n), [
+        torch.from_numpy(np.load(os.path.join(
+            path, _tile_name(k, rows.start, cols.start)))).to(dev)
+        for (rows, cols), dev in zip(meshes.tile2d(plan.mesh, n),
+                                     plan.mesh.devices)])
+
+
 def load(path: str, metric: str, sample_ids: list[str],
          block_variants: int | None = None,
          leaves: list[str] | None = None,
-         expect_extra: dict | None = None, device="cpu"):
+         expect_extra: dict | None = None, device="cpu", plan=None):
     """Load ``(acc, next_variant, stream_stats)``, or None when no
-    checkpoint exists. ``acc`` holds torch tensors on ``device``.
+    checkpoint exists. ``acc`` holds torch tensors on ``device`` (slot
+    0's device under ``plan``), and the tiles of a tiled leaf on their
+    slots' devices.
 
     ``leaves``: the expected leaf names when the checkpoint is not a gram
     accumulation (the sketch solver's state); by default they derive
@@ -229,9 +284,11 @@ def load(path: str, metric: str, sample_ids: list[str],
 
     Every file is verified before any leaf is placed on the device.
     Incompatible checkpoints (another metric, cohort, block grid, leaf
-    set, ``extra``, process count, or a tiled layout) are refused rather
-    than mixed into the accumulation.
+    set, ``extra``, process count, or a tile grid other than the plan's)
+    are refused rather than mixed into the accumulation.
     """
+    if plan is not None:
+        device = plan.mesh.home
     with telemetry.span("checkpoint.load"):
         found = _usable_generation(path)
         if found is None:
@@ -286,20 +343,22 @@ def load(path: str, metric: str, sample_ids: list[str],
             )
         layout = (manifest.get("layout")
                   or {k: "full" for k in manifest["leaves"]})
-        tiled = sorted(k for k, v in layout.items() if v != "full")
-        if tiled:
-            raise ValueError(
-                f"checkpoint at {path} holds tiled leaves {tiled} (mesh "
-                f"{manifest.get('mesh_shape')}, mode "
-                f"{manifest.get('mode')!r}): the tile2d plan is not yet "
-                "ported to the PyTorch package, which saves and loads "
-                "whole leaves only"
-            )
-        acc = {
-            k: torch.from_numpy(
-                np.load(os.path.join(path, f"{k}.npy"))).to(device)
-            for k in manifest["leaves"]
-        }
+        if any(v == "tiles" for v in layout.values()):
+            want_mesh = list(plan.mesh.shape) if plan is not None else None
+            if (plan is None
+                    or manifest.get("mesh_shape") != want_mesh
+                    or manifest.get("mode") != plan.mode):
+                raise ValueError(
+                    f"checkpoint at {path} is tiled for mesh "
+                    f"{manifest.get('mesh_shape')} mode "
+                    f"{manifest.get('mode')!r}; this job runs mesh "
+                    f"{want_mesh} mode {getattr(plan, 'mode', None)!r} — "
+                    "resume must keep the tile grid (re-tiling a partial "
+                    "sum is never implicit)"
+                )
+        acc = {k: _load_leaf(path, k, layout.get(k, "full"), manifest, plan,
+                             device)
+               for k in manifest["leaves"]}
         cursors = manifest.get("cursors") or {"0": manifest["next_variant"]}
         cursor = int(cursors.get("0", manifest["next_variant"]))
         return acc, cursor, manifest.get("stream_stats", {})

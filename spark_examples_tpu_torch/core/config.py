@@ -53,9 +53,21 @@ SOLVER_LADDER = ("sketch", "corrected", "exact")
 SOLVER_RUNG_ID = {rung: i for i, rung in enumerate(SOLVER_LADDER)}
 SKETCH_RANK_DEFAULT = 64
 SKETCH_ITERS_DEFAULT = 2
-# tile2d is accepted so that a config naming it is refused with a
-# message: one device holds the whole matrix.
-GRAM_MODES = ("auto", "replicated", "variant", "tile2d")
+# Gram accumulation plans over the device mesh (parallel/gram_sharded):
+# "replicated" = one device holds the N x N accumulators; "variant" =
+# each slot takes a variant shard of every block and the N x N partials
+# are summed; "tile2d" = the accumulators are tiled over the (i, j) mesh,
+# no slot holding more than its tile. "auto" = replicated on one slot,
+# variant while the leaves fit a device's budget, tile2d past it.
+GRAM_PLAN_MODES = ("replicated", "variant", "tile2d")
+GRAM_MODES = ("auto",) + GRAM_PLAN_MODES
+# tile2d block reassembly (parallel/gram_sharded): "gather" = every slot
+# gets a copy of every variant shard before it contracts; "ring" = D
+# steps, each slot contracting the shard it holds while the shards rotate
+# one hop (bitwise the gather for the count family); "auto" = gather
+# (the JAX package's v5e rule is not the port's: parallel/gram_sharded.py
+# resolve_transport).
+TILE2D_TRANSPORTS = ("auto", "gather", "ring")
 # Sparse-neighbor output shapes (neighbors/, the --neighbors-output
 # flag): "topk" writes per-sample k-nearest rows (TopKResult), "pairs"
 # the deduplicated candidate pair list with exact similarities.
@@ -272,7 +284,12 @@ class ComputeConfig:
     sketch_rank: int = SKETCH_RANK_DEFAULT  # probe columns (>= num_pc)
     sketch_iters: int = SKETCH_ITERS_DEFAULT  # extra passes (corrected)
     sketch_seed: int = 0  # probe RNG seed (a resume must keep it)
-    gram_mode: str = "auto"
+    gram_mode: str = "auto"  # auto | replicated | variant | tile2d
+    # The (i, j) device mesh; None = a near-square factoring of the
+    # job's slots (every visible card on cuda; --virtual-devices N slots
+    # on one device).
+    mesh_shape: tuple[int, int] | None = None
+    tile2d_transport: str = "auto"  # auto | gather | ring
     # Streaming incremental PCoA (pipelines/streaming.py): emit
     # coordinate snapshots every this many blocks via warm rank-k
     # subspace refreshes; 0 runs the plain terminal solve.
@@ -319,13 +336,22 @@ class ComputeConfig:
                    -(2 ** 63), 2 ** 63 - 1,
                    "probe RNG seed; a resumed job must keep it")
         _check_enum("compute", "--gram-mode", self.gram_mode, GRAM_MODES,
-                    "gram accumulation plan")
-        if self.gram_mode == "tile2d":
-            raise ValueError(
-                "bad compute config: --gram-mode='tile2d' — the tile-sharded "
-                "plan is not yet ported to the PyTorch package (one device "
-                "holds the whole matrix); use --gram-mode auto"
-            )
+                    "gram accumulation plan; auto picks from the mesh "
+                    "and accumulator size")
+        _check_enum("compute", "--tile2d-transport", self.tile2d_transport,
+                    TILE2D_TRANSPORTS,
+                    "gather = every slot copies every variant shard "
+                    "before it contracts; ring = shards rotate one hop "
+                    "per step while each slot contracts the one it holds; "
+                    "auto = gather")
+        if self.mesh_shape is not None:
+            shape = tuple(self.mesh_shape)
+            if not (len(shape) == 2 and all(
+                    isinstance(a, int) and a >= 1 for a in shape)):
+                raise ValueError(
+                    f"bad compute config: --mesh-shape={self.mesh_shape!r} "
+                    "— expected IxJ with positive integers, e.g. 2x4")
+            self.mesh_shape = shape
         _check_enum("compute", "--eigh-mode", self.eigh_mode, EIGH_MODES,
                     "dense eigh vs randomized subspace solver; auto picks "
                     "by shape")

@@ -26,12 +26,16 @@ import numpy as np
 import torch
 
 from spark_examples_tpu_torch.core import telemetry
+from spark_examples_tpu_torch.core.meshes import Tiled
 
 
 def _tensors(tree):
-    """Every tensor inside a (nested) dict / list / tuple / dataclass."""
+    """Every tensor inside a (nested) dict / list / tuple / dataclass,
+    every tile of a tiled leaf included."""
     if isinstance(tree, torch.Tensor):
         yield tree
+    elif isinstance(tree, Tiled):
+        yield from tree.tiles
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)
@@ -45,7 +49,8 @@ def _tensors(tree):
 
 def hard_sync(tree):
     """A real completion barrier: ``torch.cuda.synchronize()`` on each
-    CUDA device holding a tensor of ``tree``, a no-op for CPU tensors
+    CUDA device holding a tensor (or a tile) of ``tree``, so every slot
+    of a mesh has finished; a no-op for CPU tensors
     (CPU ops have finished when they return). Returns its argument."""
     devices = {t.device for t in _tensors(tree) if t.device.type == "cuda"}
     for d in devices:

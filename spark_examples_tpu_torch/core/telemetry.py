@@ -275,10 +275,18 @@ NAMES: dict[str, tuple[str, str]] = {
     ),
     "gram.fused_blocks": (
         "counter",
-        "launches of the fused packed CUDA kernel (csrc/packed_gram.cu), "
-        "counted where its wrapper launches it — nonzero proves the fused "
-        "kernel, not the plain unpack-then-contract path, is the one "
-        "contracting (pairs with gram.lowering)",
+        "block updates through the fused packed lowering, one per block "
+        "whatever the number of tiles (the JAX package's meaning); on "
+        "CUDA each runs the packed CUDA kernel (csrc/packed_gram.cu) once "
+        "per tile — nonzero proves the fused kernel, not the plain "
+        "unpack-then-contract path, is the one contracting (pairs with "
+        "gram.lowering)",
+    ),
+    "gram.ring_steps": (
+        "counter",
+        "tile2d ring-transport shard rotations dispatched (n_devices per "
+        "block update) — nonzero proves the ring schedule, not the bulk "
+        "gather, is the one running",
     ),
     "gram_flops": ("counter", "FLOPs credited to the gram accumulation"),
     "ingest_bytes": ("counter", "bytes actually shipped host->device"),
@@ -792,6 +800,21 @@ NAMES: dict[str, tuple[str, str]] = {
     ),
 }
 
+# Names only the port has: what a hand-written CUDA kernel's wrapper
+# counts where it launches, so a job run as a subprocess exports its
+# kernels' launches in metrics.json. Kept apart from NAMES, which holds
+# the JAX package's names only.
+PORT_NAMES: dict[str, tuple[str, str]] = {
+    "kernel.packed_gram.launches": (
+        "counter",
+        "launches of the packed CUDA kernel (csrc/packed_gram.cu), "
+        "counted where its wrapper launches it (ops/packed_gram.py): one "
+        "a block on one device, one per tile a block under a tile2d "
+        "gather plan, one per slot a block under a variant plan, D per "
+        "tile a block under the ring transport",
+    ),
+}
+
 _FAMILIES = tuple(n[:-1] for n in NAMES if n.endswith(".*"))  # "phase."
 
 KINDS = ("span", "event", "counter", "gauge", "histogram")
@@ -821,7 +844,7 @@ ENV_TRACE_SAMPLE = "SPARK_EXAMPLES_TPU_TRACE_SAMPLE"
 
 def is_declared(name: str) -> bool:
     """True when ``name`` is in the registry (exact or family match)."""
-    return name in NAMES or name.startswith(_FAMILIES)
+    return name in NAMES or name in PORT_NAMES or name.startswith(_FAMILIES)
 
 
 class Histogram:
@@ -968,7 +991,8 @@ def _check_name(name: str) -> None:
             return
         _warned_names.add(name)
     warnings.warn(
-        f"telemetry name {name!r} is not declared in telemetry.NAMES — "
+        f"telemetry name {name!r} is not declared in telemetry.NAMES "
+        "or PORT_NAMES — "
         "declare it (the registry keeps metric names from forking on "
         "typos)",
         RuntimeWarning,

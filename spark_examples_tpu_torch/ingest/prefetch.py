@@ -78,12 +78,16 @@ def pad_packed(packed: np.ndarray, width_bytes: int) -> np.ndarray:
     return out
 
 
-def padded_width(block_variants: int, pack: bool = False) -> int:
+def padded_width(block_variants: int, pack: bool = False, *,
+                 pad_multiple: int = 1) -> int:
     """The column width every streamed block is padded to — bytes when
-    ``pack``, variants otherwise."""
-    if pack:
-        return bitpack.packed_width(block_variants)
-    return block_variants
+    ``pack``, variants otherwise — rounded up to a multiple of
+    ``pad_multiple`` (the plan's variant shards, ``GramPlan.block_shards``:
+    every shard then gets the same width; missing calls and 0xFF bytes
+    add nothing to any product)."""
+    grid = pad_multiple * (bitpack.VARIANTS_PER_BYTE if pack else 1)
+    width = -(-block_variants // grid) * grid
+    return width // bitpack.VARIANTS_PER_BYTE if pack else width
 
 
 class _Slab:
@@ -132,13 +136,13 @@ class _PinnedRing:
         return None
 
 
-def _host_blocks(source, block_variants, start_variant, pack, stats):
-    """``(host array, meta)`` at the padded width: the source's own 2-bit
-    bytes when it has them and blocks fall on byte boundaries, else its
-    int8 blocks, packed on the host for the packed transport. On the
+def _host_blocks(source, block_variants, start_variant, pack, stats,
+                 width):
+    """``(host array, meta)`` at the padded ``width``: the source's own
+    2-bit bytes when it has them and blocks fall on byte boundaries, else
+    its int8 blocks, packed on the host for the packed transport. On the
     dense transport ``stats["max_value"]`` tracks the largest value
     streamed (the value-scaled int32 budget reads it)."""
-    width = padded_width(block_variants, pack=pack)
     if (pack and hasattr(source, "packed_blocks")
             and block_variants % bitpack.VARIANTS_PER_BYTE == 0):
         for pblock, meta in source.packed_blocks(block_variants,
@@ -165,8 +169,9 @@ def decode_direct(source, pack: bool) -> bool:
 
 
 def _produce(source, block_variants, start_variant, prefetch, pack, ring,
-             stats):
-    """Run the producer thread; yields ``(host array, slab | None, meta)``."""
+             stats, width):
+    """Run the producer thread; yields ``(host array, slab | None, meta)``
+    at the padded ``width``."""
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
@@ -189,7 +194,6 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
         """The store's dense drive: each block decoded straight into the
         pinned slab (CUDA) or a fresh MISSING-filled buffer the consumer
         owns (CPU), with no intermediate block."""
-        width = padded_width(block_variants)
         if stats is not None:
             # Store payloads are 2-bit dosages; a resumed job keeps the
             # largest value of the blocks before its cursor.
@@ -218,7 +222,8 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
                 direct()
                 return
             for host, meta in _host_blocks(source, block_variants,
-                                           start_variant, pack, stats):
+                                           start_variant, pack, stats,
+                                           width):
                 slab = None
                 if ring is not None:
                     slab = ring.acquire(stop)
@@ -260,17 +265,20 @@ def stream_to_device(
     prefetch: int = 2,
     pack: bool = False,
     stats: dict | None = None,
+    pad_multiple: int = 1,
 ) -> Iterator[tuple[torch.Tensor, BlockMeta]]:
     """Yield device-resident, shape-stable (N, padded_width) blocks:
-    uint8 packed codes when ``pack``, int8 values otherwise. ``stats``:
+    uint8 packed codes when ``pack``, int8 values otherwise; the width a
+    multiple of ``pad_multiple`` (the plan's variant shards). ``stats``:
     a dict the producer updates in place (``max_value`` on the dense
     transport). Errors in the producer propagate to the consumer;
     abandoning the generator stops the producer."""
     device = torch.device(device)
     cuda = device.type == "cuda"
+    width = padded_width(block_variants, pack=pack,
+                         pad_multiple=pad_multiple)
     ring = None
     if cuda:
-        width = padded_width(block_variants, pack=pack)
         ring = _PinnedRing(prefetch + TRANSFER_DEPTH + 2,
                            (source.n_samples, width),
                            torch.uint8 if pack else torch.int8)
@@ -278,7 +286,7 @@ def stream_to_device(
     # (copy event, slab) pairs whose copies may still be in flight.
     pending: deque = deque()
     producer = _produce(source, block_variants, start_variant,
-                        max(1, prefetch), pack, ring, stats)
+                        max(1, prefetch), pack, ring, stats, width)
     try:
         for host, slab, meta in producer:
             faults.fire("device.put")

@@ -118,7 +118,8 @@ class Kernel:
     pieces: tuple[str, ...] = ()
     stats: tuple[str, ...] = ()
     max_increment: int | None = None
-    finalize: Callable | None = None  # stats -> {"similarity", "distance"}
+    # (stats, frame=FULL) -> {"similarity", "distance"}
+    finalize: Callable | None = None
     # The NumPy twin of ``finalize`` on float64 statistics
     # (--backend cpu-reference).
     np_finalize: Callable | None = None
@@ -138,6 +139,12 @@ class Kernel:
     # (acc, int8 dosage block, precise) -> acc, updating in place.
     init: Callable | None = None
     update: Callable | None = None
+    # float family under a tile2d plan: (tile acc, int8 dosage chunk,
+    # row slice, col slice, precise, scalars) -> tile acc, in place. The
+    # chunk's per-variant statistics come from all its rows; only the
+    # tile's rows and columns are contracted; ``scalars`` says whether
+    # this slot also adds the scalar leaves (nvar).
+    tile_body: Callable | None = None
     # (job, source, timer) -> the (N, N) distance on the job's device.
     table_runner: Callable | None = None
     # How the sketch solver streams the metric (None: exact rung only).
@@ -163,13 +170,32 @@ class Kernel:
         return 2.0 * n * n * v * n_matmuls
 
 
-def _similarity_to_distance(s: torch.Tensor) -> torch.Tensor:
-    from spark_examples_tpu_torch.ops.distances import similarity_to_distance
+class Frame:
+    """What a finalize reads beyond its elementwise part, for a whole
+    (N, N) matrix: a statistic's transpose, the diagonal, and the Gower
+    transform (which reads the similarity's diagonal). A tile of a tiled
+    accumulator finalizes through a frame that answers the same three
+    from the other tiles (``parallel/pcoa_sharded.py::TileFrame``), so
+    every finalize below runs unchanged, tile by tile, bit for bit."""
 
-    return similarity_to_distance(s)
+    def t(self, stats: dict, name: str) -> torch.Tensor:
+        return stats[name].T
+
+    def fill_diagonal(self, x: torch.Tensor, value: float) -> torch.Tensor:
+        return x.fill_diagonal_(value)
+
+    def gower(self, sim: torch.Tensor) -> torch.Tensor:
+        from spark_examples_tpu_torch.ops.distances import (
+            similarity_to_distance,
+        )
+
+        return similarity_to_distance(sim)
 
 
-def _ibs_finalize(stats):
+FULL = Frame()
+
+
+def _ibs_finalize(stats, frame=FULL):
     """PLINK-convention IBS distance ``d1 / (2m)`` over pairwise-complete
     variants; pairs sharing no complete variant get distance 0."""
     m = stats["m"]
@@ -177,7 +203,7 @@ def _ibs_finalize(stats):
     return {"similarity": 1.0 - dist, "distance": dist}
 
 
-def _ibs2_finalize(stats):
+def _ibs2_finalize(stats, frame=FULL):
     """Fraction of pairwise-complete variants with identical genotype;
     pairs sharing no complete variant score 1."""
     m = stats["m"]
@@ -185,36 +211,36 @@ def _ibs2_finalize(stats):
     return {"similarity": sim, "distance": 1.0 - sim}
 
 
-def _shared_alt_finalize(stats):
+def _shared_alt_finalize(stats, frame=FULL):
     """Raw shared-alt-carrier counts (the pca job's similarity), Gower
     distance."""
     s = stats["s"].to(torch.float32)
-    return {"similarity": s, "distance": _similarity_to_distance(s)}
+    return {"similarity": s, "distance": frame.gower(s)}
 
 
-def _king_finalize(stats):
+def _king_finalize(stats, frame=FULL):
     """KING-robust kinship, between-family form: phi = (N_AaAa - 2
     N_AA,aa) / (N_Aa(i) + N_Aa(j)) over pairwise-complete variants. Pairs
     sharing no het variant get phi 0; the diagonal is pinned to
     self-kinship 0.5 so the self-distance is exactly 0."""
-    den = (stats["hc"] + stats["hc"].T).to(torch.float32)
+    den = (stats["hc"] + frame.t(stats, "hc")).to(torch.float32)
     num = (stats["hh"] - 2 * stats["opp"]).to(torch.float32)
     phi = torch.where(den > 0, num / den, 0.0)
-    phi.fill_diagonal_(0.5)
+    phi = frame.fill_diagonal(phi, 0.5)
     return {"similarity": phi, "distance": torch.clamp(0.5 - phi, min=0.0)}
 
 
-def _jaccard_finalize(stats):
+def _jaccard_finalize(stats, frame=FULL):
     """Carrier-set Jaccard over pairwise-complete variants: intersection
     ``s`` over union ``sc + sc^T - s``; an empty union scores 1. Gower
     distance."""
     s = stats["s"]
-    union = stats["sc"] + stats["sc"].T - s
+    union = stats["sc"] + frame.t(stats, "sc") - s
     sim = torch.where(union > 0, s / union, 1.0)
-    return {"similarity": sim, "distance": _similarity_to_distance(sim)}
+    return {"similarity": sim, "distance": frame.gower(sim)}
 
 
-def _pc_invariant_finalize(stats):
+def _pc_invariant_finalize(stats, frame=FULL):
     """Piecewise-constant invariant similarity: +1 identical genotype, -1
     opposite homozygotes, over the valid-pair count m; pairs sharing no
     complete variant score 1. Distance (1 - s) / 2."""
@@ -224,7 +250,7 @@ def _pc_invariant_finalize(stats):
     return {"similarity": sim, "distance": (1.0 - sim) / 2.0}
 
 
-def _euclidean_finalize(stats):
+def _euclidean_finalize(stats, frame=FULL):
     """Exact raw-value euclidean distance ``sqrt(max(e2, 0))``; the
     similarity is its negative. The root is taken in float64 and rounded
     once (the correctly rounded f32 root, as JAX's is)."""
@@ -233,16 +259,16 @@ def _euclidean_finalize(stats):
     return {"similarity": -d, "distance": d}
 
 
-def _dot_finalize(stats):
+def _dot_finalize(stats, frame=FULL):
     """Raw-value inner products, Gower distance."""
     dot = stats["dot"].to(torch.float32)
-    return {"similarity": dot, "distance": _similarity_to_distance(dot)}
+    return {"similarity": dot, "distance": frame.gower(dot)}
 
 
-def _grm_finalize(stats):
+def _grm_finalize(stats, frame=FULL):
     """VanRaden GRM ``zz / max(nvar, 1)``, Gower distance."""
     g = stats["zz"] / torch.clamp(stats["nvar"], min=1.0)
-    return {"similarity": g, "distance": _similarity_to_distance(g)}
+    return {"similarity": g, "distance": frame.gower(g)}
 
 
 def _np_gower(sim):
@@ -338,6 +364,12 @@ def _grm_update(acc, block, precise):
     from spark_examples_tpu_torch.ops import gram
 
     return gram.grm_update(acc, block, precise)
+
+
+def _grm_tile_body(acc, block, rows, cols, precise, scalars):
+    from spark_examples_tpu_torch.ops import gram
+
+    return gram.grm_tile_update(acc, block, rows, cols, precise, scalars)
 
 
 def _ibs_cross_d2(acc):
@@ -466,8 +498,8 @@ def _register(kernel: Kernel) -> None:
             raise ValueError(
                 f"count kernel {kernel.name!r} is missing {missing}")
     if kernel.family == "float":
-        missing = [f for f in ("init", "update", "finalize", "np_finalize",
-                               "oracle_similarity")
+        missing = [f for f in ("init", "update", "tile_body", "finalize",
+                               "np_finalize", "oracle_similarity")
                    if getattr(kernel, f) is None]
         if missing:
             raise ValueError(
@@ -592,6 +624,7 @@ _register(Kernel(
     oracle_similarity=_grm_oracle,
     init=_grm_init,
     update=_grm_update,
+    tile_body=_grm_tile_body,
     sketch=FactorSketch(features=_grm_features, uses_nvar=True),
 ))
 _register(Kernel(

@@ -11,11 +11,13 @@ from spark_examples_tpu_torch.core.profiling import check_nans
 from spark_examples_tpu_torch.ops import gram
 
 
-def finalize(acc: dict, metric: str) -> dict[str, torch.Tensor]:
+def finalize(acc: dict, metric: str, frame=None) -> dict[str, torch.Tensor]:
     """Raw-product accumulators -> {"similarity", "distance"} (N, N) f32:
     the integer-exact combine, then the kernel's declared finalize (e.g.
     ibs: ``distance = d1 / (2m)`` over pairwise-complete variants,
-    zero-overlap pairs -> distance 0)."""
+    zero-overlap pairs -> distance 0). ``frame``: where the accumulators
+    are one tile of a tiled matrix (``parallel/pcoa_sharded.py``), the
+    frame answering for the other tiles; None for a whole matrix."""
     kern = kernels.get(metric)
     if kern.finalize is None:
         raise ValueError(
@@ -23,7 +25,11 @@ def finalize(acc: dict, metric: str) -> dict[str, torch.Tensor]:
             "family kernel); gram-finalizable kernels: "
             f"{' | '.join(kernels.gram_names())}"
         )
-    out = kern.finalize(gram.combine(acc, metric))
+    if frame is None:
+        out = kern.finalize(gram.combine(acc, metric))
+    else:
+        out = kern.finalize(gram.combine(acc, metric, frame.t_product),
+                            frame)
     check_nans("finalize", out)
     return out
 

@@ -4,7 +4,7 @@
   the counterpart of the JAX package's ``jnp.linalg.eigh`` route.
 - :func:`randomized_eigh`: randomized subspace iteration (k + p probes,
   QR re-orthonormalisation each power step, a small Rayleigh eigh) for
-  large N. Its probes come from a ``torch.Generator`` unless the caller
+  large N and for tiled matrices, which it reads only through ``b @ q``. Its probes come from a ``torch.Generator`` unless the caller
   hands them in, so tests can feed the JAX and PyTorch sides the same
   numbers.
 """
@@ -26,17 +26,34 @@ def top_k_eigh(b: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals.flip(0)[:k], vecs.flip(1)[:, :k]
 
 
-def subspace_iterate(b: torch.Tensor, q: torch.Tensor, k: int,
-                     iters: int = 1):
+def _select(vals, vecs, k: int, select: str):
+    """The k pairs to keep from an ascending eigh: the largest values
+    (``top``, descending) or the largest |lambda| (``abs``, the PCA
+    ordering: power iteration amplifies |lambda|, so the subspace already
+    targets those)."""
+    if select == "abs":
+        order = torch.argsort(-torch.abs(vals), stable=True)[:k]
+        return vals[order], vecs[:, order]
+    if select != "top":
+        raise ValueError(f"unknown select {select!r}; valid: top | abs")
+    return vals.flip(0)[:k], vecs.flip(1)[:, :k]
+
+
+def subspace_iterate(b, q: torch.Tensor, k: int, iters: int = 1,
+                     select: str = "top"):
     """``iters`` power steps from an (N, p) subspace ``q``, then a
-    Rayleigh solve: (vals (k,), vecs (N, k), q_new (N, p)), eigenvalues
-    descending."""
+    Rayleigh solve: (vals (k,), vecs (N, k), q_new (N, p)). ``b`` is the
+    symmetric matrix, or a function ``q -> b @ q`` (a tiled matrix's
+    product, ``parallel/pcoa_sharded.py``). ``select``: see
+    :func:`_select`."""
+    bq = b if callable(b) else b.__matmul__
     for _ in range(iters):
-        q, _ = torch.linalg.qr(b @ q)
-    t = q.T @ (b @ q)
+        q, _ = torch.linalg.qr(bq(q))
+    t = q.T @ bq(q)
     t = 0.5 * (t + t.T)
     vals, s = torch.linalg.eigh(t)
-    return vals.flip(0)[:k], (q @ s).flip(1)[:, :k], q
+    vals_k, vecs = _select(vals, q @ s, k, select)
+    return vals_k, vecs, q
 
 
 def init_probes(n: int, p: int, generator: torch.Generator,
@@ -54,23 +71,26 @@ def coords_from_eigpairs(vals: torch.Tensor,
 
 
 def randomized_eigh(
-    b: torch.Tensor,
+    b,
     k: int,
     probes: torch.Tensor | None = None,
     oversample: int = EIGH_OVERSAMPLE_DEFAULT,
     iters: int = EIGH_ITERS_DEFAULT,
     generator: torch.Generator | None = None,
+    select: str = "top",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Randomized top-k eigenpairs of symmetric ``b``: ``iters + 1``
     power steps from the probes, then a Rayleigh solve. ``probes`` (N, p)
     default to Gaussian draws of width k + oversample from ``generator``
-    (seeded 0 on ``b``'s device when none is given)."""
+    (seeded 0 on ``b``'s device when none is given); a ``b`` given as a
+    function ``q -> b @ q`` needs its probes. ``select="abs"`` keeps the
+    largest-|lambda| pairs (the PCA ordering)."""
     if probes is None:
         if generator is None:
             generator = torch.Generator(device=b.device).manual_seed(0)
         probes = init_probes(b.shape[0], k + oversample, generator,
                              dtype=b.dtype, device=b.device)
-    vals, vecs, _ = subspace_iterate(b, probes, k, iters + 1)
+    vals, vecs, _ = subspace_iterate(b, probes, k, iters + 1, select)
     return vals, vecs
 
 

@@ -163,7 +163,8 @@ def gram_products(block: torch.Tensor, products: tuple[str, ...],
 
 
 def tile_products(block_rows: torch.Tensor, block_cols: torch.Tensor,
-                  products: tuple[str, ...]) -> dict[str, torch.Tensor]:
+                  products: tuple[str, ...],
+                  dot=int_dot) -> dict[str, torch.Tensor]:
     """:func:`gram_products` for one (rows, cols) tile of the pair
     matrix: product[p] = opL(rows) @ opR(cols)^T. The same slice for both
     sides reproduces ``gram_products``."""
@@ -171,6 +172,7 @@ def tile_products(block_rows: torch.Tensor, block_cols: torch.Tensor,
         _product_spec(products),
         _prepped_operands(block_rows),
         _prepped_operands(block_cols),
+        dot,
     )
 
 
@@ -217,7 +219,8 @@ def cross_stats(block_new: torch.Tensor, block_ref: torch.Tensor,
 
 
 def combine_products(prod: dict[str, torch.Tensor],
-                     pieces: tuple[str, ...]) -> dict[str, torch.Tensor]:
+                     pieces: tuple[str, ...],
+                     t=None) -> dict[str, torch.Tensor]:
     """Accumulated raw products -> named pairwise statistics, in integer
     arithmetic (the subtractions are exact):
 
@@ -231,7 +234,14 @@ def combine_products(prod: dict[str, torch.Tensor],
       ``hh``   het-het co-occurrence
       ``opp``  opposite homozygotes, both directions
       ``hc``   het-by-valid counts
+
+    ``t(name)``: the transpose of product ``name``; by default
+    ``prod[name].T``. A tile of a tiled accumulator passes the mirrored
+    tile's transpose instead (``parallel/pcoa_sharded.py``).
     """
+    if t is None:
+        def t(name):
+            return prod[name].T
     out = {}
     for piece in pieces:
         if piece == "m":
@@ -242,24 +252,24 @@ def combine_products(prod: dict[str, torch.Tensor],
             out["sc"] = prod["t1c"]
         elif piece == "d1":
             p = prod["t1t1"] + prod["t2t2"]
-            out["d1"] = prod["yc"] + prod["yc"].T - 2 * p
+            out["d1"] = prod["yc"] + t("yc") - 2 * p
         elif piece == "ibs2":
             out["ibs2"] = (
-                prod["cc"] - prod["t1c"] - prod["t1c"].T
-                + 2 * prod["t1t1"] - prod["t1t2"] - prod["t1t2"].T
+                prod["cc"] - prod["t1c"] - t("t1c")
+                + 2 * prod["t1t1"] - prod["t1t2"] - t("t1t2")
                 + 2 * prod["t2t2"]
             )
         elif piece == "dot":
             out["dot"] = prod["yy"]
         elif piece == "e2":
-            out["e2"] = prod["qc"] + prod["qc"].T - 2 * prod["yy"]
+            out["e2"] = prod["qc"] + t("qc") - 2 * prod["yy"]
         elif piece == "hh":
             out["hh"] = (
-                prod["t1t1"] - prod["t1t2"] - prod["t1t2"].T + prod["t2t2"]
+                prod["t1t1"] - prod["t1t2"] - t("t1t2") + prod["t2t2"]
             )
         elif piece == "opp":
             out["opp"] = (
-                prod["t2c"] + prod["t2c"].T - prod["t1t2"] - prod["t1t2"].T
+                prod["t2c"] + t("t2c") - prod["t1t2"] - t("t1t2")
             )
         elif piece == "hc":
             out["hc"] = prod["t1c"] - prod["t2c"]

@@ -52,6 +52,13 @@ def acc_leaves(metric: str) -> tuple[str, ...]:
     return kern.pieces
 
 
+def scalar_leaves(metric: str) -> tuple[str, ...]:
+    """The 0-d leaves (grm's ``nvar``): replicated under every plan."""
+    if _check_metric(metric).family == "float":
+        return tuple(k for k, nd in _FLOAT_LEAVES.items() if nd == 0)
+    return ()
+
+
 def init(n: int, metric: str, device) -> dict[str, torch.Tensor]:
     """Fresh zero accumulators for ``metric`` on ``device``: int32 (N, N)
     per product for count kernels, the kernel's own for float ones."""
@@ -85,13 +92,16 @@ def from_jax_state(acc: dict[str, np.ndarray], device
     return out
 
 
-def f32_xxt(z: torch.Tensor) -> torch.Tensor:
-    """``z @ z^T`` of f32 (or bf16) values as f32: accumulated in float64
-    and rounded once. No TF32 setting of the process can round the
-    operands to 10 mantissa bits this way, and no process-wide flag is
-    touched; the H100 runs float64 matmuls at its non-tensor f32 rate."""
+def f32_xxt(z: torch.Tensor, zc: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """``z @ zc^T`` (``zc`` defaults to ``z``) of f32 (or bf16) values
+    as f32: accumulated in float64 and rounded once. No TF32 setting of
+    the process can round the operands to 10 mantissa bits this way, and
+    no process-wide flag is touched; the H100 runs float64 matmuls at its
+    non-tensor f32 rate."""
     z64 = z.to(torch.float64)
-    return torch.matmul(z64, z64.T).to(torch.float32)
+    zc64 = z64 if zc is None else zc.to(torch.float64)
+    return torch.matmul(z64, zc64.T).to(torch.float32)
 
 
 def grm_init(n: int, device) -> dict[str, torch.Tensor]:
@@ -127,6 +137,20 @@ def grm_update(acc: dict, block: torch.Tensor, precise: bool = False
     z, keep = grm_standardize(block, precise)
     acc["zz"].add_(f32_xxt(z))
     acc["nvar"].add_(keep.sum())
+    return acc
+
+
+def grm_tile_update(acc: dict, block: torch.Tensor, rows: slice,
+                    cols: slice, precise: bool = False,
+                    scalars: bool = True) -> dict:
+    """grm under a tile2d plan: the standardization statistics come from
+    the whole chunk (all N rows of its variants), then only the tile's
+    rows and columns are contracted into ``acc["zz"]``; ``nvar`` grows
+    only where ``scalars`` (one slot owns the replicated scalar)."""
+    z, keep = grm_standardize(block, precise)
+    acc["zz"].add_(f32_xxt(z[rows], z[cols]))
+    if scalars:
+        acc["nvar"].add_(keep.sum())
     return acc
 
 
@@ -205,11 +229,12 @@ def impl_for(metric: str, packed: bool, grm_precise: bool = False,
     return lambda acc, block: step(acc, block, metric, grm_precise)
 
 
-def combine(acc: dict, metric: str) -> dict[str, torch.Tensor]:
+def combine(acc: dict, metric: str, t=None) -> dict[str, torch.Tensor]:
     """Accumulated raw products -> the named statistics ``finalize``
     consumes (integer-exact; runs once per job). Float-family
-    accumulators are already statistics and pass through."""
+    accumulators are already statistics and pass through. ``t``: the
+    products' transposes (``genotype.combine_products``)."""
     kern = _check_metric(metric)
     if kern.family == "float":
         return acc
-    return genotype.combine_products(acc, kern.stats)
+    return genotype.combine_products(acc, kern.stats, t)

@@ -18,8 +18,12 @@ int32}``, decode + mask + contract without materialising a dosage block.
 
 ``launches`` counts the CUDA kernel's launches (one per call on CUDA
 tensors), so a run can show that its main path went through the kernel;
-each launch also counts ``gram.fused_blocks`` in the telemetry registry,
-so a job run as a subprocess exports its count in ``metrics.json``.
+each launch also counts ``kernel.packed_gram.launches`` in the telemetry
+registry, so a job run as a subprocess exports its count in
+``metrics.json``. The counter ``gram.fused_blocks`` keeps the JAX
+package's meaning instead: one per block update through the fused
+lowering (``parallel/gram_sharded.py::make_update``), whatever the
+number of tiles.
 """
 
 from __future__ import annotations
@@ -190,7 +194,7 @@ def _launch(rows: torch.Tensor, cols: torch.Tensor,
             f"products {products}"
         )
     launches += 1
-    telemetry.count("gram.fused_blocks")
+    telemetry.count("kernel.packed_gram.launches")
     return {p: out[i] for i, p in enumerate(products)}
 
 

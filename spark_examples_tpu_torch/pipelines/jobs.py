@@ -3,8 +3,10 @@
 - :func:`similarity_matrix_job` — stream cohort -> persist N x N matrix.
 - :func:`pcoa_job` — cohort -> distance -> double-center -> eig ->
   coords, on the device (only the (N, k) coordinates come back to the
-  host). Count and float kernels (the dosage metrics, euclidean, dot,
-  grm) stream through the gram accumulators; table kernels (braycurtis)
+  host); under a tile2d plan every N x N stage stays tiled over the mesh
+  (``parallel/pcoa_sharded.py``) and the eigensolve is randomized. Count
+  and float kernels (the dosage metrics, euclidean, dot, grm) stream
+  through the gram accumulators; table kernels (braycurtis)
   materialise the table and lower it. Or from a persisted matrix
   (``--matrix-path``: the similarity job's output, the two-job handoff).
 - :func:`variants_pca_job` — the flagship job: shared-alt similarity
@@ -99,7 +101,22 @@ def pcoa_job(job: JobConfig, source=None, matrix_path: str | None = None,
             dist = table(job, source, timer)
             sample_ids, n_variants = source.sample_ids, source.n_variants
         else:
-            grun = runner.run_gram(job, source, timer)
+            plan = runner.plan_for_job(job, source)
+            if plan.mode == "tile2d" and cfg.eigh_mode == "dense":
+                # Dense eigh needs the materialized matrix.
+                return _pcoa_gathered(job, source, timer)
+            if plan.mode == "tile2d" and job.model_path:
+                # Fail BEFORE streaming: discovering this after a long
+                # accumulation would discard all of it.
+                raise ValueError(
+                    "--save-model needs the dense distance matrix for the "
+                    "projection centering statistics; the tile2d plan "
+                    "never materializes it — fit the model with "
+                    "gram_mode=variant"
+                )
+            grun = runner.run_gram(job, source, timer, plan=plan)
+            if plan.mode == "tile2d":
+                return _pcoa_tiled(job, grun, timer)
             sample_ids, n_variants = grun.sample_ids, grun.n_variants
     if table is None:
         with timer.phase("finalize"):
@@ -115,6 +132,47 @@ def pcoa_job(job: JobConfig, source=None, matrix_path: str | None = None,
     _maybe_save_model(job, dist, coords, vals, sample_ids)
     return _emit_coords(job, sample_ids, coords, vals, timer, n_variants,
                         method=method, eigh_iters=cfg.eigh_iters,
+                        proportion=res.proportion_explained.cpu().numpy())
+
+
+def _pcoa_tiled(job: JobConfig, grun, timer) -> CoordsOutput:
+    """The tile2d route: finalize, center and the randomized eigensolve
+    with every N x N stage tiled (``parallel/pcoa_sharded.py``)."""
+    from spark_examples_tpu_torch.parallel.pcoa_sharded import (
+        pcoa_coords_sharded,
+    )
+
+    cfg = job.compute
+    res = pcoa_coords_sharded(grun.plan, grun.acc, grun.metric,
+                              k=cfg.num_pc, oversample=cfg.eigh_oversample,
+                              iters=cfg.eigh_iters, timer=timer)
+    return _emit_coords(job, grun.sample_ids, res.coords.cpu().numpy(),
+                        res.eigenvalues.cpu().numpy(), timer,
+                        grun.n_variants, method="randomized",
+                        eigh_iters=cfg.eigh_iters,
+                        proportion=res.proportion_explained.cpu().numpy())
+
+
+def _pcoa_gathered(job: JobConfig, source, timer) -> CoordsOutput:
+    """Dense eigh under a tile2d plan: the similarity job's route (tiles
+    finalized, then gathered on the host), then the dense solve on slot
+    0's device."""
+    cfg = job.compute
+    sim = runner.run_similarity(job, source=source)
+    sim.timer.phases.update(timer.phases)  # ingest_setup
+    timer = sim.timer
+    dist = torch.from_numpy(sim.distance).to(resolve_device(cfg.device))
+    method = _eigh_method(cfg.eigh_mode, dist.shape[0])
+    with timer.phase("eigh"):
+        res = hard_sync(fit_pcoa(dist, k=cfg.num_pc, method=method,
+                                 iters=cfg.eigh_iters,
+                                 oversample=cfg.eigh_oversample))
+    coords = res.coords.cpu().numpy()
+    vals = res.eigenvalues.cpu().numpy()
+    _maybe_save_model(job, sim.distance, coords, vals, sim.sample_ids)
+    return _emit_coords(job, sim.sample_ids, coords, vals, timer,
+                        sim.n_variants, method=method,
+                        eigh_iters=cfg.eigh_iters,
                         proportion=res.proportion_explained.cpu().numpy())
 
 
@@ -279,7 +337,32 @@ def variants_pca_job(job: JobConfig, source=None) -> CoordsOutput:
             return _pca_host(job, source, timer)
         if job.compute.solver != "exact":
             return _sketch_route(job, source, timer, kind="pca")
-        grun = runner.run_gram(job, source, timer)
+        plan = runner.plan_for_job(job, source)
+        if plan.mode == "tile2d" and job.model_path:
+            # Fail BEFORE streaming (projection needs the dense
+            # similarity's centering statistics).
+            raise ValueError(
+                "--save-model needs the dense similarity matrix for "
+                "the projection centering statistics; fit the model "
+                "with gram_mode=variant"
+            )
+        grun = runner.run_gram(job, source, timer, plan=plan)
+        if plan.mode == "tile2d":
+            # Similarity -> center -> top-|lambda| eig, all tiled.
+            from spark_examples_tpu_torch.parallel.pcoa_sharded import (
+                pca_coords_sharded,
+            )
+
+            iters = job.compute.eigh_iters
+            res = pca_coords_sharded(
+                plan, grun.acc, "shared-alt", k=job.compute.num_pc,
+                oversample=job.compute.eigh_oversample, iters=iters,
+                timer=timer)
+            return _emit_coords(job, grun.sample_ids,
+                                res.coords.cpu().numpy(),
+                                res.eigenvalues.cpu().numpy(), timer,
+                                grun.n_variants, method="randomized",
+                                eigh_iters=iters)
     with timer.phase("finalize"):
         sim = hard_sync(runner.finalize_field(grun.acc, "shared-alt",
                                               "similarity"))

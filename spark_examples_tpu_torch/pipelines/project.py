@@ -29,12 +29,17 @@ Projectability is a kernel capability: a kernel declaring a
 projects as a PCoA model with no change here; a pca model projects its
 centered shared-alt similarity row onto V.
 
-One device, one process: the two cohorts stream in lockstep through the
-feed and the cross accumulators are whole (A, N_ref) tensors on the
-job's device (``--gram-mode variant`` maps to this, as in the JAX
-package; tile2d is refused at config time). The saved archives are the
-JAX package's (``pipelines/project.py``), field for field and dtype for
-dtype, so either package loads and projects the other's models.
+The two cohorts stream in lockstep through the feed. Under a
+:class:`CrossPlan` the cross accumulators are whole (A, N_ref) tensors
+on slot 0's device (``replicated``; ``--gram-mode variant`` maps to
+this, as in the JAX package), or tiled over the mesh (``tile2d``: new
+rows over ``i``, reference columns over ``j``, each slot contracting its
+own row slices of both blocks, with no collective); the projection then
+gathers them on slot 0. The cross products are ``torch._int_mm`` on the
+card under either plan (the JAX package's are ``jnp.dot``). The saved
+archives are the JAX package's (``pipelines/project.py``), field for
+field and dtype for dtype, so either package loads and projects the
+other's models.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 from spark_examples_tpu_torch import kernels
+from spark_examples_tpu_torch.core import meshes
 from spark_examples_tpu_torch.core.config import JobConfig
 from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
@@ -375,23 +381,102 @@ def update_cross(acc: dict, bn: torch.Tensor, br: torch.Tensor) -> dict:
     return acc
 
 
+@dataclass(frozen=True)
+class CrossPlan:
+    """Distribution plan of the (A, N_ref) cross accumulation:
+    ``replicated`` (whole leaves on slot 0) or ``tile2d`` (NEW-cohort
+    rows over mesh axis ``i``, REFERENCE columns over ``j``; each slot
+    takes the new block's rows over ``i`` and the reference block's rows
+    over ``j`` and contracts them into its own tile, collective-free)."""
+
+    mesh: meshes.Mesh
+    mode: str  # replicated | tile2d
+
+
+def cross_plan_for(mesh: meshes.Mesh, a: int, n_ref: int, n_stats: int,
+                   mode: str = "auto") -> CrossPlan:
+    """Pick (or validate) a cross-accumulation mode: ``auto`` tiles when
+    the accumulators would pass the per-device budget and both sample
+    axes divide by their mesh axis; ``variant`` has no cross analogue and
+    runs replicated, as in the JAX package. A job spanning processes
+    (``torch.distributed`` with more than one rank) runs replicated, and
+    asking it for tile2d is refused, as in the JAX package."""
+    from spark_examples_tpu_torch.parallel.gram_sharded import _ACC_BUDGET
+
+    n_i, n_j = mesh.shape
+    divisible = a % n_i == 0 and n_ref % n_j == 0
+    multihost = (torch.distributed.is_available()
+                 and torch.distributed.is_initialized()
+                 and torch.distributed.get_world_size() > 1)
+    if mode == "tile2d" and multihost:
+        raise ValueError(
+            "the tile2d cross plan is single-host; multi-host cross "
+            "jobs run replicated (per-process accumulation, additive "
+            "merge) — use --gram-mode replicated (or auto), or run on "
+            "one host to tile across its chips"
+        )
+    if mode == "variant":
+        mode = "replicated"
+    if mode == "auto":
+        acc_bytes = 4 * a * n_ref * max(1, n_stats)
+        mode = ("tile2d" if not multihost and mesh.size > 1 and divisible
+                and acc_bytes > _ACC_BUDGET else "replicated")
+    if mode == "tile2d" and not divisible:
+        raise ValueError(
+            f"cross tile2d needs ({a}, {n_ref}) divisible by the mesh "
+            f"{mesh.shape}"
+        )
+    if mode not in ("replicated", "tile2d"):
+        raise ValueError(f"unknown cross mode {mode!r}")
+    return CrossPlan(mesh, mode)
+
+
+def _update_cross_tiled(plan: CrossPlan, acc: dict, bn: torch.Tensor,
+                        br: torch.Tensor) -> None:
+    """Each slot's (rows_i of bn, rows_j of br) cross statistics into its
+    own tile, on its own device."""
+    mesh = plan.mesh
+    for s, (rn, rr, dev) in enumerate(zip(meshes.rows_i(mesh, bn.shape[0]),
+                                          meshes.rows_j(mesh, br.shape[0]),
+                                          mesh.devices)):
+        upd = genotype.cross_stats(bn[rn].to(dev), br[rr].to(dev),
+                                   tuple(acc))
+        for k in acc:
+            acc[k].tiles[s].add_(upd[k])
+
+
 def _accumulate_cross(job: JobConfig, source_new, source_ref,
                       stats: tuple[str, ...], timer: PhaseTimer,
-                      den_metric: str | None = None):
+                      den_metric: str | None = None,
+                      plan: CrossPlan | None = None):
     """Stream both cohorts in lockstep and accumulate the cross
     statistics: the engine of projection and cross-kinship. A stream
     that ends first, blocks that cover other variants, or positions that
     differ are errors, never a silent prefix; both feeds are closed
     (their producer threads stopped) however the loop ends.
     ``den_metric``: also fold that dual metric's query denominator
-    diagonal into the pass. Returns (accumulators, n_variants, qden or
-    None)."""
+    diagonal into the pass. ``plan``: the :class:`CrossPlan` (the job's
+    mesh and ``--gram-mode`` by default); a tile2d plan's accumulators
+    are tiled while they stream, then gathered on slot 0. Returns
+    (accumulators, n_variants, qden or None)."""
     device = resolve_device(job.compute.device)
     a, n_ref = source_new.n_samples, source_ref.n_samples
     bv = job.ingest.block_variants
     depth = job.ingest.prefetch_blocks
-    acc = {k: torch.zeros((a, n_ref), dtype=torch.int32, device=device)
-           for k in stats}
+    if plan is None:
+        mesh = meshes.make_mesh(meshes.default_devices(device),
+                                shape=job.compute.mesh_shape)
+        plan = cross_plan_for(mesh, a, n_ref, len(stats),
+                              job.compute.gram_mode)
+    device = plan.mesh.home
+    tiled = plan.mode == "tile2d" and plan.mesh.size > 1
+    if tiled:
+        # Each tile allocated on its own slot's device.
+        acc = {k: meshes.Tiled.zeros(plan.mesh, (a, n_ref), torch.int32)
+               for k in stats}
+    else:
+        acc = {k: torch.zeros((a, n_ref), dtype=torch.int32, device=device)
+               for k in stats}
     qden = (torch.zeros((a,), dtype=torch.float32, device=device)
             if den_metric is not None else None)
     moment_blocks = []
@@ -432,7 +517,10 @@ def _accumulate_cross(job: JobConfig, source_new, source_ref,
                     f"new/reference positions differ in block "
                     f"[{mn.start}, {mn.stop}) — not the same variant set"
                 )
-            update_cross(acc, bn, br)
+            if tiled:
+                _update_cross_tiled(plan, acc, bn, br)
+            else:
+                update_cross(acc, bn, br)
             if qden is not None:
                 qden = _den_diag(qden, bn, den_metric)
             moment_blocks.append(_af_moments(bn, br))
@@ -441,6 +529,15 @@ def _accumulate_cross(job: JobConfig, source_new, source_ref,
             timer.add("ingest_bytes", bn.numel() + br.numel())
             n_variants = mn.stop
         acc = hard_sync(acc)
+    if tiled:
+        from spark_examples_tpu_torch.parallel.pcoa_sharded import (
+            assert_tiled,
+        )
+
+        for k, v in acc.items():
+            assert_tiled(v, plan, f"cross accumulator {k!r}")
+        # The projection and kinship finalizes read whole rows.
+        acc = {k: v.full(device) for k, v in acc.items()}
     # One stacked fetch, then the f64 host reduction.
     moments = (
         torch.stack(moment_blocks).cpu().numpy().astype(np.float64)

@@ -1,17 +1,21 @@
 """The job core: build the source, then either stream the cohort
-through the gram accumulators on one device and finalize (count and
-float kernels), or materialise the whole table and lower it (table
-kernels: Bray-Curtis).
+through the gram accumulators under a distribution plan and finalize
+(count and float kernels), or materialise the whole table and lower it
+(table kernels: Bray-Curtis).
 
-Single process, single device: there is no mesh and no distribution
-plan. A job with ``--checkpoint-dir`` resumes from the checkpoint it
-finds there and, with ``--checkpoint-every-blocks``, saves one every
-that many blocks (core/checkpoint.py). The gram accumulation and each
-pass of the sketch solver stream through one loop, :func:`run_pass`
-(the JAX package's ``run_gram`` loop and ``run_sketch_pass``), so they
-share the feed, the cursor and the checkpoint cadence, and the
-``gram.block`` span of each block period (producer wait, copy, update,
-hooks and checkpoint) under the ``phase.gram`` span.
+One process drives the job's device mesh (``core/meshes.py``):
+:func:`plan_for_job` picks the plan, the JAX package's rule: on one
+slot (one card, or ``--device cpu``) it is ``replicated`` and the
+accumulators are whole tensors on that device; on more it is
+``variant`` or ``tile2d`` (``parallel/gram_sharded.py``). A job with
+``--checkpoint-dir`` resumes from the checkpoint it finds there and,
+with ``--checkpoint-every-blocks``, saves one every that many blocks
+(core/checkpoint.py). The gram accumulation and each pass of the sketch
+solver stream through one loop, :func:`run_pass` (the JAX package's
+``run_gram`` loop and ``run_sketch_pass``), so they share the feed, the
+cursor and the checkpoint cadence, and the ``gram.block`` span of each
+block period (producer wait, copy, update, hooks and checkpoint) under
+the ``phase.gram`` span.
 
 ``--backend cpu-reference`` routes a similarity through the NumPy
 oracle instead (``utils/oracle.py``): host blocks from
@@ -32,7 +36,7 @@ import torch
 
 from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.core import checkpoint as ckpt
-from spark_examples_tpu_torch.core import telemetry
+from spark_examples_tpu_torch.core import meshes, telemetry
 from spark_examples_tpu_torch.core.config import IngestConfig, JobConfig
 from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import (
@@ -53,6 +57,7 @@ from spark_examples_tpu_torch.ingest.source import close_source
 from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
 from spark_examples_tpu_torch.ingest.vcf import VcfSource
 from spark_examples_tpu_torch.ops import braycurtis_kernel, distances, gram
+from spark_examples_tpu_torch.parallel import gram_sharded
 from spark_examples_tpu_torch.store import open_store
 from spark_examples_tpu_torch.utils import oracle
 
@@ -158,7 +163,8 @@ class SimilarityResult:
 
 @dataclass
 class GramRun:
-    """A finished accumulation whose (N, N) state is still on the device."""
+    """A finished accumulation whose (N, N) state is still on the
+    device(s): whole tensors, or ``Tiled`` leaves under a tile2d plan."""
 
     acc: dict
     sample_ids: list[str]
@@ -166,66 +172,93 @@ class GramRun:
     timer: PhaseTimer
     n_variants: int
     lowering: str
+    plan: gram_sharded.GramPlan
+
+
+def plan_for_job(job: JobConfig, source) -> gram_sharded.GramPlan:
+    """The distribution plan the job runs under: its mesh (the default
+    slots of ``--device``, shaped by ``--mesh-shape``) and mode
+    (``--gram-mode``)."""
+    device = resolve_device(job.compute.device)
+    mesh = meshes.make_mesh(meshes.default_devices(device),
+                            shape=job.compute.mesh_shape)
+    return gram_sharded.plan_for(mesh, source.n_samples,
+                                 job.compute.metric or "ibs",
+                                 job.compute.gram_mode)
 
 
 def run_gram(job: JobConfig, source, timer: PhaseTimer,
+             plan: gram_sharded.GramPlan | None = None,
              on_block=None) -> GramRun:
-    """Stream the cohort through the accumulators: one update per block,
-    on the job's device, through the resolved lowering. With
-    ``--checkpoint-dir`` the stream starts at the cursor of the
-    checkpoint found there, from its accumulators and stream
-    statistics, and a checkpoint is saved every
-    ``--checkpoint-every-blocks`` blocks after a device sync.
+    """Stream the cohort through the accumulators under ``plan`` (the
+    job's own by default): one update per block through the resolved
+    lowering, on every slot of the mesh. With ``--checkpoint-dir`` the
+    stream starts at the cursor of the checkpoint found there, from its
+    accumulators and stream statistics, and a checkpoint is saved every
+    ``--checkpoint-every-blocks`` blocks after a sync of every slot.
 
     ``on_block(acc, blocks_done, meta)``: called after each block's
     update (the streaming PCoA refreshes its subspace there); it must
     treat ``acc`` as read-only."""
     cfg = job.compute
     device = resolve_device(cfg.device)
+    if plan is None:
+        plan = plan_for_job(job, source)
     n = source.n_samples
     metric = cfg.metric or "ibs"
     kern = kernels.get(metric)
     packed = kernels.streams_packed(metric, cfg.pack_stream)
+    bv = job.ingest.block_variants
+    # The tile2d transport is resolved once per job; the ring's
+    # divisibility is checked where the block shape is known.
+    transport = gram_sharded.resolve_transport(plan, cfg.tile2d_transport)
+    if transport == "ring":
+        from spark_examples_tpu_torch.ingest.prefetch import padded_width
+
+        gram_sharded.check_ring_divisible(
+            padded_width(bv, pack=packed, pad_multiple=plan.block_shards),
+            plan, packed)
     lowering = gram.resolve_gram_lowering(cfg.gram_lowering, packed, device,
                                           metric)
     telemetry.gauge_set("gram.lowering", 1.0 if lowering == "fused" else 0.0)
-    update = gram.impl_for(metric, packed, cfg.grm_precise, lowering)
+    update = gram_sharded.make_update(plan, metric, packed=packed,
+                                      grm_precise=cfg.grm_precise,
+                                      transport=transport, lowering=lowering)
     # Only value-scaled kernels on a dense stream read the largest value;
     # a resumed job starts from the saved one, so the int32 guard sees
     # the whole stream's.
     stream_stats = ({} if kern.value_scaled_budget and not packed
                     else None)
-    bv = job.ingest.block_variants
     acc, start_variant = None, 0
     if cfg.checkpoint_dir:
         restored = ckpt.load(cfg.checkpoint_dir, metric, source.sample_ids,
-                             block_variants=bv, device=device)
+                             block_variants=bv, plan=plan)
         if restored is not None:
             acc, start_variant, saved_stats = restored
             if stream_stats is not None:
                 stream_stats.update(saved_stats)
     if acc is None:
-        acc = gram.init(n, metric, device)
+        acc = gram_sharded.init_sharded(plan, n, metric)
 
     def save(state, cursor):
         ckpt.save(cfg.checkpoint_dir, state, cursor, metric, bv,
-                  source.sample_ids, stream_stats=stream_stats)
+                  source.sample_ids, stream_stats=stream_stats, plan=plan)
 
     acc, n_variants = run_pass(
-        job, source, timer, device, update, acc, start_variant, packed,
-        block_flops=lambda v: gram.flops_per_block(n, v, metric),
+        job, source, timer, plan.mesh.home, update, acc, start_variant,
+        packed, block_flops=lambda v: gram.flops_per_block(n, v, metric),
         save_cb=save if cfg.checkpoint_dir else None, stats=stream_stats,
-        on_block=on_block)
+        on_block=on_block, pad_multiple=plan.block_shards)
     _check_int32_budget(metric, n_variants,
                         (stream_stats or {}).get("max_value", 2))
     return GramRun(acc, source.sample_ids, metric, timer, n_variants,
-                   lowering)
+                   lowering, plan)
 
 
 def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
              state: dict, start_variant: int = 0, packed: bool = False,
              block_flops=None, save_cb=None, stats: dict | None = None,
-             on_block=None):
+             on_block=None, pad_multiple: int = 1):
     """One streamed pass over the cohort from ``start_variant``, under
     the ``gram`` phase: ``state = update(state, block)`` for each block
     (the gram accumulators, or the sketch solver's (N, r) state).
@@ -236,8 +269,9 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
     ``--checkpoint-every-blocks`` blocks after a device sync.
     ``stats``: the feed's stream statistics (``max_value``), updated in
     place. ``on_block(state, blocks_done, meta)``: a read-only hook after
-    each block's update, before its checkpoint. Returns ``(state,
-    n_variants)`` with the state synced.
+    each block's update, before its checkpoint. ``pad_multiple``: the
+    plan's variant shards, which every block's width is padded to a
+    multiple of. Returns ``(state, n_variants)`` with the state synced.
     """
     cfg = job.compute
     blocks_done = 0
@@ -247,7 +281,7 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
     feed = closing(stream_to_device(
         source, job.ingest.block_variants, device,
         start_variant=start_variant, pack=packed, stats=stats,
-        prefetch=job.ingest.prefetch_blocks,
+        prefetch=job.ingest.prefetch_blocks, pad_multiple=pad_multiple,
     ))
     with timer.phase("gram"), feed as blocks:
         # Each span is begun before the block is pulled, so it holds the
@@ -313,9 +347,21 @@ def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
             return _run_similarity_cpu(job, source, timer)
         g = run_gram(job, source, timer)
     with timer.phase("finalize"):
-        out = hard_sync(distances.finalize(g.acc, metric))
-        sim = out["similarity"].cpu().numpy()
-        dist = out["distance"].cpu().numpy()
+        if g.plan.tiled:
+            # Finalized tile by tile; only the host gathers the whole
+            # matrices, which are this job's output.
+            from spark_examples_tpu_torch.parallel.pcoa_sharded import (
+                finalize_tiles,
+            )
+
+            out = finalize_tiles(g.plan, g.acc, metric,
+                                 ("similarity", "distance"))
+            sim, dist = (out[f].full("cpu").numpy()
+                         for f in ("similarity", "distance"))
+        else:
+            out = hard_sync(distances.finalize(g.acc, metric))
+            sim = out["similarity"].cpu().numpy()
+            dist = out["distance"].cpu().numpy()
     return SimilarityResult(sim, dist, g.sample_ids, metric, timer,
                             g.n_variants)
 

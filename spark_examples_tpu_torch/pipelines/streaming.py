@@ -21,6 +21,10 @@ at a time. The terminal solve takes ``FINAL_ITERS`` tightening steps
 from the tracked subspace, reusing the last refresh's centered matrix
 when the stream ended on a refresh boundary.
 
+Under a tile2d plan the refresh runs on the tiles
+(``parallel/pcoa_sharded.py``: finalize, centering and ``B @ Q`` per
+tile), as the JAX package's does under its plan's shardings.
+
 The cold-start probes come from :func:`probes` (a ``torch.Generator``
 on the CPU, seed 0), not from ``jax.random``; tests comparing with the
 JAX package patch JAX's probes into that seam.
@@ -35,6 +39,7 @@ import torch
 
 from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.core.device import resolve_device
+from spark_examples_tpu_torch.core.meshes import Tiled
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
 from spark_examples_tpu_torch.ops import distances
 from spark_examples_tpu_torch.ops.centering import gower_center
@@ -90,10 +95,28 @@ def probes(n: int, p: int, device) -> torch.Tensor:
     return init_probes(n, p, gen).to(device)
 
 
-def _center(acc: dict, metric: str) -> torch.Tensor:
-    """acc -> Gower-centered B, on the accumulators' device. The
-    accumulators are only read: the stream keeps adding into them."""
+def _center(acc: dict, metric: str):
+    """acc -> Gower-centered B, on the accumulators' device(s): tiled
+    when the accumulators are (a tile2d plan). The accumulators are only
+    read: the stream keeps adding into them."""
+    tiled = [v for v in acc.values() if isinstance(v, Tiled)]
+    if tiled:
+        from spark_examples_tpu_torch.parallel import pcoa_sharded as ps
+
+        plan = ps.GramPlan(tiled[0].mesh, "tile2d")
+        return ps.gower_center_tiles(
+            ps.finalize_tiles(plan, acc, metric, ("distance",))["distance"])
     return gower_center(distances.finalize(acc, metric)["distance"])
+
+
+def _operator(b):
+    """What ``subspace_iterate`` multiplies by: the matrix, or a tiled
+    matrix's ``q -> B @ q``."""
+    if isinstance(b, torch.Tensor):
+        return b
+    from spark_examples_tpu_torch.parallel.pcoa_sharded import tiled_matmul
+
+    return lambda q: tiled_matmul(b, q)
 
 
 def _check_streamable(cfg) -> None:
@@ -145,11 +168,13 @@ def incremental_pcoa_job(
     _check_streamable(cfg)
     refresh_every = cfg.stream_refresh_blocks
     metric = cfg.metric or "ibs"
-    device = resolve_device(cfg.device)
+    resolve_device(cfg.device)
     k = cfg.num_pc
     timer = PhaseTimer()
     with runner.job_source(job, source, timer) as source:
         n = source.n_samples
+        plan = runner.plan_for_job(job, source)
+        device = plan.mesh.home
         state = {
             "q": probes(n, k + OVERSAMPLE, device),
             "snapshots": [],
@@ -173,7 +198,8 @@ def incremental_pcoa_job(
                 state["b"] = None  # free the held B before the next
                 with ieee_f32():
                     b = _center(acc, metric)
-                    vals, vecs, q = subspace_iterate(b, state["q"], k, 1)
+                    vals, vecs, q = subspace_iterate(_operator(b),
+                                                     state["q"], k, 1)
                 coords = coords_from_eigpairs(vals, vecs)
                 snap = StreamSnapshot(meta.stop, _host_copy(vals),
                                       _host_copy(coords))
@@ -185,7 +211,8 @@ def incremental_pcoa_job(
             telemetry.event("stream.snapshot", cat="stream",
                             n_variants=meta.stop, blocks_done=blocks_done)
 
-        grun = runner.run_gram(job, source, timer, on_block=on_block)
+        grun = runner.run_gram(job, source, timer, plan=plan,
+                               on_block=on_block)
     for snap in state["snapshots"]:
         snap.materialize()
 
@@ -197,7 +224,7 @@ def incremental_pcoa_job(
             else:
                 b = _center(grun.acc, metric)
             vals, vecs, _q = hard_sync(
-                subspace_iterate(b, state["q"], k, FINAL_ITERS))
+                subspace_iterate(_operator(b), state["q"], k, FINAL_ITERS))
     coords = coords_from_eigpairs(vals, vecs).cpu().numpy()
     # eigh_iters mirrors the terminal solve actually run.
     out = _emit_coords(job, grun.sample_ids, coords, vals.cpu().numpy(),

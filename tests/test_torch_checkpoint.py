@@ -1,8 +1,9 @@
 """The port's checkpoints against the JAX package's, on the CPU.
 
-- The same accumulators saved by both packages give byte-identical leaf
-  files, equal sha256 values, and manifests equal in every key but
-  ``mesh_shape`` and ``mode`` (the JAX tests run on 8 virtual devices).
+- The same accumulators saved by both packages, under the same (2, 4)
+  variant plan (the JAX tests run on 8 virtual devices, the port on 8
+  virtual CPU slots), give byte-identical leaf files, equal sha256
+  values and equal manifests.
 - A job killed after four blocks (``checkpoint_every_blocks=2``) and
   resumed by the other package ends with int32 accumulators bitwise
   equal to an uninterrupted JAX run, both ways, for ibs (packed
@@ -13,7 +14,7 @@
   generation promoted aside), two corrupt generations raise, an armed
   ``checkpoint.tile_write`` truncation is caught on load, and a
   checkpoint of another block grid, metric, cohort, leaf set, ``extra``
-  record, process count or a tiled layout is refused by name.
+  record, process count or another tile grid is refused by name.
 """
 
 import json
@@ -31,9 +32,10 @@ from spark_examples_tpu.ingest.source import ArraySource as JArraySource
 from spark_examples_tpu.pipelines import runner as jrunner
 from spark_examples_tpu_torch.core import checkpoint as ckpt
 from spark_examples_tpu_torch.core import config as tconfig
-from spark_examples_tpu_torch.core import faults, telemetry
+from spark_examples_tpu_torch.core import faults, meshes, telemetry, virtual
 from spark_examples_tpu_torch.core.profiling import PhaseTimer
 from spark_examples_tpu_torch.ingest.source import ArraySource
+from spark_examples_tpu_torch.parallel import gram_sharded
 from spark_examples_tpu_torch.pipelines import runner
 
 N, V, BV = 16, 1024, 128
@@ -109,15 +111,17 @@ def test_gram_checkpoint_files_equal_jax_byte_for_byte(tmp_path, metric):
     want = _manifest(jdir)
     acc = {k: torch.from_numpy(np.load(os.path.join(jdir, f"{k}.npy")))
            for k in want["leaves"]}
+    # JAX ran under its auto plan on 8 virtual devices: the port's plan
+    # on 8 virtual CPU slots is the same (2, 4) variant plan.
+    plan = gram_sharded.plan_for(
+        meshes.make_mesh(virtual.virtual_devices(8, "cpu")), N, metric)
     ckpt.save(tdir, acc, want["next_variant"], metric, BV,
-              ArraySource(g).sample_ids, stream_stats=want["stream_stats"])
+              ArraySource(g).sample_ids, stream_stats=want["stream_stats"],
+              plan=plan)
     got = _manifest(tdir)
     assert _files(tdir) == _files(jdir)
     assert got["sha256"] == want["sha256"]
-    # JAX ran under a plan on 8 virtual devices; the port has none.
-    assert want["mesh_shape"] is not None and got["mesh_shape"] is None
-    for key in ("mesh_shape", "mode"):
-        got.pop(key), want.pop(key)
+    assert (want["mesh_shape"], want["mode"]) == ([2, 4], "variant")
     assert got == want
     if metric == "dot":
         assert got["stream_stats"] == {"max_value": 120}
@@ -289,7 +293,7 @@ def _edit_manifest(d, **kw):
     ("leaves", "accumulator leaves"),
     ("extra", "--sketch-seed"),
     ("processes", "process counts"),
-    ("tiles", "tile2d plan is not yet ported"),
+    ("tiles", "resume must keep the tile grid"),
 ])
 def test_incompatible_checkpoints_are_refused(tmp_path, case, match):
     d, ids = _two_generations(tmp_path)

@@ -59,9 +59,14 @@ def test_cuda_kernel_matches_plain_bitwise(cuda_device, metric, nr, nc, w):
     pieces = kernels.get(metric).pieces
     before = packed_gram.launches
     counted = telemetry.counter_value("gram.fused_blocks")
+    launched = telemetry.counter_value("kernel.packed_gram.launches")
     got = packed_gram.fused_tile_products(rows, cols, pieces)
     assert packed_gram.launches == before + 1
-    assert telemetry.counter_value("gram.fused_blocks") == counted + 1
+    assert telemetry.counter_value("kernel.packed_gram.launches") \
+        == launched + 1
+    # gram.fused_blocks counts block updates (the JAX meaning), not
+    # launches: a launch outside an update adds none.
+    assert telemetry.counter_value("gram.fused_blocks") == counted
     want = packed_gram.fused_tile_products_plain(rows, cols, pieces)
     torch.cuda.synchronize()
     for p in pieces:
@@ -957,3 +962,83 @@ def test_fleet_eviction_and_restage_under_traffic_bitwise(cuda_device,
     assert telemetry.counter_value("fleet.restage_total") >= 1
     for key, rows in want.items():
         assert np.array_equal(got[key], rows), key
+
+
+def _tile2d_update(plan, metric, g, block, transport):
+    from spark_examples_tpu_torch.ingest import bitpack
+    from spark_examples_tpu_torch.parallel import gram_sharded
+
+    acc = gram_sharded.init_sharded(plan, g.shape[0], metric)
+    update = gram_sharded.make_update(plan, metric, packed=True,
+                                      transport=transport, lowering="fused")
+    for s in range(0, g.shape[1], block):
+        blk = torch.from_numpy(bitpack.pack_dosages(g[:, s:s + block]))
+        acc = update(acc, blk.to(plan.mesh.home))
+    for dev in plan.mesh.physical:
+        torch.cuda.synchronize(dev)
+    return {k: (v.full("cpu") if plan.tiled else v.cpu())
+            for k, v in acc.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transport", ["gather", "ring"])
+def test_tile2d_update_on_virtual_slots_of_cuda0(cuda_device, transport):
+    """A 2 x 2 mesh of four virtual slots on cuda:0: K1 runs once per
+    tile a block under gather (symmetric on the diagonal tiles,
+    rectangular off it) and four times per tile under ring, on shards a
+    quarter of the (ragged, padded) block wide; the int32 accumulators
+    are bitwise the single-device update's, and gram.fused_blocks grows
+    by one a block."""
+    from spark_examples_tpu_torch.core import meshes, virtual
+    from spark_examples_tpu_torch.parallel import gram_sharded
+
+    rng = np.random.default_rng(5)
+    g = rng.integers(0, 3, (96, 1400)).astype(np.int8)
+    g[rng.random(g.shape) < 0.05] = -1
+    mesh = meshes.make_mesh(virtual.virtual_devices(4, "cuda:0"), (2, 2))
+    plan = gram_sharded.GramPlan(mesh, "tile2d")
+    before = packed_gram.launches
+    counted = telemetry.counter_value("gram.fused_blocks")
+    launched = telemetry.counter_value("kernel.packed_gram.launches")
+    got = _tile2d_update(plan, "ibs", g, 512, transport)
+    blocks = 3
+    per_block = 4 if transport == "gather" else 16
+    assert packed_gram.launches - before == blocks * per_block
+    assert (telemetry.counter_value("kernel.packed_gram.launches")
+            - launched == blocks * per_block)
+    assert telemetry.counter_value("gram.fused_blocks") - counted == blocks
+    want = gram.init(96, "ibs", "cpu")
+    gram.update(want, torch.from_numpy(g), "ibs")
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,transport", [("tile2d", "gather"),
+                                            ("tile2d", "ring"),
+                                            ("variant", "gather")])
+def test_mesh_update_over_distinct_cards(cuda_device, mode, transport):
+    """A mesh over distinct cards (2 x 2 over four, 1 x 2 over two):
+    each slot's tiles or partials live on its own card, the shards cross
+    between cards, and the result is the single-device update's,
+    bitwise."""
+    from spark_examples_tpu_torch.core import meshes
+    from spark_examples_tpu_torch.parallel import gram_sharded
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two visible NVIDIA GPUs for a mesh over "
+                    "distinct cards")
+    shape = (2, 2) if cards >= 4 else (1, 2)
+    rng = np.random.default_rng(6)
+    g = rng.integers(0, 3, (64, 1400)).astype(np.int8)
+    g[rng.random(g.shape) < 0.05] = -1
+    mesh = meshes.make_mesh([torch.device("cuda", k)
+                             for k in range(shape[0] * shape[1])], shape)
+    assert not mesh.virtual
+    plan = gram_sharded.GramPlan(mesh, mode)
+    got = _tile2d_update(plan, "ibs", g, 512, transport)
+    want = gram.init(64, "ibs", "cpu")
+    gram.update(want, torch.from_numpy(g), "ibs")
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -100,15 +100,19 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
 
 
 def test_plain_version_counts_no_fused_blocks():
-    """``gram.fused_blocks`` counts the kernel's launches (the exported
-    count a supervised child reports), so the plain version adds none."""
+    """``gram.fused_blocks`` counts block updates through the fused
+    lowering (the JAX meaning; the exported count a supervised child
+    reports), so a direct call of the wrapper adds none."""
     from spark_examples_tpu_torch.core import telemetry
 
     before = telemetry.counter_value("gram.fused_blocks")
+    launched = telemetry.counter_value("kernel.packed_gram.launches")
     t = torch.full((5, 3), 0x1B, dtype=torch.uint8)
     tpacked.fused_tile_products(t, t, ("cc", "t1t1"))
     assert telemetry.counter_value("gram.fused_blocks") == before
     assert telemetry.is_declared("gram.fused_blocks")
+    # The plain version launches nothing, so the launch counter stays.
+    assert telemetry.counter_value("kernel.packed_gram.launches") == launched
 
 
 def _run_plan_tile_by_tile(packed: torch.Tensor, products, tile: int):

@@ -172,7 +172,8 @@ def test_pca_cli_writes_the_coords_tsv(tmp_path, capsys):
       "grm"], "--save-model"),
     (["pcoa", "--solver", "corrected", "--sketch-iters", "0"],
      "--sketch-iters=0"),
-    (["pcoa", "--gram-mode", "tile2d"], "--gram-mode"),
+    (["pcoa", "--gram-mode", "tile2d", "--mesh-shape", "2by2"],
+     "--mesh-shape"),
     (["pcoa", "--metric", "bogus"], "invalid choice"),
 ])
 def test_unported_and_bad_flags_are_usage_errors(argv, match, capsys):
@@ -185,7 +186,7 @@ def test_unported_and_bad_flags_are_usage_errors(argv, match, capsys):
     (dict(solver="corrected", metric="king"),
      "--solver corrected does not support --metric king"),
     (dict(solver="bogus"), "--solver"),
-    (dict(gram_mode="tile2d"), "not yet ported"),
+    (dict(tile2d_transport="mesh"), "--tile2d-transport"),
     (dict(braycurtis_method="pallas"), "--braycurtis-method"),
     (dict(braycurtis_levels=0), "--braycurtis-levels"),
 ])

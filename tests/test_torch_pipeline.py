@@ -169,8 +169,9 @@ def test_unported_source_and_checkpoints_are_refused(tmp_path):
         trunner.build_source(tconfig.IngestConfig(source="store"))
     with pytest.raises(ValueError, match="not a dataset store"):
         trunner.build_source(tconfig.IngestConfig(source="store:some/dir"))
-    # Checkpoints are ported; a tiled one (the tile2d plan's layout) is
-    # refused.
+    # Checkpoints are ported, the tiled layout too; a tiled one is
+    # refused under a plan with another tile grid (this job's is one
+    # slot, replicated).
     _, tjob = _jobs()
     ck = str(tmp_path / "ck")
     tjob.compute.checkpoint_dir = ck
@@ -179,10 +180,11 @@ def test_unported_source_and_checkpoints_are_refused(tmp_path):
     trunner.run_gram(tjob, src, PhaseTimer())
     with open(os.path.join(ck, "manifest.json")) as f:
         manifest = json.load(f)
+    manifest.update(mesh_shape=[2, 4], mode="tile2d")
     manifest["layout"]["cc"] = "tiles"
     with open(os.path.join(ck, "manifest.json"), "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="resume must keep the tile grid"):
         trunner.run_gram(tjob, src, PhaseTimer())
 
 

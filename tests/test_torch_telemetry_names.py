@@ -117,6 +117,20 @@ def test_registry_is_well_formed():
             assert jtelemetry.NAMES[name][0] == "span", name
 
 
+def test_port_only_names_are_apart_from_jax_s():
+    """``PORT_NAMES`` holds what only the port counts (its CUDA kernels'
+    launches): well formed, declared here, unknown to the JAX package
+    and never in ``NAMES``."""
+    assert telemetry.PORT_NAMES
+    for name, (kind, desc) in telemetry.PORT_NAMES.items():
+        assert kind in telemetry.KINDS, (name, kind)
+        assert isinstance(desc, str) and len(desc) > 10, name
+        assert re.fullmatch(r"[a-z0-9_.]+", name), name
+        assert telemetry.is_declared(name), name
+        assert name not in telemetry.NAMES, name
+        assert not jtelemetry.is_declared(name), name
+
+
 SLICE_NAMES = (
     "supervisor.restarts", "supervisor.stalls", "supervisor.heartbeats",
     "live.proxy_requests", "live.proxy_stale", "fleet.stage",
