@@ -324,7 +324,32 @@ Phases (any failure exits non-zero; none is caught and ignored):
     diagonal tile, 1252 x 1252 x 512-byte ring shards, 2504 x 512-byte
     variant shards), bitwise against its plain version and
     ``torch._int_mm`` x4, beside their bounds.
-54. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+54. A job of two processes on the pinned card: two ranks of ``python -m
+    spark_examples_tpu_torch pcoa --gram-mode variant`` over phase 14's
+    packed store, started with ``JAX_COORDINATOR_ADDRESS``,
+    ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``. Each prints its
+    backend: gloo with host staging (NCCL refuses two ranks on one GPU).
+    ``window_for_process`` gives 7 + 6 blocks: K1 launches 7 and 6 (each
+    rank's own ``kernel.packed_gram.launches``), ``gram.fused_blocks`` 7
+    on both (one per global step), 2 consensus rounds each, rank 1's one
+    pad step, ``multihost.shard_feed_bytes`` of the real slabs only. The
+    checkpoint at the last step holds the ranks' reduced accumulators,
+    bitwise phase 6's, with the per-rank cursors; rank 0 alone writes the
+    coordinates, bitwise phase 14's. The gram phase of each rank and the
+    final all_reduce's time are printed.
+55. The same job, rank 0 killed (exit 113) at its 7th block read with a
+    checkpoint every 2 global steps; rank 1 fails on the lost peer. Both
+    resume from the checkpoint's per-rank cursors: K1 launches the blocks
+    after each cursor, accumulators bitwise phase 6's.
+56. Rank 1 delayed before every consensus round: coordinates bitwise
+    phase 14's, the wait shows on rank 0. Then a broken length claim on
+    rank 1 (``contract_rank``, a window claiming one block more than it
+    has): both ranks raise the contract error in the terminal agreement
+    round; a rank past ``MULTIHOST_TIMEOUT_S`` fails the phase.
+57. ``--source plink --references`` with ``--splits-per-contig 4`` (four
+    concurrent range readers, ``PartitionedSource``): accumulators
+    bitwise the one-split run.
+58. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -4031,6 +4056,387 @@ def mesh_phases(cli_main, launch_counters: dict, card: str, dev,
     return paths, timings
 
 
+# Phases 54-57: jobs of two processes over torch.distributed on the one
+# card this script pins: gloo with host staging (NCCL refuses two ranks on
+# one GPU). Each rank is a `python -m spark_examples_tpu_torch` process
+# started with the JAX package's environment names; a rank starts in
+# 6-9 s on the card's host, so each phase is one or two two-rank runs.
+MULTIHOST_TIMEOUT_S = 180
+# Phase 55: rank 0 dies reading its 7th (last) block; checkpoints every 2
+# global steps with a prefetch depth of 1, so a generation at step 2 or 4
+# stands. Cut to the Quickstart store's 13 blocks: the cost is the ranks'
+# start, not their blocks.
+MULTIHOST_KILL_AFTER = 6
+# Phase 56: rank 1 sleeps this long before each consensus round.
+MULTIHOST_DELAY_S = 0.5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argvs: list[list[str]], tmp: str, name: str,
+              env_extra: list[dict] | None = None,
+              module: bool = True) -> list[dict]:
+    """One process per argv, started together as the ranks of one job
+    (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+    ``JAX_PROCESS_ID``): ``python -m spark_examples_tpu_torch <argv>``,
+    or ``python <argv>`` when not ``module``. Output goes to files under
+    ``tmp`` (a pipe could fill while another rank is waited on). A rank
+    still running after ``MULTIHOST_TIMEOUT_S`` fails the phase, and
+    every rank is killed. Returns each rank's rc, stdout, stderr, wall."""
+    port = free_port()
+    world = len(argvs)
+    procs, files = [], []
+    t0 = time.perf_counter()
+    for r, argv in enumerate(argvs):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(r))
+        env.pop("SPARK_EXAMPLES_TPU_FAULTS", None)
+        env.update((env_extra or [{}] * world)[r])
+        out = open(os.path.join(tmp, f"{name}.rank{r}.out"), "w+")
+        err = open(os.path.join(tmp, f"{name}.rank{r}.err"), "w+")
+        files.append((out, err))
+        cmd = ([sys.executable, "-m", "spark_examples_tpu_torch", *argv]
+               if module else [sys.executable, *argv])
+        procs.append(subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=out, stderr=err))
+    results = []
+    try:
+        for p in procs:
+            left = MULTIHOST_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"{name}: a rank ran past {MULTIHOST_TIMEOUT_S} s "
+                     "(a collective hung)")
+            results.append({"rc": p.returncode,
+                            "wall": time.perf_counter() - t0})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for res, (out, err) in zip(results, files):
+            out.seek(0)
+            err.seek(0)
+            res["stdout"], res["stderr"] = out.read(), err.read()
+        for out, err in files:
+            out.close()
+            err.close()
+    return results
+
+
+def rank_metrics(tel: str, world: int = 2) -> list[dict]:
+    """Each rank's exported ``metrics.json`` under ``tel``."""
+    return [json.load(open(os.path.join(tel, f"rank{r}", "metrics.json")))
+            for r in range(world)]
+
+
+def pad_steps(tel: str, rank: int) -> int:
+    """The ``gram.pad_step`` events of a rank's exported trace."""
+    with open(os.path.join(tel, f"rank{rank}", "trace.jsonl")) as f:
+        return sum(json.loads(line).get("name") == "gram.pad_step"
+                   for line in f if line.strip())
+
+
+def contract_rank(store: str) -> int:
+    """One rank of phase 56's broken length claim, run as ``python -c
+    "import chip_smoke; chip_smoke.contract_rank(store)"``: rank 1's
+    window of the packed store claims one block more than it has; both
+    ranks must leave the feeder in its terminal agreement round with the
+    contract error. Prints one JSON line; exit 0 either way."""
+    from spark_examples_tpu_torch.core import meshes
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+    from spark_examples_tpu_torch.ingest.source import (
+        WindowSource,
+        window_for_process,
+    )
+    from spark_examples_tpu_torch.parallel import gram_sharded
+    from spark_examples_tpu_torch.parallel import multihost as mh
+
+    meshes.maybe_init_distributed(DEVICE)
+    inner = load_packed(store)
+    start, stop = window_for_process(inner.n_variants, BLOCK_VARIANTS,
+                                     meshes.process_index(),
+                                     meshes.process_count())
+    src = WindowSource(inner, start, stop)
+    if meshes.process_index() == 1:
+        real = src
+
+        class Lying:
+            exact_n_variants = True
+            n_samples = real.n_samples
+            n_variants = real.n_variants + BLOCK_VARIANTS
+            sample_ids = real.sample_ids
+            packed_blocks = real.packed_blocks
+
+            def blocks(self, bv, start_variant=0):
+                return real.blocks(bv, start_variant)
+
+        src = Lying()
+    plan = gram_sharded.plan_for(
+        meshes.make_mesh(meshes.default_devices(DEVICE)), inner.n_samples,
+        "ibs", "variant", processes=meshes.process_count())
+    t0 = time.perf_counter()
+    outcome, steps = "completed", 0
+    try:
+        for _block, _meta in mh.stream_global_blocks(
+                src, BLOCK_VARIANTS, 0, plan, pack=True):
+            steps += 1
+    except RuntimeError as e:
+        outcome = ("contract" if "contract is broken" in str(e)
+                   else f"wrong: {e}")
+    print(json.dumps({"rank": meshes.process_index(), "outcome": outcome,
+                      "steps": steps,
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def multihost_phases(cli_main, card: str, synthetic_acc: dict,
+                     files: dict, tmp: str) -> dict:
+    """Phases 54-57: two ranks over gloo with host staging on the pinned
+    card. Returns the K1 launches of each run, by path name (each rank
+    exports its own ``kernel.packed_gram.launches``)."""
+    import torch
+
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+        ReferenceRange,
+    )
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ingest.partitioned import PartitionedSource
+    from spark_examples_tpu_torch.ingest.source import window_for_process
+    from spark_examples_tpu_torch.ops import packed_gram
+    from spark_examples_tpu_torch.pipelines import runner
+
+    paths = {}
+    store = files["packed_store"]
+    blocks = math.ceil(N_VARIANTS / BLOCK_VARIANTS)
+    windows = [window_for_process(N_VARIANTS, BLOCK_VARIANTS, r, 2)
+               for r in range(2)]
+    want_blocks = [math.ceil((b - a) / BLOCK_VARIANTS) for a, b in windows]
+    steps = max(want_blocks)
+    base = ["pcoa", "--gram-mode", "variant", "--source", "packed",
+            "--path", store, "--block-variants", str(BLOCK_VARIANTS),
+            "--metric", "ibs", "--num-pc", str(NUM_PC), "--device", DEVICE]
+
+    def load_acc(ck: str) -> dict:
+        with open(os.path.join(ck, "manifest.json")) as f:
+            manifest = json.load(f)
+        return manifest, {k: torch.from_numpy(np.load(
+            os.path.join(ck, f"{k}.npy"))) for k in manifest["leaves"]}
+
+    def tsv_coords(path: str) -> np.ndarray:
+        with open(path) as f:
+            f.readline()
+            return np.asarray([line.rstrip("\n").split("\t")[1:]
+                               for line in f], dtype=np.float64)
+
+    def launches(metrics: list[dict]) -> list[int]:
+        return [int(m["counters"].get("kernel.packed_gram.launches", 0))
+                for m in metrics]
+
+    # -- 54. pcoa --gram-mode variant, two ranks --------------------------
+    tel, ck = os.path.join(tmp, "mh_tel"), os.path.join(tmp, "mh_ck")
+    tsvs = [os.path.join(tmp, f"mh_coords{r}.tsv") for r in range(2)]
+    res = run_ranks([base + ["--output-path", tsvs[r], "--telemetry-dir",
+                             tel, "--checkpoint-dir", ck,
+                             "--checkpoint-every-blocks", str(steps),
+                             "--timings"] for r in range(2)],
+                    tmp, "mh_pcoa")
+    for r, rr in enumerate(res):
+        if rr["rc"] != 0:
+            fail(f"phase 54: rank {r} exit {rr['rc']}:\n"
+                 f"{rr['stderr'][-3000:]}")
+    backend = [re.search(r"^multihost: rank (\d) of 2, backend (\S+) on "
+                         r"(\S+) \((.*)\)$", rr["stdout"], re.M)
+               for rr in res]
+    if not all(backend) or {b.group(2) for b in backend} != {"gloo-staged"}:
+        fail("phase 54: the ranks did not report the gloo-staged backend: "
+             f"{[rr['stdout'][:300] for rr in res]}")
+    metrics = rank_metrics(tel)
+    k1 = launches(metrics)
+    fused = [int(m["counters"].get("gram.fused_blocks", 0))
+             for m in metrics]
+    waits = [m["histograms"].get("multihost.consensus", {})
+             for m in metrics]
+    rounds = [w.get("count", 0) for w in waits]
+    fed = [int(m["counters"].get("multihost.shard_feed_bytes", 0))
+           for m in metrics]
+    pads = [pad_steps(tel, r) for r in range(2)]
+    gram_s = [m["phases"].get("gram", 0.0) for m in metrics]
+    reduce_s = [m["phases"].get("allreduce", 0.0) for m in metrics]
+    manifest, acc = load_acc(ck)
+    if k1 != want_blocks:
+        fail(f"phase 54: K1 launched {k1} times by rank, expected "
+             f"{want_blocks} (window_for_process: {windows})")
+    if fused != [steps, steps] or rounds != [2, 2] \
+            or pads != [steps - b for b in want_blocks]:
+        fail(f"phase 54: gram.fused_blocks {fused}, consensus rounds "
+             f"{rounds}, pad steps {pads}")
+    width = BLOCK_VARIANTS // 4
+    if fed != [b * N_SAMPLES * width for b in want_blocks]:
+        fail(f"phase 54: shard_feed_bytes {fed}")
+    # Each rank's cursor is local to its window: at the end, its length.
+    cursors = {str(r): b - a for r, (a, b) in enumerate(windows)}
+    if manifest["process_count"] != 2 or manifest["cursors"] != cursors:
+        fail(f"phase 54: manifest {manifest['process_count']} processes, "
+             f"cursors {manifest['cursors']} (want {cursors})")
+    if not equal_accumulators(acc, synthetic_acc):
+        fail("phase 54: the two ranks' reduced accumulators differ from "
+             "phase 6's one-process run")
+    coords = [tsv_coords(t) for t in tsvs if os.path.exists(t)]
+    if len(coords) != 1:
+        fail(f"phase 54: {len(coords)} coordinate files; rank 0 alone "
+             "writes --output-path")
+    if not np.array_equal(coords[0], files["packed_store_coords"]):
+        err = same_columns(coords[0], files["packed_store_coords"],
+                           NUM_POP_PCS, 1e-4)
+        fail(f"phase 54: coordinates not bitwise phase 14's ({err:.3g} of "
+             "the column scale)")
+    paths["pcoa variant, 2 ranks gloo-staged: rank 0"] = {
+        "packed_gram": k1[0]}
+    paths["pcoa variant, 2 ranks gloo-staged: rank 1"] = {
+        "packed_gram": k1[1]}
+    print(f"pcoa --gram-mode variant, 2 ranks on one card [{card}]: backend "
+          f"{backend[0].group(2)} on {backend[0].group(3)} "
+          f"({backend[0].group(4)}); windows {windows}; K1 launches "
+          f"{k1[0]} + {k1[1]}; gram.fused_blocks {fused}; consensus rounds "
+          f"{rounds} (waits {waits[0].get('sum', 0.0):.4f} / "
+          f"{waits[1].get('sum', 0.0):.4f} s, the first holding the other "
+          f"rank's start); pad steps {pads}; shard_feed_bytes {fed} (sum "
+          f"{sum(fed)}); gram phase by rank {gram_s[0]:.4f} / "
+          f"{gram_s[1]:.4f} s (one process, phase 14: "
+          f"{files['packed_store_gram_s']:.4f} s); the final all_reduce of "
+          f"the four int32 leaves {reduce_s[0]:.4f} / {reduce_s[1]:.4f} s; "
+          f"rank walls {res[0]['wall']:.2f} / {res[1]['wall']:.2f} s; "
+          "reduced accumulators bitwise phase 6's, coordinates bitwise "
+          "phase 14's, cursors " + json.dumps(manifest["cursors"]))
+
+    # -- 55. killed at a block, resumed -----------------------------------
+    ck, tel = os.path.join(tmp, "mh_kill_ck"), os.path.join(tmp, "mh_kill")
+    kill = ["--checkpoint-dir", ck, "--checkpoint-every-blocks", "2",
+            "--prefetch-blocks", "1"]
+    spec = f"ingest.block_read:kill:after={MULTIHOST_KILL_AFTER}:max=1"
+    res = run_ranks([base + kill] * 2, tmp, "mh_kill",
+                    env_extra=[{"SPARK_EXAMPLES_TPU_FAULTS": spec}, {}])
+    rcs = [rr["rc"] for rr in res]
+    if rcs[0] != 113 or rcs[1] == 0:
+        fail(f"phase 55: exit codes {rcs} (rank 0 killed with 113, rank 1 "
+             f"failing on the lost peer):\n{res[1]['stderr'][-2000:]}")
+    with open(os.path.join(ck, "manifest.json")) as f:
+        killed = json.load(f)
+    cur = [killed["cursors"][str(r)] for r in range(2)]
+    left = [math.ceil((windows[r][1] - windows[r][0] - cur[r])
+                      / BLOCK_VARIANTS) for r in range(2)]
+    res = run_ranks([base + ["--checkpoint-dir", ck,
+                             "--checkpoint-every-blocks", "1",
+                             "--telemetry-dir", tel]] * 2, tmp, "mh_resume")
+    for r, rr in enumerate(res):
+        if rr["rc"] != 0:
+            fail(f"phase 55: resumed rank {r} exit {rr['rc']}:\n"
+                 f"{rr['stderr'][-3000:]}")
+    rk1 = launches(rank_metrics(tel))
+    manifest, acc = load_acc(ck)
+    if rk1 != left or manifest["cursors"] != cursors:
+        fail(f"phase 55: resumed from cursors {cur}: K1 {rk1} (want "
+             f"{left}), final cursors {manifest['cursors']}")
+    if not equal_accumulators(acc, synthetic_acc):
+        fail("phase 55: the resumed accumulators differ from phase 6's")
+    paths["pcoa variant, 2 ranks killed, resumed: rank 0"] = {
+        "packed_gram": rk1[0]}
+    paths["pcoa variant, 2 ranks killed, resumed: rank 1"] = {
+        "packed_gram": rk1[1]}
+    print(f"2 ranks, rank 0 killed at its block read "
+          f"{MULTIHOST_KILL_AFTER + 1} [{card}]: exit codes {rcs}; the "
+          f"checkpoint's cursors {cur}; resumed K1 launches {rk1[0]} + "
+          f"{rk1[1]} (the blocks after each cursor); accumulators bitwise "
+          "phase 6's")
+
+    # -- 56. a straggling rank, then a broken length claim -----------------
+    tsv = os.path.join(tmp, "mh_straggle.tsv")
+    delay = f"multihost.consensus:delay:delay={MULTIHOST_DELAY_S}:max=0"
+    tel = os.path.join(tmp, "mh_straggle")
+    res = run_ranks([base + ["--output-path", tsv, "--telemetry-dir", tel]]
+                    * 2, tmp, "mh_straggle",
+                    env_extra=[{}, {"SPARK_EXAMPLES_TPU_FAULTS": delay}])
+    for r, rr in enumerate(res):
+        if rr["rc"] != 0:
+            fail(f"phase 56: straggling rank {r} exit {rr['rc']}:\n"
+                 f"{rr['stderr'][-3000:]}")
+    metrics = rank_metrics(tel)
+    wait = [m["histograms"].get("multihost.consensus", {}) for m in metrics]
+    if not np.array_equal(tsv_coords(tsv), files["packed_store_coords"]):
+        fail("phase 56: the straggled job's coordinates differ from "
+             "phase 14's")
+    if not wait[0].get("mean", 0.0) > wait[1].get("mean", 0.0):
+        fail(f"phase 56: the consensus wait {wait} does not show on the "
+             "rank that did not straggle")
+    res = run_ranks([["-c", "import sys, chip_smoke; sys.exit("
+                      "chip_smoke.contract_rank(sys.argv[1]))", store]] * 2,
+                    tmp, "mh_contract", module=False)
+    outs = []
+    for r, rr in enumerate(res):
+        if rr["rc"] != 0:
+            fail(f"phase 56: contract rank {r} exit {rr['rc']}:\n"
+                 f"{rr['stderr'][-3000:]}")
+        outs.append(json.loads(rr["stdout"].strip().splitlines()[-1]))
+    if [o["outcome"] for o in outs] != ["contract", "contract"]:
+        fail(f"phase 56: the broken length claim gave {outs}")
+    print(f"2 ranks, rank 1 delayed {MULTIHOST_DELAY_S} s before each "
+          f"consensus round [{card}]: coordinates bitwise phase 14's; "
+          f"consensus wait mean / p95 by rank "
+          f"{wait[0].get('mean', 0) * 1e3:.1f} / "
+          f"{wait[0].get('p95', 0) * 1e3:.1f} ms and "
+          f"{wait[1].get('mean', 0) * 1e3:.1f} / "
+          f"{wait[1].get('p95', 0) * 1e3:.1f} ms; rank walls "
+          f"{res[0]['wall']:.2f} / {res[1]['wall']:.2f} s of the contract "
+          f"run. A broken length claim on rank 1: both ranks raised the "
+          f"contract error in the agreement round after {outs[0]['steps']} "
+          f"/ {outs[1]['steps']} steps, {outs[0]['seconds']:.2f} / "
+          f"{outs[1]['seconds']:.2f} s into the feed")
+
+    # -- 57. --splits-per-contig 4 on a --references route ----------------
+    lo, hi = REFERENCE_RANGE
+    ref = [ReferenceRange.parse(f"1:{lo}:{hi}")]
+    accs, k1s, walls = {}, {}, {}
+    for splits in (1, 4):
+        cfg = IngestConfig(source="plink", path=files["plink"],
+                           references=ref, block_variants=BLOCK_VARIANTS,
+                           splits_per_contig=splits)
+        job = JobConfig(ingest=cfg, compute=ComputeConfig(metric="ibs",
+                                                          device=DEVICE))
+        src = runner.build_source(cfg, DEVICE)
+        if splits > 1 and not isinstance(src.inner, PartitionedSource):
+            fail(f"phase 57: --splits-per-contig {splits} built "
+                 f"{type(src.inner).__name__}")
+        packed_gram.launches = 0
+        t0 = time.perf_counter()
+        g = runner.run_gram(job, src, PhaseTimer())
+        walls[splits] = time.perf_counter() - t0
+        k1s[splits] = packed_gram.launches
+        accs[splits] = {k: v.cpu() for k, v in g.acc.items()}
+    if not equal_accumulators(accs[4], accs[1]):
+        fail("phase 57: --splits-per-contig 4 accumulators differ from "
+             "1 split's")
+    paths["pcoa plink --references --splits-per-contig 4"] = {
+        "packed_gram": k1s[4]}
+    print(f"--source plink --references 1:{lo}:{hi} [{card}]: "
+          f"--splits-per-contig 4 (4 concurrent range readers, "
+          f"{k1s[4]} K1 launches: the block grid restarts per sub-range) "
+          f"bitwise 1 split ({k1s[1]} launches); run_gram "
+          f"{walls[4]:.3f} / {walls[1]:.3f} s")
+    return paths
+
+
 def flip_file(path: str) -> None:
     """Flip one bit of the last byte of a file (same size)."""
     with open(path, "r+b") as f:
@@ -4477,9 +4883,14 @@ def main() -> int:
         new_paths.update(mesh_paths)
         print(f"phases 48-53 took {time.perf_counter() - phases_t0:.1f} s "
               f"[{card}]")
+        phases_t0 = time.perf_counter()
+        new_paths.update(multihost_phases(cli_main, card, synthetic_acc,
+                                          files, tmp))
+        print(f"phases 54-57 took {time.perf_counter() - phases_t0:.1f} s "
+              f"[{card}]")
 
-    # -- 54. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-53 took "
+    # -- 58. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-57 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",

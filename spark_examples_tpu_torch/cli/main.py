@@ -160,10 +160,16 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     g.add_argument("--ld-carry", type=int, default=0,
                    help="kept variants carried across window boundaries "
                    "(0 = auto: window/4)")
+    g.add_argument("--splits-per-contig", type=int, default=1,
+                   help="split each --references range into N sub-ranges "
+                   "read concurrently (the reference partitioner's "
+                   "FixedContigSplits); 1 disables")
     g.add_argument("--ingest-workers", type=int, default=4,
-                   help="parse/pack/hash/write worker threads of `ingest` "
-                   "compaction (ordered reassembly keeps the store byte "
-                   "for byte the 1-worker one)")
+                   help="host-side ingest parallelism: concurrent range "
+                   "readers for --splits-per-contig AND parse/pack/hash/"
+                   "write workers for `ingest` compaction (ordered "
+                   "reassembly keeps the output byte for byte the "
+                   "1-worker one)")
     g.add_argument("--io-retries", type=int, default=3,
                    help="transient-IO retries per incident (consecutive "
                    "failures without a successfully read block) for "
@@ -407,6 +413,7 @@ def _job_from_args(args) -> JobConfig:
             ld_r2=args.ld_prune_r2,
             ld_window=args.ld_window,
             ld_carry=args.ld_carry,
+            splits_per_contig=args.splits_per_contig,
             ingest_workers=args.ingest_workers,
             io_retries=args.io_retries,
             io_retry_backoff_s=args.io_retry_backoff,

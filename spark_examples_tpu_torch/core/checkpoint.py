@@ -18,11 +18,11 @@ bit-identical int32 accumulators:
   (``layout: "tiles"``): no whole leaf is ever gathered on the host, and
   each tile loads back onto its own slot's device;
 - ``manifest.json`` with the JAX keys: ``next_variant``, ``cursors``
-  (``{"0": cursor}``), ``metric``, ``block_variants``, ``sample_hash``,
+  (``{"<rank>": cursor}``), ``metric``, ``block_variants``, ``sample_hash``,
   ``n_samples``, ``leaves``, ``layout``, ``mesh_shape`` and ``mode`` (the
   plan's, ``[1, 1]`` and ``"replicated"`` on one device; None when saved
-  without a plan, as the sketch solver's state is), ``process_count``
-  (1), ``stream_stats``, ``extra`` and ``sha256`` (one digest per file).
+  without a plan, as the sketch solver's state is), ``process_count``,
+  ``stream_stats``, ``extra`` and ``sha256`` (one digest per file).
 
 A tiled checkpoint resumes only under the same mesh shape and mode
 (re-tiling a partial sum is never implicit); whole leaves load under any
@@ -36,8 +36,18 @@ back to the latest slot (the corrupt one is set aside as ``.corrupt``)
 so the next rotation never destroys the only good generation. Only when
 both generations fail does it raise :class:`CheckpointCorruptError`.
 
-The JAX package's multi-process agreement rounds are not ported: a
-manifest written by more than one process is refused.
+In a job of several processes (``parallel/multihost.py``) the
+accumulators saved are the global sums (the caller reduces the ranks'
+partials first), written by rank 0 in the full layout; ``cursors`` holds
+every rank's own cursor into its partition, gathered, and
+``process_count`` the number of ranks. Every fallible step that spans
+ranks is voted through (:func:`_vote_all_ok`), so a failure on one rank
+aborts all of them in that round instead of leaving the others parked in
+the next collective. On load the ranks agree on one generation (latest,
+``.old``, none, corrupt), and a checkpoint written by another number of
+processes is refused in either direction: cursors into per-rank
+partitions do not transfer. A tiled checkpoint across processes (the
+tile2d plan over ranks) is the next slice of the port, and is refused.
 """
 
 from __future__ import annotations
@@ -80,6 +90,29 @@ def _tile_name(leaf: str, row0: int, col0: int) -> str:
     return f"{leaf}.t{row0}_{col0}.npy"
 
 
+def _vote_all_ok(local_ok: bool, make_peer_error) -> None:
+    """The abort protocol of every fallible step that spans ranks:
+    allgather the ranks' ok flags (the gather is also the barrier) and,
+    when any failed, raise ``make_peer_error(bad_ranks)`` on the ranks
+    whose own step succeeded; the failed ones re-raise their own error
+    after. Raising beside a collective instead would leave the others
+    waiting in it. One process: a no-op."""
+    from spark_examples_tpu_torch.parallel import multihost as mh
+
+    if not mh.is_multihost():
+        return
+    oks = mh.allgather(np.int32(bool(local_ok)))
+    if not oks.all() and local_ok:
+        raise make_peer_error([int(i) for i in np.flatnonzero(oks == 0)])
+
+
+_TILED_ACROSS_PROCESSES = (
+    "a tiled checkpoint across processes (the tile2d plan over ranks, "
+    "per-rank tile files with checksum sidecars) is the next slice of "
+    "the port; save and resume a job of several processes under "
+    "--gram-mode variant (or replicated)")
+
+
 def save(path: str, acc: dict, next_variant: int, metric: str,
          block_variants: int, sample_ids: list[str],
          stream_stats: dict | None = None,
@@ -96,12 +129,21 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
     ``extra``: a JSON-serialisable compatibility record (the sketch
     solver stores its rung, rank and seed here); ``load`` refuses a
     checkpoint whose record differs from the job's.
+
+    Several processes: every rank calls this at the same step with the
+    global sums and ``next_variant``, its own cursor. Rank 0 writes the
+    leaves and the manifest and rotates the generations; a shared
+    filesystem is required.
     """
+    from spark_examples_tpu_torch.parallel import multihost as mh
+
+    rank = meshes.process_index()
+    primary = rank == 0
+    if mh.is_multihost() and any(isinstance(v, Tiled)
+                                 for v in acc.values()):
+        raise ValueError(_TILED_ACROSS_PROCESSES)
     with telemetry.span("checkpoint.save"):
         tmp = path + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
         # Each file is hashed as it is written, before the fault site
         # fires, so an injected truncation corrupts the file against its
         # recorded digest, as a torn write would.
@@ -120,43 +162,78 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
 
         layout: dict[str, str] = {}
         for k, v in acc.items():
-            if isinstance(v, Tiled):
-                layout[k] = "tiles"
-                for s, tile in enumerate(v.tiles):
-                    r0, _, c0, _ = v.spans(s)
-                    write(_tile_name(k, r0, c0), tile)
-            else:
-                layout[k] = "full"
-                write(f"{k}.npy", v)
+            layout[k] = "tiles" if isinstance(v, Tiled) else "full"
+        error: Exception | None = None
+        if primary:
+            try:
+                if os.path.exists(tmp):
+                    shutil.rmtree(tmp)
+                os.makedirs(tmp)
+                for k, v in acc.items():
+                    if isinstance(v, Tiled):
+                        for s, tile in enumerate(v.tiles):
+                            r0, _, c0, _ = v.spans(s)
+                            write(_tile_name(k, r0, c0), tile)
+                    else:
+                        write(f"{k}.npy", v)
+            except Exception as e:
+                error = e
+        _vote_all_ok(error is None, lambda bad: RuntimeError(
+            "checkpoint save: writing the leaves failed on the primary "
+            "process (see its log); the previous checkpoint generations "
+            "are untouched"))
+        if error is not None:
+            raise error
+        # Per-rank cursors: each rank resumes its own partition.
+        cursors = {str(i): int(c) for i, c in
+                   enumerate(mh.allgather(np.int64(next_variant)))}
+        mesh_shape = None
+        if plan is not None:
+            mesh_shape = list(plan.mesh.shape)
+            if plan.processes > 1:
+                # The job's slots over every rank, shaped as the JAX
+                # package's process-spanning mesh would be.
+                mesh_shape = list(meshes._factor_2d(
+                    plan.mesh.size * plan.processes))
         manifest = {
-            "next_variant": int(next_variant),
-            "cursors": {"0": int(next_variant)},
+            "next_variant": cursors["0"],
+            "cursors": cursors,
             "metric": metric,
             "block_variants": int(block_variants),
             "sample_hash": sample_hash(sample_ids),
             "n_samples": len(sample_ids),
             "leaves": sorted(acc),
             "layout": layout,
-            "mesh_shape": (list(plan.mesh.shape) if plan is not None
-                           else None),
+            "mesh_shape": mesh_shape,
             "mode": plan.mode if plan is not None else None,
-            "process_count": 1,
+            "process_count": meshes.process_count(),
             "stream_stats": dict(stream_stats or {}),
             "extra": dict(extra) if extra else None,
             "sha256": checksums,
         }
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        # Never a window with zero good generations: the old latest
-        # moves aside to .old before the new one lands, and a crash
-        # mid-sequence leaves `path` or `path.old` intact.
-        with telemetry.span("checkpoint.rotate"):
-            old = path + ".old"
-            if os.path.exists(old):
-                shutil.rmtree(old)
-            if os.path.exists(path):
-                os.replace(path, old)
-            os.replace(tmp, path)
+        if primary:
+            try:
+                with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                    json.dump(manifest, f)
+                # Never a window with zero good generations: the old
+                # latest moves aside to .old before the new one lands,
+                # and a crash mid-sequence leaves `path` or `path.old`
+                # intact.
+                with telemetry.span("checkpoint.rotate"):
+                    old = path + ".old"
+                    if os.path.exists(old):
+                        shutil.rmtree(old)
+                    if os.path.exists(path):
+                        os.replace(path, old)
+                    os.replace(tmp, path)
+            except Exception as e:
+                error = e
+        _vote_all_ok(error is None, lambda bad: RuntimeError(
+            "checkpoint save: the manifest write or rotation failed on "
+            "the primary process (see its log); the checkpoint directory "
+            "was left on the previous good generation"))
+        if error is not None:
+            raise error
 
 
 def _verify_files(path: str, manifest: dict) -> str | None:
@@ -223,26 +300,108 @@ def _promote_fallback(path: str, found):
     gen, manifest = found
     if gen == path:
         return found
-    try:
-        if os.path.exists(path):
-            corrupt = path + ".corrupt"
-            if os.path.exists(corrupt):
-                shutil.rmtree(corrupt)
-            os.replace(path, corrupt)
-            warnings.warn(
-                f"checkpoint: corrupt latest generation set aside as "
-                f"{corrupt}; delete it once recovered",
-                RuntimeWarning,
-                stacklevel=3,
-            )
-        os.replace(gen, path)
-    except OSError as e:
+    err: OSError | None = None
+    if meshes.process_index() == 0:
+        try:
+            if os.path.exists(path):
+                corrupt = path + ".corrupt"
+                if os.path.exists(corrupt):
+                    shutil.rmtree(corrupt)
+                os.replace(path, corrupt)
+                warnings.warn(
+                    f"checkpoint: corrupt latest generation set aside as "
+                    f"{corrupt}; delete it once recovered",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+            os.replace(gen, path)
+        except OSError as e:
+            err = e
+    # The vote is the barrier: no rank reads the generation while rank 0
+    # moves it, and a failed move aborts every rank in this round.
+    _vote_all_ok(err is None, lambda bad: CheckpointCorruptError(
+        f"promotion of fallback checkpoint generation {gen} failed on "
+        "process 0 — see its log"))
+    if err is not None:
         raise CheckpointCorruptError(
             f"cannot promote fallback checkpoint generation {gen} back "
-            f"to {path}: {e}"
-        ) from e
+            f"to {path}: {err}"
+        ) from err
     telemetry.count("checkpoint.fallback")
     return path, manifest
+
+
+def _agree_generation(path: str, found, local_error=None):
+    """Several processes: every rank resumes from the SAME generation.
+    Verification is per rank (a transient read error can make one reject
+    the latest generation while the others accept it), so one allgather
+    of each rank's choice settles it: a rank that fell back takes every
+    rank to the older generation (re-verified where it was not yet);
+    some ranks finding none while others found one means the directory
+    is not shared, and all abort; a rank that found every generation
+    corrupt votes that (``local_error``) instead of raising beside the
+    collective. One process: ``found``, or ``local_error`` raised."""
+    from spark_examples_tpu_torch.parallel import multihost as mh
+
+    if not mh.is_multihost():
+        if local_error is not None:
+            raise local_error
+        return found
+    # Ordered worst to best: latest=0, .old=1, nothing=2, corrupt=3.
+    none_, corrupt = 2, 3
+    if local_error is not None:
+        mine = corrupt
+    else:
+        mine = none_ if found is None else (0 if found[0] == path else 1)
+    votes = mh.allgather(np.int32(mine))
+    if (votes == corrupt).any():
+        if local_error is not None:
+            raise local_error
+        raise CheckpointCorruptError(
+            f"process(es) {[int(i) for i in np.flatnonzero(votes == corrupt)]}"
+            f" found every checkpoint generation at {path} corrupt — "
+            "aborting the resume on every process (recover the files or "
+            "delete the checkpoint directory to deliberately restart from "
+            "zero)"
+        )
+    if (votes == none_).any():
+        if (votes == none_).all():
+            return found
+        raise CheckpointCorruptError(
+            f"process(es) {[int(i) for i in np.flatnonzero(votes == none_)]}"
+            f" found no usable checkpoint generation at {path} while "
+            "others did — the checkpoint directory is not consistently "
+            "visible across processes (multi-host --checkpoint-dir must "
+            "be a filesystem shared by every process)"
+        )
+    agreed = int(votes.max())
+    result, reason = found, None
+    if agreed != mine:
+        gen = path + ".old" if agreed else path
+        try:
+            with open(os.path.join(gen, "manifest.json")) as f:
+                manifest = json.load(f)
+            reason = _verify_files(gen, manifest)
+        except (OSError, ValueError) as e:
+            reason = f"manifest unusable ({e})"
+        if reason is None:
+            result = gen, manifest
+    # Every rank joins the confirmation round, adopters or not.
+    _vote_all_ok(reason is None, lambda bad: CheckpointCorruptError(
+        f"peers agreed on a checkpoint generation at {path}, but "
+        f"process(es) {bad} cannot use it"))
+    if reason is not None:
+        raise CheckpointCorruptError(
+            f"peers agreed on a checkpoint generation at {path}, but it "
+            f"is unusable on this process: {reason}")
+    if agreed != mine:
+        warnings.warn(
+            f"checkpoint generation agreement: adopting {result[0]} "
+            "because a peer process could not use a newer generation",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    return result
 
 
 def _load_leaf(path: str, k: str, layout: str, manifest: dict, plan,
@@ -290,7 +449,13 @@ def load(path: str, metric: str, sample_ids: list[str],
     if plan is not None:
         device = plan.mesh.home
     with telemetry.span("checkpoint.load"):
-        found = _usable_generation(path)
+        try:
+            mine, local_error = _usable_generation(path), None
+        except CheckpointCorruptError as e:
+            # Voted, not raised here: the other ranks may already be in
+            # the agreement round.
+            mine, local_error = None, e
+        found = _agree_generation(path, mine, local_error)
         if found is None:
             return None
         path, manifest = _promote_fallback(path, found)
@@ -334,15 +499,21 @@ def load(path: str, metric: str, sample_ids: list[str],
                 f"for metric {metric!r} (stale accumulator schema — delete "
                 "the checkpoint to restart)"
             )
-        if manifest.get("process_count", 1) != 1:
+        # Cursors are offsets into per-rank partitions: another process
+        # count would misapply every one of them.
+        if manifest.get("process_count", 1) != meshes.process_count():
             raise ValueError(
                 f"checkpoint at {path} was written by "
-                f"{manifest['process_count']} processes; this job runs 1 "
-                "— per-process ingest cursors do not transfer across "
-                "process counts"
+                f"{manifest.get('process_count', 1)} process(es); this job "
+                f"runs {meshes.process_count()} — per-process ingest "
+                "cursors do not transfer across process counts"
             )
         layout = (manifest.get("layout")
                   or {k: "full" for k in manifest["leaves"]})
+        if (meshes.process_count() > 1
+                and any(v == "tiles" for v in layout.values())):
+            raise ValueError(f"checkpoint at {path}: "
+                             + _TILED_ACROSS_PROCESSES)
         if any(v == "tiles" for v in layout.values()):
             want_mesh = list(plan.mesh.shape) if plan is not None else None
             if (plan is None
@@ -360,5 +531,6 @@ def load(path: str, metric: str, sample_ids: list[str],
                              device)
                for k in manifest["leaves"]}
         cursors = manifest.get("cursors") or {"0": manifest["next_variant"]}
-        cursor = int(cursors.get("0", manifest["next_variant"]))
+        cursor = int(cursors.get(str(meshes.process_index()),
+                                 manifest["next_variant"]))
         return acc, cursor, manifest.get("stream_stats", {})

@@ -159,8 +159,13 @@ class IngestConfig:
     ld_r2: float = 0.0
     ld_window: int = 256
     ld_carry: int = 0  # 0 = auto (window // 4)
+    # Sub-ranges each --references range splits into, read concurrently
+    # by up to ingest_workers threads and consumed in range order
+    # (ingest/partitioned.py); 1 = off.
+    splits_per_contig: int = 1
     # Parse/pack/hash/write worker threads of the `ingest` compaction
-    # (ingest/parallel.py); ordered reassembly keeps the store byte for
+    # (ingest/parallel.py), and the concurrent range readers of
+    # splits_per_contig; ordered reassembly keeps the output byte for
     # byte the 1-worker one.
     ingest_workers: int = 4
     # Transient-IO retries per incident for file-backed sources
@@ -198,6 +203,8 @@ class IngestConfig:
                    "windows; 0 = window // 4, below the window")
         _check_int("ingest", "--ingest-workers", self.ingest_workers, 1,
                    256, "parse/pack worker threads; 1 = serial")
+        _check_int("ingest", "--splits-per-contig", self.splits_per_contig,
+                   1, 65536, "sub-ranges per --references contig; 1 = off")
         _check_int("ingest", "--io-retries", self.io_retries, 0, 1000,
                    "transient-IO retries per incident; 0 = no retry")
         _check_int("ingest", "--store-cache-mb", self.store_cache_mb, 0,

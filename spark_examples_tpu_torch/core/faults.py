@@ -7,8 +7,8 @@ the process. A seeded ``random.Random`` and per-site hit counters
 decide every fire, so an injected run repeats exactly. With nothing
 armed, :func:`fire` is one global check and a return.
 
-Sites wired in the port (the JAX package's ``core/faults.py`` names
-more; only the ones the ported modules cross are here):
+Sites wired in the port (all sixteen of the JAX package's
+``core/faults.py``):
 
 ==========================  ================================================
 ``ingest.block_read``       per block, inside the retry boundary of
@@ -24,6 +24,10 @@ more; only the ones the ported modules cross are here):
                             the manifest (``core/checkpoint.py``)
 ``checkpoint.tile_read``    per checkpoint file during verification on
                             load, before it is hashed
+``multihost.consensus``     per control-plane allgather round of the
+                            consensus feeder (``parallel/multihost.py``),
+                            outside its span: a delay is this rank's own
+                            lateness, the span its wait for the others
 ``neighbors.candidates``    per block attempt of the neighbors job's exact
                             candidate evaluation, inside its IO retry
                             boundary (``neighbors/engine.py``)
@@ -93,6 +97,7 @@ SITES = (
     "store.readahead.decode",
     "checkpoint.tile_write",
     "checkpoint.tile_read",
+    "multihost.consensus",
     "neighbors.candidates",
     "device.put",
     "prefetch.transfer_wait",

@@ -13,6 +13,13 @@ A slot is a ``torch.device``: on ``--device cuda`` the default mesh is
 every visible card, ``cuda:0..n-1``; on one card that is ``(1, 1)``.
 ``core/virtual.py`` puts ``n`` slots on one physical device.
 
+A job of several processes (:func:`maybe_init_distributed`, over
+``torch.distributed``) gives each rank a mesh of its own: its one card
+(or the CPU), never every visible card. The ranks are started the way
+the JAX package's are, with the same environment names:
+``JAX_COORDINATOR_ADDRESS`` (``host:port`` of rank 0's store),
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``.
+
 The JAX layouts (``replicated``, ``tile2d``, ``rows_i``, ``rows_j``,
 ``variants_flat``) are slot -> slice maps here: lists indexed by the flat
 slot number.
@@ -21,6 +28,7 @@ slot number.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -84,10 +92,134 @@ def _factor_2d(n: int) -> tuple[int, int]:
     return best
 
 
+@dataclass(frozen=True)
+class Distributed:
+    """This process's place in a job of several: its ``rank`` of
+    ``world``, the collective ``backend`` (``nccl`` or ``gloo``), whether
+    device tensors are staged through the host for gloo (``staged``:
+    ranks that share a card), its own ``device``, and ``control``, the
+    gloo group that carries the control-plane values (step counts, ok
+    flags, cursors, votes) as host tensors."""
+
+    rank: int
+    world: int
+    backend: str
+    staged: bool
+    device: torch.device
+    control: object
+    reason: str
+
+    @property
+    def name(self) -> str:
+        """``nccl``, ``gloo`` or ``gloo-staged``: the reported choice."""
+        return "gloo-staged" if self.staged else self.backend
+
+
+# The one process group of this process (torch.distributed's own state
+# is process-wide too).
+_distributed: Distributed | None = None
+
+
+def backend_rule(device: torch.device, world: int, n_cards: int,
+                 local_world: int | None = None) -> tuple[str, bool, str]:
+    """``(backend, staged, reason)`` for a job of ``world`` ranks on
+    ``device``, decided up front by rule, never by a failed attempt:
+    ``gloo`` on the CPU; ``nccl`` when every rank on a host has a card of
+    its own; ``gloo`` with host staging when ranks share a card (NCCL
+    refuses two ranks on one GPU)."""
+    if device.type != "cuda":
+        return "gloo", False, "--device cpu"
+    local = world if local_world is None else local_world
+    if n_cards >= local:
+        return "nccl", False, f"{local} rank(s) on {n_cards} card(s)"
+    return "gloo", True, (f"{local} ranks share {n_cards} card(s); NCCL "
+                          "refuses two ranks on one GPU")
+
+
+def maybe_init_distributed(device="cuda") -> Distributed | None:
+    """Join the job's process group when launched as one of several
+    processes (``JAX_COORDINATOR_ADDRESS`` set), else None. Idempotent.
+
+    Called before the job touches its device: ``--device cuda`` without
+    a card raises here on every rank, before any collective. The backend
+    follows :func:`backend_rule`, is printed on stdout and set as the
+    ``multihost.backend`` gauge; a failed NCCL start is an error, never
+    a retry on gloo. A rank on ``cuda`` takes its own card,
+    ``cuda:(LOCAL_RANK or rank % device_count)``, and makes it current."""
+    global _distributed
+    if _distributed is not None:
+        return _distributed
+    addr = os.environ.get("JAX_COORDINATOR_ADDRESS")
+    if not addr:
+        return None
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(torch.device(device).type)
+    missing = [k for k in ("JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
+               if not os.environ.get(k)]
+    if missing:
+        raise ValueError(
+            f"JAX_COORDINATOR_ADDRESS={addr} names a job of several "
+            f"processes, but {' and '.join(missing)} is not set: give "
+            "every rank the job's process count and its own index")
+    world = int(os.environ["JAX_NUM_PROCESSES"])
+    rank = int(os.environ["JAX_PROCESS_ID"])
+    if not 0 <= rank < world:
+        raise ValueError(f"JAX_PROCESS_ID={rank} outside a job of "
+                         f"JAX_NUM_PROCESSES={world}")
+    local_world = os.environ.get("LOCAL_WORLD_SIZE")
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend, staged, reason = backend_rule(
+        device, world, n_cards,
+        int(local_world) if local_world else None)
+    if device.type == "cuda":
+        local_rank = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", int(local_rank) if local_rank
+                              else rank % n_cards)
+        torch.cuda.set_device(device)
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"tcp://{addr}",
+                            world_size=world, rank=rank)
+    if backend == "nccl":
+        # NCCL builds its communicator at the first collective: one here
+        # makes a failed start raise now, not after the stream, and keeps
+        # its set-up out of the job's first timed reduction.
+        dist.all_reduce(torch.zeros(1, device=device))
+        torch.cuda.synchronize(device)
+    # Control-plane values ride gloo on the host: NCCL would put each on
+    # the card and add a sync per round.
+    control = (dist.new_group(backend="gloo") if backend == "nccl"
+               else dist.group.WORLD)
+    _distributed = Distributed(rank, world, backend, staged, device,
+                               control, reason)
+    telemetry.gauge_set("multihost.backend",
+                        {"gloo": 0.0, "gloo-staged": 1.0,
+                         "nccl": 2.0}[_distributed.name])
+    print(f"multihost: rank {rank} of {world}, backend "
+          f"{_distributed.name} on {device} ({reason})", flush=True)
+    return _distributed
+
+
+def distributed() -> Distributed | None:
+    """This process's group, when it joined one."""
+    return _distributed
+
+
+def process_index() -> int:
+    return _distributed.rank if _distributed is not None else 0
+
+
+def process_count() -> int:
+    return _distributed.world if _distributed is not None else 1
+
+
 def default_devices(device) -> list[torch.device]:
     """The slots a job on ``device`` gets by default: the active
     ``virtual.virtual_slots`` scope, else every visible card for
-    ``cuda`` (a named card alone for ``cuda:k``), else ``device``."""
+    ``cuda`` (a named card alone for ``cuda:k``; a rank of a job of
+    several processes its own card), else ``device``."""
     device = torch.device(device)
     scope = virtual.current()
     if scope is not None:
@@ -99,6 +231,8 @@ def default_devices(device) -> list[torch.device]:
             )
         return virtual.virtual_devices(n, dev if dev is not None else device)
     if device.type == "cuda" and device.index is None:
+        if _distributed is not None:
+            return [_distributed.device]
         return [torch.device("cuda", k)
                 for k in range(torch.cuda.device_count())]
     return [device]

@@ -260,6 +260,19 @@ NAMES: dict[str, tuple[str, str]] = {
         "one block period of the streamed gram loop: producer/queue wait + "
         "host->device transfer + update dispatch + hooks + checkpoint",
     ),
+    "multihost.consensus": (
+        "span",
+        "one control-plane allgather round (step-count / has-data / "
+        "terminal agreement) — the wait is the per-rank straggler metric: "
+        "a fast rank burns its skew here",
+    ),
+    "multihost.shard_feed_bytes": (
+        "counter",
+        "bytes THIS process fed into the mesh as its own variant-shard "
+        "slabs (padding steps feed none) — summed across hosts, the "
+        "aggregate-ingest number that scales with host count under the "
+        "shard-aware feed",
+    ),
     "gram.pad_step": (
         "event",
         "a loop step whose block carried no variant of this process's "
@@ -812,6 +825,13 @@ PORT_NAMES: dict[str, tuple[str, str]] = {
         "a block on one device, one per tile a block under a tile2d "
         "gather plan, one per slot a block under a variant plan, D per "
         "tile a block under the ring transport",
+    ),
+    "multihost.backend": (
+        "gauge",
+        "the collective backend of a job of several processes, chosen up "
+        "front by rule (core/meshes.py::backend_rule): 0 gloo (--device "
+        "cpu), 1 gloo with device tensors staged through the host (ranks "
+        "sharing a card), 2 nccl (a card per rank)",
     ),
 }
 
@@ -1380,19 +1400,22 @@ def _split_counters() -> tuple[dict, dict]:
 
 def digest() -> dict:
     """The compact headline: block-time p50/p95, the feed's stall
-    fraction, retries."""
+    fraction, retries, the consensus wait's p95."""
     phases, counters = _split_counters()
     with _lock:
         block = _hists.get("gram.block")
         stall = _hists.get("prefetch.get_wait_s")
+        consensus = _hists.get("multihost.consensus")
         block = block.summary() if block else {"count": 0}
         stall_sum = stall.sum if stall else 0.0
+        consensus_p95 = consensus.quantile(0.95) if consensus else 0.0
     return {
         "block_p50_s": round(block.get("p50", 0.0), 6),
         "block_p95_s": round(block.get("p95", 0.0), 6),
         "blocks": block.get("count", 0),
         "prefetch_stall_frac": round(stall_fraction(phases, stall_sum), 4),
         "ingest_retries": int(counters.get("ingest.retries", 0.0)),
+        "consensus_wait_p95_s": round(consensus_p95, 6),
     }
 
 
@@ -1656,8 +1679,9 @@ def _export(base: str) -> str:
 
 def _write_summary(base: str, n_proc: int) -> None:
     """A per-rank table at ``base``: gram throughput, ingest rate, block
-    p50/p95, stall fraction, retries. Peer files older than this
-    process are ignored as a previous run's."""
+    p50/p95, stall fraction, retries, and the consensus wait's mean and
+    p95 (a fast rank waits for a straggler there). Peer files older
+    than this process are ignored as a previous run's."""
     rows = []
     stale = 0
     for rank in range(n_proc):
@@ -1674,6 +1698,7 @@ def _write_summary(base: str, n_proc: int) -> None:
         hists = m.get("histograms", {})
         block = hists.get("gram.block", {})
         stall = hists.get("prefetch.get_wait_s", {})
+        wait = hists.get("multihost.consensus", {})
         derived = m.get("derived", {})
         rows.append({
             "rank": rank,
@@ -1684,9 +1709,12 @@ def _write_summary(base: str, n_proc: int) -> None:
             "stall_frac": stall_fraction(m.get("phases", {}),
                                          stall.get("sum", 0.0)),
             "retries": int(m.get("counters", {}).get("ingest.retries", 0)),
+            "wait_mean_ms": wait.get("mean", 0.0) * 1e3,
+            "wait_p95_ms": wait.get("p95", 0.0) * 1e3,
         })
     cols = ("rank", "gram_gflops", "ingest_mb_s", "block_p50_ms",
-            "block_p95_ms", "stall_frac", "retries")
+            "block_p95_ms", "stall_frac", "retries", "wait_mean_ms",
+            "wait_p95_ms")
     lines = ["\t".join(cols)]
     for r in rows:
         lines.append("\t".join(

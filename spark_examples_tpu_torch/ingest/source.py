@@ -5,9 +5,11 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Iterator, Protocol, runtime_checkable
+from typing import Iterator, Protocol, Sequence, runtime_checkable
 
 import numpy as np
+
+from spark_examples_tpu_torch.ingest import bitpack
 
 
 @dataclass(frozen=True)
@@ -152,10 +154,163 @@ def close_source(source) -> None:
         close()
 
 
+def partition_ranges(references: Sequence, splits_per_contig: int) -> list:
+    """Split each genomic range into ``splits_per_contig`` ~equal
+    sub-ranges (the reference partitioner's ``FixedContigSplits(n)``):
+    the units of concurrent reading (``--splits-per-contig``) and of a
+    rank's share under several processes."""
+    out = []
+    for ref in references:
+        span = ref.end - ref.start
+        if span <= 0 or splits_per_contig <= 1:
+            out.append(ref)
+            continue
+        step = -(-span // splits_per_contig)
+        for s in range(ref.start, ref.end, step):
+            out.append(dataclasses.replace(ref, start=s,
+                                           end=min(s + step, ref.end)))
+    return out
+
+
+def window_for_process(n_variants: int, block_variants: int,
+                       process_index: int,
+                       process_count: int) -> tuple[int, int]:
+    """Block-aligned contiguous ``[start, stop)`` window for one process:
+    ceil(V / bv) blocks in ``process_count`` contiguous runs of at most
+    ceil(n_blocks / P) blocks; trailing processes may get an empty
+    window (the consensus feeder pads their steps)."""
+    n_blocks = -(-n_variants // block_variants)
+    per = -(-n_blocks // max(1, process_count))
+    start = min(process_index * per * block_variants, n_variants)
+    stop = min((process_index + 1) * per * block_variants, n_variants)
+    return start, stop
+
+
+@dataclass
+class WindowSource:
+    """A source restricted to the contiguous variant window ``[start,
+    stop)``: one rank's partition of a random-access source (synthetic,
+    the packed and dataset stores). ``start`` lies on the stream's block
+    grid; ``stop`` on it or at the end of the inner source. Cursors and
+    block ordinals are local to the window. The inner source's packed
+    transport and its decode-into-buffer drive are forwarded when it has
+    them, so a rank decodes only its own variants."""
+
+    inner: GenotypeSource
+    start: int
+    stop: int
+
+    def __post_init__(self):
+        if not 0 <= self.start <= self.stop <= self.inner.n_variants:
+            raise ValueError(
+                f"window [{self.start}, {self.stop}) out of range for a "
+                f"{self.inner.n_variants}-variant source"
+            )
+        # The feed dispatches on hasattr: advertise only what the inner
+        # source has.
+        if hasattr(self.inner, "packed_blocks"):
+            self.packed_blocks = self._packed_blocks
+        if hasattr(self.inner, "decode_range_into") and hasattr(
+                self.inner, "block_spans"):
+            self.block_spans = self._block_spans
+            self.decode_range_into = self._decode_range_into
+
+    @property
+    def n_samples(self) -> int:
+        return self.inner.n_samples
+
+    @property
+    def n_variants(self) -> int:
+        return self.stop - self.start
+
+    @property
+    def exact_n_variants(self) -> bool:
+        # Exact iff the count the window was cut from is (a filtered
+        # inner source could under-produce).
+        return bool(getattr(self.inner, "exact_n_variants", False))
+
+    @property
+    def sample_ids(self) -> list[str]:
+        return self.inner.sample_ids
+
+    def _check_aligned(self, block_variants: int) -> None:
+        if self.start % block_variants:
+            raise ValueError(
+                f"window start {self.start} not aligned to block grid "
+                f"{block_variants} — inner cursors would ceil-align past "
+                "the window's own variants"
+            )
+
+    def _relocalize(self, it, packed: bool = False):
+        idx = 0
+        for block, meta in it:
+            if meta.start >= self.stop:
+                break
+            take = min(meta.stop, self.stop) - meta.start
+            # Packed blocks are (N, width / 4) bytes.
+            cols = bitpack.packed_width(take) if packed else take
+            if cols < block.shape[1]:
+                block = np.ascontiguousarray(block[:, :cols])
+            pos = None if packed else meta.positions
+            if pos is not None and take < len(pos):
+                pos = pos[:take]
+            yield block, dataclasses.replace(
+                meta, index=idx, start=meta.start - self.start,
+                stop=meta.start - self.start + take, positions=pos)
+            idx += 1
+
+    def blocks(self, block_variants: int, start_variant: int = 0):
+        self._check_aligned(block_variants)
+        yield from self._relocalize(
+            self.inner.blocks(block_variants, self.start + start_variant))
+
+    def _packed_blocks(self, block_variants: int, start_variant: int = 0):
+        self._check_aligned(block_variants)
+        yield from self._relocalize(
+            self.inner.packed_blocks(block_variants,
+                                     self.start + start_variant),
+            packed=True)
+
+    def _block_spans(self, block_variants: int, start_variant: int = 0):
+        """The inner block grid's spans in the window's coordinates,
+        truncated at the window's end: the decode-free twin of
+        :meth:`blocks` for a feed that drives :meth:`decode_range_into`."""
+        self._check_aligned(block_variants)
+        idx = 0
+        for lo, hi, meta in self.inner.block_spans(
+                block_variants, self.start + start_variant):
+            if lo >= self.stop:
+                break
+            hi = min(hi, self.stop)
+            pos = meta.positions
+            if pos is not None and hi - lo < len(pos):
+                pos = pos[:hi - lo]
+            yield lo - self.start, hi - self.start, dataclasses.replace(
+                meta, index=idx, start=lo - self.start,
+                stop=hi - self.start, positions=pos)
+            idx += 1
+
+    def _decode_range_into(self, lo: int, hi: int, out, col_off: int = 0):
+        # Checked against the window: an over-long span would decode
+        # another rank's variants into this one's partial sum.
+        if not 0 <= lo <= hi <= self.n_variants:
+            raise ValueError(
+                f"variant range [{lo}, {hi}) out of bounds for a "
+                f"{self.n_variants}-variant window"
+            )
+        self.inner.decode_range_into(self.start + lo, self.start + hi,
+                                     out, col_off)
+
+    def close(self) -> None:
+        close_source(self.inner)
+
+
 @dataclass
 class EmptyShare:
     """A zero-variant source that still answers cohort metadata (a
-    ``--references`` filter that matched nothing)."""
+    ``--references`` filter that matched nothing, or a rank whose range
+    share came out empty: ``references=[]`` would mean "no filter" and
+    read the whole input into that rank's partial sum)."""
 
     inner: GenotypeSource
 

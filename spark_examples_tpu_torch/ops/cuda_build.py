@@ -6,11 +6,15 @@ first use, into ``spark_examples_tpu_torch/_build/`` (ignored by git),
 from the ``.cu`` sources in the package and nothing else; the library's
 file name carries a hash of its source, so an edited source rebuilds.
 A failed build raises: there is no fallback to the plain version.
+Processes that build at once (the ranks of one job) take turns under an
+advisory lock on ``_build/.lock``: the first builds, the others find the
+library (the kernel releases a dead holder's lock).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -89,7 +93,9 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
     nvcc per source, all started together. Returns the reports."""
     if names is None:
         names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-    with _lock:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock, open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         started = {n: _start_build(n) for n in names}
         for n, s in started.items():
             if s is not None:

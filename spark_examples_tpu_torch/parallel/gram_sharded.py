@@ -70,6 +70,9 @@ _ACC_BUDGET = 8 * 2**30
 class GramPlan:
     mesh: meshes.Mesh
     mode: str  # replicated | variant | tile2d
+    # Ranks of the job: each drives this plan's mesh over its own
+    # variant partition, and the partial sums are added across them.
+    processes: int = 1
 
     @property
     def tiled(self) -> bool:
@@ -103,10 +106,18 @@ def check_tile_divisible(n_samples: int, mesh: meshes.Mesh) -> None:
 
 
 def plan_for(mesh: meshes.Mesh, n_samples: int, metric: str,
-             mode: str = "auto") -> GramPlan:
+             mode: str = "auto", processes: int = 1) -> GramPlan:
     """Pick a distribution mode (or validate a forced one): one slot is
     replicated; else variant while the N x N leaves fit the per-device
-    budget, tile2d past it."""
+    budget, tile2d past it.
+
+    Under ``processes > 1`` ranks (``parallel/multihost.py``) ``mesh`` is
+    this rank's own, and the job's slots are those of every rank: auto
+    counts them all (variant, as the JAX package's process-spanning
+    mesh would be), each rank's mesh runs the update of its own slab,
+    and the partial sums are added across ranks. ``replicated`` runs each
+    rank's update on one slot. tile2d across ranks is refused: its tiles
+    over ranks are the next slice of the port."""
     if mode == "auto":
         kern = kernels.get(metric)
         n_acc = 1
@@ -114,7 +125,7 @@ def plan_for(mesh: meshes.Mesh, n_samples: int, metric: str,
             n_acc = max(len(gram_ops.acc_leaves(metric))
                         - len(gram_ops.scalar_leaves(metric)), 1)
         acc_bytes = 4 * n_samples * n_samples * n_acc
-        if mesh.size == 1:
+        if mesh.size * processes == 1:
             mode = "replicated"
         elif acc_bytes <= _ACC_BUDGET:
             mode = "variant"
@@ -122,9 +133,19 @@ def plan_for(mesh: meshes.Mesh, n_samples: int, metric: str,
             mode = "tile2d"
     if mode not in GRAM_PLAN_MODES:
         raise ValueError(f"unknown gram mode {mode!r}")
+    if mode == "tile2d" and processes > 1:
+        raise ValueError(
+            f"--gram-mode tile2d across {processes} processes is not "
+            "ported yet: the gram tiles over ranks, the sharded "
+            "finalize/centering/eigensolve over ranks and the "
+            "multi-process tiled checkpoint are the next slice of the "
+            "port — run a job of several processes "
+            "with --gram-mode variant (or auto, or replicated), or tile "
+            "over the cards of one process"
+        )
     if mode == "tile2d":
         check_tile_divisible(n_samples, mesh)
-    return GramPlan(mesh, mode)
+    return GramPlan(mesh, mode, processes)
 
 
 def init_sharded(plan: GramPlan, n: int, metric: str) -> dict:

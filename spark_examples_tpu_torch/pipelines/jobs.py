@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from spark_examples_tpu_torch import kernels
-from spark_examples_tpu_torch.core import telemetry
+from spark_examples_tpu_torch.core import meshes, telemetry
 from spark_examples_tpu_torch.core.config import (
     EIGH_ITERS_DEFAULT,
     SOLVER_RUNG_ID,
@@ -71,7 +71,7 @@ class CoordsOutput:
 def similarity_matrix_job(job: JobConfig, source=None
                           ) -> runner.SimilarityResult:
     result = runner.run_similarity(job, source=source)
-    if job.output_path:
+    if job.output_path and meshes.process_index() == 0:
         pio.write_matrix(job.output_path, result.sample_ids,
                          result.similarity, kind="similarity")
     return result
@@ -186,8 +186,9 @@ def _host(matrix) -> np.ndarray:
 def _maybe_save_model(job: JobConfig, dist, coords, vals,
                       sample_ids) -> None:
     """Persist the fitted PCoA embedding when the job asks for it; the
-    (N, N) distance comes to the host only then."""
-    if not job.model_path:
+    (N, N) distance comes to the host only then. In a job of several
+    processes rank 0 writes it (every rank holds the same model)."""
+    if not job.model_path or meshes.process_index() != 0:
         return
     from spark_examples_tpu_torch.pipelines.project import save_model
 
@@ -198,8 +199,9 @@ def _maybe_save_model(job: JobConfig, dist, coords, vals,
 
 def _maybe_save_pca_model(job: JobConfig, sim, coords, vals,
                           sample_ids) -> None:
-    """Persist the fitted PCA embedding when the job asks for it."""
-    if not job.model_path:
+    """Persist the fitted PCA embedding when the job asks for it (rank 0
+    of several processes)."""
+    if not job.model_path or meshes.process_index() != 0:
         return
     from spark_examples_tpu_torch.pipelines.project import save_pca_model
 
@@ -226,7 +228,7 @@ def _maybe_save_factorized_model(job: JobConfig, kind: str, res) -> None:
     for it (the config and the solver driver checked that the rung and
     metric can; ``res`` carries the basis and the streamed centering
     statistics)."""
-    if not job.model_path:
+    if not job.model_path or meshes.process_index() != 0:
         return
     from spark_examples_tpu_torch.models.factorized import (
         save_factorized_model,
@@ -412,7 +414,8 @@ def _emit_coords(job: JobConfig, sample_ids, coords, vals, timer,
     telemetry.gauge_set("solver.rung", float(SOLVER_RUNG_ID[cfg.solver]))
     out = CoordsOutput(sample_ids, coords, vals, timer, n_variants,
                        proportion=proportion)
-    if job.output_path:
+    # Several processes hold the same coordinates; rank 0 owns the file.
+    if job.output_path and meshes.process_index() == 0:
         pio.write_coords_tsv(job.output_path, sample_ids, out.coords)
     return out
 

@@ -405,9 +405,7 @@ def cross_plan_for(mesh: meshes.Mesh, a: int, n_ref: int, n_stats: int,
 
     n_i, n_j = mesh.shape
     divisible = a % n_i == 0 and n_ref % n_j == 0
-    multihost = (torch.distributed.is_available()
-                 and torch.distributed.is_initialized()
-                 and torch.distributed.get_world_size() > 1)
+    multihost = meshes.process_count() > 1
     if mode == "tile2d" and multihost:
         raise ValueError(
             "the tile2d cross plan is single-host; multi-host cross "
@@ -459,6 +457,9 @@ def _accumulate_cross(job: JobConfig, source_new, source_ref,
     mesh and ``--gram-mode`` by default); a tile2d plan's accumulators
     are tiled while they stream, then gathered on slot 0. Returns
     (accumulators, n_variants, qden or None)."""
+    from spark_examples_tpu_torch.parallel import multihost as mh
+
+    multihost = mh.is_multihost()
     device = resolve_device(job.compute.device)
     a, n_ref = source_new.n_samples, source_ref.n_samples
     bv = job.ingest.block_variants
@@ -468,6 +469,13 @@ def _accumulate_cross(job: JobConfig, source_new, source_ref,
                                 shape=job.compute.mesh_shape)
         plan = cross_plan_for(mesh, a, n_ref, len(stats),
                               job.compute.gram_mode)
+    if multihost and plan.mode == "tile2d":
+        # cross_plan_for refuses this; only a hand-built CrossPlan gets
+        # here, and it would merge tiles no rank owns.
+        raise ValueError(
+            "the tile2d cross plan is single-host; multi-host cross "
+            "jobs run replicated"
+        )
     device = plan.mesh.home
     tiled = plan.mode == "tile2d" and plan.mesh.size > 1
     if tiled:
@@ -544,6 +552,17 @@ def _accumulate_cross(job: JobConfig, source_new, source_ref,
         .sum(axis=0)
         if moment_blocks else np.zeros(6, np.float64)
     )
+    if multihost:
+        # Every statistic is a sum over variants and each rank streamed
+        # its own partition: one additive merge gives the one-process
+        # result (integer sums exactly; qden's integer-valued f32 sums
+        # too, far below 2^24). A rank with an empty partition carries
+        # zeros and still joins. The f64 moments ride the control plane.
+        acc = mh.reduce_acc(acc, inplace=True)
+        if qden is not None:
+            qden = mh.allreduce_sum(qden, inplace=True)
+        n_variants = int(mh.allgather(np.int64(n_variants)).sum())
+        moments = mh.allgather(moments).sum(axis=0)
     if moments[0] > 0:
         _check_af_concordance(moments, a, n_ref)
     return acc, n_variants, qden
@@ -572,7 +591,8 @@ def cross_kinship_job(job: JobConfig, source_new, source_ref):
     with timer.phase("finalize"):
         phi = hard_sync(_cross_phi(acc["hh"], acc["opp"], acc["hcn"],
                                    acc["hcr"])).cpu().numpy()
-    if job.output_path:
+    # Every rank holds the merged statistics; rank 0 owns the file.
+    if job.output_path and meshes.process_index() == 0:
         pio.write_matrix(job.output_path, source_new.sample_ids, phi,
                          kind="similarity",
                          col_ids=source_ref.sample_ids)
@@ -674,6 +694,6 @@ def pcoa_project_job(job: JobConfig, model_path: str, source_new,
         coords = hard_sync(coords).cpu().numpy()
     out = CoordsOutput(source_new.sample_ids, coords,
                        eigvals.cpu().numpy(), timer, n_variants)
-    if job.output_path:
+    if job.output_path and meshes.process_index() == 0:
         pio.write_coords_tsv(job.output_path, out.sample_ids, out.coords)
     return out

@@ -17,6 +17,13 @@ cursor and the checkpoint cadence, and the ``gram.block`` span of each
 block period (producer wait, copy, update, hooks and checkpoint) under
 the ``phase.gram`` span.
 
+A job of several processes (``torch.distributed``, started with the
+JAX package's environment names: ``core/meshes.py``) gives every rank
+its own share of the input (:func:`build_source`), its own mesh, and the
+consensus feeder of ``parallel/multihost.py``: each rank adds its slabs
+into partial sums, summed across ranks where the global value is read
+(a hook, a checkpoint, the end of the stream).
+
 ``--backend cpu-reference`` routes a similarity through the NumPy
 oracle instead (``utils/oracle.py``): host blocks from
 ``source.blocks()``, float64 products, the kernels' ``np_finalize``
@@ -27,6 +34,7 @@ the device route.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from contextlib import closing, contextmanager
 from dataclasses import dataclass
@@ -53,7 +61,14 @@ from spark_examples_tpu_torch.ingest.resilient import (
     RetryingSource,
     RetryPolicy,
 )
-from spark_examples_tpu_torch.ingest.source import close_source
+from spark_examples_tpu_torch.ingest.partitioned import PartitionedSource
+from spark_examples_tpu_torch.ingest.source import (
+    EmptyShare,
+    WindowSource,
+    close_source,
+    partition_ranges,
+    window_for_process,
+)
 from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
 from spark_examples_tpu_torch.ingest.vcf import VcfSource
 from spark_examples_tpu_torch.ops import braycurtis_kernel, distances, gram
@@ -72,8 +87,18 @@ def build_source(cfg: IngestConfig, device: str = "cuda"):
     """IngestConfig -> GenotypeSource, with the QC filter and then LD
     pruning layered on as the config asks (QC first: monomorphic and
     high-missing variants are its job). LD pruning's r^2 products run on
-    ``device``."""
-    src = _build_raw_source(cfg, device)
+    ``device``.
+
+    In a job of several processes (joined here, before the job touches
+    its device) the source is this rank's partition of the input
+    (:func:`_build_local_partition`); the filters then apply per
+    partition, so LD windows do not reach across partition boundaries
+    (as they do not across contigs)."""
+    meshes.maybe_init_distributed(device)
+    if meshes.process_count() > 1:
+        src = _build_local_partition(cfg, device)
+    else:
+        src = _build_raw_source(cfg, device)
     if cfg.maf > 0.0 or cfg.max_missing < 1.0:
         src = FilteredSource(src, maf=cfg.maf, max_missing=cfg.max_missing)
     if cfg.ld_r2 > 0.0:
@@ -81,6 +106,49 @@ def build_source(cfg: IngestConfig, device: str = "cuda"):
         src = LdPruneSource(src, r2=cfg.ld_r2, window=cfg.ld_window,
                             carry=carry, device=device)
     return src
+
+
+def _build_local_partition(cfg: IngestConfig, device: str):
+    """This rank's share of the input. File sources with
+    ``--references``: each range split into one sub-range per rank
+    (``partition_ranges``), this rank keeping its index's share of every
+    range (an empty share streams nothing). Random-access sources
+    (synthetic, the packed and dataset stores): a block-aligned variant
+    window. A VCF or parquet file without references would have every
+    rank parse all of it to keep a slice, so it is refused with the fix
+    named."""
+    p, n_proc = meshes.process_index(), meshes.process_count()
+    if cfg.source in ("vcf", "plink", "parquet", "store") and cfg.references:
+        mine = []
+        for ref in cfg.references:
+            mine.extend(partition_ranges([ref], n_proc)[p::n_proc])
+        if not mine:
+            return EmptyShare(_build_raw_source(cfg, device))
+        return _build_raw_source(dataclasses.replace(cfg, references=mine),
+                                 device)
+    if cfg.source in ("vcf", "parquet"):
+        raise ValueError(
+            f"multi-host {cfg.source} ingest needs --references so each "
+            "process can read only its genomic range; alternatively "
+            "`pack` the file once and run the job from the packed store"
+        )
+    src = _build_raw_source(cfg, device)
+    start, stop = window_for_process(src.n_variants, cfg.block_variants, p,
+                                     n_proc)
+    return WindowSource(src, start, stop)
+
+
+def _maybe_partitioned(cls, cfg: IngestConfig):
+    """A range-filterable file source, split into concurrent sub-range
+    readers when ``--splits-per-contig`` asks (read concurrently,
+    consumed in range order: the same stream as one reader for
+    position-sorted, non-overlapping ranges)."""
+    if cfg.splits_per_contig > 1 and cfg.references:
+        parts = [cls(cfg.path, references=(r,))
+                 for r in partition_ranges(cfg.references,
+                                           cfg.splits_per_contig)]
+        return PartitionedSource(parts, max_workers=cfg.ingest_workers)
+    return cls(cfg.path, references=tuple(cfg.references))
 
 
 def _maybe_retrying(src, cfg: IngestConfig, reopen=None):
@@ -96,7 +164,9 @@ def _maybe_retrying(src, cfg: IngestConfig, reopen=None):
         src,
         policy=RetryPolicy(max_retries=cfg.io_retries,
                            backoff_s=cfg.io_retry_backoff_s),
-        seed=cfg.seed,
+        # The rank in the jitter seed: ranks on one flaky filesystem must
+        # not retry in lockstep.
+        seed=cfg.seed + meshes.process_index(),
         reopen=reopen,
     )
 
@@ -132,11 +202,9 @@ def _build_raw_source(cfg: IngestConfig, device: str):
             "directory — also spelled --source store:<dir>)"
         )
     if cfg.source == "vcf":
-        return _maybe_retrying(
-            VcfSource(cfg.path, references=tuple(cfg.references)), cfg)
+        return _maybe_retrying(_maybe_partitioned(VcfSource, cfg), cfg)
     if cfg.source == "plink":
-        return _maybe_retrying(
-            PlinkSource(cfg.path, references=tuple(cfg.references)), cfg)
+        return _maybe_retrying(_maybe_partitioned(PlinkSource, cfg), cfg)
     if cfg.source == "packed":
         return _maybe_retrying(load_packed(cfg.path), cfg,
                                reopen=lambda: load_packed(cfg.path))
@@ -146,8 +214,7 @@ def _build_raw_source(cfg: IngestConfig, device: str):
     if cfg.source == "parquet":
         from spark_examples_tpu_torch.ingest.parquet import ParquetSource
 
-        return _maybe_retrying(
-            ParquetSource(cfg.path, references=tuple(cfg.references)), cfg)
+        return _maybe_retrying(_maybe_partitioned(ParquetSource, cfg), cfg)
     raise ValueError(f"unknown source {cfg.source!r}")
 
 
@@ -179,12 +246,14 @@ def plan_for_job(job: JobConfig, source) -> gram_sharded.GramPlan:
     """The distribution plan the job runs under: its mesh (the default
     slots of ``--device``, shaped by ``--mesh-shape``) and mode
     (``--gram-mode``)."""
+    meshes.maybe_init_distributed(job.compute.device)
     device = resolve_device(job.compute.device)
     mesh = meshes.make_mesh(meshes.default_devices(device),
                             shape=job.compute.mesh_shape)
     return gram_sharded.plan_for(mesh, source.n_samples,
                                  job.compute.metric or "ibs",
-                                 job.compute.gram_mode)
+                                 job.compute.gram_mode,
+                                 processes=meshes.process_count())
 
 
 def run_gram(job: JobConfig, source, timer: PhaseTimer,
@@ -237,6 +306,10 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer,
             acc, start_variant, saved_stats = restored
             if stream_stats is not None:
                 stream_stats.update(saved_stats)
+            if meshes.process_index() > 0:
+                # Rank 0 carries the restored global sums; the others
+                # add their partials from zero.
+                acc = {k: torch.zeros_like(v) for k, v in acc.items()}
     if acc is None:
         acc = gram_sharded.init_sharded(plan, n, metric)
 
@@ -244,11 +317,89 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer,
         ckpt.save(cfg.checkpoint_dir, state, cursor, metric, bv,
                   source.sample_ids, stream_stats=stream_stats, plan=plan)
 
+    if plan.processes > 1:
+        return _run_gram_multihost(
+            job, source, timer, plan, update, acc, start_variant, packed,
+            lowering, stream_stats, on_block,
+            save if cfg.checkpoint_dir else None)
     acc, n_variants = run_pass(
         job, source, timer, plan.mesh.home, update, acc, start_variant,
         packed, block_flops=lambda v: gram.flops_per_block(n, v, metric),
         save_cb=save if cfg.checkpoint_dir else None, stats=stream_stats,
         on_block=on_block, pad_multiple=plan.block_shards)
+    _check_int32_budget(metric, n_variants,
+                        (stream_stats or {}).get("max_value", 2))
+    return GramRun(acc, source.sample_ids, metric, timer, n_variants,
+                   lowering, plan)
+
+
+def _run_gram_multihost(job: JobConfig, source, timer: PhaseTimer, plan,
+                        update, acc: dict, start_variant: int, packed: bool,
+                        lowering: str, stream_stats, on_block,
+                        save_cb) -> GramRun:
+    """The multi-process tail of :func:`run_gram`: this rank's partition
+    streamed by the consensus feeder, one loop step per step of the
+    global grid (so hooks and checkpoints fire on JAX's cadence), into
+    this rank's partial sums.
+
+    A pad step (this rank's partition is drained) launches no update:
+    its all-MISSING slab would add zeros. It still counts one
+    ``gram.fused_blocks`` under the fused lowering (one per global step,
+    JAX's meaning) and is a ``gram.pad_step`` event, not a ``gram.block``
+    span. Operation and byte credit count this rank's own variants.
+    ``on_block`` sees the global accumulators (a
+    :class:`~parallel.multihost.ReducedView`), a checkpoint saves them
+    (rank 0 writes them; cursors are per rank), and the partials are
+    summed in place at the end (the ``allreduce`` phase). The job's
+    ``n_variants`` is the sum of the ranks' cursors and ``max_value``
+    their max, both before the int32 budget check."""
+    from spark_examples_tpu_torch.ingest.bitpack import packed_width
+    from spark_examples_tpu_torch.parallel import multihost as mh
+
+    cfg = job.compute
+    n = source.n_samples
+    metric = cfg.metric or "ibs"
+    bv = job.ingest.block_variants
+    blocks_done = 0
+    last_stop = start_variant
+    feed = closing(mh.stream_global_blocks(
+        source, bv, start_variant, plan, packed, stats=stream_stats,
+        prefetch=job.ingest.prefetch_blocks))
+    with timer.phase("gram"), feed as blocks:
+        sp = telemetry.begin("gram.block", cat="gram")
+        for block, meta in blocks:
+            blocks_done += 1
+            if meta is not None:
+                acc = update(acc, block)
+                w_local = meta.stop - meta.start
+                timer.add("gram_flops",
+                          gram.flops_per_block(n, w_local, metric))
+                timer.add("ingest_bytes",
+                          n * (packed_width(w_local) if packed
+                               else w_local))
+                last_stop = meta.stop
+            elif lowering == "fused":
+                telemetry.count("gram.fused_blocks", 1)
+            if on_block is not None:
+                on_block(mh.ReducedView(acc), blocks_done, meta)
+            if (save_cb is not None and cfg.checkpoint_every_blocks
+                    and blocks_done % cfg.checkpoint_every_blocks == 0):
+                save_cb(mh.reduce_acc(hard_sync(acc)), last_stop)
+            if meta is not None:
+                sp.end(index=blocks_done, stop=meta.stop)
+            else:
+                sp.cancel()
+                telemetry.event("gram.pad_step", cat="gram",
+                                index=blocks_done)
+            sp = telemetry.begin("gram.block", cat="gram")
+        sp.cancel()
+        acc = hard_sync(acc)
+    with timer.phase("allreduce"):
+        acc = hard_sync(mh.reduce_acc(acc, inplace=True))
+    n_variants = int(mh.allgather(np.int64(last_stop)).sum())
+    if stream_stats is not None:
+        stream_stats["max_value"] = int(mh.allgather(
+            np.int64(stream_stats.get("max_value", 0))).max())
     _check_int32_budget(metric, n_variants,
                         (stream_stats or {}).get("max_value", 2))
     return GramRun(acc, source.sample_ids, metric, timer, n_variants,

@@ -21,6 +21,12 @@ at a time. The terminal solve takes ``FINAL_ITERS`` tightening steps
 from the tracked subspace, reusing the last refresh's centered matrix
 when the stream ended on a refresh boundary.
 
+In a job of several processes every rank refreshes at the same global
+step (the consensus feeder's step count, also on steps where its own
+partition was drained and it fed a padding slab): the hook reads the
+accumulators summed over ranks, and a snapshot is stamped with this
+rank's own cursor, as in the JAX package.
+
 Under a tile2d plan the refresh runs on the tiles
 (``parallel/pcoa_sharded.py``: finalize, centering and ``B @ Q`` per
 tile), as the JAX package's does under its plan's shardings.
@@ -184,9 +190,14 @@ def incremental_pcoa_job(
             # again.
             "b": None,
             "b_variants": -1,
+            # This rank's last cursor: a pad step of a job of several
+            # processes passes meta=None but still refreshes.
+            "last_stop": 0,
         }
 
         def on_block(acc, blocks_done, meta):
+            if meta is not None:
+                state["last_stop"] = meta.stop
             if blocks_done % refresh_every:
                 return
             # Backpressure: wait for the previous snapshot (and so the
@@ -201,15 +212,16 @@ def incremental_pcoa_job(
                     vals, vecs, q = subspace_iterate(_operator(b),
                                                      state["q"], k, 1)
                 coords = coords_from_eigpairs(vals, vecs)
-                snap = StreamSnapshot(meta.stop, _host_copy(vals),
+                stop = state["last_stop"]
+                snap = StreamSnapshot(stop, _host_copy(vals),
                                       _host_copy(coords))
                 if device.type == "cuda":
                     snap.ready = torch.cuda.Event()
                     snap.ready.record()
-            state.update(q=q, b=b, b_variants=meta.stop)
+            state.update(q=q, b=b, b_variants=stop)
             state["snapshots"].append(snap)
             telemetry.event("stream.snapshot", cat="stream",
-                            n_variants=meta.stop, blocks_done=blocks_done)
+                            n_variants=stop, blocks_done=blocks_done)
 
         grun = runner.run_gram(job, source, timer, plan=plan,
                                on_block=on_block)

@@ -29,7 +29,7 @@ import numpy as np
 
 from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.core import checkpoint as ckpt
-from spark_examples_tpu_torch.core import telemetry
+from spark_examples_tpu_torch.core import meshes, telemetry
 from spark_examples_tpu_torch.core.config import SOLVER_RUNG_ID, JobConfig
 from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
@@ -135,6 +135,12 @@ def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
         # so a pcoa fit of a pca-family metric is refused here.
         kernels.check_factorized_savable(metric, cfg.solver, kind)
     device = resolve_device(cfg.device)
+    if meshes.process_count() > 1:
+        raise ValueError(
+            "--solver sketch/corrected is single-process for now (the "
+            "state psums span the local mesh); run multi-host jobs with "
+            "--solver exact"
+        )
     if isinstance(kernels.get(metric).sketch, kernels.DualSketch):
         return _run_dual_solve(job, source, timer, kind, metric, device)
     spec = kernels.get(metric).sketch

@@ -8,6 +8,8 @@ that has only PyTorch and the CUDA toolkit:
 Without a card each skips, deciding inside the ``cuda_device`` fixture.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1042,3 +1044,89 @@ def test_mesh_update_over_distinct_cards(cuda_device, mode, transport):
     gram.update(want, torch.from_numpy(g), "ibs")
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+_RANKS_ON_CUDA = r"""
+import dataclasses
+import torch
+from spark_examples_tpu_torch.core import meshes
+from spark_examples_tpu_torch.core.config import (
+    ComputeConfig, IngestConfig, JobConfig)
+from spark_examples_tpu_torch.core.profiling import PhaseTimer
+from spark_examples_tpu_torch.ops import packed_gram
+from spark_examples_tpu_torch.pipelines import runner
+
+job = JobConfig(
+    ingest=IngestConfig(source="synthetic", n_samples=96, n_variants=4000,
+                        block_variants=512, seed=3),
+    compute=ComputeConfig(metric="ibs", gram_mode="variant",
+                          device="cuda"))
+src = runner.build_source(job.ingest, "cuda")
+g = runner.run_gram(job, src, PhaseTimer())
+launches = packed_gram.launches
+# The same ranks through the plain lowering: K1's sums held against it.
+plain = runner.run_gram(job.replace(compute=dataclasses.replace(
+    job.compute, gram_lowering="reference")), runner.build_source(
+    job.ingest, "cuda"), PhaseTimer())
+d = meshes.distributed()
+emit(backend=d.name, device=str(d.device), lowering=g.lowering,
+     launches=launches, local=int(src.n_variants),
+     n_variants=g.n_variants, plain_lowering=plain.lowering,
+     plain_equal=all(torch.equal(g.acc[k], plain.acc[k]) for k in g.acc),
+     acc={k: v.cpu().tolist() for k, v in g.acc.items()})
+"""
+
+
+def _one_process_run(device):
+    job = JobConfig(
+        ingest=IngestConfig(source="synthetic", n_samples=96,
+                            n_variants=4000, block_variants=512, seed=3),
+        compute=ComputeConfig(metric="ibs", gram_mode="replicated",
+                              device="cuda"))
+    g = runner.run_gram(job, SyntheticSource(n_samples=96, n_variants=4000,
+                                             seed=3), PhaseTimer())
+    assert g.lowering == "fused"
+    return {k: v.cpu() for k, v in g.acc.items()}
+
+
+def _check_ranks(outs, backend, want):
+    # 8 blocks of 512 over two ranks: windows of 4 blocks each, one K1
+    # launch a block on each rank.
+    assert sorted(o["local"] for o in outs) == [1952, 2048]
+    for o in outs:
+        assert (o["backend"], o["lowering"]) == (backend, "fused"), o
+        assert o["launches"] == 4 and o["n_variants"] == 4000, o
+        assert o["plain_lowering"] == "reference" and o["plain_equal"], o
+        for k, v in want.items():
+            assert torch.equal(torch.tensor(o["acc"][k], dtype=v.dtype),
+                               v), k
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_one_card_over_gloo_staged(cuda_device):
+    """Two ranks on one card: gloo with host staging (NCCL refuses two
+    ranks on one GPU); K1 runs on each rank, its sums bitwise the same
+    ranks' plain lowering, and the summed accumulators bitwise the
+    one-process fused run."""
+    from torch_ranks import run_ranks
+
+    want = _one_process_run(cuda_device)
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    outs = run_ranks(_RANKS_ON_CUDA,
+                     extra_env={"CUDA_VISIBLE_DEVICES": first})
+    _check_ranks(outs, "gloo-staged", want)
+    assert {o["device"] for o in outs} == {"cuda:0"}
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_two_cards_over_nccl(cuda_device):
+    """A card per rank: NCCL, each rank on its own card, bitwise the
+    one-process fused run."""
+    from torch_ranks import run_ranks
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two visible NVIDIA GPUs for a rank per card")
+    want = _one_process_run(cuda_device)
+    outs = run_ranks(_RANKS_ON_CUDA)
+    _check_ranks(outs, "nccl", want)
+    assert [o["device"] for o in outs] == ["cuda:0", "cuda:1"]

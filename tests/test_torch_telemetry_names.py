@@ -119,9 +119,12 @@ def test_registry_is_well_formed():
 
 def test_port_only_names_are_apart_from_jax_s():
     """``PORT_NAMES`` holds what only the port counts (its CUDA kernels'
-    launches): well formed, declared here, unknown to the JAX package
-    and never in ``NAMES``."""
-    assert telemetry.PORT_NAMES
+    launches, the collective backend of a job of several processes):
+    well formed, declared here, unknown to the JAX package and never in
+    ``NAMES``."""
+    assert {"kernel.packed_gram.launches",
+            "multihost.backend"} <= set(telemetry.PORT_NAMES)
+    assert telemetry.PORT_NAMES["multihost.backend"][0] == "gauge"
     for name, (kind, desc) in telemetry.PORT_NAMES.items():
         assert kind in telemetry.KINDS, (name, kind)
         assert isinstance(desc, str) and len(desc) > 10, name
@@ -148,13 +151,14 @@ SLICE_NAMES = (
 def test_supervision_and_fleet_names_are_jax_s():
     """The supervision, live-proxy, fleet and priority names the slice's
     modules emit: declared with the JAX package's kind and help text,
-    and the supervision/fleet fault sites beside the earlier eleven (and
-    the fleet controller's two, which make 15 of JAX's 16)."""
+    and the supervision/fleet fault sites beside the earlier eleven (with
+    the fleet controller's two and the multi-host consensus, all 16 of
+    JAX's)."""
     for name in SLICE_NAMES:
         assert telemetry.NAMES[name] == jtelemetry.NAMES[name], name
     assert telemetry.is_declared("fleet.route.r-ibs.queue_depth")
     assert {"supervisor.heartbeat", "fleet.stage"} <= set(faults.SITES)
-    assert len(faults.SITES) == 15
+    assert len(faults.SITES) == 16
 
 
 CONTROLLER_NAMES = (
@@ -176,7 +180,7 @@ def test_controller_timeline_and_slo_names_are_jax_s():
     names: every one the JAX package declares under those prefixes,
     with its kind and help text; the per-route and per-objective
     families resolve; the controller's two fault sites are declared and
-    the one JAX site still missing is the multi-host consensus."""
+    no JAX site is missing."""
     for name in CONTROLLER_NAMES:
         assert telemetry.NAMES[name] == jtelemetry.NAMES[name], name
     jax_names = {n for n in jtelemetry.NAMES
@@ -185,4 +189,16 @@ def test_controller_timeline_and_slo_names_are_jax_s():
     assert telemetry.is_declared("timeline.route.r-ibs.p99_s")
     assert telemetry.is_declared("slo.fleet.fast_burn")
     assert {"controller.scrape", "controller.spawn"} <= set(faults.SITES)
-    assert set(jfaults.SITES) - set(faults.SITES) == {"multihost.consensus"}
+    assert set(jfaults.SITES) - set(faults.SITES) == set()
+
+
+def test_multihost_names_and_digest_are_jax_s():
+    """The consensus span and the shard-feed counter carry JAX's kind and
+    help text, and the digest JAX's keys (``consensus_wait_p95_s`` with
+    them)."""
+    for name in ("multihost.consensus", "multihost.shard_feed_bytes",
+                 "gram.pad_step"):
+        assert telemetry.NAMES[name][0] == jtelemetry.NAMES[name][0], name
+    for name in ("multihost.consensus", "multihost.shard_feed_bytes"):
+        assert telemetry.NAMES[name] == jtelemetry.NAMES[name], name
+    assert set(telemetry.digest()) == set(jtelemetry.digest())
