@@ -349,7 +349,42 @@ Phases (any failure exits non-zero; none is caught and ignored):
 57. ``--source plink --references`` with ``--splits-per-contig 4`` (four
     concurrent range readers, ``PartitionedSource``): accumulators
     bitwise the one-split run.
-58. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+58. tile2d across two ranks on the pinned card (gloo with host staging),
+    each rank with two virtual slots of a 2x2 mesh spanning both (rank 0
+    holds tiles (0, 0) and (0, 1), rank 1 (1, 0) and (1, 1)), over phase
+    14's packed store. One rank pair (``tile2d_rank``) runs phases 58-60
+    through the CLI's ``main``: ``pcoa --gram-mode tile2d
+    --tile2d-transport gather``: each global step's block is both ranks'
+    slabs side by side (all-gathered), every rank launching K1 on its 2
+    tiles: 2 x 7 steps = 14 launches a rank (rank 1's drained partition
+    feeds an all-MISSING slab in step 7, contracted too),
+    ``gram.fused_blocks`` 7 on both; the tiles the ranks hold, assembled
+    here, bitwise phase 6's; rank 0's coordinates bitwise phase 48's
+    (the one-process 2x2 gather run) and the structure PCs within 1e-3
+    of phase 14's dense solve. The gram, finalize and eigh phases of
+    each rank are printed.
+59. The same under ``--tile2d-transport ring``: each rank's slab split
+    over its 2 slots, the 4 global shards hopping 3 times around the
+    ring (device copies within a rank, point to point between them): K1
+    2 x 4 x 7 = 56 launches a rank on 1024-byte shards,
+    ``gram.ring_steps`` 28; tiles bitwise phase 6's, coordinates bitwise
+    phase 58's.
+60. ``pca --gram-mode tile2d`` across the ranks: 14 K1 launches a rank,
+    ``t1t1`` bitwise phase 6's, structure PCs within 1e-3 of phase 11's.
+61. A tiled checkpoint across the ranks through the CLI: rank 0 killed
+    at its 7th block read with a checkpoint every 2 global steps; each
+    rank wrote its own tile files (``checkpoint.bytes_written`` on both),
+    no checksum sidecar is left, the manifest holds ``process_count`` 2,
+    ``mesh_shape`` [2, 2], mode tile2d and per-rank cursors. The resumed
+    ranks launch K1 on their 2 tiles for each global step after the
+    cursors, and the tiles of the final checkpoint are bitwise phase
+    6's.
+62. K1 timed at the launch shapes of phases 58-61 (the 1252 x 1252 x
+    4096-byte rectangular tile of a gathered global block, its 1252-row
+    diagonal tile, the 1252 x 1252 x 1024-byte cross-rank ring shard),
+    bitwise against its plain version and ``torch._int_mm`` x4, beside
+    their bounds.
+63. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -3781,6 +3816,61 @@ def k1_rect_bounds(nr: int, nc: int, w: int, products) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def time_k1_shape(name: str, rows, cols, pieces, card: str) -> dict:
+    """K1 at one launch shape (``cols`` None: the symmetric launch of
+    ``rows`` against itself): bitwise against its plain version and
+    ``torch._int_mm`` on the pre-decoded operands, each timed with CUDA
+    events, beside its bound. Prints one line; returns the numbers."""
+    import torch
+
+    from spark_examples_tpu_torch.ingest import bitpack
+    from spark_examples_tpu_torch.ops import genotype, packed_gram
+
+    sym = cols is None
+    cols_ = rows if sym else cols
+    got = packed_gram.fused_tile_products(rows, cols_, pieces)
+    want = packed_gram.fused_tile_products_plain(rows, cols_, pieces)
+    if not all(torch.equal(got[p], want[p]) for p in pieces):
+        fail(f"K1 != plain at the {name} shape {tuple(rows.shape)}")
+    ms = cuda_ms(lambda: packed_gram.fused_tile_products(rows, cols_,
+                                                         pieces),
+                 reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: packed_gram.fused_tile_products_plain(
+        rows, cols_, pieces), reps=3, warmup=1)
+    ops_r = genotype.operands(bitpack.unpack_dosages(rows))
+    ops_c = ops_r if sym else genotype.operands(
+        bitpack.unpack_dosages(cols_))
+
+    def rows8(x):
+        # _int_mm wants both outer sizes multiples of 8: zero rows,
+        # which add nothing, padded once outside the timed calls.
+        return torch.nn.functional.pad(x, (0, 0, 0, -x.shape[0] % 8))
+
+    pairs = [(rows8(ops_r[genotype.PRODUCT_OPERANDS[p][0]]).contiguous(),
+              rows8(ops_c[genotype.PRODUCT_OPERANDS[p][1]]).t())
+             for p in pieces]
+    nr, nc = rows.shape[0], cols_.shape[0]
+    for p, (a, b) in zip(pieces, pairs):
+        if not torch.equal(torch._int_mm(a, b)[:nr, :nc], got[p]):
+            fail(f"torch._int_mm disagrees with K1 at the {name} shape")
+    lib_ms = cuda_ms(lambda: [torch._int_mm(a, b) for a, b in pairs],
+                     reps=20, warmup=3)
+    w = rows.shape[1]
+    bound = (k1_bounds(nr, w, pieces) if sym
+             else k1_rect_bounds(nr, nc, w, pieces))
+    print(f"K1 at the {name} shape ({nr} x {nc} x {w} bytes, "
+          f"{'symmetric' if sym else 'asymmetric'}, ibs) [{card}]: "
+          f"{ms:.4f} ms/launch; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}: {bound['ops']:.4g} int8 ops, "
+          f"{bound['bytes']:.4g} bytes); plain {plain_ms:.4f} ms; "
+          f"torch._int_mm x{len(pieces)} on pre-decoded operands (outer "
+          f"sizes padded to multiples of 8) {lib_ms:.4f} ms; bitwise "
+          "equal to both")
+    return {"rows": nr, "cols": nc, "bytes": w, "symmetric": sym, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
 def mesh_phases(cli_main, launch_counters: dict, card: str, dev,
                 synthetic_acc: dict, pca_coords: np.ndarray, files: dict,
                 tmp: str) -> tuple[dict, dict]:
@@ -3801,9 +3891,8 @@ def mesh_phases(cli_main, launch_counters: dict, card: str, dev,
     )
     from spark_examples_tpu_torch.core.meshes import Tiled
     from spark_examples_tpu_torch.core.profiling import PhaseTimer
-    from spark_examples_tpu_torch.ingest import bitpack
     from spark_examples_tpu_torch.ingest.packed import load_packed
-    from spark_examples_tpu_torch.ops import genotype, packed_gram
+    from spark_examples_tpu_torch.ops import packed_gram
     from spark_examples_tpu_torch.pipelines import project as P
     from spark_examples_tpu_torch.pipelines import runner
     from spark_examples_tpu_torch.pipelines.project import load_model
@@ -3883,6 +3972,7 @@ def mesh_phases(cli_main, launch_counters: dict, card: str, dev,
             f"{deltas['gram.ring_steps']}; accumulators bitwise phase 6's; "
             + ("coordinates bitwise phase 14's" if mode == "variant" else
                f"structure PCs within {err:.2g} of phase 14's dense solve"))
+    files["mesh_coords"] = mesh_coords
     print(f"pcoa ibs {N_SAMPLES} x {N_VARIANTS} from the packed store on a "
           f"2x2 mesh of {MESH_SLOTS} virtual slots on cuda:0 [{card}]: "
           + "; ".join(lines))
@@ -4005,54 +4095,8 @@ def mesh_phases(cli_main, launch_counters: dict, card: str, dev,
         ("ring shard rectangular", shard[:tn], shard[tn:]),
         ("variant shard", shard, None),
     )
-    timings = {}
-    for name, rows, cols in shapes:
-        sym = cols is None
-        cols_ = rows if sym else cols
-        got = packed_gram.fused_tile_products(rows, cols_, ibs)
-        want = packed_gram.fused_tile_products_plain(rows, cols_, ibs)
-        if not all(torch.equal(got[p], want[p]) for p in ibs):
-            fail(f"K1 != plain at the {name} shape {tuple(rows.shape)}")
-        ms = cuda_ms(lambda: packed_gram.fused_tile_products(rows, cols_,
-                                                             ibs),
-                     reps=20, warmup=3)
-        plain_ms = cuda_ms(lambda: packed_gram.fused_tile_products_plain(
-            rows, cols_, ibs), reps=3, warmup=1)
-        ops_r = genotype.operands(bitpack.unpack_dosages(rows))
-        ops_c = ops_r if sym else genotype.operands(
-            bitpack.unpack_dosages(cols_))
-
-        def rows8(x):
-            # _int_mm wants both outer sizes multiples of 8: zero rows,
-            # which add nothing, padded once outside the timed calls.
-            return torch.nn.functional.pad(x, (0, 0, 0, -x.shape[0] % 8))
-
-        pairs = [(rows8(ops_r[genotype.PRODUCT_OPERANDS[p][0]]).contiguous(),
-                  rows8(ops_c[genotype.PRODUCT_OPERANDS[p][1]]).t())
-                 for p in ibs]
-        nr, nc = rows.shape[0], cols_.shape[0]
-        for p, (a, b) in zip(ibs, pairs):
-            if not torch.equal(torch._int_mm(a, b)[:nr, :nc], got[p]):
-                fail(f"torch._int_mm disagrees with K1 at the {name} shape")
-        lib_ms = cuda_ms(lambda: [torch._int_mm(a, b) for a, b in pairs],
-                         reps=20, warmup=3)
-        w = rows.shape[1]
-        bound = (k1_bounds(rows.shape[0], w, ibs) if sym
-                 else k1_rect_bounds(rows.shape[0], cols_.shape[0], w, ibs))
-        timings[name] = {
-            "rows": rows.shape[0], "cols": cols_.shape[0], "bytes": w,
-            "symmetric": sym, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"]}
-        print(f"K1 at the {name} shape ({rows.shape[0]} x {cols_.shape[0]} "
-              f"x {w} bytes, {'symmetric' if sym else 'asymmetric'}, ibs) "
-              f"[{card}]: {ms:.4f} ms/launch; bound {bound['bound_ms']:.4f} "
-              f"ms ({bound['bound_by']}: {bound['ops']:.4g} int8 ops, "
-              f"{bound['bytes']:.4g} bytes); plain {plain_ms:.4f} ms; "
-              f"torch._int_mm x{len(ibs)} on pre-decoded operands (outer "
-              f"sizes padded to multiples of 8) {lib_ms:.4f} ms; bitwise "
-              "equal to both")
-        del got, want, pairs, ops_r, ops_c
+    timings = {name: time_k1_shape(name, rows, cols, ibs, card)
+               for name, rows, cols in shapes}
     return paths, timings
 
 
@@ -4435,6 +4479,314 @@ def multihost_phases(cli_main, card: str, synthetic_acc: dict,
           f"bitwise 1 split ({k1s[1]} launches); run_gram "
           f"{walls[4]:.3f} / {walls[1]:.3f} s")
     return paths
+
+
+# Phases 58-62: tile2d across two ranks on the pinned card (gloo with
+# host staging), two virtual slots a rank on a 2x2 mesh spanning both.
+RANK_SLOTS = 2
+RANK_MESH_ARGS = ["--virtual-devices", str(RANK_SLOTS), "--mesh-shape",
+                  "2x2", "--gram-mode", "tile2d"]
+# The two-rank coordinates are held bitwise to the one-process 2x2 run's
+# (phase 48): the same tiles, the B @ Q blocks added in slot order, the
+# subspace on rank 0, and Q row-major in every product on every rank
+# (parallel/pcoa_sharded.py::tiled_matmul). Without that last, the
+# second product's blocks on rank 1's slots differed in the last bits on
+# an H100: rank 0 multiplied the QR's column-major Q, rank 1 its
+# received row-major copy, and cuBLAS sums the two layouts in different
+# orders (bitwise on the CPU either way).
+RANK_JOBS = (("gather", ["pcoa", "--metric", "ibs", "--tile2d-transport",
+                         "gather"]),
+             ("ring", ["pcoa", "--metric", "ibs", "--tile2d-transport",
+                       "ring"]),
+             ("pca", ["pca"]))
+
+
+def rank_store_args(store: str) -> list[str]:
+    return ["--source", "packed", "--path", store, "--block-variants",
+            str(BLOCK_VARIANTS), "--device", DEVICE, "--num-pc",
+            str(NUM_PC)] + RANK_MESH_ARGS
+
+
+def tile2d_rank(store: str, tmp: str) -> int:
+    """One rank of phases 58-60, run as ``python -c "import sys,
+    chip_smoke; sys.exit(chip_smoke.tile2d_rank(store, tmp))"``: the
+    three jobs of ``RANK_JOBS`` through the CLI's ``main`` in one process
+    (one rank pair's start for all three). For each, K1's launch count
+    is set to 0 just before and read just after, beside the counters'
+    deltas and the phase timings; this rank's tiles are saved under
+    ``tmp`` as ``{job}.{leaf}.{slot}.npy``, and rank 0 writes
+    ``{job}.tsv``. Prints one JSON line a job."""
+    from spark_examples_tpu_torch.cli.main import main as cli_main
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.ops import packed_gram
+    from spark_examples_tpu_torch.pipelines import runner
+
+    rank = int(os.environ["JAX_PROCESS_ID"])
+    counters = ("gram.fused_blocks", "gram.ring_steps")
+    for name, argv in RANK_JOBS:
+        before = {n: telemetry.counter_value(n) for n in counters}
+        kept: list = []
+        orig = keeping(runner, "run_gram", kept)
+        err = io.StringIO()
+        packed_gram.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli_main(argv + rank_store_args(store) + [
+                    "--output-path", os.path.join(tmp, f"{name}.tsv"),
+                    "--timings"])
+        finally:
+            setattr(runner, "run_gram", orig)
+        wall = time.perf_counter() - t0
+        k1 = packed_gram.launches
+        if rc != 0:
+            print(err.getvalue()[-3000:], file=sys.stderr)
+            return rc
+        timings = json.loads(next(line for line in reversed(
+            err.getvalue().strip().splitlines()) if line.startswith("{")))
+        grun = kept[-1]
+        for k, v in grun.acc.items():
+            for s, t in v.local():
+                np.save(os.path.join(tmp, f"{name}.{k}.{s}.npy"),
+                        t.cpu().numpy())
+        mesh = grun.plan.mesh
+        print(json.dumps({
+            "job": name, "rank": rank, "k1": k1, "wall": wall,
+            "counters": {n: int(telemetry.counter_value(n) - before[n])
+                         for n in counters},
+            "timings": timings, "mesh": list(mesh.shape),
+            "local": list(mesh.local_slots), "describe": mesh.describe(),
+            "mesh_line": next((line for line in err.getvalue().splitlines()
+                               if line.startswith("mesh: ")), "")}),
+            flush=True)
+        del grun, kept
+    return 0
+
+
+def tiles_from(tile_files, leaves, shape=(2, 2)) -> dict:
+    """Whole int32 accumulators assembled from per-slot tile files:
+    ``tile_files(leaf)`` lists ``(path, slot)`` of every slot's tile."""
+    import torch
+
+    tn, tm = N_SAMPLES // shape[0], N_SAMPLES // shape[1]
+    out = {}
+    for k in leaves:
+        full = torch.zeros((N_SAMPLES, N_SAMPLES), dtype=torch.int32)
+        for path, s in tile_files(k):
+            i, j = divmod(s, shape[1])
+            full[i * tn:(i + 1) * tn, j * tm:(j + 1) * tm] = \
+                torch.from_numpy(np.load(path))
+        out[k] = full
+    return out
+
+
+def tile2d_ranks_phases(cli_main, card: str, dev, synthetic_acc: dict,
+                        pca_coords: np.ndarray, files: dict,
+                        tmp: str) -> tuple[dict, dict]:
+    """Phases 58-62: tile2d across two ranks on the pinned card. Returns
+    (the K1 launches of each run by path name, each rank's own count;
+    K1's timings at the new launch shapes)."""
+    import torch
+
+    from spark_examples_tpu_torch import kernels
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+    from spark_examples_tpu_torch.ingest.source import window_for_process
+
+    paths = {}
+    store = files["packed_store"]
+    windows = [window_for_process(N_VARIANTS, BLOCK_VARIANTS, r, 2)
+               for r in range(2)]
+    want_blocks = [math.ceil((b - a) / BLOCK_VARIANTS) for a, b in windows]
+    steps = max(want_blocks)
+    ibs = kernels.get("ibs").pieces
+    leaves = {"gather": ibs, "ring": ibs, "pca": ("t1t1",)}
+
+    # -- 58-60. three jobs in one rank pair --------------------------------
+    out = os.path.join(tmp, "t2d")
+    os.makedirs(out)
+    res = run_ranks([["-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+                      "tile2d_rank(sys.argv[1], sys.argv[2]))", store, out]]
+                    * 2, tmp, "t2d_jobs", module=False)
+    for r, rr in enumerate(res):
+        if rr["rc"] != 0:
+            fail(f"phases 58-60: rank {r} exit {rr['rc']}:\n"
+                 f"{rr['stderr'][-3000:]}")
+    rec = {}
+    for rr in res:
+        for line in rr["stdout"].splitlines():
+            if line.startswith('{"job"'):
+                o = json.loads(line)
+                rec[o["job"], o["rank"]] = o
+    if len(rec) != 2 * len(RANK_JOBS):
+        fail(f"phases 58-60: job records {sorted(rec)}")
+    want = {"gather": (RANK_SLOTS * steps, 0),
+            "ring": (RANK_SLOTS * MESH_SLOTS * steps, MESH_SLOTS * steps),
+            "pca": (RANK_SLOTS * steps, 0)}
+    coords = {}
+    for name, _argv in RANK_JOBS:
+        k1_want, ring_want = want[name]
+        by_rank = [rec[name, r] for r in range(2)]
+        k1 = [o["k1"] for o in by_rank]
+        fused = [o["counters"]["gram.fused_blocks"] for o in by_rank]
+        ring = [o["counters"]["gram.ring_steps"] for o in by_rank]
+        local = [o["local"] for o in by_rank]
+        if (k1 != [k1_want] * 2 or fused != [steps] * 2
+                or ring != [ring_want] * 2 or local != [[0, 1], [2, 3]]
+                or {tuple(o["mesh"]) for o in by_rank} != {(2, 2)}):
+            fail(f"phase {name}: K1 {k1} (want {k1_want} a rank), "
+                 f"fused_blocks {fused}, ring_steps {ring} (want "
+                 f"{ring_want}), local slots {local}")
+        acc = tiles_from(lambda k: [(os.path.join(out, f"{name}.{k}.{s}.npy"),
+                                     s) for s in range(MESH_SLOTS)],
+                         leaves[name])
+        if not equal_accumulators(
+                acc, {k: synthetic_acc[k] for k in leaves[name]}):
+            fail(f"phase {name}: the tiles of both ranks, assembled, "
+                 "differ from phase 6's accumulators")
+        tsv = os.path.join(out, f"{name}.tsv")
+        with open(tsv) as f:
+            f.readline()
+            coords[name] = np.asarray([line.rstrip("\n").split("\t")[1:]
+                                       for line in f], dtype=np.float64)
+        paths[f"{'pca' if name == 'pca' else 'pcoa ibs'} tile2d "
+              f"{'' if name == 'pca' else name + ' '}2 ranks x 2 slots: "
+              "rank 0"] = {"packed_gram": k1[0]}
+        paths[f"{'pca' if name == 'pca' else 'pcoa ibs'} tile2d "
+              f"{'' if name == 'pca' else name + ' '}2 ranks x 2 slots: "
+              "rank 1"] = {"packed_gram": k1[1]}
+    # Coordinates: the gather run's against the one-process 2x2 run.
+    if not np.array_equal(coords["gather"],
+                          files["mesh_coords"]["tile2d gather"]):
+        fail("phase 58: the two-rank coordinates differ from phase 48's")
+    if not np.array_equal(coords["ring"], coords["gather"]):
+        fail("phase 59: the ring's coordinates differ from the gather's")
+    dense_err = same_columns(coords["gather"], files["packed_store_coords"],
+                             NUM_POP_PCS, MESH_COORD_TOL)
+    pca_err = same_columns(coords["pca"], pca_coords, NUM_POP_PCS,
+                           MESH_COORD_TOL)
+
+    def phases_by_rank(name):
+        return "; ".join(
+            f"rank {r}: wall {rec[name, r]['wall']:.3f} s, "
+            + phases_line(rec[name, r]["timings"],
+                          ("gram", "finalize", "eigh"))
+            for r in range(2))
+
+    print(f"pcoa --gram-mode tile2d --tile2d-transport gather, 2 ranks on "
+          f"one card [{card}]: {rec['gather', 0]['mesh_line']}; windows "
+          f"{windows}; K1 launches {rec['gather', 0]['k1']} + "
+          f"{rec['gather', 1]['k1']} (2 tiles a rank x {steps} global "
+          "steps, rank 1's pad slab contracted), gram.fused_blocks "
+          f"{steps} / {steps}; {phases_by_rank('gather')}; the tiles of "
+          "both ranks bitwise phase 6's; coordinates bitwise phase 48's "
+          f"(one process, 2x2 gather); structure PCs within {dense_err:.2g}"
+          " of phase 14's dense solve")
+    print(f"pcoa --tile2d-transport ring, 2 ranks [{card}]: K1 launches "
+          f"{rec['ring', 0]['k1']} + {rec['ring', 1]['k1']} "
+          f"({RANK_SLOTS} tiles x {MESH_SLOTS} ring steps x {steps}, "
+          f"1024-byte shards), gram.ring_steps "
+          f"{rec['ring', 0]['counters']['gram.ring_steps']} / "
+          f"{rec['ring', 1]['counters']['gram.ring_steps']}; "
+          f"{phases_by_rank('ring')}; tiles bitwise phase 6's; coordinates "
+          "bitwise the gather run's")
+    print(f"pca --gram-mode tile2d, 2 ranks [{card}]: K1 launches "
+          f"{rec['pca', 0]['k1']} + {rec['pca', 1]['k1']}; "
+          f"{phases_by_rank('pca')}; t1t1 bitwise phase 6's; structure PCs "
+          f"within {pca_err:.2g} of phase 11's dense pca")
+
+    # -- 61. a tiled checkpoint across the ranks, killed and resumed -------
+    ck = os.path.join(tmp, "t2d_ck")
+    tel = os.path.join(tmp, "t2d_resume")
+    base = (["pcoa", "--metric", "ibs", "--tile2d-transport", "gather"]
+            + rank_store_args(store))
+    spec = f"ingest.block_read:kill:after={MULTIHOST_KILL_AFTER}:max=1"
+    res = run_ranks([base + ["--checkpoint-dir", ck,
+                             "--checkpoint-every-blocks", "2",
+                             "--prefetch-blocks", "1"]] * 2, tmp,
+                    "t2d_kill", env_extra=[
+                        {"SPARK_EXAMPLES_TPU_FAULTS": spec}, {}])
+    rcs = [rr["rc"] for rr in res]
+    if rcs[0] != 113 or rcs[1] == 0:
+        fail(f"phase 61: exit codes {rcs} (rank 0 killed with 113, rank 1 "
+             f"failing on the lost peer):\n{res[1]['stderr'][-2000:]}")
+    with open(os.path.join(ck, "manifest.json")) as f:
+        killed = json.load(f)
+    listing = sorted(os.listdir(ck))
+    tile_files = [f for f in listing if ".t" in f]
+    if (killed["process_count"] != 2 or killed["mesh_shape"] != [2, 2]
+            or killed["mode"] != "tile2d"
+            or set(killed["layout"].values()) != {"tiles"}
+            or len(tile_files) != len(ibs) * MESH_SLOTS
+            or any(f.startswith("checksums.") for f in listing)
+            or sorted(killed["cursors"]) != ["0", "1"]):
+        keys = ("process_count", "mesh_shape", "mode", "cursors")
+        fail(f"phase 61: killed manifest { {k: killed[k] for k in keys} }, "
+             f"files {listing}")
+    cur = [killed["cursors"][str(r)] for r in range(2)]
+    left = max(math.ceil((windows[r][1] - windows[r][0] - cur[r])
+                         / BLOCK_VARIANTS) for r in range(2))
+    res = run_ranks([base + ["--checkpoint-dir", ck,
+                             "--checkpoint-every-blocks", "1",
+                             "--telemetry-dir", tel]] * 2, tmp,
+                    "t2d_resume")
+    for r, rr in enumerate(res):
+        if rr["rc"] != 0:
+            fail(f"phase 61: resumed rank {r} exit {rr['rc']}:\n"
+                 f"{rr['stderr'][-3000:]}")
+    metrics = rank_metrics(tel)
+    rk1 = [int(m["counters"].get("kernel.packed_gram.launches", 0))
+           for m in metrics]
+    written = [int(m["counters"].get("checkpoint.bytes_written", 0))
+               for m in metrics]
+    tile_bytes = 4 * (N_SAMPLES // 2) ** 2
+    with open(os.path.join(ck, "manifest.json")) as f:
+        final = json.load(f)
+    listing = sorted(os.listdir(ck))
+    cursors = {str(r): b - a for r, (a, b) in enumerate(windows)}
+    if (rk1 != [RANK_SLOTS * left] * 2
+            or written != [left * len(ibs) * RANK_SLOTS * tile_bytes] * 2
+            or final["cursors"] != cursors
+            or any(f.startswith("checksums.") for f in listing)):
+        fail(f"phase 61: resumed from cursors {cur}: K1 {rk1} (want "
+             f"{RANK_SLOTS * left} a rank), checkpoint bytes written "
+             f"{written}, final cursors {final['cursors']}, files "
+             f"{listing}")
+    tn = N_SAMPLES // 2
+    acc = tiles_from(lambda k: [(os.path.join(ck, f"{k}.t{i * tn}_{j * tn}"
+                                              ".npy"), 2 * i + j)
+                                for i in range(2) for j in range(2)], ibs)
+    if not equal_accumulators(acc, synthetic_acc):
+        fail("phase 61: the resumed tiles differ from phase 6's")
+    paths["pcoa ibs tile2d 2 ranks killed, resumed: rank 0"] = {
+        "packed_gram": rk1[0]}
+    paths["pcoa ibs tile2d 2 ranks killed, resumed: rank 1"] = {
+        "packed_gram": rk1[1]}
+    print(f"tiled checkpoint across 2 ranks [{card}]: rank 0 killed at its "
+          f"block read {MULTIHOST_KILL_AFTER + 1}, exit codes {rcs}; "
+          f"{len(tile_files)} tile files ({tile_files[0]} ...), no checksum "
+          f"sidecar left, manifest process_count {killed['process_count']}"
+          f", mesh_shape {killed['mesh_shape']}, mode {killed['mode']}, "
+          f"cursors {cur}; resumed K1 launches {rk1[0]} + {rk1[1]} ("
+          f"{RANK_SLOTS} tiles x {left} global steps after the cursors); "
+          f"each rank wrote its own tiles (checkpoint bytes {written[0]} / "
+          f"{written[1]}); the final checkpoint's tiles bitwise phase 6's")
+
+    # -- 62. K1 at the new launch shapes -----------------------------------
+    it = load_packed(store).packed_blocks(BLOCK_VARIANTS)
+    packed = [b for _, (b, _m) in zip(range(steps + 1), it)]
+    # Global step 1: rank 0's first block beside rank 1's (block 7).
+    whole = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [packed[0], packed[steps]], axis=1))).to(dev)
+    shard = whole[:, whole.shape[1] // 2:][:, :whole.shape[1] // MESH_SLOTS]
+    shard = shard.contiguous()
+    shapes = (
+        ("gathered block, rectangular tile", whole[:tn], whole[tn:]),
+        ("gathered block, diagonal tile", whole[:tn].contiguous(), None),
+        ("cross-rank ring shard, rectangular", shard[:tn], shard[tn:]),
+    )
+    timings = {name: time_k1_shape(name, rows, cols, ibs, card)
+               for name, rows, cols in shapes}
+    return paths, timings
 
 
 def flip_file(path: str) -> None:
@@ -4888,9 +5240,16 @@ def main() -> int:
                                           files, tmp))
         print(f"phases 54-57 took {time.perf_counter() - phases_t0:.1f} s "
               f"[{card}]")
+        phases_t0 = time.perf_counter()
+        rank_paths, rank_shapes = tile2d_ranks_phases(
+            cli_main, card, dev, synthetic_acc, pca_coords, files, tmp)
+        new_paths.update(rank_paths)
+        tile_shapes.update(rank_shapes)
+        print(f"phases 58-62 took {time.perf_counter() - phases_t0:.1f} s "
+              f"[{card}]")
 
-    # -- 58. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-57 took "
+    # -- 63. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-62 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",

@@ -801,12 +801,13 @@ def _mesh_shape_arg(spec: str) -> tuple[int, int]:
 
 def _print_mesh(job: JobConfig) -> None:
     """Say on stderr what the job's mesh is: the slot count and the
-    physical devices behind them (a mesh of virtual slots says so)."""
+    physical devices behind them (a mesh of virtual slots says so; one
+    that spans the ranks of a job, which ranks own which slots)."""
     from spark_examples_tpu_torch.core.device import resolve_device
 
-    mesh = meshes.make_mesh(
-        meshes.default_devices(resolve_device(job.compute.device)),
-        shape=job.compute.mesh_shape)
+    meshes.maybe_init_distributed(job.compute.device)
+    mesh = meshes.job_mesh(resolve_device(job.compute.device),
+                           job.compute.mesh_shape)
     print(f"mesh: {mesh.describe()}", file=sys.stderr)
 
 

@@ -37,17 +37,23 @@ so the next rotation never destroys the only good generation. Only when
 both generations fail does it raise :class:`CheckpointCorruptError`.
 
 In a job of several processes (``parallel/multihost.py``) the
-accumulators saved are the global sums (the caller reduces the ranks'
-partials first), written by rank 0 in the full layout; ``cursors`` holds
-every rank's own cursor into its partition, gathered, and
-``process_count`` the number of ranks. Every fallible step that spans
-ranks is voted through (:func:`_vote_all_ok`), so a failure on one rank
-aborts all of them in that round instead of leaving the others parked in
-the next collective. On load the ranks agree on one generation (latest,
-``.old``, none, corrupt), and a checkpoint written by another number of
-processes is refused in either direction: cursors into per-rank
-partitions do not transfer. A tiled checkpoint across processes (the
-tile2d plan over ranks) is the next slice of the port, and is refused.
+directory must be on a filesystem every rank shares (the JAX package's
+layout and sequence): rank 0 (re)creates ``.tmp``; every rank writes its
+own tiles (tile2d across ranks) and rank 0 the whole leaves (the global
+sums of a variant or replicated plan, which the caller reduces first,
+and the scalars); each other rank writes its tiles' digests to a
+``checksums.{rank}.json`` sidecar; rank 0 merges the sidecars by rank
+index (a missing one aborts the save: the directory is not shared),
+removes them and writes the manifest, whose ``cursors`` holds every
+rank's own cursor into its partition and ``process_count`` the number of
+ranks, then rotates. Every fallible step that spans ranks is voted
+through (``multihost.vote_all_ok``), so a failure on one rank aborts all
+of them in that round instead of leaving the others parked in the next
+collective. On load each rank verifies the whole leaves and its own
+tiles only, the ranks agree on one generation (latest, ``.old``, none,
+corrupt), and a checkpoint written by another number of processes is
+refused in either direction: cursors into per-rank partitions do not
+transfer.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from spark_examples_tpu_torch.core.hashing import (
     sample_hash,
     sha256_file,
 )
+from spark_examples_tpu_torch.parallel import multihost as mh
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -90,27 +97,32 @@ def _tile_name(leaf: str, row0: int, col0: int) -> str:
     return f"{leaf}.t{row0}_{col0}.npy"
 
 
-def _vote_all_ok(local_ok: bool, make_peer_error) -> None:
-    """The abort protocol of every fallible step that spans ranks:
-    allgather the ranks' ok flags (the gather is also the barrier) and,
-    when any failed, raise ``make_peer_error(bad_ranks)`` on the ranks
-    whose own step succeeded; the failed ones re-raise their own error
-    after. Raising beside a collective instead would leave the others
-    waiting in it. One process: a no-op."""
-    from spark_examples_tpu_torch.parallel import multihost as mh
-
-    if not mh.is_multihost():
-        return
-    oks = mh.allgather(np.int32(bool(local_ok)))
-    if not oks.all() and local_ok:
-        raise make_peer_error([int(i) for i in np.flatnonzero(oks == 0)])
+def _write_sidecar(tmp: str, rank: int, checksums: dict) -> None:
+    """A non-primary rank's digests of the files it wrote, for rank 0
+    to merge into the manifest."""
+    with open(os.path.join(tmp, f"checksums.{rank}.json"), "w") as f:
+        json.dump(checksums, f)
 
 
-_TILED_ACROSS_PROCESSES = (
-    "a tiled checkpoint across processes (the tile2d plan over ranks, "
-    "per-rank tile files with checksum sidecars) is the next slice of "
-    "the port; save and resume a job of several processes under "
-    "--gram-mode variant (or replicated)")
+def _merge_sidecars(tmp: str, world: int, checksums: dict) -> None:
+    """Rank 0: every other rank's sidecar into ``checksums``, enumerated
+    BY RANK INDEX (a listing could miss one on a stale directory cache
+    and quietly leave those tiles unverified), each removed once read; a
+    missing one raises."""
+    for peer in range(1, world):
+        fpath = os.path.join(tmp, f"checksums.{peer}.json")
+        try:
+            with open(fpath) as f:
+                checksums.update(json.load(f))
+        except OSError as e:
+            raise RuntimeError(
+                f"checkpoint save: checksum sidecar from process {peer} is "
+                f"missing/unreadable after the write barrier ({e}) — the "
+                "checkpoint directory is not consistently visible across "
+                "processes (multi-host --checkpoint-dir must be a shared "
+                "filesystem)"
+            ) from e
+        os.remove(fpath)
 
 
 def save(path: str, acc: dict, next_variant: int, metric: str,
@@ -130,20 +142,30 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
     solver stores its rung, rank and seed here); ``load`` refuses a
     checkpoint whose record differs from the job's.
 
-    Several processes: every rank calls this at the same step with the
-    global sums and ``next_variant``, its own cursor. Rank 0 writes the
-    leaves and the manifest and rotates the generations; a shared
-    filesystem is required.
+    Several processes: every rank calls this at the same step with its
+    accumulators (the global sums, or under tile2d its own tiles) and
+    ``next_variant``, its own cursor. Each rank writes its tiles, rank 0
+    the whole leaves, the manifest and the rotation (the module
+    docstring); a shared filesystem is required.
     """
-    from spark_examples_tpu_torch.parallel import multihost as mh
-
     rank = meshes.process_index()
     primary = rank == 0
-    if mh.is_multihost() and any(isinstance(v, Tiled)
-                                 for v in acc.values()):
-        raise ValueError(_TILED_ACROSS_PROCESSES)
+    multi = mh.is_multihost()
     with telemetry.span("checkpoint.save"):
         tmp = path + ".tmp"
+        error: Exception | None = None
+        if primary:
+            try:
+                if os.path.exists(tmp):
+                    shutil.rmtree(tmp)
+                os.makedirs(tmp)
+            except OSError as e:
+                error = e
+        mh.vote_all_ok(error is None, lambda bad: RuntimeError(
+            "checkpoint save: could not (re)create the tmp directory on "
+            "the primary process — see its log"))
+        if error is not None:
+            raise error
         # Each file is hashed as it is written, before the fault site
         # fires, so an injected truncation corrupts the file against its
         # recorded digest, as a torn write would.
@@ -163,38 +185,28 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
         layout: dict[str, str] = {}
         for k, v in acc.items():
             layout[k] = "tiles" if isinstance(v, Tiled) else "full"
-        error: Exception | None = None
-        if primary:
-            try:
-                if os.path.exists(tmp):
-                    shutil.rmtree(tmp)
-                os.makedirs(tmp)
-                for k, v in acc.items():
-                    if isinstance(v, Tiled):
-                        for s, tile in enumerate(v.tiles):
-                            r0, _, c0, _ = v.spans(s)
-                            write(_tile_name(k, r0, c0), tile)
-                    else:
-                        write(f"{k}.npy", v)
-            except Exception as e:
-                error = e
-        _vote_all_ok(error is None, lambda bad: RuntimeError(
-            "checkpoint save: writing the leaves failed on the primary "
-            "process (see its log); the previous checkpoint generations "
+        try:
+            for k, v in acc.items():
+                if isinstance(v, Tiled):
+                    # This rank's own tiles (every tile on one process).
+                    for s, tile in v.local():
+                        r0, _, c0, _ = v.spans(s)
+                        write(_tile_name(k, r0, c0), tile)
+                elif primary:
+                    write(f"{k}.npy", v)
+            if multi and not primary:
+                _write_sidecar(tmp, rank, checksums)
+        except Exception as e:
+            error = e
+        mh.vote_all_ok(error is None, lambda bad: RuntimeError(
+            f"checkpoint save: tile/sidecar write failed on process(es) "
+            f"{bad} (see their logs); the previous checkpoint generations "
             "are untouched"))
         if error is not None:
             raise error
         # Per-rank cursors: each rank resumes its own partition.
         cursors = {str(i): int(c) for i, c in
                    enumerate(mh.allgather(np.int64(next_variant)))}
-        mesh_shape = None
-        if plan is not None:
-            mesh_shape = list(plan.mesh.shape)
-            if plan.processes > 1:
-                # The job's slots over every rank, shaped as the JAX
-                # package's process-spanning mesh would be.
-                mesh_shape = list(meshes._factor_2d(
-                    plan.mesh.size * plan.processes))
         manifest = {
             "next_variant": cursors["0"],
             "cursors": cursors,
@@ -204,15 +216,19 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
             "n_samples": len(sample_ids),
             "leaves": sorted(acc),
             "layout": layout,
-            "mesh_shape": mesh_shape,
+            # The job's mesh over every rank's slots, as the JAX
+            # package's process-spanning mesh records it.
+            "mesh_shape": (list(plan.mesh_shape) if plan is not None
+                           else None),
             "mode": plan.mode if plan is not None else None,
             "process_count": meshes.process_count(),
             "stream_stats": dict(stream_stats or {}),
             "extra": dict(extra) if extra else None,
-            "sha256": checksums,
         }
         if primary:
             try:
+                _merge_sidecars(tmp, meshes.process_count(), checksums)
+                manifest["sha256"] = checksums
                 with open(os.path.join(tmp, "manifest.json"), "w") as f:
                     json.dump(manifest, f)
                 # Never a window with zero good generations: the old
@@ -228,23 +244,46 @@ def save(path: str, acc: dict, next_variant: int, metric: str,
                     os.replace(tmp, path)
             except Exception as e:
                 error = e
-        _vote_all_ok(error is None, lambda bad: RuntimeError(
-            "checkpoint save: the manifest write or rotation failed on "
-            "the primary process (see its log); the checkpoint directory "
-            "was left on the previous good generation"))
+        mh.vote_all_ok(error is None, lambda bad: RuntimeError(
+            "checkpoint save: sidecar merge or rotation failed on the "
+            "primary process (see its log for the cause); the checkpoint "
+            "directory was left on the previous good generation"))
         if error is not None:
             raise error
 
 
-def _verify_files(path: str, manifest: dict) -> str | None:
-    """Re-hash a generation's files against its manifest: a reason on
-    the first unreadable or mismatched file, None when all verify. A
-    manifest without a ``sha256`` map verifies vacuously."""
+def _local_files(manifest: dict, plan, sums: dict) -> list[str]:
+    """The files this rank will load: the whole leaves and, under a mesh
+    that spans the ranks, its own tiles only (reading the others' would
+    multiply the shared filesystem's traffic by the process count for
+    no safety: the generation agreement turns any rank's failed
+    verification into every rank's decision)."""
+    layout = manifest.get("layout") or {}
+    if (plan is None or not plan.mesh.spans_processes
+            or not any(v == "tiles" for v in layout.values())):
+        return sorted(sums)
+    n = manifest["n_samples"]
+    spans = meshes.tile2d(plan.mesh, n)
+    mine = set()
+    for k, lay in layout.items():
+        if lay == "tiles":
+            mine.update(_tile_name(k, spans[s][0].start, spans[s][1].start)
+                        for s in plan.mesh.local_slots)
+        else:
+            mine.add(f"{k}.npy")
+    return sorted(f for f in sums if f in mine)
+
+
+def _verify_files(path: str, manifest: dict, plan=None) -> str | None:
+    """Re-hash this rank's files of a generation (:func:`_local_files`)
+    against its manifest: a reason on the first unreadable or mismatched
+    file, None when all verify. A manifest without a ``sha256`` map
+    verifies vacuously."""
     with telemetry.span("checkpoint.verify"):
         sums = manifest.get("sha256")
         if not sums:
             return None
-        for fname in sorted(sums):
+        for fname in _local_files(manifest, plan, sums):
             fpath = os.path.join(path, fname)
             try:
                 faults.fire("checkpoint.tile_read", path=fpath)
@@ -256,7 +295,7 @@ def _verify_files(path: str, manifest: dict) -> str | None:
         return None
 
 
-def _usable_generation(path: str):
+def _usable_generation(path: str, plan=None):
     """The first generation (``path``, then ``path.old``) whose manifest
     parses and whose files verify -> (dir, manifest); None when no
     generation exists; CheckpointCorruptError when every one fails."""
@@ -271,7 +310,7 @@ def _usable_generation(path: str):
         except (OSError, ValueError) as e:
             reasons.append(f"{gen}: manifest unreadable ({e})")
             continue
-        reason = _verify_files(gen, manifest)
+        reason = _verify_files(gen, manifest, plan)
         if reason is not None:
             reasons.append(f"{gen}: {reason}")
             continue
@@ -319,7 +358,7 @@ def _promote_fallback(path: str, found):
             err = e
     # The vote is the barrier: no rank reads the generation while rank 0
     # moves it, and a failed move aborts every rank in this round.
-    _vote_all_ok(err is None, lambda bad: CheckpointCorruptError(
+    mh.vote_all_ok(err is None, lambda bad: CheckpointCorruptError(
         f"promotion of fallback checkpoint generation {gen} failed on "
         "process 0 — see its log"))
     if err is not None:
@@ -331,7 +370,7 @@ def _promote_fallback(path: str, found):
     return path, manifest
 
 
-def _agree_generation(path: str, found, local_error=None):
+def _agree_generation(path: str, found, local_error=None, plan=None):
     """Several processes: every rank resumes from the SAME generation.
     Verification is per rank (a transient read error can make one reject
     the latest generation while the others accept it), so one allgather
@@ -341,8 +380,6 @@ def _agree_generation(path: str, found, local_error=None):
     is not shared, and all abort; a rank that found every generation
     corrupt votes that (``local_error``) instead of raising beside the
     collective. One process: ``found``, or ``local_error`` raised."""
-    from spark_examples_tpu_torch.parallel import multihost as mh
-
     if not mh.is_multihost():
         if local_error is not None:
             raise local_error
@@ -381,13 +418,13 @@ def _agree_generation(path: str, found, local_error=None):
         try:
             with open(os.path.join(gen, "manifest.json")) as f:
                 manifest = json.load(f)
-            reason = _verify_files(gen, manifest)
+            reason = _verify_files(gen, manifest, plan)
         except (OSError, ValueError) as e:
             reason = f"manifest unusable ({e})"
         if reason is None:
             result = gen, manifest
     # Every rank joins the confirmation round, adopters or not.
-    _vote_all_ok(reason is None, lambda bad: CheckpointCorruptError(
+    mh.vote_all_ok(reason is None, lambda bad: CheckpointCorruptError(
         f"peers agreed on a checkpoint generation at {path}, but "
         f"process(es) {bad} cannot use it"))
     if reason is not None:
@@ -406,8 +443,9 @@ def _agree_generation(path: str, found, local_error=None):
 
 def _load_leaf(path: str, k: str, layout: str, manifest: dict, plan,
                device):
-    """One leaf back where the plan keeps it: whole on ``device`` (slot
-    0's under a plan), or one tile per slot on the slot's device."""
+    """One leaf back where the plan keeps it: whole on ``device`` (this
+    rank's first slot's under a plan), or one tile per slot on the
+    slot's device (this rank's slots)."""
     n = manifest["n_samples"]
     if layout == "full":
         host = torch.from_numpy(np.load(os.path.join(path, f"{k}.npy")))
@@ -421,7 +459,7 @@ def _load_leaf(path: str, k: str, layout: str, manifest: dict, plan,
             "was given to place it — pass the job's GramPlan"
         )
     return Tiled(plan.mesh, (n, n), [
-        torch.from_numpy(np.load(os.path.join(
+        None if dev is None else torch.from_numpy(np.load(os.path.join(
             path, _tile_name(k, rows.start, cols.start)))).to(dev)
         for (rows, cols), dev in zip(meshes.tile2d(plan.mesh, n),
                                      plan.mesh.devices)])
@@ -432,9 +470,10 @@ def load(path: str, metric: str, sample_ids: list[str],
          leaves: list[str] | None = None,
          expect_extra: dict | None = None, device="cpu", plan=None):
     """Load ``(acc, next_variant, stream_stats)``, or None when no
-    checkpoint exists. ``acc`` holds torch tensors on ``device`` (slot
-    0's device under ``plan``), and the tiles of a tiled leaf on their
-    slots' devices.
+    checkpoint exists. ``acc`` holds torch tensors on ``device`` (this
+    rank's first slot's under ``plan``), and the tiles of a tiled leaf on
+    their slots' devices (this rank's own, under a mesh that spans the
+    ranks).
 
     ``leaves``: the expected leaf names when the checkpoint is not a gram
     accumulation (the sketch solver's state); by default they derive
@@ -450,12 +489,12 @@ def load(path: str, metric: str, sample_ids: list[str],
         device = plan.mesh.home
     with telemetry.span("checkpoint.load"):
         try:
-            mine, local_error = _usable_generation(path), None
+            mine, local_error = _usable_generation(path, plan), None
         except CheckpointCorruptError as e:
             # Voted, not raised here: the other ranks may already be in
             # the agreement round.
             mine, local_error = None, e
-        found = _agree_generation(path, mine, local_error)
+        found = _agree_generation(path, mine, local_error, plan)
         if found is None:
             return None
         path, manifest = _promote_fallback(path, found)
@@ -510,12 +549,8 @@ def load(path: str, metric: str, sample_ids: list[str],
             )
         layout = (manifest.get("layout")
                   or {k: "full" for k in manifest["leaves"]})
-        if (meshes.process_count() > 1
-                and any(v == "tiles" for v in layout.values())):
-            raise ValueError(f"checkpoint at {path}: "
-                             + _TILED_ACROSS_PROCESSES)
         if any(v == "tiles" for v in layout.values()):
-            want_mesh = list(plan.mesh.shape) if plan is not None else None
+            want_mesh = list(plan.mesh_shape) if plan is not None else None
             if (plan is None
                     or manifest.get("mesh_shape") != want_mesh
                     or manifest.get("mode") != plan.mode):

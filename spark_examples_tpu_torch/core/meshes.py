@@ -14,11 +14,15 @@ every visible card, ``cuda:0..n-1``; on one card that is ``(1, 1)``.
 ``core/virtual.py`` puts ``n`` slots on one physical device.
 
 A job of several processes (:func:`maybe_init_distributed`, over
-``torch.distributed``) gives each rank a mesh of its own: its one card
-(or the CPU), never every visible card. The ranks are started the way
-the JAX package's are, with the same environment names:
-``JAX_COORDINATOR_ADDRESS`` (``host:port`` of rank 0's store),
-``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``.
+``torch.distributed``) gives each rank slots of its own: its one card
+(or the CPU, or the ``core/virtual.py`` slots on it), never every
+visible card. The ranks are started the way the JAX package's are, with
+the same environment names: ``JAX_COORDINATOR_ADDRESS`` (``host:port``
+of rank 0's store), ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``. The
+job's mesh (:func:`job_mesh`) then spans the ranks, as JAX's
+``make_mesh(jax.devices())`` does: every rank's slots, rank-major, each
+slot recording the rank that owns it (:func:`process_mesh`); a rank
+holds only its own slots' tiles.
 
 The JAX layouts (``replicated``, ``tile2d``, ``rows_i``, ``rows_j``,
 ``variants_flat``) are slot -> slice maps here: lists indexed by the flat
@@ -42,10 +46,17 @@ AXIS_J = "j"  # sample-column axis of the N x N accumulator
 
 @dataclass(frozen=True)
 class Mesh:
-    """``devices`` flattened i-major: slot ``s`` is ``(s // p_j, s % p_j)``."""
+    """``devices`` flattened i-major: slot ``s`` is ``(s // p_j, s % p_j)``.
 
-    devices: tuple[torch.device, ...]
+    A mesh that spans the ranks of a job (:func:`process_mesh`) lists
+    every rank's slots: ``owners[s]`` is the rank that owns slot ``s``,
+    ``rank`` this process's, and ``devices[s]`` is None where another
+    rank owns the slot. ``owners`` empty: every slot is this process's."""
+
+    devices: tuple[torch.device | None, ...]
     shape: tuple[int, int]
+    owners: tuple[int, ...] = ()
+    rank: int = 0
 
     axis_names = (AXIS_I, AXIS_J)
 
@@ -54,9 +65,37 @@ class Mesh:
         return len(self.devices)
 
     @property
+    def local_slots(self) -> tuple[int, ...]:
+        """This process's slots, in slot order."""
+        if not self.owners:
+            return tuple(range(self.size))
+        return self.slots_of(self.rank)
+
+    def slots_of(self, rank: int) -> tuple[int, ...]:
+        """The slots ``rank`` owns, in slot order."""
+        if not self.owners:
+            return self.local_slots if rank == self.rank else ()
+        return tuple(s for s, r in enumerate(self.owners) if r == rank)
+
+    def owner(self, s: int) -> int:
+        return self.owners[s] if self.owners else self.rank
+
+    def is_local(self, s: int) -> bool:
+        return self.owner(s) == self.rank
+
+    @property
+    def spans_processes(self) -> bool:
+        return len(set(self.owners)) > 1
+
+    @property
+    def processes(self) -> int:
+        return len(set(self.owners)) if self.owners else 1
+
+    @property
     def home(self) -> torch.device:
-        """Slot 0's device: where replicated state and the feed land."""
-        return self.devices[0]
+        """This process's first slot's device (slot 0's on one process):
+        where replicated state and the feed land."""
+        return self.devices[self.local_slots[0]]
 
     def coords(self, s: int) -> tuple[int, int]:
         return divmod(s, self.shape[1])
@@ -66,16 +105,24 @@ class Mesh:
 
     @property
     def physical(self) -> tuple[torch.device, ...]:
-        """The distinct devices behind the slots, in slot order."""
-        return tuple(dict.fromkeys(self.devices))
+        """The distinct devices behind this process's slots, in slot
+        order."""
+        return tuple(dict.fromkeys(self.devices[s] for s in self.local_slots))
 
     @property
     def virtual(self) -> bool:
-        return len(self.physical) < self.size
+        return len(self.physical) < len(self.local_slots)
 
     def describe(self) -> str:
         i, j = self.shape
         phys = ", ".join(str(d) for d in self.physical)
+        if self.spans_processes:
+            slots = self.local_slots
+            kind = " virtual" if self.virtual else ""
+            return (f"{i}x{j} mesh over {self.processes} processes of "
+                    f"{len(slots)}{kind} slot(s) each, rank-major; this "
+                    f"rank ({self.rank}) holds slots {slots[0]}-{slots[-1]} "
+                    f"on {phys}")
         if self.virtual:
             return (f"{i}x{j} mesh of {self.size} virtual slots on "
                     f"{len(self.physical)} physical device(s) ({phys}): the "
@@ -194,12 +241,38 @@ def maybe_init_distributed(device="cuda") -> Distributed | None:
                else dist.group.WORLD)
     _distributed = Distributed(rank, world, backend, staged, device,
                                control, reason)
+    import atexit
+
+    atexit.register(_leave)
     telemetry.gauge_set("multihost.backend",
                         {"gloo": 0.0, "gloo-staged": 1.0,
                          "nccl": 2.0}[_distributed.name])
     print(f"multihost: rank {rank} of {world}, backend "
           f"{_distributed.name} on {device} ({reason})", flush=True)
     return _distributed
+
+
+def _leave() -> None:
+    """Tear the job's gloo groups down at exit, while the interpreter is
+    whole. Left to the interpreter's own teardown, a gloo group's threads
+    can be destroyed still joinable, which aborts the process
+    (``std::terminate``, exit -6) after its work is done: about one
+    two-rank job in ten on a loaded host. Under NCCL only the gloo
+    control group goes here; NCCL's own teardown stays torch's, as a
+    graceful NCCL shutdown could wait on a collective a dead peer left
+    open."""
+    global _distributed
+    d, _distributed = _distributed, None  # the port's last references
+    if d is None:
+        return
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return
+    if d.backend == "nccl":
+        dist.destroy_process_group(d.control)
+    else:
+        dist.destroy_process_group()
 
 
 def distributed() -> Distributed | None:
@@ -238,6 +311,17 @@ def default_devices(device) -> list[torch.device]:
     return [device]
 
 
+def job_mesh(device, shape: tuple[int, int] | None = None) -> Mesh:
+    """The mesh a job on ``device`` runs over: its default slots
+    (:func:`default_devices`) shaped by ``--mesh-shape``; in a job of
+    several processes, every rank's slots (:func:`process_mesh`), the
+    shape applying to the job's whole slot count."""
+    local = default_devices(device)
+    if process_count() > 1:
+        return process_mesh(local, process_count(), process_index(), shape)
+    return make_mesh(local, shape)
+
+
 def make_mesh(devices: Sequence[torch.device],
               shape: tuple[int, int] | None = None) -> Mesh:
     """The framework's 2-D ``(i, j)`` mesh over ``devices``. ``shape``
@@ -255,6 +339,43 @@ def make_mesh(devices: Sequence[torch.device],
             f"mesh shape {shape} != device count {n} (--virtual-devices "
             "N puts N slots on one device)")
     return Mesh(devices, shape)
+
+
+def process_mesh(local: Sequence[torch.device], world: int, rank: int,
+                 shape: tuple[int, int] | None = None) -> Mesh:
+    """The mesh of a job of ``world`` ranks with ``len(local)`` slots
+    each, as this ``rank`` sees it: global slots rank-major (rank ``r``'s
+    ``L`` slots are ``r L .. r L + L - 1``, the JAX package's
+    ``jax.devices()`` order), ``local`` placed at this rank's, None at the
+    others'. ``shape`` covers the ``world x L`` slots (default:
+    near-square). Every rank must have the same slot count."""
+    local = tuple(torch.device(d) for d in local)
+    per = len(local)
+    if per == 0:
+        raise ValueError("a mesh needs at least one device")
+    if world == 1:
+        return make_mesh(local, shape)
+    n = world * per
+    if shape is None:
+        shape = _factor_2d(n)
+    shape = (int(shape[0]), int(shape[1]))
+    if shape[0] * shape[1] != n:
+        raise ValueError(
+            f"mesh shape {shape} != the job's slot count {n} ({world} "
+            f"processes x {per} slot(s) each): --mesh-shape covers every "
+            "rank's slots")
+    devices = tuple(local[s - rank * per] if s // per == rank else None
+                    for s in range(n))
+    return Mesh(devices, shape, tuple(s // per for s in range(n)), rank)
+
+
+def local_mesh(mesh: Mesh) -> Mesh:
+    """This process's slots of ``mesh`` as a mesh of their own (a rank's
+    mesh under the variant and replicated plans, which sum per-rank
+    partials instead of tiling across ranks)."""
+    if not mesh.owners:
+        return mesh
+    return make_mesh([mesh.devices[s] for s in mesh.local_slots])
 
 
 def ring_perm(mesh: Mesh) -> tuple[tuple[int, int], ...]:
@@ -297,9 +418,11 @@ def rows_j(mesh: Mesh, n: int) -> list[slice]:
 
 
 def variants_flat(mesh: Mesh, width: int) -> list[slice]:
-    """An (n, width) block's variant columns per slot, split over the
-    flattened (i, j) slot list (i major)."""
-    return _spans(width, mesh.size)
+    """An (n, width) block's variant columns per slot of this process,
+    split over its slots in slot order (i major): the whole block over
+    every slot on one process; across ranks a rank's slab over its own
+    slots, which are the global block's shards ``r L .. r L + L - 1``."""
+    return _spans(width, len(mesh.local_slots))
 
 
 class Tiled:
@@ -308,7 +431,9 @@ class Tiled:
     ``[j tm, (j+1) tm)`` on its own device (the JAX package's
     ``P("i", "j")`` sharding). Each tile is its own tensor, also when
     slots share a device, so an in-place update of one never reaches
-    another."""
+    another. On a mesh that spans processes a rank holds only its own
+    slots' tiles (``tiles[s]`` is None at another rank's slot); what it
+    needs of the others' comes through ``parallel/multihost.py``."""
 
     __slots__ = ("mesh", "shape", "tiles")
 
@@ -324,20 +449,25 @@ class Tiled:
     def zeros(cls, mesh: Mesh, shape, dtype) -> "Tiled":
         tn, tm = shape[0] // mesh.shape[0], shape[1] // mesh.shape[1]
         return cls(mesh, shape, [
-            torch.zeros((tn, tm), dtype=dtype, device=d)
+            None if d is None else torch.zeros((tn, tm), dtype=dtype,
+                                               device=d)
             for d in mesh.devices])
 
     @classmethod
     def from_full(cls, mesh: Mesh, full: torch.Tensor) -> "Tiled":
         """Tiles copied out of a whole (n, m) tensor, each onto its
-        slot's device."""
+        slot's device (this process's slots only)."""
         return cls(mesh, full.shape, [
-            full[r, c].to(d, copy=True).contiguous()
+            None if d is None else full[r, c].to(d, copy=True).contiguous()
             for (r, c), d in zip(tile2d(mesh, *full.shape), mesh.devices)])
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.tiles[0].dtype
+        return self.tiles[self.mesh.local_slots[0]].dtype
+
+    def local(self):
+        """``(slot, tile)`` of this process's slots, in slot order."""
+        return [(s, self.tiles[s]) for s in self.mesh.local_slots]
 
     @property
     def tile_shape(self) -> tuple[int, int]:
@@ -351,28 +481,27 @@ class Tiled:
         return i * tn, (i + 1) * tn, j * tm, (j + 1) * tm
 
     def map(self, fn) -> "Tiled":
-        """``fn(tile, s)`` on every slot, as a new Tiled."""
+        """``fn(tile, s)`` on this process's slots, as a new Tiled."""
         return Tiled(self.mesh, self.shape,
-                     [fn(t, s) for s, t in enumerate(self.tiles)])
+                     [None if t is None else fn(t, s)
+                      for s, t in enumerate(self.tiles)])
 
-    def region(self, r0: int, r1: int, c0: int, c1: int,
-               device) -> torch.Tensor:
-        """The global sub-block ``[r0:r1, c0:c1]`` assembled on
-        ``device`` from the tiles that hold it (what a slot needs of
-        another's tiles, e.g. the mirrored block of a transpose)."""
+    def region_pieces(self, r0: int, r1: int, c0: int, c1: int):
+        """The tiles holding the global sub-block ``[r0:r1, c0:c1]``, as
+        bands of ``(slot, local rows, local cols)``: row bands top to
+        bottom, each a list of pieces left to right."""
         tn, tm = self.tile_shape
         bands = []
         for i in range(r0 // tn, -(-r1 // tn)):
             lo, hi = max(r0, i * tn), min(r1, (i + 1) * tn)
-            pieces = []
+            band = []
             for j in range(c0 // tm, -(-c1 // tm)):
                 a, b = max(c0, j * tm), min(c1, (j + 1) * tm)
-                t = self.tiles[self.mesh.slot(i, j)]
-                pieces.append(t[lo - i * tn:hi - i * tn,
-                                a - j * tm:b - j * tm].to(device))
-            bands.append(pieces[0] if len(pieces) == 1
-                         else torch.cat(pieces, dim=1))
-        return bands[0] if len(bands) == 1 else torch.cat(bands, dim=0)
+                band.append((self.mesh.slot(i, j),
+                             slice(lo - i * tn, hi - i * tn),
+                             slice(a - j * tm, b - j * tm)))
+            bands.append(band)
+        return bands
 
     def diagonal_spans(self):
         """The global diagonal of a square leaf in stretches that each
@@ -387,12 +516,17 @@ class Tiled:
                    slice(g - j * tm, end - j * tm))
             g = end
 
-    def diagonal(self, device) -> torch.Tensor:
-        """The global diagonal (square leaves), gathered on ``device``."""
-        return torch.cat([torch.diagonal(self.tiles[s][r, c]).to(device)
-                          for s, r, c in self.diagonal_spans()])
-
     def full(self, device) -> torch.Tensor:
         """The whole leaf gathered on ``device`` (a host or a device
-        that can hold it: the similarity job's output, a test)."""
-        return self.region(0, self.shape[0], 0, self.shape[1], device)
+        that can hold it: the similarity job's output, a test). Every
+        tile must be this process's (``multihost.regions`` assembles
+        blocks across ranks)."""
+        n, m = self.shape
+        return assemble([[self.tiles[s][r, c].to(device) for s, r, c in band]
+                         for band in self.region_pieces(0, n, 0, m)])
+
+
+def assemble(bands: list[list[torch.Tensor]]) -> torch.Tensor:
+    """Row bands of pieces (left to right) joined into one block."""
+    rows = [b[0] if len(b) == 1 else torch.cat(b, dim=1) for b in bands]
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)

@@ -31,11 +31,11 @@ from spark_examples_tpu_torch.core.meshes import Tiled
 
 def _tensors(tree):
     """Every tensor inside a (nested) dict / list / tuple / dataclass,
-    every tile of a tiled leaf included."""
+    every tile of a tiled leaf this process holds included."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, Tiled):
-        yield from tree.tiles
+        yield from (t for _, t in tree.local())
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)

@@ -120,6 +120,14 @@ class Kernel:
     max_increment: int | None = None
     # (stats, frame=FULL) -> {"similarity", "distance"}
     finalize: Callable | None = None
+    # What a tile's finalize reads beyond its own tile (the tiled route,
+    # ``parallel/pcoa_sharded.py``): the product leaves it reads of the
+    # mirrored block (those ``combine`` reads transposed, and every
+    # product of a statistic the finalize reads transposed through
+    # ``frame.t``), and whether it forms the Gower distance (which reads
+    # the similarity's diagonal).
+    transposed: tuple[str, ...] = ()
+    gower: bool = False
     # The NumPy twin of ``finalize`` on float64 statistics
     # (--backend cpu-reference).
     np_finalize: Callable | None = None
@@ -518,6 +526,7 @@ _register(Kernel(
     stats=("m", "d1"),
     max_increment=2,  # yc with y <= 2
     finalize=_ibs_finalize,
+    transposed=("yc",),
     np_finalize=_ibs_np_finalize,
     # NUM = 2m - d1 = sum_v c_i c_j (2 - |a - b|), a PSD kernel per
     # variant, over DEN = 2m (exactly rank-1 when no call is missing).
@@ -539,6 +548,7 @@ _register(Kernel(
     stats=("m", "ibs2"),
     max_increment=2,
     finalize=_ibs2_finalize,
+    transposed=("t1c", "t1t2"),
     np_finalize=_ibs2_np_finalize,
 ))
 _register(Kernel(
@@ -549,6 +559,7 @@ _register(Kernel(
     stats=("s",),
     max_increment=1,
     finalize=_shared_alt_finalize,
+    gower=True,
     np_finalize=_shared_alt_np_finalize,
     sketch=FactorSketch(features=_shared_alt_features, pca_family=True),
 ))
@@ -560,6 +571,7 @@ _register(Kernel(
     stats=("hh", "opp", "hc"),
     max_increment=2,
     finalize=_king_finalize,
+    transposed=("t1c", "t2c", "t1t1", "t1t2", "t2t2"),
     np_finalize=_king_np_finalize,
     pair=PairSpec(stats=("hh", "opp", "hcn", "hcr"), sim=_king_pair_sim),
 ))
@@ -571,6 +583,8 @@ _register(Kernel(
     stats=("s", "sc"),
     max_increment=2,  # the finalize's union sc + sc^T - s in int32
     finalize=_jaccard_finalize,
+    transposed=("t1c", "t1t1"),
+    gower=True,
     np_finalize=_jaccard_np_finalize,
     # NUM = intersection counts T1 T1^T (PSD); DEN = the union counts.
     sketch=DualSketch(
@@ -590,6 +604,7 @@ _register(Kernel(
     stats=("m", "ibs2", "opp"),
     max_increment=2,
     finalize=_pc_invariant_finalize,
+    transposed=("t1c", "t2c", "t1t2"),
     np_finalize=_pc_invariant_np_finalize,
 ))
 _register(Kernel(
@@ -601,6 +616,7 @@ _register(Kernel(
     max_increment=4,  # qc/yy at dosage values; m^2 in general
     value_scaled_budget=True,
     finalize=_euclidean_finalize,
+    transposed=("qc",),
     np_finalize=_euclidean_np_finalize,
     sketch=FactorSketch(features=_raw_value_features),
 ))
@@ -613,6 +629,7 @@ _register(Kernel(
     max_increment=4,
     value_scaled_budget=True,
     finalize=_dot_finalize,
+    gower=True,
     np_finalize=_dot_np_finalize,
     sketch=FactorSketch(features=_raw_value_features),
 ))
@@ -620,6 +637,7 @@ _register(Kernel(
     name="grm",
     family="float",
     finalize=_grm_finalize,
+    gower=True,
     np_finalize=_grm_np_finalize,
     oracle_similarity=_grm_oracle,
     init=_grm_init,

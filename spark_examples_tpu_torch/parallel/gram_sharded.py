@@ -33,6 +33,18 @@ and launches each slot's work on that slot's device. The modes:
   * block layout ``replicated``: the block is already whole on every
     slot; no collective.
 
+  Across the ranks of a job of several processes the mesh spans them
+  (``core/meshes.py::process_mesh``) and each rank updates only its own
+  slots' tiles. A step's global block is every rank's slab side by side,
+  in rank order (the JAX package's ``make_array_from_process_local_data``):
+  the gather all-gathers the slabs to every rank; the ring splits each
+  rank's slab over its slots (global shard ``r L + l`` on rank ``r``'s
+  slot ``l``) and hops the shards around the global ring, a device copy
+  between slots of one rank and point to point between ranks. A rank
+  whose partition is drained feeds an all-MISSING slab, which is
+  contracted with the rest (it adds zeros): every rank runs its launches
+  on every step.
+
   The count family slices the packed rows and columns before unpacking
   (or feeds the packed slices to K1 under ``fused``); the float family
   (grm) takes each chunk's per-variant statistics from all of its rows
@@ -61,6 +73,7 @@ from spark_examples_tpu_torch.core.config import (
 from spark_examples_tpu_torch.ingest.bitpack import unpack_dosages
 from spark_examples_tpu_torch.ops import genotype, packed_gram
 from spark_examples_tpu_torch.ops import gram as gram_ops
+from spark_examples_tpu_torch.parallel import multihost as mh
 
 # Rough per-device budget for resident accumulators (bytes).
 _ACC_BUDGET = 8 * 2**30
@@ -70,9 +83,13 @@ _ACC_BUDGET = 8 * 2**30
 class GramPlan:
     mesh: meshes.Mesh
     mode: str  # replicated | variant | tile2d
-    # Ranks of the job: each drives this plan's mesh over its own
-    # variant partition, and the partial sums are added across them.
+    # Ranks of the job. Under tile2d the mesh spans them; under variant
+    # and replicated each rank drives its own mesh over its own variant
+    # partition, and the partial sums are added across ranks.
     processes: int = 1
+    # The job's mesh shape over every rank's slots, where ``mesh`` is a
+    # rank's own (variant and replicated across ranks).
+    job_shape: tuple[int, int] | None = None
 
     @property
     def tiled(self) -> bool:
@@ -81,8 +98,15 @@ class GramPlan:
 
     @property
     def block_shards(self) -> int:
-        """How many ways the variant axis of a block is split."""
-        return self.mesh.size if self.mode != "replicated" else 1
+        """How many ways the variant axis of this rank's block is split
+        (its own slots)."""
+        return len(self.mesh.local_slots) if self.mode != "replicated" else 1
+
+    @property
+    def mesh_shape(self) -> tuple[int, int]:
+        """The job's mesh shape, every rank's slots counted (what a
+        checkpoint's manifest records)."""
+        return self.job_shape or self.mesh.shape
 
 
 def check_tile_divisible(n_samples: int, mesh: meshes.Mesh) -> None:
@@ -111,13 +135,18 @@ def plan_for(mesh: meshes.Mesh, n_samples: int, metric: str,
     replicated; else variant while the N x N leaves fit the per-device
     budget, tile2d past it.
 
-    Under ``processes > 1`` ranks (``parallel/multihost.py``) ``mesh`` is
-    this rank's own, and the job's slots are those of every rank: auto
-    counts them all (variant, as the JAX package's process-spanning
-    mesh would be), each rank's mesh runs the update of its own slab,
-    and the partial sums are added across ranks. ``replicated`` runs each
-    rank's update on one slot. tile2d across ranks is refused: its tiles
-    over ranks are the next slice of the port."""
+    Under ``processes > 1`` ranks (``parallel/multihost.py``) the job's
+    slots are those of every rank: ``mesh`` spans them
+    (``meshes.process_mesh``), or is this rank's own and is spread over
+    ``processes`` ranks of the same slot count. auto counts every slot
+    (variant, or tile2d past the budget, as the JAX package's
+    process-spanning mesh does). tile2d tiles the N x N over the spanning
+    mesh; variant and replicated run on this rank's own slots (each
+    rank's update of its own slab, the partial sums added across
+    ranks)."""
+    if processes > 1 and not mesh.owners:
+        mesh = meshes.process_mesh(mesh.devices, processes,
+                                   meshes.process_index())
     if mode == "auto":
         kern = kernels.get(metric)
         n_acc = 1
@@ -125,7 +154,7 @@ def plan_for(mesh: meshes.Mesh, n_samples: int, metric: str,
             n_acc = max(len(gram_ops.acc_leaves(metric))
                         - len(gram_ops.scalar_leaves(metric)), 1)
         acc_bytes = 4 * n_samples * n_samples * n_acc
-        if mesh.size * processes == 1:
+        if mesh.size == 1:
             mode = "replicated"
         elif acc_bytes <= _ACC_BUDGET:
             mode = "variant"
@@ -133,18 +162,12 @@ def plan_for(mesh: meshes.Mesh, n_samples: int, metric: str,
             mode = "tile2d"
     if mode not in GRAM_PLAN_MODES:
         raise ValueError(f"unknown gram mode {mode!r}")
-    if mode == "tile2d" and processes > 1:
-        raise ValueError(
-            f"--gram-mode tile2d across {processes} processes is not "
-            "ported yet: the gram tiles over ranks, the sharded "
-            "finalize/centering/eigensolve over ranks and the "
-            "multi-process tiled checkpoint are the next slice of the "
-            "port — run a job of several processes "
-            "with --gram-mode variant (or auto, or replicated), or tile "
-            "over the cards of one process"
-        )
     if mode == "tile2d":
         check_tile_divisible(n_samples, mesh)
+        return GramPlan(mesh, mode, processes)
+    if mesh.spans_processes:
+        return GramPlan(meshes.local_mesh(mesh), mode, processes,
+                        job_shape=mesh.shape)
     return GramPlan(mesh, mode, processes)
 
 
@@ -214,13 +237,15 @@ def _pad(block: torch.Tensor, n_shards: int, packed: bool) -> torch.Tensor:
     return torch.cat([block, pad], dim=1)
 
 
-def _shards(plan: GramPlan, block: torch.Tensor) -> list[torch.Tensor]:
-    """The block split over the flattened slots (``variants_flat``), each
-    shard made contiguous once and placed on its slot's device: the
-    copies every later launch reads (K1 takes contiguous operands)."""
-    spans = meshes.variants_flat(plan.mesh, block.shape[1])
-    return [block[:, sl].to(dev, non_blocking=True).contiguous()
-            for sl, dev in zip(spans, plan.mesh.devices)]
+def _shards(plan: GramPlan, block: torch.Tensor) -> dict[int, torch.Tensor]:
+    """This rank's block split over its slots (``variants_flat``; the
+    whole block over every slot on one process), each shard made
+    contiguous once and placed on its slot's device: the copies every
+    later launch reads (K1 takes contiguous operands). By slot."""
+    mesh = plan.mesh
+    spans = meshes.variants_flat(mesh, block.shape[1])
+    return {s: block[:, sl].to(mesh.devices[s], non_blocking=True)
+            .contiguous() for s, sl in zip(mesh.local_slots, spans)}
 
 
 class _TileContraction:
@@ -259,8 +284,11 @@ class _TileContraction:
             dense = hit[1]
             tile = {k: (acc[k] if k in self.scalars else acc[k].tiles[s])
                     for k in acc}
+            # The replicated scalars (grm's nvar) grow on one slot a
+            # rank: every rank sees every variant of the global block, so
+            # each holds the whole value (JAX's replicated leaf).
             self.kern.tile_body(tile, dense, rows, cols, self.grm_precise,
-                                s == 0)
+                                s == mesh.local_slots[0])
             return
         r = chunk[rows]
         # The same slice on both sides of a diagonal tile: K1 then runs
@@ -314,11 +342,13 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
             "— use the sharded transport (or a tile2d plan)"
         )
     fused = lowering == "fused"
-    n_dev = plan.mesh.size
+    mesh = plan.mesh
+    n_dev = mesh.size
     ring = (transport == "ring" and block_layout == "sharded"
             and plan.tiled)
-    perm = meshes.ring_perm(plan.mesh)
-    home = plan.mesh.home
+    perm = meshes.ring_perm(mesh)
+    home = mesh.home
+    local = mesh.local_slots
 
     if n_dev == 1 or plan.mode == "replicated":
         step = gram_ops.impl_for(metric, packed, grm_precise, lowering)
@@ -336,8 +366,8 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
         def update_variant(acc, block):
             if fused:
                 telemetry.count("gram.fused_blocks", 1)
-            for s, shard in enumerate(_shards(plan, _pad(block, n_dev,
-                                                         packed))):
+            for shard in _shards(plan, _pad(block, n_dev,
+                                            packed)).values():
                 partial = step(gram_ops.init(shard.shape[0], metric,
                                              shard.device), shard)
                 for k in acc:
@@ -352,40 +382,66 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
         if fused:
             telemetry.count("gram.fused_blocks", 1)
         cache: dict = {}
+        placed: dict = {}
+
+        def on_device(s, make):
+            # One copy a physical device: virtual slots share it, and
+            # nothing writes to it.
+            dev = mesh.devices[s]
+            if dev not in placed:
+                placed[dev] = make(dev)
+            return placed[dev]
+
         if block_layout == "replicated":
-            placed = {}
-            for s, dev in enumerate(plan.mesh.devices):
-                chunk = placed.get(dev)
-                if chunk is None:
-                    chunk = placed[dev] = block.to(dev, non_blocking=True)
-                contract(acc, s, chunk, cache)
+            for s in local:
+                contract(acc, s, on_device(
+                    s, lambda d: block.to(d, non_blocking=True)), cache)
             return acc
-        block = _pad(block, n_dev, packed)
+        # This rank's slab, split over its slots; on one process the
+        # whole block over every slot.
+        block = _pad(block, len(local), packed)
         if ring:
-            check_ring_divisible(block.shape[1], plan, packed)
+            check_ring_divisible(block.shape[1] * mesh.processes, plan,
+                                 packed)
             telemetry.count("gram.ring_steps", n_dev)
-        shards = _shards(plan, block)
-        if ring:
-            held = shards
+            held = _shards(plan, block)
             for step in range(n_dev):
                 # The hop is issued before the contraction, as in the JAX
-                # schedule, so on distinct cards it can ride behind it.
-                nxt = [None] * n_dev
-                if step < n_dev - 1:
-                    for src, dst in perm:
-                        nxt[dst] = held[src].to(plan.mesh.devices[dst],
-                                                non_blocking=True)
-                for s in range(n_dev):
+                # schedule, so on distinct cards (and across ranks) it can
+                # ride behind it.
+                last = step == n_dev - 1
+                if not last:
+                    nxt, arriving, into = _hop(held)
+                for s in local:
                     contract(acc, s, held[s], cache)
-                held = nxt
+                if not last:
+                    nxt.update(zip(into, arriving.wait()))
+                    held = nxt
             return acc
-        gathered = {}
-        for s, dev in enumerate(plan.mesh.devices):
-            chunk = gathered.get(dev)
-            if chunk is None:
-                chunk = gathered[dev] = torch.cat(
-                    [sh.to(dev, non_blocking=True) for sh in shards], dim=1)
-            contract(acc, s, chunk, cache)
+        # The global block: every rank's slab side by side (on one
+        # process the block itself).
+        whole = torch.cat(mh.allgather_tensor(mesh, block), dim=1)
+        for s in local:
+            contract(acc, s, on_device(
+                s, lambda d: whole.to(d, non_blocking=True)), cache)
         return acc
+
+    def _hop(held: dict):
+        """One ring hop of the held shards (slot ``src`` to ``dst`` by
+        ``ring_perm``), started: ``(next, arriving, into)`` with the
+        copies within this rank in ``next``; ``arriving.wait()`` gives
+        the shards that come from another rank, for the slots ``into``."""
+        nxt, sends, recvs, into = {}, [], [], []
+        like = held[local[0]]
+        for tag, (src, dst) in enumerate(perm):
+            if mesh.is_local(src) and mesh.is_local(dst):
+                nxt[dst] = held[src].to(mesh.devices[dst], non_blocking=True)
+            elif mesh.is_local(src):
+                sends.append((tag, mesh.owner(dst), held[src]))
+            elif mesh.is_local(dst):
+                recvs.append((tag, mesh.owner(src), tuple(like.shape),
+                              like.dtype, mesh.devices[dst]))
+                into.append(dst)
+        return nxt, mh.start_exchange(sends, recvs), into
 
     return update_tile2d

@@ -19,14 +19,28 @@ JAX's control-plane contract:
   blocks, exhausted ranks stepping with all-MISSING slabs.
 
 Two planes: :func:`allgather` carries small host values (step counts,
-flags, cursors, votes) on the gloo ``control`` group; :func:`allreduce_sum`
-sums tensors, a device ``all_reduce`` on NCCL and host-staged on gloo.
+flags, cursors, votes) on the gloo ``control`` group; the tensor
+collectives (:func:`allreduce_sum`, :func:`allgather_tensor`,
+:func:`gather_slots`, :func:`from_owner`, :func:`start_exchange`) move
+device tensors on NCCL, and on gloo move host tensors directly and
+device tensors staged through the host (ranks that share a card).
 
-Where JAX psums every block (every process holds the global
-accumulator), the port keeps per-rank int32 partials and sums them only
-where the global value is read: a hook that reads the accumulators
-(:class:`ReducedView`), a checkpoint, and the end of the stream. Integer
-sums are exact in any order, so the result is bitwise JAX's.
+Under the variant and replicated plans, where JAX psums every block
+(every process holds the global accumulator), the port keeps per-rank
+int32 partials and sums them only where the global value is read: a
+hook that reads the accumulators (:class:`ReducedView`), a checkpoint,
+and the end of the stream. Integer sums are exact in any order, so the
+result is bitwise JAX's.
+
+Under tile2d across ranks (a mesh that spans the processes,
+``core/meshes.py::process_mesh``) nothing is summed across ranks: each
+step's global block is every rank's slab side by side
+(:func:`allgather_tensor`, or the ring's point-to-point hops), so every
+tile is a global sum from the start. What a rank needs of another's
+tiles (a mirrored block, the diagonal, per-tile partial sums) moves
+point to point or from its owner (:func:`regions`,
+:func:`tiled_diagonal`, :func:`gather_slots`), in one order fixed by the
+mesh on every rank.
 """
 
 from __future__ import annotations
@@ -96,10 +110,212 @@ def allreduce_sum(x, inplace: bool = False):
     return out
 
 
+def vote_all_ok(local_ok: bool, make_peer_error) -> None:
+    """The abort protocol of every fallible step that spans ranks:
+    allgather the ranks' ok flags (the gather is also the barrier) and,
+    when any failed, raise ``make_peer_error(bad_ranks)`` on the ranks
+    whose own step succeeded; the failed ones re-raise their own error
+    after. Raising beside a collective instead would leave the others
+    waiting in it. One process: a no-op."""
+    if not is_multihost():
+        return
+    oks = allgather(np.int32(bool(local_ok)))
+    if not oks.all() and local_ok:
+        raise make_peer_error([int(i) for i in np.flatnonzero(oks == 0)])
+
+
+def _plane(t: torch.Tensor):
+    """``(group, staged)`` for moving ``t`` between ranks: NCCL's default
+    group for a card tensor under nccl; else the gloo group, a card
+    tensor staged through the host."""
+    d = meshes.distributed()
+    if t.is_cuda and d.backend == "nccl":
+        return None, False
+    return d.control, t.is_cuda
+
+
+def allgather_tensor(mesh, t: torch.Tensor) -> list[torch.Tensor]:
+    """Every rank's ``t`` (one shape and dtype on every rank), in rank
+    order, on ``t``'s device: the data-plane all_gather over the ranks
+    ``mesh`` spans (on one process: ``[t]``)."""
+    if not mesh.spans_processes:
+        return [t]
+    d = meshes.distributed()
+    import torch.distributed as dist
+
+    group, staged = _plane(t)
+    src = (t.detach().cpu() if staged else t).contiguous()
+    out = [torch.empty_like(src) for _ in range(d.world)]
+    dist.all_gather(out, src, group=group)
+    return [o.to(t.device) for o in out] if staged else out
+
+
+def gather_slots(mesh, stack: torch.Tensor, dst: int | None = None):
+    """Per-slot pieces of a mesh that spans the ranks, by global slot:
+    ``stack`` holds this rank's, one a local slot in slot order (the
+    same shape on every rank). Every rank gets the list (``dst`` None),
+    or rank ``dst`` alone (the others get None). On one process: the
+    stack's rows."""
+    d = meshes.distributed()
+    if not mesh.spans_processes:
+        return list(stack)
+    import torch.distributed as dist
+
+    group, staged = _plane(stack)
+    src = (stack.detach().cpu() if staged else stack).contiguous()
+    if dst is None:
+        parts = [torch.empty_like(src) for _ in range(d.world)]
+        dist.all_gather(parts, src, group=group)
+    else:
+        parts = ([torch.empty_like(src) for _ in range(d.world)]
+                 if d.rank == dst else None)
+        dist.gather(src, parts, dst=dst, group=group)
+        if parts is None:
+            return None
+    # Slots are rank-major, so rank order is slot order.
+    return [row.to(stack.device) if staged else row
+            for part in parts for row in part]
+
+
+def from_owner(mesh, t: torch.Tensor | None, owner: int, shape, dtype,
+               device) -> torch.Tensor:
+    """``owner``'s tensor on every rank ``mesh`` spans (a broadcast):
+    ``t`` on the owner; elsewhere a tensor of ``shape``, ``dtype`` on
+    ``device`` is received. On one process: ``t``."""
+    if not mesh.spans_processes:
+        return t
+    d = meshes.distributed()
+    import torch.distributed as dist
+
+    buf = (t if d.rank == owner
+           else torch.empty(shape, dtype=dtype, device=device))
+    group, staged = _plane(buf)
+    host = (buf.detach().cpu() if staged else buf).contiguous()
+    dist.broadcast(host, src=owner, group=group)
+    if d.rank == owner:
+        return t
+    return host.to(device) if staged else host
+
+
+def broadcast_object(mesh, obj, src: int = 0):
+    """A small picklable value from ``src`` to every rank ``mesh`` spans,
+    on the gloo control group. On one process: ``obj``."""
+    if not mesh.spans_processes:
+        return obj
+    import torch.distributed as dist
+
+    d = meshes.distributed()
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=d.control)
+    return box[0]
+
+
+class Exchange:
+    """Point-to-point moves in flight (:func:`start_exchange`);
+    :meth:`wait` returns the received tensors, in the order asked."""
+
+    def __init__(self, works, received, devices):
+        self._works = works
+        self._received = received
+        self._devices = devices
+
+    def wait(self) -> list[torch.Tensor]:
+        for w in self._works:
+            w.wait()
+        return [t if t.device == dev else t.to(dev)
+                for t, dev in zip(self._received, self._devices)]
+
+
+def start_exchange(sends, recvs) -> Exchange:
+    """Post point-to-point moves at once, without waiting: ``sends``
+    ``(tag, peer, tensor)``, ``recvs`` ``(tag, peer, shape, dtype,
+    device)``. Tags number the moves in one order that every rank
+    derives from the mesh alone; each rank posts its own in tag order,
+    so the two ends of every move pair up on gloo (by tag) and on NCCL
+    (by order). Card tensors move on NCCL, else on gloo staged through
+    the host."""
+    if not sends and not recvs:
+        return Exchange([], [], [])
+    import torch.distributed as dist
+
+    ops, received, devices = [], [], []
+    for move in sorted([(m[0], 0, m) for m in sends]
+                       + [(m[0], 1, m) for m in recvs]):
+        _tag, is_recv, m = move
+        if is_recv:
+            tag, peer, shape, dtype, device = m
+            buf = torch.empty(shape, dtype=dtype, device=device)
+            group, staged = _plane(buf)
+            if staged:
+                buf = torch.empty(shape, dtype=dtype)
+            received.append(buf)
+            devices.append(torch.device(device))
+            ops.append(dist.P2POp(dist.irecv, buf, peer, group, tag))
+        else:
+            tag, peer, tensor = m
+            group, staged = _plane(tensor)
+            src = (tensor.detach().cpu() if staged else tensor).contiguous()
+            ops.append(dist.P2POp(dist.isend, src, peer, group, tag))
+    return Exchange(dist.batch_isend_irecv(ops), received, devices)
+
+
+def regions(x, wanted) -> dict:
+    """Global sub-blocks of the tiled leaf ``x`` where they are wanted:
+    ``wanted`` lists ``(slot, (r0, r1, c0, c1))``, the same list on every
+    rank, each block to be assembled on that slot's device by the rank
+    that owns it. Every rank calls this together: pieces within a rank
+    are device copies, between ranks point to point. Returns this rank's
+    ``{slot: block}``."""
+    mesh = x.mesh
+    me = mesh.rank
+    sends, recvs, keys, local = [], [], [], {}
+    layouts = {}
+    tag = 0
+    for dst, (r0, r1, c0, c1) in wanted:
+        to = mesh.owner(dst)
+        bands = x.region_pieces(r0, r1, c0, c1)
+        if to == me:
+            layouts[dst] = bands
+        for b, band in enumerate(bands):
+            for p, (s, rows, cols) in enumerate(band):
+                frm = mesh.owner(s)
+                if frm == me and to == me:
+                    local[(dst, b, p)] = x.tiles[s][rows, cols].to(
+                        mesh.devices[dst])
+                elif frm == me:
+                    sends.append((tag, to, x.tiles[s][rows, cols]))
+                elif to == me:
+                    recvs.append((tag, frm, (rows.stop - rows.start,
+                                             cols.stop - cols.start),
+                                  x.dtype, mesh.devices[dst]))
+                    keys.append((dst, b, p))
+                tag += 1
+    local.update(zip(keys, start_exchange(sends, recvs).wait()))
+    return {dst: meshes.assemble([[local[(dst, b, p)]
+                                   for p in range(len(band))]
+                                  for b, band in enumerate(bands)])
+            for dst, bands in layouts.items()}
+
+
+def tiled_diagonal(x, device) -> torch.Tensor:
+    """The global diagonal of a square tiled leaf on ``device``, on every
+    rank: each stretch from the rank that holds it."""
+    mesh = x.mesh
+    parts = []
+    for s, rows, cols in x.diagonal_spans():
+        mine = (torch.diagonal(x.tiles[s][rows, cols]).to(device)
+                if mesh.is_local(s) else None)
+        parts.append(from_owner(mesh, mine, mesh.owner(s),
+                                (rows.stop - rows.start,), x.dtype, device))
+    return torch.cat(parts)
+
+
 def fetch_replicated(x) -> np.ndarray:
     """A replicated value as a host array. Every rank holds the whole
-    value in the port (it sums partials into whole tensors), so this is
-    ``np.asarray``; kept so the call sites read as the JAX package's."""
+    value in the port (it sums partials into whole tensors; the routes
+    that would fetch a matrix tiled across ranks are refused before the
+    stream, ``runner.check_gatherable``), so this is ``np.asarray``; kept
+    so the call sites read as the JAX package's."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)

@@ -103,7 +103,9 @@ def pcoa_job(job: JobConfig, source=None, matrix_path: str | None = None,
         else:
             plan = runner.plan_for_job(job, source)
             if plan.mode == "tile2d" and cfg.eigh_mode == "dense":
-                # Dense eigh needs the materialized matrix.
+                # Dense eigh needs the materialized matrix (refused
+                # before the stream when the tiles span ranks).
+                runner.check_gatherable(plan)
                 return _pcoa_gathered(job, source, timer)
             if plan.mode == "tile2d" and job.model_path:
                 # Fail BEFORE streaming: discovering this after a long

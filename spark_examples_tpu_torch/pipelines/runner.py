@@ -19,10 +19,13 @@ the ``phase.gram`` span.
 
 A job of several processes (``torch.distributed``, started with the
 JAX package's environment names: ``core/meshes.py``) gives every rank
-its own share of the input (:func:`build_source`), its own mesh, and the
-consensus feeder of ``parallel/multihost.py``: each rank adds its slabs
-into partial sums, summed across ranks where the global value is read
-(a hook, a checkpoint, the end of the stream).
+its own share of the input (:func:`build_source`) and the consensus
+feeder of ``parallel/multihost.py``. Under the variant and replicated
+plans each rank adds its slabs into partial sums on its own slots,
+summed across ranks where the global value is read (a hook, a
+checkpoint, the end of the stream); under tile2d the mesh spans the
+ranks and each rank's tiles take every rank's slabs (global sums from
+the start, nothing summed across ranks).
 
 ``--backend cpu-reference`` routes a similarity through the NumPy
 oracle instead (``utils/oracle.py``): host blocks from
@@ -244,16 +247,28 @@ class GramRun:
 
 def plan_for_job(job: JobConfig, source) -> gram_sharded.GramPlan:
     """The distribution plan the job runs under: its mesh (the default
-    slots of ``--device``, shaped by ``--mesh-shape``) and mode
-    (``--gram-mode``)."""
+    slots of ``--device`` on every rank, shaped by ``--mesh-shape``) and
+    mode (``--gram-mode``). Across ranks the plan is checked (a sample
+    count the tiles cannot split is refused on every rank) before the
+    ranks agree, in one control round, that each has the same slot
+    count."""
+    from spark_examples_tpu_torch.parallel import multihost as mh
+
     meshes.maybe_init_distributed(job.compute.device)
     device = resolve_device(job.compute.device)
-    mesh = meshes.make_mesh(meshes.default_devices(device),
-                            shape=job.compute.mesh_shape)
-    return gram_sharded.plan_for(mesh, source.n_samples,
+    mesh = meshes.job_mesh(device, job.compute.mesh_shape)
+    plan = gram_sharded.plan_for(mesh, source.n_samples,
                                  job.compute.metric or "ibs",
                                  job.compute.gram_mode,
                                  processes=meshes.process_count())
+    if plan.processes > 1:
+        slots = mh.allgather(np.int64(len(mesh.local_slots)))
+        if len(set(slots.tolist())) > 1:
+            raise ValueError(
+                f"the ranks have {slots.tolist()} mesh slots each: a job of "
+                "several processes needs the same slot count on every rank "
+                "(the same --virtual-devices, one card a rank)")
+    return plan
 
 
 def run_gram(job: JobConfig, source, timer: PhaseTimer,
@@ -284,9 +299,10 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer,
     if transport == "ring":
         from spark_examples_tpu_torch.ingest.prefetch import padded_width
 
+        # The ring rotates the global block: every rank's slab.
         gram_sharded.check_ring_divisible(
-            padded_width(bv, pack=packed, pad_multiple=plan.block_shards),
-            plan, packed)
+            padded_width(bv, pack=packed, pad_multiple=plan.block_shards)
+            * plan.mesh.processes, plan, packed)
     lowering = gram.resolve_gram_lowering(cfg.gram_lowering, packed, device,
                                           metric)
     telemetry.gauge_set("gram.lowering", 1.0 if lowering == "fused" else 0.0)
@@ -306,9 +322,10 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer,
             acc, start_variant, saved_stats = restored
             if stream_stats is not None:
                 stream_stats.update(saved_stats)
-            if meshes.process_index() > 0:
+            if meshes.process_index() > 0 and not plan.tiled:
                 # Rank 0 carries the restored global sums; the others
-                # add their partials from zero.
+                # add their partials from zero. (Tiles are global sums:
+                # each rank restored its own.)
                 acc = {k: torch.zeros_like(v) for k, v in acc.items()}
     if acc is None:
         acc = gram_sharded.init_sharded(plan, n, metric)
@@ -339,18 +356,25 @@ def _run_gram_multihost(job: JobConfig, source, timer: PhaseTimer, plan,
                         save_cb) -> GramRun:
     """The multi-process tail of :func:`run_gram`: this rank's partition
     streamed by the consensus feeder, one loop step per step of the
-    global grid (so hooks and checkpoints fire on JAX's cadence), into
-    this rank's partial sums.
+    global grid (so hooks and checkpoints fire on JAX's cadence).
 
-    A pad step (this rank's partition is drained) launches no update:
-    its all-MISSING slab would add zeros. It still counts one
+    Variant and replicated plans: into this rank's partial sums. A pad
+    step (this rank's partition is drained) launches no update: its
+    all-MISSING slab would add zeros. It still counts one
     ``gram.fused_blocks`` under the fused lowering (one per global step,
     JAX's meaning) and is a ``gram.pad_step`` event, not a ``gram.block``
-    span. Operation and byte credit count this rank's own variants.
-    ``on_block`` sees the global accumulators (a
+    span. ``on_block`` sees the global accumulators (a
     :class:`~parallel.multihost.ReducedView`), a checkpoint saves them
     (rank 0 writes them; cursors are per rank), and the partials are
-    summed in place at the end (the ``allreduce`` phase). The job's
+    summed in place at the end (the ``allreduce`` phase).
+
+    tile2d across ranks: every step is an update on every rank (a
+    collective: the global block is every rank's slab), a pad slab
+    included; the tiles are global sums, so ``on_block`` and a checkpoint
+    see them as they are (each rank saves its own), and nothing is
+    reduced at the end.
+
+    Operation and byte credit count this rank's own variants. The job's
     ``n_variants`` is the sum of the ranks' cursors and ``max_value``
     their max, both before the int32 budget check."""
     from spark_examples_tpu_torch.ingest.bitpack import packed_width
@@ -362,6 +386,7 @@ def _run_gram_multihost(job: JobConfig, source, timer: PhaseTimer, plan,
     bv = job.ingest.block_variants
     blocks_done = 0
     last_stop = start_variant
+    tiled = plan.tiled
     feed = closing(mh.stream_global_blocks(
         source, bv, start_variant, plan, packed, stats=stream_stats,
         prefetch=job.ingest.prefetch_blocks))
@@ -369,8 +394,9 @@ def _run_gram_multihost(job: JobConfig, source, timer: PhaseTimer, plan,
         sp = telemetry.begin("gram.block", cat="gram")
         for block, meta in blocks:
             blocks_done += 1
-            if meta is not None:
+            if tiled or meta is not None:
                 acc = update(acc, block)
+            if meta is not None:
                 w_local = meta.stop - meta.start
                 timer.add("gram_flops",
                           gram.flops_per_block(n, w_local, metric))
@@ -378,13 +404,15 @@ def _run_gram_multihost(job: JobConfig, source, timer: PhaseTimer, plan,
                           n * (packed_width(w_local) if packed
                                else w_local))
                 last_stop = meta.stop
-            elif lowering == "fused":
+            elif lowering == "fused" and not tiled:
                 telemetry.count("gram.fused_blocks", 1)
             if on_block is not None:
-                on_block(mh.ReducedView(acc), blocks_done, meta)
+                on_block(acc if tiled else mh.ReducedView(acc), blocks_done,
+                         meta)
             if (save_cb is not None and cfg.checkpoint_every_blocks
                     and blocks_done % cfg.checkpoint_every_blocks == 0):
-                save_cb(mh.reduce_acc(hard_sync(acc)), last_stop)
+                hard_sync(acc)
+                save_cb(acc if tiled else mh.reduce_acc(acc), last_stop)
             if meta is not None:
                 sp.end(index=blocks_done, stop=meta.stop)
             else:
@@ -394,8 +422,9 @@ def _run_gram_multihost(job: JobConfig, source, timer: PhaseTimer, plan,
             sp = telemetry.begin("gram.block", cat="gram")
         sp.cancel()
         acc = hard_sync(acc)
-    with timer.phase("allreduce"):
-        acc = hard_sync(mh.reduce_acc(acc, inplace=True))
+    if not tiled:
+        with timer.phase("allreduce"):
+            acc = hard_sync(mh.reduce_acc(acc, inplace=True))
     n_variants = int(mh.allgather(np.int64(last_stop)).sum())
     if stream_stats is not None:
         stream_stats["max_value"] = int(mh.allgather(
@@ -496,7 +525,9 @@ def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
                                     metric, timer, source.n_variants)
         if job.compute.backend == "cpu-reference":
             return _run_similarity_cpu(job, source, timer)
-        g = run_gram(job, source, timer)
+        plan = plan_for_job(job, source)
+        check_gatherable(plan)
+        g = run_gram(job, source, timer, plan=plan)
     with timer.phase("finalize"):
         if g.plan.tiled:
             # Finalized tile by tile; only the host gathers the whole
@@ -515,6 +546,23 @@ def run_similarity(job: JobConfig, source=None) -> SimilarityResult:
             dist = out["distance"].cpu().numpy()
     return SimilarityResult(sim, dist, g.sample_ids, metric, timer,
                             g.n_variants)
+
+
+def check_gatherable(plan: gram_sharded.GramPlan) -> None:
+    """Refuse, before the stream, a route that needs the whole N x N
+    matrix (the similarity job's output, the dense eigh) under tile2d
+    across ranks: no rank holds more than its own tiles, and the JAX
+    package's ``fetch_replicated`` raises on such a matrix after the
+    stream."""
+    if plan.tiled and plan.mesh.spans_processes:
+        raise ValueError(
+            f"the {plan.mesh.shape[0]}x{plan.mesh.shape[1]} tile2d mesh "
+            f"spans {plan.processes} processes, each holding only its own "
+            "tiles of the N x N matrix: a route that needs the whole "
+            "matrix (the similarity job's output, pcoa --eigh-mode dense) "
+            "cannot fetch it — run pcoa/pca (the sharded solve) across "
+            "the ranks, or --gram-mode variant for the whole matrix"
+        )
 
 
 def _run_similarity_cpu(job: JobConfig, source,

@@ -24,12 +24,15 @@ when the stream ended on a refresh boundary.
 In a job of several processes every rank refreshes at the same global
 step (the consensus feeder's step count, also on steps where its own
 partition was drained and it fed a padding slab): the hook reads the
-accumulators summed over ranks, and a snapshot is stamped with this
-rank's own cursor, as in the JAX package.
+accumulators summed over ranks (or, under tile2d, the tiles, global
+sums already), and a snapshot is stamped with this rank's own cursor,
+as in the JAX package.
 
 Under a tile2d plan the refresh runs on the tiles
 (``parallel/pcoa_sharded.py``: finalize, centering and ``B @ Q`` per
-tile), as the JAX package's does under its plan's shardings.
+tile), as the JAX package's does under its plan's shardings; when the
+tiles span the ranks, every rank takes part and the subspace step runs
+on rank 0, its results broadcast (``pcoa_sharded.solve_on_rank0``).
 
 The cold-start probes come from :func:`probes` (a ``torch.Generator``
 on the CPU, seed 0), not from ``jax.random``; tests comparing with the
@@ -115,14 +118,17 @@ def _center(acc: dict, metric: str):
     return gower_center(distances.finalize(acc, metric)["distance"])
 
 
-def _operator(b):
-    """What ``subspace_iterate`` multiplies by: the matrix, or a tiled
-    matrix's ``q -> B @ q``."""
+def _iterate(b, q: torch.Tensor, k: int, iters: int):
+    """``subspace_iterate`` against the matrix ``b``, or a tiled matrix
+    through ``q -> B @ q`` (across ranks on rank 0, its results on every
+    rank)."""
     if isinstance(b, torch.Tensor):
-        return b
-    from spark_examples_tpu_torch.parallel.pcoa_sharded import tiled_matmul
+        return subspace_iterate(b, q, k, iters)
+    from spark_examples_tpu_torch.parallel.pcoa_sharded import (
+        solve_on_rank0,
+    )
 
-    return lambda q: tiled_matmul(b, q)
+    return solve_on_rank0(b, lambda op: subspace_iterate(op, q, k, iters))
 
 
 def _check_streamable(cfg) -> None:
@@ -184,18 +190,20 @@ def incremental_pcoa_job(
         state = {
             "q": probes(n, k + OVERSAMPLE, device),
             "snapshots": [],
-            # The last refresh's centered matrix and its variant cursor:
-            # a stream ending on a refresh boundary reuses it for the
+            # The last refresh's centered matrix and its global step: a
+            # stream ending on a refresh boundary reuses it for the
             # terminal solve instead of finalizing the same accumulators
-            # again.
+            # again (a decision every rank takes alike).
             "b": None,
-            "b_variants": -1,
+            "b_step": -1,
+            "steps": 0,
             # This rank's last cursor: a pad step of a job of several
             # processes passes meta=None but still refreshes.
             "last_stop": 0,
         }
 
         def on_block(acc, blocks_done, meta):
+            state["steps"] = blocks_done
             if meta is not None:
                 state["last_stop"] = meta.stop
             if blocks_done % refresh_every:
@@ -209,8 +217,7 @@ def incremental_pcoa_job(
                 state["b"] = None  # free the held B before the next
                 with ieee_f32():
                     b = _center(acc, metric)
-                    vals, vecs, q = subspace_iterate(_operator(b),
-                                                     state["q"], k, 1)
+                    vals, vecs, q = _iterate(b, state["q"], k, 1)
                 coords = coords_from_eigpairs(vals, vecs)
                 stop = state["last_stop"]
                 snap = StreamSnapshot(stop, _host_copy(vals),
@@ -218,7 +225,7 @@ def incremental_pcoa_job(
                 if device.type == "cuda":
                     snap.ready = torch.cuda.Event()
                     snap.ready.record()
-            state.update(q=q, b=b, b_variants=stop)
+            state.update(q=q, b=b, b_step=blocks_done)
             state["snapshots"].append(snap)
             telemetry.event("stream.snapshot", cat="stream",
                             n_variants=stop, blocks_done=blocks_done)
@@ -230,13 +237,12 @@ def incremental_pcoa_job(
 
     with timer.phase("eigh"):
         with ieee_f32():
-            if state["b"] is not None and \
-                    state["b_variants"] == grun.n_variants:
+            if state["b"] is not None and state["b_step"] == state["steps"]:
                 b = state["b"]
             else:
                 b = _center(grun.acc, metric)
-            vals, vecs, _q = hard_sync(
-                subspace_iterate(_operator(b), state["q"], k, FINAL_ITERS))
+            vals, vecs, _q = hard_sync(_iterate(b, state["q"], k,
+                                                FINAL_ITERS))
     coords = coords_from_eigpairs(vals, vecs).cpu().numpy()
     # eigh_iters mirrors the terminal solve actually run.
     out = _emit_coords(job, grun.sample_ids, coords, vals.cpu().numpy(),

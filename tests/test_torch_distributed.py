@@ -7,8 +7,10 @@ gram accumulators bitwise (pcoa's ibs, pca's shared-alt, a dense
 similarity), ``pcoa_job`` end to end (rank windows [512, 768] of 1280
 variants, coordinates within 1e-3), the feeder's consensus amortization,
 a broken length claim aborting both ranks in the agreement round, a
-straggling rank absorbed, and the refusals (tile2d across ranks, the
-tiled multi-process checkpoint, process counts that differ). Every rank
+straggling rank absorbed, and the refusals (the tile2d cross plan,
+process counts that differ) beside the tile2d plan and the tiled
+multi-process checkpoint that now run (``tests/test_torch_tile2d_ranks.py``
+has the route itself). Every rank
 reports the JAX modules it loaded: none (``torch_ranks.run_ranks``).
 The checkpoint, streaming and cross-cohort cases are in
 ``tests/test_torch_distributed_jobs.py``.
@@ -343,7 +345,7 @@ def test_straggler_delay_is_absorbed(tmp_path):
 _REFUSALS = r"""
 import os
 import numpy as np
-from spark_examples_tpu_torch.core import checkpoint as ckpt, meshes
+from spark_examples_tpu_torch.core import checkpoint as ckpt, meshes, virtual
 from spark_examples_tpu_torch.core.config import (
     ComputeConfig, IngestConfig, JobConfig)
 from spark_examples_tpu_torch.core.profiling import PhaseTimer
@@ -364,17 +366,24 @@ def outcome(fn, words):
         return "refused" if words in str(e) else f"wrong: {e}"
 
 
-job = JobConfig(ingest=IngestConfig(block_variants=32),
-                compute=ComputeConfig(metric="ibs", gram_mode="tile2d",
-                                      device="cpu"))
+def job(**kw):
+    return JobConfig(ingest=IngestConfig(block_variants=32),
+                     compute=ComputeConfig(metric="ibs", gram_mode="tile2d",
+                                           device="cpu", **kw))
+
+
 out["cross"] = outcome(lambda: _accumulate_cross(
-    job, ArraySource(g), ArraySource(g), ("m", "d1"), PhaseTimer()),
+    job(), ArraySource(g), ArraySource(g), ("m", "d1"), PhaseTimer()),
     "single-host")
-out["gram"] = outcome(lambda: runner.plan_for_job(job, ArraySource(g)),
-                      "next slice")
+plan = runner.plan_for_job(job(), ArraySource(g))
+out["gram"] = [plan.mode, list(plan.mesh.shape),
+               list(plan.mesh.local_slots)]
 ids = ArraySource(g).sample_ids
-out["tiled_ckpt"] = outcome(lambda: ckpt.load(
-    os.environ["TILED_CKPT"], "ibs", ids, block_variants=32), "next slice")
+with virtual.virtual_slots(2):
+    tplan = runner.plan_for_job(job(mesh_shape=(2, 2)), ArraySource(g))
+    acc, cursor, _ = ckpt.load(os.environ["TILED_CKPT"], "ibs", ids,
+                               block_variants=32, plan=tplan)
+out["tiled_ckpt"] = [cursor, [s for s, _ in acc["cc"].local()]]
 out["one_process_ckpt"] = outcome(lambda: ckpt.load(
     os.environ["ONE_PROCESS_CKPT"], "ibs", ids, block_variants=32),
     "do not transfer")
@@ -383,10 +392,11 @@ emit(**out)
 
 
 def test_refusals_across_ranks(tmp_path):
-    """tile2d across ranks (the gram plan, the cross plan), a tiled
-    checkpoint of several processes, and a one-process checkpoint are
-    refused on both ranks; a one-process job is refused a checkpoint of
-    two (the other direction)."""
+    """Across ranks: the tile2d cross plan and a one-process checkpoint
+    are refused on both ranks, and a one-process job is refused a
+    checkpoint of two (the other direction). tile2d itself runs: the
+    gram plan tiles over a (1, 2) mesh spanning the ranks, and a tiled
+    checkpoint of two processes loads each rank's own tiles."""
     import json
 
     import torch
@@ -410,8 +420,10 @@ def test_refusals_across_ranks(tmp_path):
     outs = run_ranks(_REFUSALS, extra_env={"TILED_CKPT": tiled,
                                            "ONE_PROCESS_CKPT": whole})
     for o in outs:
-        assert (o["cross"], o["gram"], o["tiled_ckpt"],
-                o["one_process_ckpt"]) == ("refused",) * 4, o
+        r = o["process"]
+        assert (o["cross"], o["one_process_ckpt"]) == ("refused",) * 2, o
+        assert o["gram"] == ["tile2d", [1, 2], [r]], o
+        assert o["tiled_ckpt"] == [32, [2 * r, 2 * r + 1]], o
     with pytest.raises(ValueError, match="do not transfer"):
         ckpt.load(tiled, "ibs", ids, block_variants=32, plan=plan)
 

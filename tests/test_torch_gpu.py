@@ -1016,6 +1016,28 @@ def test_tile2d_update_on_virtual_slots_of_cuda0(cuda_device, transport):
 
 
 @pytest.mark.gpu
+def test_tiled_product_is_the_same_for_either_layout_of_q(cuda_device):
+    """The tiled ``B @ Q`` gives the same bits for a QR's column-major Q
+    and for its row-major copy (what a peer rank receives): on the card
+    cuBLAS sums the two layouts in different orders, so the product
+    takes Q row-major on every slot."""
+    from spark_examples_tpu_torch.core import meshes, virtual
+    from spark_examples_tpu_torch.core.meshes import Tiled
+    from spark_examples_tpu_torch.parallel import pcoa_sharded
+
+    gen = torch.Generator("cpu").manual_seed(1)
+    b = torch.randn((2504, 2504), generator=gen)
+    b = (b + b.T).to(cuda_device)
+    q, _ = torch.linalg.qr(torch.randn((2504, 20), generator=gen)
+                           .to(cuda_device))
+    assert not q.is_contiguous()  # the QR's Q is column-major
+    mesh = meshes.make_mesh(virtual.virtual_devices(4, "cuda:0"), (2, 2))
+    tiled = Tiled.from_full(mesh, b)
+    assert torch.equal(pcoa_sharded.tiled_matmul(tiled, q),
+                       pcoa_sharded.tiled_matmul(tiled, q.contiguous()))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode,transport", [("tile2d", "gather"),
                                             ("tile2d", "ring"),
                                             ("variant", "gather")])
@@ -1130,3 +1152,95 @@ def test_two_ranks_on_two_cards_over_nccl(cuda_device):
     outs = run_ranks(_RANKS_ON_CUDA)
     _check_ranks(outs, "nccl", want)
     assert [o["device"] for o in outs] == ["cuda:0", "cuda:1"]
+
+
+_TILE2D_RANKS_ON_CUDA = r"""
+import contextlib, os
+from spark_examples_tpu_torch.core import meshes, virtual
+from spark_examples_tpu_torch.core.config import (
+    ComputeConfig, IngestConfig, JobConfig)
+from spark_examples_tpu_torch.core.profiling import PhaseTimer
+from spark_examples_tpu_torch.ops import packed_gram
+from spark_examples_tpu_torch.parallel import pcoa_sharded
+from spark_examples_tpu_torch.pipelines import runner
+
+slots = int(os.environ["SLOTS"])
+shape = tuple(int(x) for x in os.environ["SHAPE"].split("x"))
+ing = IngestConfig(source="synthetic", n_samples=96, n_variants=4000,
+                   block_variants=512, seed=3)
+out = {}
+scope = virtual.virtual_slots(slots) if slots > 1 else contextlib.nullcontext()
+with scope:
+    for transport in ("gather", "ring"):
+        for lowering in ("auto", "reference"):
+            job = JobConfig(ingest=ing, compute=ComputeConfig(
+                metric="ibs", gram_mode="tile2d", mesh_shape=shape,
+                tile2d_transport=transport, gram_lowering=lowering,
+                device="cuda"))
+            packed_gram.launches = 0
+            g = runner.run_gram(job, runner.build_source(ing, "cuda"),
+                                PhaseTimer())
+            out[f"{transport}-{lowering}"] = {
+                "lowering": g.lowering, "launches": packed_gram.launches,
+                "tiles": {k: {str(s): t.cpu().tolist() for s, t in v.local()}
+                          for k, v in g.acc.items()}}
+    res = pcoa_sharded.pcoa_coords_sharded(g.plan, g.acc, "ibs", k=3)
+d = meshes.distributed()
+emit(backend=d.name, device=str(d.device), out=out,
+     coords=res.coords.cpu().tolist())
+"""
+
+
+def _check_tile2d_ranks(outs, backend, want, shape, slots):
+    """8 blocks of 512 over two ranks: 4 global steps; each rank holds
+    its own slots' tiles of the global sums, K1 launching on each of its
+    tiles a step (gather) or each ring step (ring)."""
+    tn, tm = 96 // shape[0], 96 // shape[1]
+    d = shape[0] * shape[1]
+    for o in outs:
+        assert o["backend"] == backend, o["backend"]
+        for run, got in o["out"].items():
+            transport, lowering = run.split("-")
+            fused = lowering == "auto"
+            assert got["lowering"] == ("fused" if fused else "reference")
+            per_step = slots * (d if transport == "ring" else 1)
+            assert got["launches"] == (4 * per_step if fused else 0), run
+            for k, v in want.items():
+                assert sorted(got["tiles"][k]) == [
+                    str(o["process"] * slots + l) for l in range(slots)]
+                for s, tile in got["tiles"][k].items():
+                    i, j = divmod(int(s), shape[1])
+                    assert torch.equal(
+                        torch.tensor(tile, dtype=v.dtype),
+                        v[i * tn:(i + 1) * tn, j * tm:(j + 1) * tm]), (run, k)
+        assert np.isfinite(np.asarray(o["coords"])).all()
+    # Rank 0's solve, broadcast: both ranks hold the same coordinates.
+    assert outs[0]["coords"] == outs[1]["coords"]
+
+
+@pytest.mark.gpu
+def test_tile2d_two_ranks_share_one_card_over_gloo_staged(cuda_device):
+    """tile2d across two ranks on one card, two virtual slots each on a
+    2x2 mesh spanning both: gather and ring, K1 and the plain lowering,
+    each rank's tiles bitwise the one-process run's."""
+    from torch_ranks import run_ranks
+
+    want = _one_process_run(cuda_device)
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    outs = run_ranks(_TILE2D_RANKS_ON_CUDA, extra_env={
+        "CUDA_VISIBLE_DEVICES": first, "SLOTS": "2", "SHAPE": "2x2"})
+    _check_tile2d_ranks(outs, "gloo-staged", want, (2, 2), 2)
+
+
+@pytest.mark.gpu
+def test_tile2d_two_ranks_on_two_cards_over_nccl(cuda_device):
+    """A card per rank, a (1, 2) mesh: the slabs all-gathered and the
+    ring shards hopping over NCCL, the mirrored blocks point to point."""
+    from torch_ranks import run_ranks
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two visible NVIDIA GPUs for a rank per card")
+    want = _one_process_run(cuda_device)
+    outs = run_ranks(_TILE2D_RANKS_ON_CUDA,
+                     extra_env={"SLOTS": "1", "SHAPE": "1x2"})
+    _check_tile2d_ranks(outs, "nccl", want, (1, 2), 1)

@@ -327,16 +327,29 @@ def test_collectives_are_identities_on_one_process():
     assert mh.fetch_replicated(torch.ones(2)).tolist() == [1.0, 1.0]
 
 
-@pytest.mark.parametrize("mode,want", [("auto", "variant"),
-                                       ("variant", "variant"),
-                                       ("replicated", "replicated")])
-def test_plan_for_across_ranks(mode, want):
+# 23,172 samples: ibs's four int32 N x N leaves pass the 8 GiB budget.
+@pytest.mark.parametrize("mode,want,n", [
+    ("auto", "variant", 24), ("variant", "variant", 24),
+    ("replicated", "replicated", 24), ("tile2d", "tile2d", 24),
+    ("auto", "tile2d", 23_172)],
+    ids=["auto-variant", "variant-variant", "replicated-replicated",
+         "tile2d-tile2d", "auto-tile2d"])
+def test_plan_for_across_ranks(mode, want, n):
+    """Across two ranks of one slot each: auto counts both slots; tile2d
+    (forced, or auto past the budget, as JAX's process-spanning mesh)
+    tiles over a (1, 2) mesh that spans the ranks, this rank owning slot
+    0; variant and replicated run on the rank's own slot."""
     mesh = meshes.make_mesh(["cpu"])
-    plan = gs.plan_for(mesh, 24, "ibs", mode, processes=2)
+    plan = gs.plan_for(mesh, n, "ibs", mode, processes=2)
     assert (plan.mode, plan.processes, plan.block_shards) == (want, 2, 1)
-    assert gs.plan_for(mesh, 24, "ibs").mode == "replicated"
-    with pytest.raises(ValueError, match="next slice"):
-        gs.plan_for(mesh, 24, "ibs", "tile2d", processes=2)
+    assert plan.mesh_shape == (1, 2)
+    if want == "tile2d":
+        assert plan.tiled and plan.mesh.spans_processes
+        assert (plan.mesh.owners, plan.mesh.local_slots) == ((0, 1), (0,))
+        assert plan.mesh.devices == (torch.device("cpu"), None)
+    else:
+        assert plan.mesh.size == 1 and not plan.mesh.owners
+    assert gs.plan_for(mesh, n, "ibs").mode == "replicated"
 
 
 def test_no_group_without_the_coordinator(monkeypatch):

@@ -31,6 +31,7 @@ from spark_examples_tpu.parallel import gram_sharded as jgs
 from spark_examples_tpu.parallel import pcoa_sharded as jps
 from spark_examples_tpu.pipelines import jobs as jjobs
 from spark_examples_tpu.pipelines import project as jproject
+from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.core import config as tconfig
 from spark_examples_tpu_torch.core import meshes, virtual
 from spark_examples_tpu_torch.ingest.source import ArraySource
@@ -192,6 +193,39 @@ def test_tiled_centering_matches_dense(rng, shape):
     q = torch.randn(24, 5, generator=torch.Generator().manual_seed(1))
     np.testing.assert_allclose(ps.tiled_matmul(b, q), b.full("cpu") @ q,
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("metric", kernels.gram_names())
+def test_kernel_declares_what_a_tile_reads(metric):
+    """A dry run of the finalize on (2, 2) zeros reads of the mirrored
+    block exactly the leaves the kernel declares (``Kernel.transposed``),
+    and forms the Gower distance exactly when it says so
+    (``Kernel.gower``): the tiled route fetches only those."""
+    acc = gram.init(2, metric, "cpu")
+    read, gower = set(), []
+
+    class Mirror(dict):
+        def __getitem__(self, k):
+            read.add(k)
+            return acc[k]
+
+    mirror = Mirror()
+
+    class Reads(kernels.Frame):
+        def t_product(self, name):
+            return mirror[name]
+
+        def t(self, stats, name):
+            return gram.combine(mirror, metric, acc.__getitem__)[name]
+
+        def gower(self, sim):
+            gower.append(metric)
+            return sim
+
+    distances.finalize(acc, metric, Reads())
+    kern = kernels.get(metric)
+    assert read == set(kern.transposed)
+    assert bool(gower) == kern.gower
 
 
 def test_assert_tiled_rejects_a_whole_leaf():
