@@ -384,7 +384,12 @@ Phases (any failure exits non-zero; none is caught and ignored):
     diagonal tile, the 1252 x 1252 x 1024-byte cross-rank ring shard),
     bitwise against its plain version and ``torch._int_mm`` x4, beside
     their bounds.
-63. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+63. ``python -m spark_examples_tpu_torch lint`` and ``lint --list-rules``
+    as subprocesses on the card's host, which has no jax: the port's
+    graftlint suite over the package and this script must exit 0 with
+    ``graftlint: clean``, and list its eight rules; the rule count and
+    each run's seconds are printed.
+64. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -1019,7 +1024,8 @@ def dataset_store_phases(cli_main, launch_counters: dict, card: str, source,
     del one, four
 
     # -- 19. pcoa --source store:<dir> per codec ---------------------------
-    for codec in ("zlib", "raw", "zlib-dict"):
+    # Each store phase 18 compacted with 4 workers, in its order.
+    for codec in [c for c, workers in stores if workers == 4]:
         d = stores[(codec, 4)]
         argv = ["pcoa", "--source", f"store:{d}", "--num-pc", str(NUM_PC),
                 "--block-variants", str(BLOCK_VARIANTS), "--device", DEVICE]
@@ -2695,7 +2701,8 @@ def serving_phases(cli_main, launch_counters: dict, card: str, dev,
             return i, tid, out, hdrs
 
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        with concurrent.futures.ThreadPoolExecutor(
+                8, thread_name_prefix="chip-smoke-http") as pool:
             answers = list(pool.map(post, range(HTTP_SAMPLES)))
         http_s = time.perf_counter() - t0
         echoed = all(h.get("X-Trace-Id") == tid for _i, tid, _o, h in answers)
@@ -3098,6 +3105,7 @@ def fleet_phases(cli_main, launch_counters: dict, card: str, files: dict,
                        **({"topk": True} if topk else {})}
                       for route, model, topk in FLEET_ROUTES]}
     manifest = os.path.join(tmp, "fleet.json")
+    # graftlint: disable=atomic-write  # the fleet manifest is this run's input, written once into its scratch directory before any reader exists: no last-good copy to tear
     with open(manifest, "w") as f:
         json.dump(doc, f)
 
@@ -3293,7 +3301,8 @@ def fleet_phases(cli_main, launch_counters: dict, card: str, files: dict,
                 + [("neighbors", r, j) for r in topk
                    for j in range(FLEET_SAMPLES)])
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        with concurrent.futures.ThreadPoolExecutor(
+                8, thread_name_prefix="chip-smoke-http") as pool:
             answers = list(pool.map(post, jobs))
         http_s = time.perf_counter() - t0
         same_rows = all(
@@ -3619,7 +3628,8 @@ def controller_process(cfg_path: str) -> int:
             return job, np.asarray(out["coords"], np.float32)
 
         jobs = [(r, j) for r in routes for j in range(len(queries))]
-        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        with concurrent.futures.ThreadPoolExecutor(
+                8, thread_name_prefix="chip-smoke-http") as pool:
             got = dict(pool.map(post, jobs))
         return all(np.array_equal(got[(r, j)], want[r][j:j + 1])
                    for r, j in jobs)
@@ -3679,6 +3689,7 @@ def controller_phase(cli_main, launch_counters: dict, card: str,
     work = os.path.join(tmp, "fleet47")
     os.makedirs(work)
     manifest = os.path.join(tmp, "fleet47.json")
+    # graftlint: disable=atomic-write  # the controller's manifest is this run's input, written once into its scratch directory before the controller starts: no last-good copy to tear
     with open(manifest, "w") as f:
         json.dump({**fleet["doc"], "slos": CONTROLLER_SLOS}, f)
     queries = os.path.join(tmp, "queries47.npy")
@@ -4798,6 +4809,40 @@ def flip_file(path: str) -> None:
         f.write(bytes([b[0] ^ 0x10]))
 
 
+# Phase 63: the rule ids of the port's graftlint suite (those of the JAX
+# package's tools/graftlint).
+LINT_RULES = 8
+
+
+def lint_phase(card: str) -> None:
+    """Phase 63: the ``lint`` verb, run as a user would, in subprocesses
+    of an interpreter that cannot import jax here."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for name, args in (("lint", ["lint"]),
+                       ("list-rules", ["lint", "--list-rules"])):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "spark_examples_tpu_torch", *args],
+            cwd=here, capture_output=True, text=True, timeout=300)
+        runs[name] = (res, time.perf_counter() - t0)
+        if res.returncode != 0:
+            fail(f"{' '.join(args)} exited {res.returncode}:\n"
+                 f"{res.stdout[-4000:]}{res.stderr[-4000:]}")
+    lint, lint_s = runs["lint"]
+    if "graftlint: clean" not in lint.stdout:
+        fail(f"lint did not report clean:\n{lint.stdout[-4000:]}")
+    listed, list_s = runs["list-rules"]
+    rules = [line.split(":", 1)[0] for line in listed.stdout.splitlines()
+             if line.strip()]
+    if len(rules) != LINT_RULES:
+        fail(f"lint --list-rules listed {len(rules)} rules, expected "
+             f"{LINT_RULES}: {rules}")
+    print(f"lint: graftlint: clean over the port and chip_smoke.py in "
+          f"{lint_s:.1f} s; --list-rules {len(rules)} rules in "
+          f"{list_s:.1f} s ({', '.join(rules)}) [{card}]")
+
+
 def main() -> int:
     # One card: with more visible, a job's default mesh would be every
     # card (``core/meshes.py::default_devices``) and phases 1-47 would
@@ -4845,7 +4890,8 @@ def main() -> int:
         native.load()
         codec_s["s"] = time.perf_counter() - t0
 
-    codec_thread = threading.Thread(target=build_codec, name="codec-build",
+    codec_thread = threading.Thread(target=build_codec,
+                                    name="chip-smoke-codec-build",
                                     daemon=True)
     codec_thread.start()
     reports = cuda_build.build_all()
@@ -5152,6 +5198,7 @@ def main() -> int:
 
     # -- 10. exact vs fused Bray-Curtis lowering, bitwise -------------------
     bc_dists = {}
+    # graftlint: disable=registry-literal  # the two lowerings phase 10 holds bitwise against each other, not an enumeration (matmul is quantised, auto resolves to fused)
     for method in ("exact", "fused"):
         job = JobConfig(
             ingest=IngestConfig(n_samples=BC_SAMPLES,
@@ -5248,8 +5295,11 @@ def main() -> int:
         print(f"phases 58-62 took {time.perf_counter() - phases_t0:.1f} s "
               f"[{card}]")
 
-    # -- 63. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-62 took "
+    # -- 63. the lint verb ----------------------------------------------------
+    lint_phase(card)
+
+    # -- 64. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-63 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",

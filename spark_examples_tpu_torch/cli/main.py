@@ -1,6 +1,6 @@
 """Command-line entry: ``python -m spark_examples_tpu_torch
 {pcoa,pca,similarity,project,cross-kinship,pack,ingest,store,telemetry,
-search-variants,sample-stats,coverage,neighbors,serve}``.
+search-variants,sample-stats,coverage,neighbors,serve,lint}``.
 
 Flag names and defaults follow the JAX package's CLI for the flags the
 ported paths read, plus ``--device {cuda,cpu}`` (default cuda; a missing
@@ -67,10 +67,12 @@ route (``--backend jax-tpu``, the JAX package's name for it).
     python -m spark_examples_tpu_torch telemetry timeline --path fleetdir/
     python -m spark_examples_tpu_torch telemetry stitch --fleet \\
         --path fleetdir/     # a fleet controller's workdir (fleet/)
+    python -m spark_examples_tpu_torch lint   # graftlint over the port
 
 ``--supervise`` re-invokes the command as a watched child and restarts
 it on a crash, hang or stall (it resumes from its checkpoint); the
-parent holds no device.
+parent holds no device. ``lint`` runs the port's graftlint suite
+(``tools/graftlint``) and touches no device: it takes no ``--device``.
 """
 
 from __future__ import annotations
@@ -660,6 +662,21 @@ def main(argv: list[str] | None = None) -> int:
     p_tel.add_argument("--last", type=int, default=30, metavar="N",
                        help="timeline verb: rows rendered from the "
                        "tail of the ring (default 30)")
+    p_lint = sub.add_parser(
+        "lint",
+        help="run graftlint, the AST-based invariant analyzer suite "
+        "distilled from this repo's bug history (registry-literal "
+        "drift, donation safety, blocking-under-lock, atomic-write "
+        "discipline, jax-import purity, telemetry/fault-site names, "
+        "thread hygiene), here over the port and its registries — exit "
+        "1 on findings; see README 'Static analysis (port)'",
+    )
+    p_lint.add_argument("paths", nargs="*",
+                        help="files/dirs (default: the production tree)")
+    p_lint.add_argument("--rules", default=None, metavar="ID[,ID...]")
+    p_lint.add_argument("--format", default="text",
+                        choices=["text", "json"])
+    p_lint.add_argument("--list-rules", action="store_true")
     p_srv = sub.add_parser(
         "serve",
         help="long-lived online projection server: model + reference "
@@ -758,6 +775,20 @@ def main(argv: list[str] | None = None) -> int:
     # --metric would be silently ignored, so it is rejected instead.
     sub.choices["pca"].set_defaults(metric="shared-alt")
     args = parser.parse_args(argv)
+    if args.command == "lint":
+        # Dispatched before anything else: the suite reads sources and
+        # registries only, and never touches a device.
+        argv_lint = list(args.paths)
+        if args.rules:
+            argv_lint += ["--rules", args.rules]
+        if args.list_rules:
+            argv_lint += ["--list-rules"]
+        argv_lint += ["--format", args.format]
+        from spark_examples_tpu_torch.tools.graftlint.__main__ import (
+            main as graftlint_main,
+        )
+
+        return graftlint_main(argv_lint)
     if args.command == "store":
         return _run_store_admin(args)
     if args.command == "coverage":

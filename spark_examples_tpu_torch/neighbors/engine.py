@@ -186,7 +186,8 @@ def _block_pair_stats(block: np.ndarray, ii: np.ndarray, jj: np.ndarray,
         lo, hi = span
         return lo, hi, _chunk_stats(planes, ii[lo:hi], jj[lo:hi], stats)
 
-    with ThreadPoolExecutor(min(_WORKERS, len(spans))) as pool:
+    with ThreadPoolExecutor(min(_WORKERS, len(spans)),
+                            thread_name_prefix="neighbors-eval") as pool:
         for lo, hi, part in pool.map(one, spans):
             for s in stats:
                 out[s][lo:hi] = part[s]

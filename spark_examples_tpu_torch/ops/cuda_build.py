@@ -94,12 +94,17 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
     if names is None:
         names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with _lock, open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        started = {n: _start_build(n) for n in names}
-        for n, s in started.items():
-            if s is not None:
-                _finish_build(n, s)
+    # The lock file is opened before the thread lock is taken, so no file
+    # I/O waits inside the critical section; the flock (the processes'
+    # turn) and the thread lock (this process's threads) are then held
+    # across the builds.
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        with _lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            started = {n: _start_build(n) for n in names}
+            for n, s in started.items():
+                if s is not None:
+                    _finish_build(n, s)
     return {n: reports.get(n, "") for n in names}
 
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from spark_examples_tpu_torch import kernels
+from spark_examples_tpu_torch.core import config
 from spark_examples_tpu_torch.core.profiling import check_nans
 from spark_examples_tpu_torch.ops import gram
 
@@ -151,6 +152,6 @@ def resolve_braycurtis_method(requested: str, device: torch.device) -> str:
             f"but the job runs on {device} — use --device cuda, or "
             "--braycurtis-method auto|exact|matmul"
         )
-    if requested in ("exact", "matmul", "fused"):
+    if requested in config.BRAYCURTIS_METHODS:
         return requested
     raise ValueError(f"unknown braycurtis method {requested!r}")

@@ -424,6 +424,7 @@ def cross_plan_for(mesh: meshes.Mesh, a: int, n_ref: int, n_stats: int,
             f"cross tile2d needs ({a}, {n_ref}) divisible by the mesh "
             f"{mesh.shape}"
         )
+    # graftlint: disable=registry-literal  # the cross plan's OWN two-mode set, not the gram-mode registry: variant mode has no cross analogue (a cross block is consumed once, never accumulated variant-sharded)
     if mode not in ("replicated", "tile2d"):
         raise ValueError(f"unknown cross mode {mode!r}")
     return CrossPlan(mesh, mode)
