@@ -389,7 +389,20 @@ Phases (any failure exits non-zero; none is caught and ignored):
     graftlint suite over the package and this script must exit 0 with
     ``graftlint: clean``, and list its eight rules; the rule count and
     each run's seconds are printed.
-64. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+64. ``bench_torch.py``'s configs in-process at full width and reduced
+    depth (``bench_phase``): 2504 samples over 131,072 variants for the
+    streamed (8 K1 launches at 4,096 bytes + 2 warm) and staged (1 + 1
+    warm at 32,768 bytes) config 1, config 2 (3 passes: 3 + 1 warm) and
+    config 5 (8 + 8, 4 + 4 warm); config 3 at its 10,000 x 4,096 (K2 1 +
+    1 warm); config 4's tile rate and solve at N_eq 8,192 and the sketch
+    at 2,500 (no K1). Each config's K1 count is read through
+    ``kernel.packed_gram.launches`` (the streamed run resets the registry
+    after its warm run: its timed launches) and the wrappers' own counts,
+    and must equal the worked-out value; every structure check must
+    exceed 3, the headline's keys must be the JAX bench's and
+    ``sketch_ok`` and ``lint_ok`` hold. K1 is timed at the two new launch
+    shapes beside their bounds.
+65. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -4843,6 +4856,153 @@ def lint_phase(card: str) -> None:
           f"{list_s:.1f} s ({', '.join(rules)}) [{card}]")
 
 
+# Phase 64: bench_torch.py's configs at full width, reduced depth.
+BENCH_VARIANTS = 131_072
+BENCH_PASSES = 3
+BENCH_TILE_N = 8192
+BENCH_SKETCH_N = 2500
+BENCH_STREAM_WARM_BLOCKS = 4
+
+
+def bench_phase(card: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 64: ``bench_torch``'s config functions, in this process, at
+    2504 samples over 131,072 variants (configs 1, 2 and 5), config 3 at
+    its own shape, config 4 at N_eq 8,192, the sketch at 2,500; K1 at
+    the streamed and staged launch shapes. Returns the launches by path
+    and K1's timings at the two shapes."""
+    import torch
+
+    import bench_torch as bt
+    from spark_examples_tpu_torch import kernels
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.ops import braycurtis_kernel, packed_gram
+
+    t_phase = time.perf_counter()
+    syn = dict(bt.SYN, n_variants=BENCH_VARIANTS)
+    store = bt.cohort_store(os.path.join(tmp, "bench_cache"), syn)
+    blocks = BENCH_VARIANTS // bt.BLOCK
+    staged_blocks = BENCH_VARIANTS // bt.STAGED_BLOCK
+    counts, seconds = {}, {}
+
+    def run(name, fn, *args, **kw):
+        k1_0 = packed_gram.launches
+        k2_0 = braycurtis_kernel.launches
+        tel_0 = telemetry.counter_value("kernel.packed_gram.launches")
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        counts[name] = {
+            "packed_gram": packed_gram.launches - k1_0,
+            "braycurtis": braycurtis_kernel.launches - k2_0,
+            "telemetry": telemetry.counter_value(
+                "kernel.packed_gram.launches") - tel_0,
+        }
+        return out
+
+    streamed = run("streamed", bt.streamed_run, store)
+    # The streamed run resets the registry after its warm run: the
+    # counter holds its timed launches.
+    counts["streamed"]["telemetry"] = telemetry.counter_value(
+        "kernel.packed_gram.launches")
+    cohort = bt.StagedCohort(store)
+    staged = run("staged", bt.staged_run, cohort)
+    autosomes = run("autosomes", bt.measured_autosomes, cohort,
+                    autosome_variants=BENCH_PASSES * BENCH_VARIANTS)
+    del cohort
+    base = run("cpu_baseline", bt.cpu_baseline, store,
+               cache=os.path.join(tmp, "bench_cache"))
+    tunnel = bt.measure_tunnel()
+    configs = bt.config12_records(
+        streamed, staged, autosomes, base, tunnel,
+        autosome_variants=BENCH_PASSES * BENCH_VARIANTS)
+    configs["config3"] = run("config3", bt.bench_braycurtis)
+    configs["config4"] = run("config4", bt.bench_tile_rate,
+                             n_eq=BENCH_TILE_N)
+    configs["config4"]["solve"] = run("config4_solve", bt.bench_tile_solve,
+                                      n_eq=BENCH_TILE_N)
+    configs["config5"] = run("config5", bt.bench_streaming, store,
+                             nv=BENCH_VARIANTS,
+                             warm_blocks=BENCH_STREAM_WARM_BLOCKS, syn=syn)
+    configs["sketch"] = run("sketch", bt.bench_sketch, n_sk=BENCH_SKETCH_N)
+    torch.cuda.empty_cache()
+
+    warm = BENCH_STREAM_WARM_BLOCKS
+    expected = {
+        "streamed": {"packed_gram": blocks + 2, "braycurtis": 0,
+                     "telemetry": blocks},
+        "staged": {"packed_gram": 2 * staged_blocks, "braycurtis": 0},
+        "autosomes": {"packed_gram": (BENCH_PASSES + 1) * staged_blocks,
+                      "braycurtis": 0},
+        "cpu_baseline": {"packed_gram": 0, "braycurtis": 0},
+        "config3": {"packed_gram": 0, "braycurtis": 2},
+        "config4": {"packed_gram": 0, "braycurtis": 0},
+        "config4_solve": {"packed_gram": 0, "braycurtis": 0},
+        "config5": {"packed_gram": 2 * (blocks + warm), "braycurtis": 0},
+        "sketch": {"packed_gram": 0, "braycurtis": 0},
+    }
+    for name, want in expected.items():
+        want = {"telemetry": want["packed_gram"], **want}
+        if counts[name] != want:
+            fail(f"bench {name}: launches {counts[name]}, expected {want}")
+    if configs["config3"]["pallas_vs_exact_maxerr"] != 0.0:
+        fail("bench config3: K2 disagrees with the exact lowering on the "
+             f"integer table ({configs['config3']['pallas_vs_exact_maxerr']})")
+    seps = {name: bt.check_structure(coords, syn) for name, coords in (
+        ("streamed", streamed["coords"]), ("staged", staged["coords"]),
+        ("autosomes", autosomes["coords"]),
+        ("streaming_pcoa", configs["config5"].pop("coords")))}
+    for name, sep in seps.items():
+        if not sep > 3.0:
+            fail(f"bench {name}: structure separation {sep:.2f} <= 3")
+    if any("error" in c for c in configs.values()):
+        fail(f"bench: a config holds an error: {configs}")
+    headline = bt.add_lint(bt.make_headline(streamed, staged, base, tunnel,
+                                            configs))
+    if set(headline) != set(bt.HEADLINE_KEYS):
+        fail(f"bench headline keys {sorted(headline)} != "
+             f"{sorted(bt.HEADLINE_KEYS)}")
+    if not (headline["sketch_ok"] and headline["lint_ok"]):
+        fail(f"bench headline gates: sketch_ok {headline['sketch_ok']}, "
+             f"lint_ok {headline['lint_ok']}")
+
+    rng = np.random.default_rng(64)
+    ibs = kernels.get("ibs").pieces
+    shapes = {}
+    for name, w in (("bench streamed block", bt.BLOCK // 4),
+                    ("bench staged block", bt.STAGED_BLOCK // 4)):
+        rows = torch.from_numpy(rng.integers(
+            0, 256, (bt.N_SAMPLES, w), dtype=np.uint8)).to(DEVICE)
+        shapes[name] = time_k1_shape(name, rows, None, ibs, card)
+        shapes[name]["bound_full_ms"] = k1_bounds(
+            bt.N_SAMPLES, w, ibs)["bound_full_ms"]
+    del rows
+    c3, c4 = configs["config3"], configs["config4"]
+    print(f"bench [{card}]: 2504 x {BENCH_VARIANTS}; streamed "
+          f"{streamed['total_s']:.4f} s, staged {staged['total_s']:.4f} s "
+          f"(gram {staged['gram_s']:.4f} s, "
+          f"{staged['gram_tflops']:.1f} TOP/s), config2 "
+          f"{BENCH_PASSES} passes gram "
+          f"{autosomes['measured_chip_gram_s']} s, host baseline "
+          f"{base['total_s']:.1f} s projected ({base['host_cpu']}); "
+          f"config3 matmul {c3['matmul_s']} s, K2 {c3['pallas_s']} s, "
+          f"exact 2500 {c3['exact_2500_s']} s; config4 at {BENCH_TILE_N} "
+          f"{c4['tflops_per_chip']} TOP/s, solve "
+          f"{c4['solve']['proxy_wall_s']} s; config5 "
+          f"{configs['config5']['total_s']} s vs "
+          f"{configs['config5']['plain_stream_s']} s plain; sketch "
+          f"{configs['sketch']['sketch_s']} s (relerr "
+          f"{configs['sketch']['relerr_vs_exact_2500']}); separations "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seps.items())
+          + f"; launches {counts}; headline keys as bench.py's, sketch_ok "
+          f"and lint_ok true; seconds "
+          + json.dumps({k: round(v, 2) for k, v in seconds.items()})
+          + f"; phase 64 took {time.perf_counter() - t_phase:.1f} s")
+    paths = {f"bench {name}": {k: v for k, v in c.items()
+                               if k != "telemetry"}
+             for name, c in counts.items()}
+    return paths, shapes
+
+
 def main() -> int:
     # One card: with more visible, a job's default mesh would be every
     # card (``core/meshes.py::default_devices``) and phases 1-47 would
@@ -5298,8 +5458,14 @@ def main() -> int:
     # -- 63. the lint verb ----------------------------------------------------
     lint_phase(card)
 
-    # -- 64. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-63 took "
+    # -- 64. the benchmark harness's configs ------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_paths, bench_shapes = bench_phase(card, tmp)
+    new_paths.update(bench_paths)
+    tile_shapes.update(bench_shapes)
+
+    # -- 65. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-64 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",

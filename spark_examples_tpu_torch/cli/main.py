@@ -72,7 +72,10 @@ route (``--backend jax-tpu``, the JAX package's name for it).
 ``--supervise`` re-invokes the command as a watched child and restarts
 it on a crash, hang or stall (it resumes from its checkpoint); the
 parent holds no device. ``lint`` runs the port's graftlint suite
-(``tools/graftlint``) and touches no device: it takes no ``--device``.
+(``tools/graftlint``) and touches no device: it takes no ``--device``,
+and it is dispatched before anything that imports torch (this module
+imports none at module level; each verb's handler imports what it
+uses), as the JAX package's CLI dispatches it before any jax import.
 """
 
 from __future__ import annotations
@@ -82,22 +85,16 @@ import contextlib
 import dataclasses
 import json
 import sys
+from typing import TYPE_CHECKING
 
 import numpy as np
 
-from spark_examples_tpu_torch import __version__, kernels
-from spark_examples_tpu_torch.core import config, meshes, virtual
-from spark_examples_tpu_torch.core.config import (
-    ComputeConfig,
-    IngestConfig,
-    JobConfig,
-    ReferenceRange,
-)
-from spark_examples_tpu_torch.core.device import DEVICES
-from spark_examples_tpu_torch.core.profiling import PhaseTimer
-from spark_examples_tpu_torch.ingest.source import close_source
+from spark_examples_tpu_torch import __version__
 
-_SOURCES = config.SOURCES
+if TYPE_CHECKING:
+    from spark_examples_tpu_torch.core.config import JobConfig
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+
 # ComputeConfig fields that only the neighbors command has flags for.
 _NEIGHBORS_FLAGS = ("neighbors_output", "neighbors_k", "minhash_hashes",
                     "minhash_bands", "minhash_seed", "minhash_bucket_cap")
@@ -106,6 +103,8 @@ _NEIGHBORS_FLAGS = ("neighbors_output", "neighbors_k", "minhash_hashes",
 def _source_arg(value: str) -> str:
     """``--source`` and ``--ref-source``: a source name, or
     ``store:<dir>`` (the dataset store at <dir>)."""
+    from spark_examples_tpu_torch.core.config import SOURCES as _SOURCES
+
     base, sep, rest = value.partition(":")
     if base not in _SOURCES or (sep and base != "store"):
         raise argparse.ArgumentTypeError(
@@ -122,6 +121,11 @@ def _source_arg(value: str) -> str:
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
+    from spark_examples_tpu_torch import kernels
+    from spark_examples_tpu_torch.core import config
+    from spark_examples_tpu_torch.core.device import DEVICES
+
+    _SOURCES = config.SOURCES
     g = p.add_argument_group("ingest")
     g.add_argument("--source", default="synthetic", type=_source_arg,
                    metavar="{" + ",".join(_SOURCES) + "}",
@@ -377,6 +381,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def _add_ref_source(p: argparse.ArgumentParser) -> None:
+    from spark_examples_tpu_torch.core.config import SOURCES as _SOURCES
+
     p.add_argument("--ref-source", default="plink", type=_source_arg,
                    metavar="{" + ",".join(_SOURCES) + "}",
                    help="reference cohort genotypes (the panel the model "
@@ -392,6 +398,14 @@ def _needs_ref_path(args) -> bool:
 
 
 def _job_from_args(args) -> JobConfig:
+    from spark_examples_tpu_torch.core import config
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+        ReferenceRange,
+    )
+
     return JobConfig(
         telemetry=config.TelemetryConfig(
             dir=args.telemetry_dir,
@@ -454,7 +468,54 @@ def _job_from_args(args) -> JobConfig:
     )
 
 
+def _add_lint_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("paths", nargs="*",
+                   help="files/dirs (default: the production tree)")
+    p.add_argument("--rules", default=None, metavar="ID[,ID...]")
+    p.add_argument("--format", default="text", choices=["text", "json"])
+    p.add_argument("--list-rules", action="store_true")
+
+
+_LINT_HELP = (
+    "run graftlint, the AST-based invariant analyzer suite distilled from "
+    "this repo's bug history (registry-literal drift, donation safety, "
+    "blocking-under-lock, atomic-write discipline, jax-import purity, "
+    "telemetry/fault-site names, thread hygiene), here over the port and "
+    "its registries — exit 1 on findings; see README 'Static analysis "
+    "(port)'"
+)
+
+
+def _lint(argv: list[str]) -> int:
+    """The ``lint`` verb: its own parser, so nothing that imports torch
+    is loaded to parse it (the suite reads sources and registries only,
+    and never touches a device)."""
+    p = argparse.ArgumentParser(prog="spark_examples_tpu_torch lint",
+                                description=_LINT_HELP)
+    _add_lint_args(p)
+    args = p.parse_args(argv)
+    argv_lint = list(args.paths)
+    if args.rules:
+        argv_lint += ["--rules", args.rules]
+    if args.list_rules:
+        argv_lint += ["--list-rules"]
+    argv_lint += ["--format", args.format]
+    from spark_examples_tpu_torch.tools.graftlint.__main__ import (
+        main as graftlint_main,
+    )
+
+    return graftlint_main(argv_lint)
+
+
 def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["lint"]:
+        return _lint(argv[1:])
+    from spark_examples_tpu_torch.core import config, virtual
+    from spark_examples_tpu_torch.core.config import ComputeConfig
+    from spark_examples_tpu_torch.core.device import DEVICES
+
+    _SOURCES = config.SOURCES
     parser = argparse.ArgumentParser(
         prog="spark_examples_tpu_torch",
         description="population-genomics pipelines on PyTorch/CUDA "
@@ -662,21 +723,8 @@ def main(argv: list[str] | None = None) -> int:
     p_tel.add_argument("--last", type=int, default=30, metavar="N",
                        help="timeline verb: rows rendered from the "
                        "tail of the ring (default 30)")
-    p_lint = sub.add_parser(
-        "lint",
-        help="run graftlint, the AST-based invariant analyzer suite "
-        "distilled from this repo's bug history (registry-literal "
-        "drift, donation safety, blocking-under-lock, atomic-write "
-        "discipline, jax-import purity, telemetry/fault-site names, "
-        "thread hygiene), here over the port and its registries — exit "
-        "1 on findings; see README 'Static analysis (port)'",
-    )
-    p_lint.add_argument("paths", nargs="*",
-                        help="files/dirs (default: the production tree)")
-    p_lint.add_argument("--rules", default=None, metavar="ID[,ID...]")
-    p_lint.add_argument("--format", default="text",
-                        choices=["text", "json"])
-    p_lint.add_argument("--list-rules", action="store_true")
+    # Listed for --help; ``main`` dispatches the verb before this parser.
+    _add_lint_args(sub.add_parser("lint", help=_LINT_HELP))
     p_srv = sub.add_parser(
         "serve",
         help="long-lived online projection server: model + reference "
@@ -775,20 +823,6 @@ def main(argv: list[str] | None = None) -> int:
     # --metric would be silently ignored, so it is rejected instead.
     sub.choices["pca"].set_defaults(metric="shared-alt")
     args = parser.parse_args(argv)
-    if args.command == "lint":
-        # Dispatched before anything else: the suite reads sources and
-        # registries only, and never touches a device.
-        argv_lint = list(args.paths)
-        if args.rules:
-            argv_lint += ["--rules", args.rules]
-        if args.list_rules:
-            argv_lint += ["--list-rules"]
-        argv_lint += ["--format", args.format]
-        from spark_examples_tpu_torch.tools.graftlint.__main__ import (
-            main as graftlint_main,
-        )
-
-        return graftlint_main(argv_lint)
     if args.command == "store":
         return _run_store_admin(args)
     if args.command == "coverage":
@@ -834,6 +868,7 @@ def _print_mesh(job: JobConfig) -> None:
     """Say on stderr what the job's mesh is: the slot count and the
     physical devices behind them (a mesh of virtual slots says so; one
     that spans the ranks of a job, which ranks own which slots)."""
+    from spark_examples_tpu_torch.core import meshes
     from spark_examples_tpu_torch.core.device import resolve_device
 
     meshes.maybe_init_distributed(job.compute.device)
@@ -1069,6 +1104,7 @@ def _cross(args, job: JobConfig,
     (--source/--path) against the reference panel (--ref-source/
     --ref-path), streamed in lockstep. Both sources are built here and
     closed when the job ends."""
+    from spark_examples_tpu_torch.ingest.source import close_source
     from spark_examples_tpu_torch.pipelines import project
     from spark_examples_tpu_torch.pipelines.runner import build_source
 
@@ -1188,6 +1224,7 @@ def _emit_table(job: JobConfig, header: str, lines: list[str], noun: str,
 def _examples(args, job: JobConfig) -> PhaseTimer:
     """``search-variants`` and ``sample-stats``: one streaming pass over
     the source (closed when it ends), then the table."""
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
     from spark_examples_tpu_torch.pipelines import examples, runner
 
     timer = PhaseTimer()
@@ -1238,6 +1275,7 @@ def _neighbors(args, job: JobConfig,
     neighbors through the serving engine's padded-batch pair statistics.
     The file goes to --output-path and a preview of the first rows is
     printed."""
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
     from spark_examples_tpu_torch.neighbors import save_result
     from spark_examples_tpu_torch.neighbors.engine import neighbors_job
 
@@ -1291,6 +1329,7 @@ def _neighbors_vs_panel(args, job: JobConfig,
     device, then every query's top-k panel samples by exact similarity,
     ``_NEIGHBORS_BATCH`` queries at a time. Returns (TopKResult, the
     panel's sample ids); both sources are closed when it ends."""
+    from spark_examples_tpu_torch.ingest.source import close_source
     from spark_examples_tpu_torch.neighbors import TopKResult
     from spark_examples_tpu_torch.pipelines import project as P
     from spark_examples_tpu_torch.pipelines.runner import build_source
@@ -1349,6 +1388,7 @@ def _query_pool(job: JobConfig, n_variants: int,
     """The --source cohort as one (Q, V) int8 array with its sample ids
     (a synthetic source is generated at the panel's variant count);
     a cohort of another width is a usage error."""
+    from spark_examples_tpu_torch.ingest.source import close_source
     from spark_examples_tpu_torch.pipelines.runner import build_source
 
     q_cfg = job.ingest
@@ -1385,6 +1425,8 @@ def _serve(args, job: JobConfig, parser: argparse.ArgumentParser) -> int:
     closed-loop loadgen run whose JSON report goes to stdout. The
     telemetry export (the job's exit stack) runs after the drain, so
     the exported serve.* histograms cover the whole serving life."""
+    from spark_examples_tpu_torch.core import config
+    from spark_examples_tpu_torch.ingest.source import close_source
     from spark_examples_tpu_torch.pipelines.runner import build_source
     from spark_examples_tpu_torch.serve import (
         ProjectionEngine,
@@ -1479,6 +1521,7 @@ def _serve_fleet(args, job: JobConfig, cfg,
     then either the fleet HTTP front (SIGTERM or Ctrl-C drains) or a
     multi-tenant loadgen mix (per route: --loadgen interactive and
     --loadgen batch clients) whose JSON report goes to stdout."""
+    from spark_examples_tpu_torch.core import config
     from spark_examples_tpu_torch.serve import (
         FleetFormatError,
         FleetManifest,
@@ -1553,6 +1596,7 @@ def _serve_http(args, http, banner: str) -> None:
 def _run_coverage(args) -> int:
     """``coverage``: per-base depth of each range on --device, a summary
     line per range, and the depth TSV when asked."""
+    from spark_examples_tpu_torch.core.config import ReferenceRange
     from spark_examples_tpu_torch.ingest.reads import (
         SamSource,
         SyntheticReadsSource,
@@ -1594,6 +1638,8 @@ def _run_coverage(args) -> int:
 
 def _pack(job: JobConfig, parser: argparse.ArgumentParser) -> PhaseTimer:
     """The ``pack`` command: stream the source into a 2-bit store."""
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ingest.source import close_source
     from spark_examples_tpu_torch.ingest.packed import pack_source
     from spark_examples_tpu_torch.pipelines.runner import build_source
 
@@ -1620,6 +1666,8 @@ def _ingest(job: JobConfig, chunk_variants: int,
             parser: argparse.ArgumentParser) -> PhaseTimer:
     """The ``ingest`` command: compact the source into a dataset store,
     recording the origin (the self-healing recipe) in its manifest."""
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ingest.source import close_source
     from spark_examples_tpu_torch.pipelines.runner import build_source
     from spark_examples_tpu_torch.store import compact, origin_from_ingest
 

@@ -244,6 +244,7 @@ def maybe_init_distributed(device="cuda") -> Distributed | None:
     import atexit
 
     atexit.register(_leave)
+    telemetry.joined_job(rank, world)
     telemetry.gauge_set("multihost.backend",
                         {"gloo": 0.0, "gloo-staged": 1.0,
                          "nccl": 2.0}[_distributed.name])

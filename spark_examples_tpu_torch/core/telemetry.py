@@ -190,6 +190,18 @@ NAMES: dict[str, tuple[str, str]] = {
         "accumulated by the streamed evaluation pass (equals "
         "neighbors.candidate_pairs on a clean run)",
     ),
+    "trend.metrics_checked": (
+        "counter",
+        "headline metrics the noise-aware trend checker (tools/"
+        "trend.py) evaluated against the BENCH_TORCH_HISTORY.jsonl "
+        "median/MAD band in this process",
+    ),
+    "trend.regressions": (
+        "counter",
+        "headline metrics the trend checker flagged as regressed "
+        "(worse than the direction-aware noise band) — bench_torch "
+        "--trend exits nonzero when this is nonzero",
+    ),
     # -- gauges -----------------------------------------------------------
     "solver.rung": (
         "gauge",
@@ -962,6 +974,11 @@ _dir: str | None = None
 _trace = False
 _flusher: "PeriodicFlusher | None" = None
 _run_id: str | None = None
+# (rank, world) of the job this process joined (:func:`joined_job`),
+# kept past the group's teardown: the exit hook that destroys the group
+# runs before the crash flush's export, which still writes this rank's
+# directory, not rank 0's.
+_joined: tuple[int, int] | None = None
 
 
 def _env_trace_sample() -> float:
@@ -1419,18 +1436,26 @@ def digest() -> dict:
     }
 
 
+def joined_job(rank: int, world: int) -> None:
+    """Record that this process is ``rank`` of a job of ``world``
+    processes (``meshes.maybe_init_distributed``), for the exports made
+    after the group is torn down."""
+    global _joined
+    _joined = (int(rank), int(world))
+
+
 def _rank() -> tuple[int, int]:
     """(rank, world size) of an initialised ``torch.distributed`` group,
-    else (0, 1). torch is not imported for the question."""
+    else of the job this process joined, else (0, 1). torch is not
+    imported for the question."""
     dist_mod = sys.modules.get("torch.distributed")
-    if dist_mod is None:
-        return 0, 1
     try:
-        if dist_mod.is_available() and dist_mod.is_initialized():
+        if dist_mod is not None and dist_mod.is_available() \
+                and dist_mod.is_initialized():
             return dist_mod.get_rank(), dist_mod.get_world_size()
     except (RuntimeError, ValueError):
         pass
-    return 0, 1
+    return _joined or (0, 1)
 
 
 def metrics_snapshot() -> dict:

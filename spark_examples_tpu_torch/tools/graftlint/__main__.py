@@ -26,8 +26,9 @@ def main(argv=None) -> int:
     )
     ap.add_argument("paths", nargs="*",
                     help="files/directories to lint (default: the "
-                    "port's production tree — spark_examples_tpu_torch/ "
-                    "and chip_smoke.py; tests are excluded by design)")
+                    "port's production tree — spark_examples_tpu_torch/, "
+                    "chip_smoke.py and bench_torch.py; tests are "
+                    "excluded by design)")
     ap.add_argument("--rules", default=None, metavar="ID[,ID...]",
                     help="run only these rule ids (default: all; see "
                     "--list-rules)")

@@ -22,7 +22,8 @@ holds it against the JAX package's suite on that suite's fixtures):
   of the repo is the module of its stem (``chip_smoke.py`` is
   ``chip_smoke``).
 - ``run()`` with no paths walks the port's production tree —
-  ``spark_examples_tpu_torch/`` and ``chip_smoke.py`` — never
+  ``spark_examples_tpu_torch/``, ``chip_smoke.py`` and
+  ``bench_torch.py`` — never
   ``tests/`` (tests legitimately write bad patterns on purpose). Repo-
   level checks that only make sense over the full tree (e.g. dead
   fault-site registry entries) run only in that mode.
@@ -40,8 +41,10 @@ from dataclasses import dataclass, field
 
 REPO = pathlib.Path(__file__).resolve().parents[3]
 PACKAGE = "spark_examples_tpu_torch"
-# The port's counterpart of bench.py in the JAX suite's default targets.
+# The port's root files in the suite's default targets, as the JAX
+# suite lints bench.py: the smoke run and the port's benchmark harness.
 SMOKE = "chip_smoke.py"
+BENCH = "bench_torch.py"
 
 _SUPPRESS = re.compile(
     r"#\s*graftlint:\s*disable=([A-Za-z0-9_,-]+)\s*(?:#\s*(\S.*))?$"
@@ -291,12 +294,13 @@ _SUPPRESSION_HINT = (
 
 
 def default_targets(root: pathlib.Path = REPO) -> list[pathlib.Path]:
-    """The port's production tree: the package and chip_smoke.py. Tests
-    are excluded by design — they hold bad patterns on purpose."""
+    """The port's production tree: the package, chip_smoke.py and
+    bench_torch.py. Tests are excluded by design — they hold bad
+    patterns on purpose."""
     targets = sorted((root / PACKAGE).rglob("*.py"))
-    smoke = root / SMOKE
-    if smoke.exists():
-        targets.append(smoke)
+    for name in (SMOKE, BENCH):
+        if (root / name).exists():
+            targets.append(root / name)
     return targets
 
 

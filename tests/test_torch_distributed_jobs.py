@@ -14,7 +14,9 @@ feeder and the plain jobs):
 - the streaming PCoA's refresh on the global step count (one snapshot
   at 1280 variants / 256 a block / every 2 steps) and its coordinates;
 - cross-kinship and projection: per-rank (A, N_ref) partials merged into
-  the single-process result exactly.
+  the single-process result exactly;
+- the telemetry export at exit: each rank's metrics stay in its own
+  directory after the group is torn down, whichever rank exits last.
 """
 
 import json
@@ -292,3 +294,32 @@ def test_ranks_agree_on_one_generation(tmp_path, case):
         "cursors"] == {"0": 32, "1": 32}
     assert os.path.exists(ck + ".corrupt") and not os.path.exists(
         ck + ".old")
+
+
+_EXIT_EXPORT = r"""
+import os, time
+from spark_examples_tpu_torch.core import meshes, telemetry
+
+# The CLI's order: the telemetry directory (and its exit flush) first,
+# then the group (and its exit teardown, which runs before the flush).
+telemetry.configure(dir=os.environ["TEL_DIR"])
+meshes.maybe_init_distributed("cpu")
+telemetry.count("gram.fused_blocks", RANK + 1)
+emit(exported=telemetry.export())
+if RANK == 1:
+    time.sleep(2.0)  # rank 1's exit flush lands after rank 0's
+"""
+
+
+def test_exit_export_keeps_each_rank_s_directory(tmp_path):
+    """The exit flush runs after ``meshes._leave`` destroyed the group;
+    it still writes under the rank the process was, so a rank that exits
+    last does not overwrite rank 0's ``metrics.json`` with its own."""
+    tel = str(tmp_path / "tel")
+    outs = run_ranks(_EXIT_EXPORT, extra_env={"TEL_DIR": tel}, timeout=120)
+    for r, o in enumerate(outs):
+        assert o["exported"] == os.path.join(tel, f"rank{r}"), o
+        with open(os.path.join(tel, f"rank{r}", "metrics.json")) as f:
+            m = json.load(f)
+        assert m["counters"]["gram.fused_blocks"] == r + 1, (r, m["counters"])
+        assert (m["meta"]["rank"], m["meta"]["process_count"]) == (r, 2), m["meta"]

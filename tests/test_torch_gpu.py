@@ -1244,3 +1244,49 @@ def test_tile2d_two_ranks_on_two_cards_over_nccl(cuda_device):
     outs = run_ranks(_TILE2D_RANKS_ON_CUDA,
                      extra_env={"SLOTS": "1", "SHAPE": "1x2"})
     _check_tile2d_ranks(outs, "nccl", want, (1, 2), 1)
+
+
+@pytest.mark.gpu
+def test_bench_braycurtis_launches_k2_warm_then_timed(cuda_device):
+    """bench_torch's config 3 at a small shape: K2 runs twice (one warm
+    launch, one timed) and agrees with the exact lowering bitwise on the
+    integer table drawn on the card."""
+    import bench_torch as bt
+
+    before = braycurtis_kernel.launches
+    out = bt.bench_braycurtis(n=600, f=257, exact_n=300)
+    assert braycurtis_kernel.launches - before == 2
+    assert out["k2_launches"] == 2
+    assert out["pallas_vs_exact_maxerr"] == 0.0
+    assert out["matmul_vs_exact_maxerr"] < 0.05
+    assert {"matmul_s", "pallas_s", "exact_2500_s",
+            "exact_est_full_s"} <= set(out)
+
+
+@pytest.mark.gpu
+def test_bench_staged_run_launches_k1_per_staged_block(cuda_device,
+                                                       tmp_path):
+    """bench_torch's staged config 1 at a small shape: one K1 launch per
+    staged block for the warm pass and one per block for the timed pass,
+    through the symmetric path (one contiguous block-major view on both
+    sides); three passes give accumulators bitwise equal to the CPU
+    reference lowering over the same store."""
+    import bench_torch as bt
+
+    syn = dict(bt.SYN, n_samples=300, n_variants=4 * 8192)
+    store = bt.cohort_store(str(tmp_path), syn)
+    cohort = bt.StagedCohort(store, block=8192, k=4)
+    assert cohort.lowering == "fused" and cohort.n_blocks == 4
+    before = packed_gram.launches
+    tel = telemetry.counter_value("kernel.packed_gram.launches")
+    staged = bt.staged_run(cohort)
+    assert packed_gram.launches - before == 2 * 4
+    assert telemetry.counter_value("kernel.packed_gram.launches") - tel \
+        == 2 * 4
+    assert staged["k1_launches"] == 8
+    assert bt.check_structure(staged["coords"], syn) > 3.0
+    acc, _ = cohort.accumulate_passes(3)
+    ref = bt.StagedCohort(store, block=8192, k=4, device="cpu")
+    want, _ = ref.accumulate_passes(3)
+    for k in want:
+        assert torch.equal(acc[k].cpu(), want[k]), k

@@ -378,8 +378,9 @@ def test_default_targets_are_the_port_and_chip_smoke():
     rels = {p.relative_to(engine.REPO).as_posix()
             for p in engine.default_targets()}
     assert "chip_smoke.py" in rels
+    assert "bench_torch.py" in rels
     assert "spark_examples_tpu_torch/tools/graftlint/engine.py" in rels
-    assert all(r == "chip_smoke.py"
+    assert all(r in ("chip_smoke.py", "bench_torch.py")
                or r.startswith("spark_examples_tpu_torch/") for r in rels)
 
 

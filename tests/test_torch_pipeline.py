@@ -245,7 +245,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     package, and the serve package and the live telemetry plane, and
     since the supervision/fleet slice the supervisor, the stitcher and
     the fleet's pool, router and manifest, and since the fleet-control
-    slice the fleet controller package and the host oracle."""
+    slice the fleet controller package and the host oracle, and since
+    the benchmark slice the trend gate and ``bench_torch.py`` (which
+    import neither ``tools`` either)."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import spark_examples_tpu_torch as p\n"
@@ -266,14 +268,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'core.supervisor', 'core.stitch', 'serve.pool', 'serve.router', "
         "'serve.fleet', 'fleet', 'fleet.controller', 'fleet.replica', "
         "'fleet.placement', 'fleet.slo', 'fleet.timeline', "
-        "'utils.oracle']\n"
+        "'utils.oracle', 'tools.trend']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_imported')\n"
+        "runpy.run_path('bench_torch.py', run_name='bench_torch_imported')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
-        "m == 'spark_examples_tpu' or m.startswith('spark_examples_tpu.'))\n"
+        "m == 'spark_examples_tpu' or m.startswith('spark_examples_tpu.') "
+        "or m == 'tools' or m.startswith('tools.'))\n"
         "assert len(names) >= 20, names\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -285,7 +289,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "BAD []" in res.stdout
     # Statically too, so imports inside functions (chip_smoke's main)
     # are covered.
-    files = [os.path.join(REPO, "chip_smoke.py")] + [
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_torch.py")] + [
         os.path.join(d, f)
         for d, _, fs in os.walk(os.path.join(REPO, "spark_examples_tpu_torch"))
         for f in fs if f.endswith(".py")]
@@ -301,7 +306,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for m in mods:
                 assert m.split(".")[0] not in ("jax", "jaxlib",
-                                               "spark_examples_tpu"), \
+                                               "spark_examples_tpu",
+                                               "tools"), \
                     f"{path}:{node.lineno} imports {m}"
 
 
