@@ -52,17 +52,45 @@ function takes its shape as parameters (defaults: the JAX bench's
 constants) and a ``device`` (default ``cuda``; a missing card raises),
 so tests and ``chip_smoke.py`` call them small. Caches: the packed
 cohort and the host baseline under ``.bench_cache_torch/``.
+
+The subsystem rows, each added to the sweep by its flag (a failed row is
+recorded as ``{"error": ...}``) under the JAX bench's record keys,
+headline keys and ``*_ok`` gates:
+
+    python3 bench_torch.py --kernels --store --serve --fleet \\
+        --controller --neighbors
+    python3 bench_torch.py --neighbors-only   # alone; exit 1 unless ok
+    python3 bench_torch.py --sketch-serve     # alone; exit 1 unless ok
+
+- ``--kernels`` — every gram kernel over 2504 x 262,144 of the cohort,
+  the reference lowering and, for the six count kernels, K1.
+- ``--store`` — the dataset store over an SFS-realistic VCF.
+- ``--serve`` — the projection server over a 131,072-variant panel.
+- ``--fleet`` — three routes under a 2.5-panel budget, hedging, the
+  tracing tax, the SLO burn.
+- ``--controller`` — the fleet controller's scale-up and replica loss.
+- ``--neighbors`` — MinHash/LSH against the dense route, served top-k.
+- ``--sketch-serve`` — the corrected sketch model fitted and served at
+  10,000 x 65,536 with every dense N x N site rigged to raise.
+
+The multichip rows and ``--chaos`` / ``--chaos-soak`` are not ported:
+they exit 2, naming their ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import types
 import warnings
 
 import numpy as np
@@ -89,13 +117,17 @@ DETAIL_PATH = os.path.join(REPO, "BENCH_TORCH_DETAIL.json")
 SYN = dict(n_samples=N_SAMPLES, n_variants=N_VARIANTS, n_populations=5,
            fst=0.1, missing_rate=0.01, seed=42)
 
-# bench.py's other flags and the ROADMAP Queue 1 item that ports each.
+# bench.py's flags not ported yet and the ROADMAP Queue 1 item that
+# ports each: the multichip rows and the chaos soak.
 UNPORTED = {
-    "--store": 2, "--kernels": 2, "--serve": 2, "--fleet": 2,
-    "--controller": 2, "--neighbors": 2, "--neighbors-only": 2,
-    "--sketch-serve": 2, "--multichip": 2, "--multichip-only": 2,
-    "--multichip-child": 2, "--chaos": 3, "--chaos-soak": 3,
+    "--multichip": 3, "--multichip-only": 3, "--multichip-child": 3,
+    "--chaos": 4, "--chaos-soak": 4,
 }
+# The subsystem rows the default sweep adds, in the JAX bench's order,
+# and the two standalone modes (each its own run and headline).
+ROW_FLAGS = ("--serve", "--fleet", "--controller", "--neighbors", "--store",
+             "--kernels")
+STANDALONE_FLAGS = ("--neighbors-only", "--sketch-serve")
 
 # The default headline's keys (bench.py's), and the trend gate's.
 HEADLINE_KEYS = (
@@ -827,6 +859,1258 @@ def bench_streaming(store: str, nv: int = 262_144, block: int = BLOCK,
     }
 
 
+# --------------------------------------------------------------------------
+# The subsystem rows (bench.py's other flags), under the JAX bench's names,
+# record keys, log lines and ok gates. Each takes its shape as parameters
+# (defaults: the JAX bench's constants), a ``device`` (default the card)
+# and the cache its work directories go under.
+
+def genotype_draw(rng, shape, missing: float, values=None) -> np.ndarray:
+    """The JAX bench's inline query and panel draw, in its order: ``-1``
+    where ``rng.random(shape) < missing``, else a dosage from
+    ``(values or rng).integers(0, 3, shape)``."""
+    mask = rng.random(shape) < missing
+    dosages = (rng if values is None else values).integers(0, 3, shape)
+    return np.where(mask, -1, dosages).astype(np.int8)
+
+
+def _slice_packed(store: str, n_variants: int, n: int | None = None):
+    """The first ``n`` samples (all by default) and ``n_variants`` variants
+    of the packed store, as an in-memory packed source."""
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+
+    src = load_packed(store)
+    n = src.n_samples if n is None else n
+    return type(src)(
+        packed=np.ascontiguousarray(src.packed[:n, : n_variants // 4]),
+        v=n_variants, ids=src.ids[:n],
+    )
+
+
+def kernel_similarity(name: str, lowering: str, source, block: int = BLOCK,
+                      device: str = DEVICE):
+    """One gram kernel's similarity job over ``source`` under
+    ``--gram-lowering`` ``lowering``. On the card ``fused`` is the job's
+    own fused lowering (K1 per block). The job refuses ``fused`` on the
+    CPU, where there is no kernel to launch; there the same blocks run
+    through the fused update, whose K1 wrapper computes its plain version
+    on CPU tensors (the JAX sweep runs its Pallas kernel in interpret mode
+    at this point)."""
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig, IngestConfig, JobConfig,
+    )
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.core.profiling import PhaseTimer
+    from spark_examples_tpu_torch.ops import distances, gram
+    from spark_examples_tpu_torch.pipelines import runner
+
+    job = JobConfig(
+        ingest=IngestConfig(source="packed", block_variants=block),
+        compute=ComputeConfig(metric=name, gram_lowering=lowering,
+                              device=device),
+    )
+    dev = resolve_device(device)
+    if lowering != "fused" or dev.type == "cuda":
+        return runner.run_similarity(job, source=source)
+    timer = PhaseTimer()
+    n = source.n_samples
+    acc, n_variants = runner.run_pass(
+        job, source, timer, dev, gram.impl_for(name, True, lowering="fused"),
+        gram.init(n, name, dev), packed=True,
+        block_flops=lambda v: gram.flops_per_block(n, v, name))
+    with timer.phase("finalize"):
+        out = distances.finalize(acc, name)
+    return runner.SimilarityResult(
+        out["similarity"].numpy(), out["distance"].numpy(),
+        list(source.sample_ids), name, timer, n_variants)
+
+
+def bench_kernels(store: str, n: int | None = None,
+                  n_variants: int = 16 * BLOCK, block: int = BLOCK,
+                  device: str = DEVICE) -> dict:
+    """``--kernels``: every gram kernel (``kernels.gram_names()``) over an
+    in-memory ``n`` x ``n_variants`` slice of the config-1 cohort, under
+    the reference lowering, and for the six ``fused_names()`` again under
+    the fused one (K1 per block on the card): per-kernel ingest MB/s and
+    gram GFLOP/s, each credited by the kernel's own FLOPs model.
+    ``fused_match`` is the bit-identity witness of the two similarities.
+    ``braycurtis`` is a table kernel with its own bench (config 3) and is
+    left out, as in the JAX sweep."""
+    from spark_examples_tpu_torch import kernels as kreg
+    from spark_examples_tpu_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
+    source = _slice_packed(store, n_variants, n)
+    warm = _slice_packed(store, block, n)
+    out: dict = {"n": source.n_samples, "n_variants": n_variants,
+                 "device": dev.type, "per_kernel": {}}
+    k1_0 = packed_gram.launches
+    for name in kreg.gram_names():
+        kernel_similarity(name, "reference", warm, block, device)  # warm
+        t0 = time.perf_counter()
+        res = kernel_similarity(name, "reference", source, block, device)
+        dt = time.perf_counter() - t0
+        rep = res.timer.report()
+        row = {
+            "total_s": round(dt, 3),
+            "gram_s": round(rep.get("gram", 0.0), 3),
+            "mb_s": round(rep.get("ingest_mb_per_s", 0.0), 1),
+            "gflops": round(rep.get("gram_gflops_per_s", 0.0), 1),
+        }
+        if name in kreg.fused_names():
+            kernel_similarity(name, "fused", warm, block, device)
+            t0 = time.perf_counter()
+            fres = kernel_similarity(name, "fused", source, block, device)
+            fdt = time.perf_counter() - t0
+            frep = fres.timer.report()
+            fgram = frep.get("gram", 0.0)
+            row.update({
+                "fused_total_s": round(fdt, 3),
+                "fused_gram_s": round(fgram, 3),
+                "fused_mb_s": round(frep.get("ingest_mb_per_s", 0.0), 1),
+                "fused_gflops": round(frep.get("gram_gflops_per_s", 0.0),
+                                      1),
+                "fused_speedup": round(rep.get("gram", 0.0) / fgram, 3)
+                if fgram > 0 else 0.0,
+                "fused_match": bool(np.array_equal(res.similarity,
+                                                   fres.similarity)),
+            })
+        out["per_kernel"][name] = row
+        extra = ""
+        if "fused_speedup" in row:
+            extra = (f", fused {row['fused_gram_s']}s "
+                     f"({row['fused_speedup']}x, match="
+                     f"{row['fused_match']})")
+        log(f"kernel sweep {name}: gram {row['gram_s']}s, "
+            f"{row['mb_s']} MB/s, {row['gflops']} GFLOP/s{extra}")
+    out["k1_launches"] = packed_gram.launches - k1_0
+    return out
+
+
+def sfs_genotypes(n: int, nv: int) -> np.ndarray:
+    """The store row's cohort: a log-uniform MAF in [0.002, 0.5] (the
+    neutral-spectrum stand-in; real cohorts are mostly rare variants),
+    binomial dosages, 1 % missing, from ``default_rng(0xFEED)``."""
+    rng = np.random.default_rng(0xFEED)
+    maf = 10.0 ** rng.uniform(np.log10(0.002), np.log10(0.5), nv)
+    g = rng.binomial(2, maf[None, :], (n, nv)).astype(np.int8)
+    g[rng.random((n, nv)) < 0.01] = -1
+    return g
+
+
+STORE_BENCH_VARIANTS = 16_384  # the store row's cohort width (all samples)
+STORE_BENCH_CHUNK = 2_048      # its chunk grid: 8 chunks, a stream for the
+                               # readahead pool to run ahead of
+LINK_MB_S = 25.0               # the token-bucket link's rate
+
+
+def _metered_link(st, link_mb_s: float) -> None:
+    """Meter ``st``'s chunk reads through a token-bucket link at
+    ``link_mb_s``: its ``_stored_bytes`` is replaced on the instance, so
+    every read through ``self`` (the consumer's and the readahead
+    workers', which look the method up when they run) waits for the
+    link."""
+    inner = type(st)._stored_bytes
+    lock = threading.Lock()
+    ship = [time.perf_counter()]
+
+    def metered(self, idx, _healed=False):
+        arr = inner(self, idx, _healed)
+        with lock:
+            ship[0] = (max(ship[0], time.perf_counter())
+                       + arr.nbytes / (link_mb_s * 1e6))
+            wait = ship[0] - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        return arr
+
+    st._stored_bytes = types.MethodType(metered, st)
+
+
+def bench_store(store: str, n_variants: int = STORE_BENCH_VARIANTS,
+                chunk: int = STORE_BENCH_CHUNK, block: int = BLOCK,
+                k: int = K, device: str = DEVICE,
+                cache: str = CACHE) -> dict:
+    """``--store``: the dataset store's numbers over an SFS-realistic VCF
+    of the cohort's samples x ``n_variants`` (cached): the cold parse,
+    compaction at 1 and 4 workers (byte-identical manifests required),
+    the store read path cold, hot and with readahead, raw and compressed
+    stores through a token-bucket link at ``LINK_MB_S``, the direct-VCF
+    against via-store PCoA bit-identity, the feed stall of the store-fed
+    job and the serve cold-start delta (panel staged from the VCF against
+    the store). Throughputs are dense-equivalent MB/s (N x V bytes over
+    the wall)."""
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig, IngestConfig, JobConfig,
+    )
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.ingest.packed import load_packed
+    from spark_examples_tpu_torch.ingest.vcf import VcfSource, write_vcf
+    from spark_examples_tpu_torch.pipelines.jobs import pcoa_job
+    from spark_examples_tpu_torch.serve import ProjectionEngine
+    from spark_examples_tpu_torch.store import compact, open_store
+
+    resolve_device(device)
+    nv = n_variants
+    ids = load_packed(store).sample_ids
+    n = len(ids)
+    dense_mb = n * nv / 1e6
+    os.makedirs(cache, exist_ok=True)
+    vcf_path = os.path.join(cache, f"store_bench_sfs_{n}x{nv}.vcf")
+    if not os.path.exists(vcf_path):
+        log(f"writing store-bench VCF ({n} x {nv}, SFS-realistic, "
+            "cached)...")
+        tmp = f"{vcf_path}.tmp.{os.getpid()}"
+        write_vcf(tmp, sfs_genotypes(n, nv), sample_ids=ids)
+        os.replace(tmp, vcf_path)
+
+    def _stream_s(source) -> float:
+        # At the chunk grid, so the pass is a stream.
+        t0 = time.perf_counter()
+        for _b, _m in source.blocks(chunk):
+            pass
+        return time.perf_counter() - t0
+
+    def _job(source, path):
+        return JobConfig(
+            ingest=IngestConfig(source=source, path=path,
+                                block_variants=block),
+            compute=ComputeConfig(metric=METRIC, num_pc=k, device=device),
+        )
+
+    k1_0 = packed_gram.launches
+    cold_parse_s = _stream_s(VcfSource(vcf_path))
+    store_dir = tempfile.mkdtemp(prefix="storebench_", dir=cache)
+    store_dir_w1 = tempfile.mkdtemp(prefix="storebench_w1_", dir=cache)
+    try:
+        t0 = time.perf_counter()
+        compact(store_dir_w1, VcfSource(vcf_path), chunk_variants=chunk,
+                workers=1)
+        compact_w1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        manifest = compact(store_dir, VcfSource(vcf_path),
+                           chunk_variants=chunk, workers=4)
+        compact_s = time.perf_counter() - t0
+        with open(os.path.join(store_dir, "manifest.json"), "rb") as f:
+            m4 = f.read()
+        with open(os.path.join(store_dir_w1, "manifest.json"), "rb") as f:
+            m1 = f.read()
+        compact_deterministic = m1 == m4
+
+        raw_b = sum(c.payload_size(n) for c in manifest.chunks)
+        stored_b = sum(c.disk_size(n) for c in manifest.chunks)
+        compress_ratio = raw_b / max(stored_b, 1)
+
+        st = open_store(store_dir, device=device)
+        store_cold_s = _stream_s(st)  # mmap + verify + decode, serial
+        store_hot_s = _stream_s(st)   # decode-cache hits
+        cache_stats = st.cache.stats()
+        st.close()
+        st_ra = open_store(store_dir, readahead_chunks=4,
+                           readahead_chunks_max=16, device=device)
+        store_cold_ra_s = _stream_s(st_ra)
+        st_ra.close()
+
+        def _link_stream_s(d: str) -> float:
+            st_l = open_store(d, readahead_chunks=4, readahead_chunks_max=16,
+                              device=device)
+            _metered_link(st_l, LINK_MB_S)
+            s = _stream_s(st_l)
+            st_l.close()
+            return s
+
+        store_dir_raw = tempfile.mkdtemp(prefix="storebench_raw_", dir=cache)
+        try:
+            compact(store_dir_raw, VcfSource(vcf_path), chunk_variants=chunk,
+                    workers=4, codec="raw")
+            link_raw_s = _link_stream_s(store_dir_raw)
+        finally:
+            shutil.rmtree(store_dir_raw, ignore_errors=True)
+        link_zlib_s = _link_stream_s(store_dir)
+        # measured / ideal-link wall: 1.0 = decode hidden behind the link.
+        link_decode_overhead = link_zlib_s / (stored_b / (LINK_MB_S * 1e6))
+        config2_demo_s = (stored_b * (AUTOSOME_VARIANTS / nv) / 1e9
+                          * link_decode_overhead)
+
+        direct = pcoa_job(_job("vcf", vcf_path))
+        # The share of the store-fed job's wall its producer waited for a
+        # free pinned slab (prefetch.stage_wait_s).
+        stall0 = telemetry.histogram_sum("prefetch.stage_wait_s")
+        t0 = time.perf_counter()
+        via_store = pcoa_job(_job("store", store_dir))
+        store_job_wall_s = time.perf_counter() - t0
+        feed_stall_frac = (
+            telemetry.histogram_sum("prefetch.stage_wait_s") - stall0
+        ) / max(store_job_wall_s, 1e-9)
+        identical = bool(np.array_equal(direct.coords, via_store.coords))
+
+        model_path = os.path.join(cache,
+                                  f"store_bench_sfs_model_{n}x{nv}.npz")
+        if not os.path.exists(model_path):
+            pcoa_job(_job("store", store_dir).replace(model_path=model_path))
+        t0 = time.perf_counter()
+        ProjectionEngine(model_path, VcfSource(vcf_path),
+                         block_variants=block, max_batch=8, device=device)
+        serve_vcf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st_serve = open_store(store_dir, readahead_chunks=4, device=device)
+        ProjectionEngine(model_path, st_serve, block_variants=block,
+                         max_batch=8, device=device)
+        serve_store_s = time.perf_counter() - t0
+        st_serve.close()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+        shutil.rmtree(store_dir_w1, ignore_errors=True)
+
+    speedup = cold_parse_s / store_hot_s
+    out = {
+        "cohort": [n, nv],
+        "chunks": len(manifest.chunks),
+        "store_compress_ratio": round(compress_ratio, 2),
+        "store_stored_mb": round(stored_b / 1e6, 2),
+        "store_feed_stall_frac": round(feed_stall_frac, 4),
+        "cold_parse_s": round(cold_parse_s, 3),
+        "cold_parse_mb_s": round(dense_mb / cold_parse_s, 1),
+        "compact_w1_s": round(compact_w1_s, 3),
+        "compact_mb_s_w1": round(dense_mb / compact_w1_s, 1),
+        "compact_s": round(compact_s, 3),
+        "compact_mb_s": round(dense_mb / compact_s, 1),
+        "compact_mb_s_w4": round(dense_mb / compact_s, 1),
+        "compact_scaling_w4_vs_w1": round(compact_w1_s / compact_s, 2),
+        "compact_deterministic_w4_vs_w1": compact_deterministic,
+        "store_cold_s": round(store_cold_s, 3),
+        "store_cold_mb_s": round(dense_mb / store_cold_s, 1),
+        "store_cold_readahead_s": round(store_cold_ra_s, 3),
+        "store_cold_readahead_mb_s": round(dense_mb / store_cold_ra_s, 1),
+        "store_cold_readahead_vs_hit": round(store_cold_ra_s / store_hot_s,
+                                             2),
+        "store_link_mb_s": LINK_MB_S,
+        "store_cold_link_raw_mb_s": round(dense_mb / link_raw_s, 1),
+        "store_cold_link_mb_s": round(dense_mb / link_zlib_s, 1),
+        "store_link_relief_vs_raw": round(link_raw_s / link_zlib_s, 2),
+        "store_link_decode_overhead": round(link_decode_overhead, 3),
+        "config2_demonstrated_stream_s": round(config2_demo_s, 1),
+        "store_hit_s": round(store_hot_s, 3),
+        "store_hit_mb_s": round(dense_mb / store_hot_s, 1),
+        "store_hit_vs_cold_parse": round(speedup, 1),
+        "cache": cache_stats,
+        "pcoa_bit_identical": identical,
+        "serve_cold_start_vcf_s": round(serve_vcf_s, 2),
+        "serve_cold_start_store_s": round(serve_store_s, 2),
+        "serve_cold_start_delta_s": round(serve_vcf_s - serve_store_s, 2),
+        "k1_launches": packed_gram.launches - k1_0,
+        "note": (
+            f"log-uniform-MAF site-frequency spectrum, chunked at {chunk} "
+            "variants; dense-equivalent MB/s = N*V bytes / wall; store_hit "
+            "is the decode-cache-resident second pass, store_cold includes "
+            "first-touch sha256 verification and the inflate of every "
+            "chunk (_readahead overlaps both); store_cold_link_* stream raw "
+            "and compressed compactions through a token-bucket link at "
+            "store_link_mb_s; config2_demonstrated_stream_s is N x 40M at "
+            "1 GB/s from the measured stored bytes per variant and decode "
+            "overhead; store_feed_stall_frac is prefetch.stage_wait_s over "
+            "the store-fed job's wall (the pinned slab ring's producer "
+            "waiting on the card); the PCoA identity runs against the "
+            "4-worker store"
+        ),
+    }
+    log(f"store bench: cold VCF parse {out['cold_parse_mb_s']} MB/s, "
+        f"compaction {out['compact_mb_s_w1']} MB/s @1w -> "
+        f"{out['compact_mb_s_w4']} MB/s @4w "
+        f"({out['compact_scaling_w4_vs_w1']}x, deterministic="
+        f"{compact_deterministic}), compression "
+        f"{out['store_compress_ratio']}x ({out['store_stored_mb']} MB "
+        f"stored), store cold {out['store_cold_mb_s']} MB/s (readahead "
+        f"{out['store_cold_readahead_mb_s']} MB/s, "
+        f"{out['store_cold_readahead_vs_hit']}x hit), store hit "
+        f"{out['store_hit_mb_s']} MB/s ({out['store_hit_vs_cold_parse']}x "
+        f"cold parse), {LINK_MB_S:.0f} MB/s link-bound "
+        f"{out['store_cold_link_raw_mb_s']} -> "
+        f"{out['store_cold_link_mb_s']} MB/s decoded "
+        f"({out['store_link_relief_vs_raw']}x relief, decode overhead "
+        f"{out['store_link_decode_overhead']}x, config-2 demonstrated "
+        f"{out['config2_demonstrated_stream_s']}s @1GB/s), feed stall "
+        f"{out['store_feed_stall_frac']}, "
+        f"pcoa bit-identical={identical}, serve cold-start "
+        f"{serve_vcf_s:.2f}s -> {serve_store_s:.2f}s; K1 "
+        f"{out['k1_launches']}")
+    return out
+
+
+SERVE_VARIANTS = 131_072  # the serve row's panel: a prefix of the cohort
+
+
+def serve_queries(n_queries: int, nv: int) -> np.ndarray:
+    """The serve row's query pool: 1 % missing from ``default_rng(5)``,
+    dosages from ``default_rng(6)``."""
+    return genotype_draw(np.random.default_rng(5), (n_queries, nv), 0.01,
+                         values=np.random.default_rng(6))
+
+
+def bench_serve(store: str, n_variants: int = SERVE_VARIANTS,
+                block: int = BLOCK, k: int = K, clients: int = 8,
+                requests_per_client: int = 32, device: str = DEVICE,
+                cache: str = CACHE) -> dict:
+    """``--serve``: the projection server over a PCoA model fitted (and
+    cached) on the cohort's ``n_variants``-variant prefix, staged through
+    the serving engine and driven by ``clients`` closed-loop clients of
+    ``requests_per_client`` distinct never-cached queries each: offered
+    and sustained QPS, latency p50/p99 from the telemetry registry,
+    micro-batch occupancy, one served query bit-identical to the offline
+    ``project`` and a clean drain."""
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig, IngestConfig, JobConfig,
+    )
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.ingest.source import ArraySource
+    from spark_examples_tpu_torch.pipelines.jobs import pcoa_job
+    from spark_examples_tpu_torch.pipelines.project import pcoa_project_job
+    from spark_examples_tpu_torch.serve import (
+        ProjectionEngine, ProjectionServer, run_loadgen,
+    )
+
+    resolve_device(device)
+    nv = n_variants
+    panel = _slice_store(store, nv)
+    n = panel.n_samples
+    os.makedirs(cache, exist_ok=True)
+    model_path = os.path.join(cache, f"serve_model_{n}x{nv}.npz")
+    job = JobConfig(
+        ingest=IngestConfig(source="packed", path=store,
+                            block_variants=block),
+        compute=ComputeConfig(metric=METRIC, num_pc=k, device=device),
+        model_path=model_path,
+    )
+    k1_0 = packed_gram.launches
+    if not os.path.exists(model_path):
+        log(f"fitting serve panel model ({n} x {nv}, cached)...")
+        pcoa_job(job, source=panel)
+
+    t0 = time.perf_counter()
+    engine = ProjectionEngine(model_path, _slice_store(store, nv),
+                              block_variants=block, max_batch=8,
+                              device=device)
+    startup_s = time.perf_counter() - t0  # stage + warm
+
+    # One distinct query per loadgen request, plus the identity probe:
+    # the numbers measure the device path, not the result cache.
+    queries = serve_queries(clients * requests_per_client + 1, nv)
+    server = ProjectionServer(engine, max_linger_s=0.002, max_queue=64,
+                              cache_entries=256).start()
+    try:
+        served = server.project(queries[-1], timeout=120.0)
+        offline = pcoa_project_job(
+            job.replace(model_path=None, output_path=None),
+            model_path=model_path,
+            source_new=ArraySource(queries[-1:]),
+            source_ref=_slice_store(store, nv),
+        ).coords
+        identical = bool(np.array_equal(served, offline))
+        # A fresh registry: the probe must not sit in the histogram.
+        telemetry.reset()
+        report = run_loadgen(server, queries[:-1], clients=clients,
+                             requests_per_client=requests_per_client,
+                             result_timeout_s=300.0)
+    finally:
+        clean = server.drain()
+        server.close()
+    rows = telemetry.metrics_snapshot()["histograms"].get(
+        "serve.batch_rows", {})
+    k1 = packed_gram.launches - k1_0
+    log(f"serve: sustained {report['sustained_qps']} QPS "
+        f"(offered {report['offered_qps']}), p50 "
+        f"{report['latency_p50_ms']} ms / p99 "
+        f"{report['latency_p99_ms']} ms, batch rows mean "
+        f"{rows.get('mean', 0.0):.2f}, bit-identical={identical}; K1 {k1}")
+    return {
+        "panel": [n, nv],
+        "startup_stage_warm_s": round(startup_s, 2),
+        "bit_identical_vs_offline": identical,
+        "clean_drain": clean,
+        "batch_rows_mean": round(rows.get("mean", 0.0), 2),
+        "k1_launches": k1,
+        **{key: v for key, v in report.items() if key != "server"},
+    }
+
+
+FLEET_SAMPLES = 256    # per-route fleet panel cohort
+FLEET_VARIANTS = 8_192
+FLEET_ROUTES = (("r-ibs", "pcoa", "ibs"), ("r-pca", "pca", None),
+                ("r-jac", "pcoa", "jaccard"))
+
+
+def fleet_panels(n: int, nv: int) -> list[np.ndarray]:
+    """The fleet row's three route panels: 2 % missing, route ``i`` from
+    ``default_rng(21 + i)``."""
+    return [genotype_draw(np.random.default_rng(21 + i), (n, nv), 0.02)
+            for i in range(len(FLEET_ROUTES))]
+
+
+def fleet_queries(names, nv: int) -> tuple[list, dict]:
+    """The fleet row's per-route identity probes (``default_rng(5)``, one
+    a route in order) and its mix's 96-query pools (``default_rng(9)``,
+    route by route)."""
+    probe_rng = np.random.default_rng(5)
+    probes = [genotype_draw(probe_rng, nv, 0.02) for _ in names]
+    pool_rng = np.random.default_rng(9)
+    pools = {name: genotype_draw(pool_rng, (96, nv), 0.02) for name in names}
+    return probes, pools
+
+
+def bench_fleet(n: int = FLEET_SAMPLES, nv: int = FLEET_VARIANTS,
+                block: int = BLOCK, device: str = DEVICE,
+                cache: str = CACHE) -> dict:
+    """``--fleet``: three routes (ibs PCoA, shared-alt PCA, jaccard PCoA),
+    each a model over its own store-compacted ``n`` x ``nv`` panel, served
+    from one router under a warm-pool budget of 2.5 panels, so the mix (2
+    interactive and 4 batch clients a route) must evict and re-stage:
+    per-class p99s, sustained QPS, evictions and re-stages, per-route
+    bit-identity against the offline ``project``, the pool under budget,
+    clean stores; the hedged against unhedged tail against a replica
+    holding every batch 80 ms; the tracing tax; the SLO fast burn."""
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        PRIORITY_CLASSES, ComputeConfig, IngestConfig, JobConfig,
+        ServeConfig,
+    )
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.fleet.replica import ReplicaSnapshot
+    from spark_examples_tpu_torch.fleet.slo import SLOEvaluator, SLOSpec
+    from spark_examples_tpu_torch.fleet.timeline import FleetTimeline
+    from spark_examples_tpu_torch.ingest.source import ArraySource
+    from spark_examples_tpu_torch.pipelines.jobs import (
+        pcoa_job, variants_pca_job,
+    )
+    from spark_examples_tpu_torch.pipelines.project import pcoa_project_job
+    from spark_examples_tpu_torch.serve import (
+        FleetManifest, build_fleet, run_fleet_loadgen, run_hedged_loadgen,
+    )
+    from spark_examples_tpu_torch.store import quarantine as qledger
+    from spark_examples_tpu_torch.store.writer import compact
+
+    resolve_device(device)
+    panel_bytes = n * nv
+    os.makedirs(cache, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="bench_fleet_", dir=cache)
+    k1_0 = packed_gram.launches
+    routes = []
+    panels = {}
+    for i, ((name, kind, metric), g) in enumerate(
+            zip(FLEET_ROUTES, fleet_panels(n, nv))):
+        store_dir = os.path.join(workdir, f"store_{i}")
+        compact(store_dir, ArraySource(g), chunk_variants=2048)
+        model = os.path.join(workdir, f"model_{i}.npz")
+        job = JobConfig(
+            ingest=IngestConfig(block_variants=block),
+            compute=ComputeConfig(metric=metric, num_pc=8, device=device),
+            model_path=model,
+        )
+        (pcoa_job if kind == "pcoa" else variants_pca_job)(
+            job, source=ArraySource(g))
+        routes.append({"name": name, "model": model,
+                       "source": f"store:{store_dir}"})
+        panels[name] = (g, model, job, store_dir)
+    budget = int(panel_bytes * 2.5)
+    manifest = FleetManifest.parse(
+        {"routes": routes, "budget_mb": budget / 1e6})
+    ingest = IngestConfig(block_variants=block)
+
+    def fleet_with(linger_ms):
+        return build_fleet(
+            manifest, ServeConfig(cache_entries=0, max_linger_ms=linger_ms),
+            ingest_defaults=ingest, device=device).start()
+
+    probes, pools = fleet_queries(list(panels), nv)
+    fleet = fleet_with(1.0)
+    ev0 = telemetry.counter_value("fleet.evictions")
+    rs0 = telemetry.counter_value("fleet.restage_total")
+    try:
+        identical = True
+        for q, (name, (g, model, job, _store)) in zip(probes,
+                                                      panels.items()):
+            served = fleet.project(name, q, timeout=300.0)
+            offline = pcoa_project_job(
+                job.replace(model_path=None, output_path=None),
+                model_path=model,
+                source_new=ArraySource(q[None, :]),
+                source_ref=ArraySource(g),
+            ).coords
+            identical = identical and bool(np.array_equal(served, offline))
+        mix = []
+        for name in sorted(panels):
+            mix.append((name, PRIORITY_CLASSES[0], 2))
+            mix.append((name, PRIORITY_CLASSES[1], 4))
+        report = run_fleet_loadgen(fleet, pools, mix,
+                                   requests_per_client=12,
+                                   result_timeout_s=300.0)
+        under_budget = fleet.pool.resident_bytes() <= budget
+        clean_stores = all(qledger.load(store) == []
+                           for _g, _m, _j, store in panels.values())
+        clean = fleet.drain()
+    finally:
+        fleet.close()
+    evictions = int(telemetry.counter_value("fleet.evictions") - ev0)
+    restages = int(telemetry.counter_value("fleet.restage_total") - rs0)
+    # Hedging: the primary holds every batch 80 ms, the backup is fast,
+    # both over the same stores.
+    slow = fleet_with(80.0)
+    fast = fleet_with(0.0)
+    try:
+        unhedged = run_hedged_loadgen(
+            [slow, slow], pools["r-ibs"], clients=2,
+            requests_per_client=10, route="r-ibs",
+            hedge_floor_s=30.0, result_timeout_s=300.0)
+        hedged = run_hedged_loadgen(
+            [slow, fast], pools["r-ibs"], clients=2,
+            requests_per_client=10, route="r-ibs",
+            hedge_floor_s=0.02, result_timeout_s=300.0)
+        # The tracing tax: one closed loop untraced, then fully sampled.
+        sample0 = telemetry.trace_sample()
+        try:
+            walls = []
+            for rate in (0.0, 1.0):
+                telemetry.set_trace_sample(rate)
+                t0 = time.perf_counter()
+                run_hedged_loadgen(
+                    [fast, fast], pools["r-ibs"], clients=2,
+                    requests_per_client=20, route="r-ibs",
+                    hedge_floor_s=30.0, result_timeout_s=300.0)
+                walls.append(time.perf_counter() - t0)
+        finally:
+            telemetry.set_trace_sample(sample0)
+        wall_untraced, wall_traced = walls
+        trace_overhead_frac = max(0.0, round(
+            (wall_traced - wall_untraced) / max(wall_untraced, 1e-9), 4))
+    finally:
+        slow.close()
+        fast.close()
+    shutil.rmtree(workdir, ignore_errors=True)
+    # The SLO fast burn: rounds whose route p99 is 40x the target must
+    # burn the fast window past its budget.
+    tl = FleetTimeline(path=None)
+    for rd in range(6):
+        snap = ReplicaSnapshot(
+            t=time.time(), ready=True, health="ready",
+            worker_alive=True, in_flight=1, queue_interactive=0,
+            queue_batch=0, p99_s=0.2, shed_rate=0.0, pool_bytes=0.0,
+            pool_pressure=0.0,
+            routes={"r-ibs": {"p99_s": 0.2, "queue_depth": 0,
+                              "shed_rate": 0.0, "staged": True}})
+        tl.record_round(rd, {"replica-0": snap}, 1, 1)
+    breaches = SLOEvaluator(
+        (SLOSpec(route="r-ibs", p99_ms=5.0, fast_window_s=30.0,
+                 slow_window_s=30.0),), tl).evaluate()
+    slo_fast_burn_ok = bool(breaches and breaches[0]["fast_burn"] >= 1.0)
+    p99_i = report["per_class"][PRIORITY_CLASSES[0]]["p99_s"]
+    p99_b = report["per_class"][PRIORITY_CLASSES[1]]["p99_s"]
+    k1 = packed_gram.launches - k1_0
+    log(f"fleet: {len(routes)} routes, sustained "
+        f"{report['sustained_qps']} QPS, p99 interactive {p99_i * 1e3:.1f}"
+        f" ms vs batch {p99_b * 1e3:.1f} ms, {evictions} evictions / "
+        f"{restages} re-stages under a {budget / 1e6:.1f} MB budget, "
+        f"bit-identical={identical}; hedged p99 "
+        f"{hedged['p99_s'] * 1e3:.1f} ms vs unhedged "
+        f"{unhedged['p99_s'] * 1e3:.1f} ms "
+        f"(win frac {hedged['hedge_win_frac']}); trace overhead "
+        f"{trace_overhead_frac * 100:.1f}%, slo fast-burn trip="
+        f"{slo_fast_burn_ok}; K1 {k1}")
+    return {
+        "routes": len(routes),
+        "panel": [n, nv],
+        "budget_mb": round(budget / 1e6, 2),
+        "bit_identical_vs_offline": identical,
+        "clean_drain": clean,
+        "pool_under_budget": under_budget,
+        "stores_clean": clean_stores,
+        "evictions": evictions,
+        "restage_total": restages,
+        "mix": report,
+        "p99_interactive_s": p99_i,
+        "p99_batch_s": p99_b,
+        "hedge_unhedged_p99_s": unhedged["p99_s"],
+        "hedge_hedged_p99_s": hedged["p99_s"],
+        "hedge_win_frac": hedged["hedge_win_frac"],
+        "hedge_launched": hedged["hedge_launched"],
+        "hedge_errors": hedged["errors"] + unhedged["errors"],
+        "trace_overhead_frac": trace_overhead_frac,
+        "slo_fast_burn_ok": slo_fast_burn_ok,
+        "k1_launches": k1,
+    }
+
+
+CONTROLLER_SAMPLES = 192
+CONTROLLER_VARIANTS = 4096
+# The thread families a controller runs (tests/test_torch_controller.py).
+CONTROLLER_THREADS = ("fleet-controller", "fleet-metrics-http")
+
+
+def controller_queries(n: int, nv: int) -> tuple[np.ndarray, np.ndarray]:
+    """The controller row's panel (``default_rng(31)``) and its 64-query
+    pool (``default_rng(17)``), 2 % missing each."""
+    return (genotype_draw(np.random.default_rng(31), (n, nv), 0.02),
+            genotype_draw(np.random.default_rng(17), (64, nv), 0.02))
+
+
+def bench_controller(n: int = CONTROLLER_SAMPLES,
+                     nv: int = CONTROLLER_VARIANTS, block: int = BLOCK,
+                     duration_s: float = 6.0, base_qps: float = 20.0,
+                     device: str = DEVICE, cache: str = CACHE) -> dict:
+    """``--controller``: the fleet controller closing the autoscale loop
+    over in-process ``LocalReplica`` fleets (an ibs PCoA and a shared-alt
+    PCA route over one compacted store). A seeded ``BurstSchedule`` of
+    open-loop interactive arrivals into one replica must make the
+    controller spawn a second (``scale_up_s``, from the schedule's
+    start); the shed rate over the schedule; the p99 of a hedged closed
+    loop while the primary is killed at 0.3 s, failovers and never
+    errors, the corpse respawned. The controller's threads are joined at
+    the end (``threads_left``)."""
+    from spark_examples_tpu_torch.core.config import (
+        PRIORITY_CLASSES, ComputeConfig, IngestConfig, JobConfig,
+        ServeConfig,
+    )
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.fleet import (
+        ControllerConfig, FleetController, LocalReplica,
+    )
+    from spark_examples_tpu_torch.ingest.source import ArraySource
+    from spark_examples_tpu_torch.pipelines.jobs import (
+        pcoa_job, variants_pca_job,
+    )
+    from spark_examples_tpu_torch.serve import (
+        BurstSchedule, FleetManifest, ServerClosed, ServerOverloaded,
+        build_fleet, run_hedged_loadgen,
+    )
+    from spark_examples_tpu_torch.store.writer import compact
+
+    resolve_device(device)
+    panel_bytes = n * nv
+    os.makedirs(cache, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="bench_ctrl_", dir=cache)
+    g, pool = controller_queries(n, nv)
+    store_dir = os.path.join(workdir, "store")
+    compact(store_dir, ArraySource(g), chunk_variants=2048)
+    k1_0 = packed_gram.launches
+    models = {}
+    for name, fit, metric in (("ibs", pcoa_job, "ibs"),
+                              ("pca", variants_pca_job, None)):
+        model = os.path.join(workdir, f"model_{name}.npz")
+        fit(JobConfig(
+            ingest=IngestConfig(block_variants=block),
+            compute=ComputeConfig(metric=metric, num_pc=4, device=device),
+            model_path=model,
+        ), source=ArraySource(g))
+        models[name] = model
+    k1 = packed_gram.launches - k1_0
+    manifest = FleetManifest.parse({
+        "budget_mb": panel_bytes * 2.5 / 1e6,
+        "routes": [{"name": name, "model": models[name],
+                    "source": f"store:{store_dir}"}
+                   for name in ("ibs", "pca")],
+    })
+    # A modest replica (slow coalescing, a short interactive queue), so
+    # the burst queues and sheds until the controller adds capacity.
+    serve_cfg = ServeConfig(cache_entries=0, max_linger_ms=20.0,
+                            queue_interactive=16)
+
+    def factory(slot_name, generation):
+        def make():
+            return build_fleet(
+                manifest, serve_cfg,
+                ingest_defaults=IngestConfig(block_variants=block,
+                                             readahead_chunks=0),
+                device=device).start()
+        return LocalReplica(slot_name, make,
+                            budget_bytes=int(panel_bytes * 2.5),
+                            generation=generation)
+
+    ledger_path = os.path.join(workdir, "controller.json")
+    ctrl = FleetController(
+        factory, {"ibs": panel_bytes, "pca": panel_bytes},
+        ControllerConfig(
+            min_replicas=1, max_replicas=3, interval_s=0.02,
+            scale_up_depth=4.0, pressure_rounds=2, idle_rounds=10_000,
+            backoff_initial_s=0.05, backoff_max_s=1.0,
+            flap_window_s=60.0, flap_max_respawns=10,
+            drain_timeout_s=30.0, ledger_path=ledger_path,
+        ))
+    sched = BurstSchedule(duration_s=duration_s, base_qps=base_qps, seed=23,
+                          n_bursts=2, burst_factor=8.0)
+    arrivals = sched.arrivals()
+    first_burst_t = sched.bursts[0][0] if sched.bursts else 0.0
+    offered, shed, open_errors = len(arrivals), 0, 0
+    futures = []
+    scale_up_s = None
+    try:
+        ctrl.start().run()
+        t0 = time.perf_counter()
+        rr = 0
+        for i, at in enumerate(arrivals):
+            lag = at - (time.perf_counter() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            reps = ctrl.replicas()
+            if scale_up_s is None and len(reps) >= 2:
+                # From the schedule's start: detection, spawn and warm,
+                # under whichever pressure came first.
+                scale_up_s = time.perf_counter() - t0
+            r = reps[rr % len(reps)].router
+            rr += 1
+            try:
+                futures.append(r.submit("ibs", pool[i % len(pool)],
+                                        priority=PRIORITY_CLASSES[0]))
+            except ServerOverloaded:
+                shed += 1
+            except ServerClosed:
+                open_errors += 1
+        for f in futures:
+            try:
+                f.result(timeout=300.0)
+            except Exception:
+                open_errors += 1
+        if scale_up_s is None and len(ctrl.replicas()) >= 2:
+            scale_up_s = time.perf_counter() - t0
+        # Replica loss mid-hedged-run: the pool keeps answering.
+        deadline = time.monotonic() + 30.0
+        while len(ctrl.replicas()) < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        routers = [r.router for r in ctrl.replicas()]
+        scaled = len(routers) >= 2
+
+        def _kill_primary():
+            time.sleep(0.3)
+            reps_now = ctrl.replicas()
+            if reps_now:
+                reps_now[0].kill()
+
+        if scaled:
+            kt = threading.Thread(target=_kill_primary,
+                                  name="loadgen-client-kill", daemon=True)
+            kt.start()
+            loss = run_hedged_loadgen(
+                routers, pool, clients=2, requests_per_client=20,
+                route="ibs", hedge_floor_s=0.05, result_timeout_s=300.0,
+                seed=23)
+            kt.join(timeout=30.0)
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline:
+                reps = ctrl.replicas()
+                if len(reps) >= 2 and all(r.alive() for r in reps):
+                    break
+                time.sleep(0.05)
+        else:
+            # One replica absorbed the schedule: there is no pool to
+            # hedge across, and the loss half is not run (ok is false).
+            log("controller: no scale-up within the schedule and 30 s "
+                "after it; the replica-loss run needs two replicas")
+            loss = {"p99_s": None, "failovers": 0, "errors": 0}
+        reps = ctrl.replicas()
+        healed = len(reps) >= 2 and all(r.alive() for r in reps)
+        desc = ctrl.describe()
+    finally:
+        ctrl.close()
+    threads_left = sorted({t.name for t in threading.enumerate()
+                           if t.is_alive()} & set(CONTROLLER_THREADS))
+    with open(ledger_path) as f:
+        ledger = json.load(f)
+    shutil.rmtree(workdir, ignore_errors=True)
+    shed_rate = shed / max(1, offered)
+    actions = {d["action"] for d in ledger["decisions"]}
+    ok = bool(
+        scaled and healed and scale_up_s is not None
+        and open_errors == 0 and loss["errors"] == 0
+        and loss["failovers"] > 0
+        and {"scale_up", "respawn"} <= actions
+    )
+    log(f"controller: offered {offered} arrivals "
+        f"(first burst at {first_burst_t:.2f}s), scale-up in "
+        f"{-1.0 if scale_up_s is None else scale_up_s:.2f}s, shed rate "
+        f"{shed_rate:.3f}, p99 across replica loss "
+        f"{-1.0 if loss['p99_s'] is None else loss['p99_s'] * 1e3:.1f} ms "
+        f"({loss['failovers']} failovers, "
+        f"{loss['errors']} errors), healed={healed}, "
+        f"replicas={len(reps)}, ok={ok}; K1 {k1}, threads left "
+        f"{threads_left}")
+    return {
+        "panel": [n, nv],
+        "offered": offered,
+        "shed": shed,
+        "shed_rate": round(shed_rate, 4),
+        "scale_up_s": scale_up_s,
+        "p99_loss_s": loss["p99_s"],
+        "loss_failovers": loss["failovers"],
+        "loss_errors": loss["errors"] + open_errors,
+        "replicas": len(reps),
+        "healed": healed,
+        "rounds": desc["rounds"],
+        "decisions": sorted(actions),
+        "ok": ok,
+        "threads_left": threads_left,
+        "k1_launches": k1,
+    }
+
+
+NEIGHBORS_SAMPLES = 1024      # 64 founder families x 16 members
+NEIGHBORS_VARIANTS = 4096
+NEIGHBORS_K = 10              # the acceptance contract's k
+NEIGHBORS_PANEL = 256         # the served route's panel: the first samples
+
+
+def _neighbors_cohort(n_samples: int = NEIGHBORS_SAMPLES,
+                      n_variants: int = NEIGHBORS_VARIANTS) -> np.ndarray:
+    """Planted relatives: founder carrier sets cloned 16 times with 3 % of
+    the entries resampled, so every sample's true nearest neighbors are
+    its family (``default_rng(4242)``)."""
+    rng = np.random.default_rng(4242)
+    v, blocks = n_variants, []
+    for _ in range(n_samples // 16):
+        founder = (rng.random(v) < 0.08).astype(np.int8) * (
+            1 + (rng.random(v) < 0.3).astype(np.int8))
+        for _ in range(16):
+            g = founder.copy()
+            mut = rng.random(v) < 0.03
+            g[mut] = (rng.random(mut.sum()) < 0.08) * (
+                1 + (rng.random(mut.sum()) < 0.3)).astype(np.int8)
+            blocks.append(g)
+    return np.asarray(blocks, np.int8)
+
+
+def _post_json(url: str, doc: dict, timeout: float = 120.0) -> bytes:
+    import urllib.request
+
+    return urllib.request.urlopen(urllib.request.Request(
+        url, data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"}),
+        timeout=timeout).read()
+
+
+def bench_neighbors(n: int = NEIGHBORS_SAMPLES, nv: int = NEIGHBORS_VARIANTS,
+                    k: int = NEIGHBORS_K, device: str = DEVICE,
+                    cache: str = CACHE) -> dict:
+    """``--neighbors``: the MinHash/LSH neighbor engine (signatures, LSH
+    banding, exact evaluation of candidate pairs, sparse top-k) against
+    the dense exact route (the N x N similarity, then ``topk_rows``) on
+    the planted-relatives cohort: the fraction of pairs the filter
+    avoided, recall@k against the dense top-k, the sparse-vs-dense wall
+    ratio, and ``POST /neighbors/nb`` under closed-loop load over a
+    store-backed top-k route, with one response bit-identical to the
+    offline query-vs-panel engine. The contract: at most 10 % of pairs
+    evaluated at recall >= 0.95, served == offline."""
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig, IngestConfig, JobConfig, ServeConfig,
+    )
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.ingest.source import ArraySource
+    from spark_examples_tpu_torch.neighbors.engine import (
+        neighbors_job, topk_rows,
+    )
+    from spark_examples_tpu_torch.pipelines.jobs import (
+        pcoa_job, similarity_matrix_job,
+    )
+    from spark_examples_tpu_torch.pipelines.project import load_model
+    from spark_examples_tpu_torch.serve import engine as serve_engine
+    from spark_examples_tpu_torch.serve.fleet import (
+        FleetManifest, build_fleet,
+    )
+    from spark_examples_tpu_torch.serve.http import start_fleet_http_server
+    from spark_examples_tpu_torch.store.writer import compact
+
+    dev = resolve_device(device)
+    g = _neighbors_cohort(n, nv)
+    base = JobConfig(
+        ingest=IngestConfig(block_variants=1024),
+        compute=ComputeConfig(metric=METRIC, device=device),
+    )
+    k1_0 = packed_gram.launches
+
+    # The dense exact route: wall time and ground truth.
+    t0 = time.perf_counter()
+    dense = similarity_matrix_job(base, source=ArraySource(g)).similarity
+    dense = np.asarray(dense, np.float64).copy()
+    np.fill_diagonal(dense, -np.inf)
+    dense_ids, _ = topk_rows(dense, k)
+    dense_s = time.perf_counter() - t0
+
+    # The sparse route end to end (counter deltas: the registry is the
+    # process's).
+    cand0 = telemetry.counter_value("neighbors.candidate_pairs")
+    job = base.replace(compute=ComputeConfig(
+        metric=METRIC, minhash_hashes=64, minhash_bands=16, neighbors_k=k,
+        device=device))
+    t0 = time.perf_counter()
+    res = neighbors_job(job, source=ArraySource(g))
+    sparse_s = time.perf_counter() - t0
+    candidates = telemetry.counter_value("neighbors.candidate_pairs") - cand0
+    frac_evaluated = candidates / (n * (n - 1) / 2)
+    hits = sum(
+        len(set(res.ids[i][res.ids[i] >= 0].tolist())
+            & set(dense_ids[i].tolist()))
+        for i in range(n))
+    recall = hits / float(n * k)
+
+    # Served /neighbors: a store-backed top-k route, the cache off so each
+    # request runs the padded-batch path.
+    os.makedirs(cache, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="bench_neighbors_", dir=cache)
+    panel = g[:NEIGHBORS_PANEL]
+    store_dir = os.path.join(workdir, "store")
+    compact(store_dir, ArraySource(panel), chunk_variants=1024)
+    model = os.path.join(workdir, "model.npz")
+    pcoa_job(base.replace(model_path=model), source=ArraySource(panel))
+    k1 = packed_gram.launches - k1_0
+    manifest = FleetManifest.parse({
+        "budget_mb": 64.0,
+        "routes": [{"name": "nb", "model": model,
+                    "source": f"store:{store_dir}", "topk": True}],
+    })
+    fleet = build_fleet(
+        manifest, ServeConfig(cache_entries=0, max_linger_ms=1.0),
+        ingest_defaults=IngestConfig(block_variants=1024), device=device)
+    fleet.start()
+    http = None
+    try:
+        http = start_fleet_http_server(fleet)
+        url = f"http://127.0.0.1:{http.port}/neighbors/nb"
+        n_clients, per_client = 4, 24
+        queries = genotype_draw(np.random.default_rng(7),
+                                (n_clients * per_client, nv), 0.02)
+        probe = queries[0]
+        doc = json.loads(_post_json(url, {"genotypes": probe.tolist(),
+                                          "k": k}))
+        ctx = serve_engine.ModelContext(load_model(model), dev)
+        blocks, nvar, _ = serve_engine.stage_blocks(ArraySource(panel), 1024,
+                                                    dev)
+        off_ids, off_sims = serve_engine.batch_topk(
+            ctx, blocks, probe[None, :], 8, nvar, k)
+        identical = bool(
+            doc["neighbor_indices"] == [off_ids[0].tolist()]
+            and doc["similarities"] == [off_sims[0].tolist()])
+
+        lat_ms: list[float] = []
+        lat_lock = threading.Lock()
+        errors = [0]
+
+        def client(rows: np.ndarray) -> None:
+            for q in rows:
+                t = time.perf_counter()
+                try:
+                    _post_json(url, {"genotypes": q.tolist(), "k": k})
+                except Exception:
+                    errors[0] += 1
+                    continue
+                with lat_lock:
+                    lat_ms.append((time.perf_counter() - t) * 1e3)
+
+        threads = [
+            threading.Thread(
+                target=client,
+                args=(queries[i * per_client:(i + 1) * per_client],),
+                daemon=True, name=f"loadgen-client-{i}")
+            for i in range(n_clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        load_wall = time.perf_counter() - t0
+        p99_ms = float(np.percentile(lat_ms, 99)) if lat_ms else float("inf")
+        qps = round(len(lat_ms) / load_wall, 1)
+    finally:
+        if http is not None:
+            http.shutdown()
+        fleet.close()
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    ok = bool(recall >= 0.95 and frac_evaluated <= 0.10
+              and identical and errors[0] == 0)
+    log(f"neighbors: {n}x{nv} cohort, filter avoided "
+        f"{(1 - frac_evaluated) * 100:.1f}% of pairs "
+        f"({int(candidates)} candidates), recall@{k} {recall:.3f}, "
+        f"sparse {sparse_s:.2f}s vs dense {dense_s:.2f}s "
+        f"({dense_s / sparse_s:.2f}x), served p99 {p99_ms:.1f} ms "
+        f"({qps} QPS, {errors[0]} errors), bit-identical={identical}; "
+        f"K1 {k1}")
+    return {
+        "cohort": [n, nv],
+        "k": k,
+        "candidate_pairs": int(candidates),
+        "frac_evaluated": round(frac_evaluated, 4),
+        "filter_frac": round(1.0 - frac_evaluated, 4),
+        "recall_at_k": round(recall, 4),
+        "dense_s": round(dense_s, 3),
+        "sparse_s": round(sparse_s, 3),
+        "sparse_speedup_vs_dense": round(dense_s / sparse_s, 3),
+        "served_p99_ms": round(p99_ms, 2),
+        "served_qps": qps,
+        "served_errors": errors[0],
+        "bit_identical_vs_offline": identical,
+        "ok": ok,
+        "k1_launches": k1,
+    }
+
+
+# --sketch-serve: the N where a dense N x N no longer pays; the whole
+# refit -> save -> serve chain runs with every N x N site rigged to raise.
+SKETCH_SERVE_N = 10_000
+SKETCH_SERVE_V = 65_536
+
+
+@contextlib.contextmanager
+def dense_rigged():
+    """Every dense N x N allocation site of the port raises while inside:
+    the gram accumulators (``gram_sharded.init_sharded``, ``gram.init``)
+    and the finalize (``distances.finalize``). Every caller reaches them
+    through their modules' attributes, so the patch reaches every
+    caller."""
+    from spark_examples_tpu_torch.ops import distances, gram
+    from spark_examples_tpu_torch.parallel import gram_sharded
+
+    def boom(*a, **kw):
+        raise AssertionError("N x N allocated on the sketch-serve path")
+
+    saved = [(m, name, getattr(m, name)) for m, name in (
+        (gram_sharded, "init_sharded"), (gram, "init"),
+        (distances, "finalize"))]
+    for m, name, _ in saved:
+        setattr(m, name, boom)
+    try:
+        yield
+    finally:
+        for m, name, orig in saved:
+            setattr(m, name, orig)
+
+
+def sketch_serve_queries(requests: int, nv: int) -> np.ndarray:
+    """The sketch-serve row's queries: 2 % missing, ``default_rng(5)``."""
+    return genotype_draw(np.random.default_rng(5), (requests, nv), 0.02)
+
+
+def bench_sketch_serve(n: int = SKETCH_SERVE_N, nv: int = SKETCH_SERVE_V,
+                       block: int = BLOCK, k: int = K, requests: int = 12,
+                       device: str = DEVICE, cache: str = CACHE) -> dict:
+    """``--sketch-serve``: the servable sketch model end to end at
+    ``n`` x ``nv``, with every dense N x N site rigged to raise for the
+    whole chain: the ``--solver corrected`` ibs fit (rank 96, 4
+    iterations, seed 11) saved as a factorized model; one fleet route
+    over the store-compacted panel under a pool budget of 0.4 panels, so
+    every request streams the panel in budget-sized shards (at least 2
+    when a panel spans several blocks); ``stage_s`` (the first request),
+    the p99 over the rest, and ``ok``: served rows bit-identical to the
+    offline single-query ``project``, the corrected rung in the model's
+    fingerprint, >= 2 shards a request, a clean drain, no transient bytes
+    left charged."""
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig, IngestConfig, JobConfig, ServeConfig,
+    )
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.ingest.source import (
+        ArraySource, close_source,
+    )
+    from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+    from spark_examples_tpu_torch.pipelines import runner
+    from spark_examples_tpu_torch.pipelines.jobs import pcoa_job
+    from spark_examples_tpu_torch.pipelines.project import (
+        load_model, pcoa_project_job,
+    )
+    from spark_examples_tpu_torch.serve import FleetManifest, build_fleet
+    from spark_examples_tpu_torch.store.writer import compact
+
+    resolve_device(device)
+    rank, iters, seed = 96, 4, 11
+    panel_bytes = n * nv
+    out: dict = {"n": n, "n_variants": nv, "rank": rank, "iters": iters}
+    os.makedirs(cache, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="bench_sketch_serve_", dir=cache)
+    model = os.path.join(workdir, "model.npz")
+    store_dir = os.path.join(workdir, "store")
+    k1_0 = packed_gram.launches
+    try:
+        with dense_rigged():
+            t0 = time.perf_counter()
+            pcoa_job(JobConfig(
+                ingest=IngestConfig(source="synthetic", n_samples=n,
+                                    n_variants=nv, block_variants=block,
+                                    seed=seed),
+                compute=ComputeConfig(metric="ibs", num_pc=k,
+                                      solver="corrected", sketch_rank=rank,
+                                      sketch_iters=iters, device=device),
+                model_path=model,
+            ))
+            out["fit_save_s"] = round(time.perf_counter() - t0, 3)
+            mdl = load_model(model)
+            rung_in_fingerprint = (mdl.kind == "factorized"
+                                   and mdl.solver == "corrected"
+                                   and mdl.rank == rank)
+            out["model_digest"] = mdl.digest()
+
+            compact(store_dir, SyntheticSource(n_samples=n, n_variants=nv,
+                                               seed=seed),
+                    chunk_variants=block)
+            budget = int(panel_bytes * 0.4)
+            manifest = FleetManifest.parse({
+                "budget_mb": budget / 1e6,
+                "routes": [{"name": "sk", "model": model,
+                            "source": f"store:{store_dir}"}],
+            })
+            fleet = build_fleet(
+                manifest, ServeConfig(cache_entries=0, max_linger_ms=1.0),
+                ingest_defaults=IngestConfig(block_variants=block),
+                device=device).start()
+            stages0 = telemetry.counter_value("fleet.shard_stages")
+            try:
+                queries = sketch_serve_queries(requests, nv)
+                lats, served = [], []
+                for q in queries:
+                    t0 = time.perf_counter()
+                    served.append(fleet.project("sk", q, timeout=3600.0))
+                    lats.append(time.perf_counter() - t0)
+                out["stage_s"] = round(lats[0], 3)
+                out["served_p99_ms"] = round(float(np.percentile(
+                    np.asarray(lats[1:]) * 1e3, 99)), 1)
+                shards = int(telemetry.counter_value("fleet.shard_stages")
+                             - stages0)
+                out["shard_stages"] = shards
+                out["panel_over_budget_x"] = round(panel_bytes / budget, 2)
+                # The offline single-query anchor over the same store.
+                identical = True
+                for q, got in zip(queries[:2], served[:2]):
+                    ref = runner.build_source(
+                        IngestConfig(source="store", path=store_dir,
+                                     block_variants=block), device)
+                    try:
+                        offline = pcoa_project_job(
+                            JobConfig(
+                                ingest=IngestConfig(block_variants=block),
+                                compute=ComputeConfig(device=device)),
+                            model_path=model,
+                            source_new=ArraySource(q[None, :]),
+                            source_ref=ref,
+                        ).coords
+                    finally:
+                        close_source(ref)
+                    identical = identical and bool(
+                        np.array_equal(got, offline))
+                transient_clean = (
+                    fleet.pool.stats()["transient_bytes"] == 0)
+                clean = fleet.drain(timeout=300.0)
+            finally:
+                fleet.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["k1_launches"] = packed_gram.launches - k1_0
+    out["ok"] = bool(identical and rung_in_fingerprint and clean
+                     and shards >= 2 * requests and transient_clean)
+    log(f"sketch-serve {n}: fit+save {out['fit_save_s']}s, first serve "
+        f"{out['stage_s']}s, p99 {out['served_p99_ms']}ms, "
+        f"{shards} shard stages over {requests} requests "
+        f"({out['panel_over_budget_x']}x over budget), "
+        f"identical={identical}; K1 {out['k1_launches']}")
+    return out
+
+
 def separation(coords: np.ndarray, pops: np.ndarray) -> float:
     """Between-centroid over within-population distance in the first 4
     coordinates."""
@@ -939,40 +2223,177 @@ def add_lint(headline: dict) -> dict:
     return headline
 
 
-def main(argv: list[str] | None = None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in UNPORTED:
-            log(f"bench_torch: {flag} is not ported yet (ROADMAP Queue 1 "
-                f"item {UNPORTED[flag]}); bench.py's flag runs only the "
-                "JAX package")
-            return 2
-    ap = argparse.ArgumentParser(
-        prog="bench_torch.py",
-        description="the port's benchmark sweep on one NVIDIA GPU")
-    ap.add_argument("--trend", action="store_true",
-                    help="gate the headline against the cuda records of "
-                    "BENCH_TORCH_HISTORY.jsonl before appending; exit 1 "
-                    "on a regression")
-    ap.add_argument("--telemetry-dir", default=None,
-                    help="export config 1's streamed run's trace and "
-                    "metrics here")
-    args = ap.parse_args(argv)
+def neighbors_headline(nb: dict) -> dict:
+    """The neighbor engine's headline keys (the JAX bench's, in
+    ``--neighbors`` and ``--neighbors-only`` alike)."""
+    return {
+        "neighbors_filter_frac": nb["filter_frac"],
+        "neighbors_recall_at_k": nb["recall_at_k"],
+        "neighbors_sparse_speedup_vs_dense": nb["sparse_speedup_vs_dense"],
+        "neighbors_p99_ms": nb["served_p99_ms"],
+        "neighbors_ok": nb["ok"],
+    }
 
-    # One card: with more visible, a job's default mesh would be every
-    # card (core/meshes.py::default_devices).
-    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
-    from spark_examples_tpu_torch.core import telemetry
-    from spark_examples_tpu_torch.core.device import resolve_device
+
+def sketch_serve_headline(sv: dict) -> dict:
+    """``--sketch-serve``'s headline (the JAX bench's keys)."""
+    return {
+        "sketch_serve_stage_s": sv["stage_s"],
+        "sketch_serve_p99_ms": sv["served_p99_ms"],
+        "sketch_serve_panel_over_budget_x": sv["panel_over_budget_x"],
+        "sketch_serve_ok": sv["ok"],
+    }
+
+
+def add_rows(headline: dict, configs: dict) -> dict:
+    """The subsystem rows' headline keys and ``*_ok`` gates, as the JAX
+    bench's ``main`` adds them; a row that holds an error adds none. The
+    fused gate's speed clause holds on the card (``cuda`` in the JAX
+    bench's ``tpu`` place): there the flagship trio must beat the
+    reference lowering; on the CPU parity alone gates."""
+    from spark_examples_tpu_torch import kernels as kreg
+
+    def row(name):
+        rec = configs.get(name)
+        return rec if rec is not None and "error" not in rec else None
+
+    if (sv := row("serve")) is not None:
+        headline["serve_sustained_qps"] = sv["sustained_qps"]
+        headline["serve_p99_ms"] = sv["latency_p99_ms"]
+        headline["serve_ok"] = bool(sv["bit_identical_vs_offline"]
+                                    and sv["clean_drain"])
+    if (fl := row("fleet")) is not None:
+        headline["fleet_routes"] = fl["routes"]
+        headline["fleet_p99_interactive_s"] = fl["p99_interactive_s"]
+        headline["fleet_p99_batch_s"] = fl["p99_batch_s"]
+        headline["fleet_sustained_qps"] = fl["mix"]["sustained_qps"]
+        headline["fleet_evictions"] = fl["evictions"]
+        headline["fleet_hedge_win_frac"] = fl["hedge_win_frac"]
+        headline["trace_overhead_frac"] = fl["trace_overhead_frac"]
+        headline["slo_fast_burn_ok"] = fl["slo_fast_burn_ok"]
+        headline["fleet_ok"] = bool(
+            fl["bit_identical_vs_offline"]
+            and fl["clean_drain"]
+            and fl["pool_under_budget"]
+            and fl["stores_clean"]
+            and fl["evictions"] > 0
+            and fl["mix"]["errors"] == 0
+            and fl["p99_interactive_s"] <= fl["p99_batch_s"]
+            and fl["hedge_hedged_p99_s"] < fl["hedge_unhedged_p99_s"]
+            and fl["hedge_errors"] == 0
+        )
+    if (nb := row("neighbors")) is not None:
+        headline.update(neighbors_headline(nb))
+    if (ct := row("controller")) is not None:
+        headline["controller_scale_up_s"] = ct["scale_up_s"]
+        headline["controller_burst_shed_rate"] = ct["shed_rate"]
+        headline["controller_p99_loss_s"] = ct["p99_loss_s"]
+        headline["controller_replicas"] = ct["replicas"]
+        headline["controller_ok"] = bool(ct["ok"])
+    if (st := row("store")) is not None:
+        for key, field in (
+                ("store_hit_vs_cold_parse", "store_hit_vs_cold_parse"),
+                ("store_compact_mb_s", "compact_mb_s"),
+                ("store_compact_mb_s_w1", "compact_mb_s_w1"),
+                ("store_compact_mb_s_w4", "compact_mb_s_w4"),
+                ("store_compact_scaling_w4_vs_w1",
+                 "compact_scaling_w4_vs_w1"),
+                ("store_cold_mb_s", "store_cold_mb_s"),
+                ("store_cold_readahead_mb_s", "store_cold_readahead_mb_s"),
+                ("store_compress_ratio", "store_compress_ratio"),
+                ("store_feed_stall_frac", "store_feed_stall_frac"),
+                ("store_link_relief_vs_raw", "store_link_relief_vs_raw"),
+                ("config2_demonstrated_stream_s",
+                 "config2_demonstrated_stream_s"),
+                ("store_serve_cold_start_delta_s",
+                 "serve_cold_start_delta_s")):
+            headline[key] = st[field]
+        headline["store_ok"] = bool(
+            st["pcoa_bit_identical"]
+            and st["store_hit_vs_cold_parse"] >= 3.0
+            and st["compact_deterministic_w4_vs_w1"]
+        )
+    if (kr := row("kernels")) is not None:
+        per = kr["per_kernel"]
+        # A highlight pair by name; every other kernel gates through the
+        # sweep floor.
+        # graftlint: disable=registry-literal  # the JAX bench's highlight pair, not an enumeration
+        for kname in ("jaccard", "king"):
+            headline[f"kernel_{kname}_mb_s"] = per[kname]["mb_s"]
+            headline[f"kernel_{kname}_gflops"] = per[kname]["gflops"]
+        headline["kernel_sweep_min_gflops"] = min(
+            r["gflops"] for r in per.values())
+        headline["kernel_sweep_ok"] = bool(
+            set(per) == set(kreg.gram_names())
+            and all(r["gflops"] > 0 and r["mb_s"] > 0
+                    for r in per.values()))
+        fused_rows = {k: r for k, r in per.items() if "fused_speedup" in r}
+        if fused_rows:
+            headline["kernel_fused_min_speedup"] = min(
+                r["fused_speedup"] for r in fused_rows.values())
+            fused_ok = (
+                set(fused_rows) == set(kreg.fused_names())
+                and all(r["fused_match"] and r["fused_gflops"] > 0
+                        for r in fused_rows.values()))
+            if kr["device"] == "cuda":
+                fused_ok = fused_ok and all(
+                    fused_rows[k]["fused_speedup"] > 1.0
+                    # graftlint: disable=registry-literal  # the JAX bench's flagship trio, which K1 must speed up on the card
+                    for k in ("ibs", "king", "jaccard"))
+            headline["kernel_fused_ok"] = bool(fused_ok)
+    return headline
+
+
+def card_meta() -> dict:
+    """The run's device record: the backend, the card's name, and its
+    name and power limit as ``nvidia-smi`` prints them."""
     from spark_examples_tpu_torch.tools import trend as trend_mod
 
-    resolve_device(DEVICE)  # no card: raises here, before any work
-    card = card_line()
-    run_meta = {"backend": trend_mod.BACKEND,
-                "device": torch.cuda.get_device_name(0), "card": card}
-    log(f"card: {card} | {run_meta['device']} | torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+    return {"backend": trend_mod.BACKEND,
+            "device": torch.cuda.get_device_name(0), "card": card_line()}
+
+
+def record(headline: dict, full: dict, argv: list[str], run_meta: dict,
+           detail: bool = True) -> None:
+    """Append the headline (with the card) to the history, write the full
+    record to ``BENCH_TORCH_DETAIL.json`` (the default sweep's) and print
+    the two stdout lines, the headline last."""
+    from spark_examples_tpu_torch.tools import trend as trend_mod
+
+    try:
+        trend_mod.append_history(HISTORY_PATH, headline,
+                                 run_meta={"argv": argv, **run_meta})
+    except OSError as e:
+        log(f"{trend_mod.HISTORY_FILE} not appended ({e}); the run's "
+            "record survives in the stdout lines below")
+    if detail:
+        try:
+            tmp = f"{DETAIL_PATH}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(full, f, indent=2)
+            os.replace(tmp, DETAIL_PATH)
+        except OSError as e:
+            log(f"{os.path.basename(DETAIL_PATH)} not written ({e}); "
+                "stdout lines follow")
+    print(json.dumps(full))
+    print(json.dumps(headline))
+
+
+def standalone(name: str, fn, headline_of, gate: str, argv: list[str],
+               run_meta: dict) -> int:
+    """A standalone row (``--neighbors-only``, ``--sketch-serve``):
+    measure, record with the card, exit 1 unless its gate holds."""
+    rec = fn()
+    headline = headline_of(rec)
+    record(headline, {**headline, "run": run_meta, "configs": {name: rec}},
+           argv, run_meta, detail=False)
+    return 0 if headline[gate] else 1
+
+
+def default_sweep(args) -> tuple[str, dict, dict]:
+    """BASELINE's configs 1-5 and the sketch ladder, the structure
+    checks, and their headline: ``(store, headline, configs)``."""
+    from spark_examples_tpu_torch.core import telemetry
 
     if args.telemetry_dir:
         telemetry.configure(dir=args.telemetry_dir, trace_events=True)
@@ -1003,12 +2424,7 @@ def main(argv: list[str] | None = None) -> int:
         ("config5", bench_streaming, (store,)),
         ("sketch", bench_sketch, ()),
     ):
-        try:
-            configs[name] = fn(*fargs)
-        except Exception as e:  # record, don't kill the bench line
-            log(f"{name} FAILED: {e!r}")
-            configs[name] = {"error": repr(e)}
-        torch.cuda.empty_cache()
+        run_row(configs, name, fn, *fargs)
 
     solve_cfg = configs.pop("config4_solve", {})
     if "error" not in solve_cfg and "error" not in configs.get("config4", {}):
@@ -1031,9 +2447,82 @@ def main(argv: list[str] | None = None) -> int:
         if not sep > 3.0:
             raise SystemExit(
                 f"benchmark {name} output failed structure-recovery check")
-
     headline = add_lint(make_headline(streamed, staged, base, tunnel,
                                       configs))
+    return store, headline, configs
+
+
+def run_row(configs: dict, name: str, fn, *fargs) -> None:
+    """``configs[name] = fn(*fargs)``, or ``{"error": repr(e)}``: a failed
+    row is recorded and never kills the bench line."""
+    try:
+        configs[name] = fn(*fargs)
+    except Exception as e:
+        log(f"{name} FAILED: {e!r}")
+        configs[name] = {"error": repr(e)}
+    torch.cuda.empty_cache()
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    for arg in argv:
+        flag = arg.split("=", 1)[0]
+        if flag in UNPORTED:
+            log(f"bench_torch: {flag} is not ported yet (ROADMAP Queue 1 "
+                f"item {UNPORTED[flag]}); bench.py's flag runs only the "
+                "JAX package")
+            return 2
+    ap = argparse.ArgumentParser(
+        prog="bench_torch.py",
+        description="the port's benchmark sweep on one NVIDIA GPU")
+    ap.add_argument("--trend", action="store_true",
+                    help="gate the headline against the cuda records of "
+                    "BENCH_TORCH_HISTORY.jsonl before appending; exit 1 "
+                    "on a regression")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="export config 1's streamed run's trace and "
+                    "metrics here")
+    for flag in ROW_FLAGS:
+        ap.add_argument(flag, action="store_true",
+                        help=f"add the {flag[2:]} row to the sweep")
+    for flag in STANDALONE_FLAGS:
+        ap.add_argument(flag, action="store_true",
+                        help=f"run the {flag[2:]} row alone (its own "
+                        "headline; exit 1 unless its gate holds)")
+    args = ap.parse_args(argv)
+
+    # One card: with more visible, a job's default mesh would be every
+    # card (core/meshes.py::default_devices).
+    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.tools import trend as trend_mod
+
+    resolve_device(DEVICE)  # no card: raises here, before any work
+    run_meta = card_meta()
+    log(f"card: {run_meta['card']} | {run_meta['device']} | torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    if args.neighbors_only:
+        return standalone("neighbors", bench_neighbors, neighbors_headline,
+                          "neighbors_ok", argv, run_meta)
+    if args.sketch_serve:
+        return standalone("sketch_serve", bench_sketch_serve,
+                          sketch_serve_headline, "sketch_serve_ok", argv,
+                          run_meta)
+
+    store, headline, configs = default_sweep(args)
+    rows = {"serve": (bench_serve, (store,)), "fleet": (bench_fleet, ()),
+            "controller": (bench_controller, ()),
+            "neighbors": (bench_neighbors, ()),
+            "store": (bench_store, (store,)),
+            "kernels": (bench_kernels, (store,))}
+    for flag in ROW_FLAGS:
+        name = flag[2:]
+        if getattr(args, name):
+            fn, fargs = rows[name]
+            run_row(configs, name, fn, *fargs)
+    add_rows(headline, configs)
+
     trend_report = None
     if args.trend:
         trend_report = trend_mod.check_and_count(
@@ -1045,24 +2534,8 @@ def main(argv: list[str] | None = None) -> int:
         log(f"trend: checked {trend_report['checked']} metric(s), "
             f"{len(trend_report['regressions'])} regression(s), "
             f"{len(trend_report['skipped'])} skipped")
-    try:
-        trend_mod.append_history(HISTORY_PATH, headline,
-                                 run_meta={"argv": argv, **run_meta})
-    except OSError as e:
-        log(f"{trend_mod.HISTORY_FILE} not appended ({e}); the run's "
-            "record survives in the stdout lines below")
-
-    full = {**headline, "run": run_meta, "configs": configs}
-    try:
-        tmp = f"{DETAIL_PATH}.tmp.{os.getpid()}"
-        with open(tmp, "w") as f:
-            json.dump(full, f, indent=2)
-        os.replace(tmp, DETAIL_PATH)
-    except OSError as e:
-        log(f"{os.path.basename(DETAIL_PATH)} not written ({e}); stdout "
-            "lines follow")
-    print(json.dumps(full))
-    print(json.dumps(headline))
+    record(headline, {**headline, "run": run_meta, "configs": configs},
+           argv, run_meta)
     if trend_report is not None and not trend_report["ok"]:
         for line in trend_mod.regression_lines(trend_report):
             log(line)

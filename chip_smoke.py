@@ -402,7 +402,26 @@ Phases (any failure exits non-zero; none is caught and ignored):
     exceed 3, the headline's keys must be the JAX bench's and
     ``sketch_ok`` and ``lint_ok`` hold. K1 is timed at the two new launch
     shapes beside their bounds.
-65. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+65. ``bench_torch.py``'s subsystem rows in-process at reduced depth
+    (``bench_rows_phase``): ``--kernels`` over 4 blocks of the cohort
+    (K1 6 x (1 warm + 4)), ``--store`` at 2504 x 4,096 (K1 3: the direct
+    VCF job, the via-store job, the model fit), ``--serve`` on a
+    16,384-variant panel (K1 1: the fit), ``--fleet`` and
+    ``--controller`` on the JAX bench's own panels (K1 3 and 2: the
+    route fits on ``ArraySource`` panels stream packed; the controller
+    under a burst of 1,000 QPS over 2 s, which one replica cannot
+    absorb), the neighbors row at 256 samples (K1 8: the dense route's
+    4 blocks and the panel fit's 4), ``--sketch-serve`` at 2,000 x
+    16,384 in blocks of 4,096 (no K1: the corrected sketch and the
+    projections; at least 2 shards a request). Every identity gate must
+    hold (``fused_match`` for all six fused kernels, the store's PCoA
+    and compaction, the served rows of serve, fleet and neighbors
+    against the offline engine, clean drains, the sketch-serve rig never
+    tripped, the controller's threads joined), K1's count by row must
+    equal the worked-out value and K2's be 0; the speed gates
+    (``kernel_fused_ok``, the hedge, ``store_ok``, ``controller_ok``)
+    are printed beside the card line, not enforced.
+66. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -5003,6 +5022,130 @@ def bench_phase(card: str, tmp: str) -> tuple[dict, dict]:
     return paths, shapes
 
 
+# Phase 65: bench_torch.py's subsystem rows at reduced depth.
+ROWS_KERNEL_BLOCKS = 4
+ROWS_STORE_VARIANTS = 4096
+ROWS_SERVE_VARIANTS = 16_384
+ROWS_NEIGHBORS_SAMPLES = 256
+ROWS_SKETCH_SERVE = (2000, 16_384, 4096)  # samples, variants, block
+# The controller's burst here: at the JAX bench's (20 QPS, bursts of 8x
+# over 6 s) one replica on the card never queues and the controller never
+# scales (the full row records that); this burst makes it scale, so the
+# phase drives the spawn, the kill and the failovers on the card.
+ROWS_CONTROLLER_BURST = {"duration_s": 2.0, "base_qps": 1000.0}
+
+
+def bench_rows_phase(card: str, tmp: str) -> dict:
+    """Phase 65: ``bench_torch``'s subsystem rows, in this process, at
+    reduced depth (the phase 64 cohort, cached in ``tmp``, or made).
+    Returns the K1 / K2 launches by row."""
+    import torch
+
+    import bench_torch as bt
+    from spark_examples_tpu_torch.ops import braycurtis_kernel, packed_gram
+
+    t_phase = time.perf_counter()
+    store = bt.cohort_store(os.path.join(tmp, "bench_cache"),
+                            dict(bt.SYN, n_variants=BENCH_VARIANTS))
+    cache = os.path.join(tmp, "rows_cache")
+    sk_n, sk_v, sk_block = ROWS_SKETCH_SERVE
+    rows = {
+        "kernels": (bt.bench_kernels, (store,),
+                    {"n_variants": ROWS_KERNEL_BLOCKS * bt.BLOCK}),
+        "store": (bt.bench_store, (store,),
+                  {"n_variants": ROWS_STORE_VARIANTS, "cache": cache}),
+        "serve": (bt.bench_serve, (store,),
+                  {"n_variants": ROWS_SERVE_VARIANTS, "cache": cache}),
+        "fleet": (bt.bench_fleet, (), {"cache": cache}),
+        "controller": (bt.bench_controller, (),
+                       {**ROWS_CONTROLLER_BURST, "cache": cache}),
+        "neighbors": (bt.bench_neighbors, (),
+                      {"n": ROWS_NEIGHBORS_SAMPLES, "cache": cache}),
+        "sketch_serve": (bt.bench_sketch_serve, (),
+                         {"n": sk_n, "nv": sk_v, "block": sk_block,
+                          "cache": cache}),
+    }
+    # K1 by row: the fused column's 6 x (1 warm + blocks); one block for
+    # each store job and the model fit (a fresh cache); the serve panel's
+    # fit; the fleet's three route fits and the controller's two (packed
+    # ArraySource streams); the neighbors row's dense route and panel fit
+    # (4 blocks of 1,024 each). No K1 on the serving, sketch or
+    # projection paths.
+    want_k1 = {"kernels": 6 * (1 + ROWS_KERNEL_BLOCKS), "store": 3,
+               "serve": 1, "fleet": 3, "controller": 2,
+               "neighbors": 2 * (bt.NEIGHBORS_VARIANTS // 1024),
+               "sketch_serve": 0}
+    configs, counts, seconds = {}, {}, {}
+    for name, (fn, args, kw) in rows.items():
+        k1_0 = packed_gram.launches
+        k2_0 = braycurtis_kernel.launches
+        t0 = time.perf_counter()
+        try:
+            configs[name] = fn(*args, **kw)
+        except Exception as e:
+            fail(f"bench row {name}: {e!r}")
+        seconds[name] = time.perf_counter() - t0
+        counts[name] = {"packed_gram": packed_gram.launches - k1_0,
+                        "braycurtis": braycurtis_kernel.launches - k2_0}
+        torch.cuda.empty_cache()
+    for name, c in counts.items():
+        want = {"packed_gram": want_k1[name], "braycurtis": 0}
+        if c != want or configs[name]["k1_launches"] != want_k1[name]:
+            fail(f"bench row {name}: launches {c} (the row's own count "
+                 f"{configs[name]['k1_launches']}), expected {want}")
+
+    kr, sr, sv = configs["kernels"], configs["store"], configs["serve"]
+    fl, ct, nb = configs["fleet"], configs["controller"], configs["neighbors"]
+    sk = configs["sketch_serve"]
+    unmatched = [k for k, r in kr["per_kernel"].items()
+                 if "fused_match" in r and not r["fused_match"]]
+    fused = [k for k, r in kr["per_kernel"].items() if "fused_match" in r]
+    gates = {
+        "kernels: fused_match for all six": not unmatched and len(fused) == 6,
+        "store: pcoa_bit_identical": sr["pcoa_bit_identical"],
+        "store: compaction byte-identical at 1 and 4 workers":
+            sr["compact_deterministic_w4_vs_w1"],
+        "serve: served == offline": sv["bit_identical_vs_offline"],
+        "serve: clean drain": sv["clean_drain"],
+        "fleet: served == offline": fl["bit_identical_vs_offline"],
+        "fleet: clean drain": fl["clean_drain"],
+        "fleet: pool under budget": fl["pool_under_budget"],
+        "fleet: stores clean": fl["stores_clean"],
+        "fleet: no errors": fl["mix"]["errors"] == 0
+            and fl["hedge_errors"] == 0,
+        "controller: threads joined": not ct["threads_left"],
+        "controller: no errors": ct["loss_errors"] == 0,
+        "neighbors: served == offline": nb["bit_identical_vs_offline"],
+        "neighbors: ok": nb["ok"],
+        "sketch-serve: ok (identity, rung, drain, shards, rig)": sk["ok"],
+    }
+    failed = [g for g, held in gates.items() if not held]
+    if failed:
+        fail(f"bench rows: gates failed {failed}; records "
+             + json.dumps({k: {f: v for f, v in r.items()
+                               if not isinstance(v, (dict, list))}
+                           for k, r in configs.items()}))
+    headline = bt.add_rows({}, configs)
+    headline.update(bt.sketch_serve_headline(sk))
+    speed = {k: headline[k] for k in (
+        "kernel_fused_ok", "kernel_fused_min_speedup", "store_ok",
+        "fleet_ok", "controller_ok", "controller_scale_up_s")}
+    speed["hedged_p99_s"] = fl["hedge_hedged_p99_s"]
+    speed["unhedged_p99_s"] = fl["hedge_unhedged_p99_s"]
+    fused_speedups = {k: r["fused_speedup"]
+                      for k, r in kr["per_kernel"].items()
+                      if "fused_speedup" in r}
+    print(f"bench rows [{card}]: headline "
+          + json.dumps(headline)
+          + "; fused speedup by kernel " + json.dumps(fused_speedups)
+          + "; speed gates (recorded, not enforced) " + json.dumps(speed)
+          + f"; launches {counts}; seconds "
+          + json.dumps({k: round(v, 2) for k, v in seconds.items()})
+          + f"; phase 65 took {time.perf_counter() - t_phase:.1f} s")
+    return {f"bench --{name.replace('_', '-')}": c
+            for name, c in counts.items()}
+
+
 def main() -> int:
     # One card: with more visible, a job's default mesh would be every
     # card (``core/meshes.py::default_devices``) and phases 1-47 would
@@ -5458,14 +5601,15 @@ def main() -> int:
     # -- 63. the lint verb ----------------------------------------------------
     lint_phase(card)
 
-    # -- 64. the benchmark harness's configs ------------------------------------
+    # -- 64-65. the benchmark harness's configs and subsystem rows ----------
     with tempfile.TemporaryDirectory() as tmp:
         bench_paths, bench_shapes = bench_phase(card, tmp)
+        bench_paths.update(bench_rows_phase(card, tmp))
     new_paths.update(bench_paths)
     tile_shapes.update(bench_shapes)
 
-    # -- 65. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-64 took "
+    # -- 66. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-65 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",

@@ -207,13 +207,20 @@ def test_unported_flags_exit_2_naming_themselves(flag, capsys):
 
 def test_unported_flags_are_every_other_bench_flag():
     """Every flag bench.py's main reads is ported (``--trend``,
-    ``--telemetry-dir``) or refused with exit 2."""
+    ``--telemetry-dir``, the subsystem rows and the two standalone modes)
+    or refused with exit 2: the multichip rows and the chaos soak."""
     import re
 
     with open(os.path.join(REPO, "bench.py")) as f:
         flags = set(re.findall(r'"(--[a-z-]+)" in sys\.argv', f.read()))
     flags |= {"--telemetry-dir"}
-    assert flags == set(bt.UNPORTED) | {"--trend", "--telemetry-dir"}
+    ported = set(bt.ROW_FLAGS) | set(bt.STANDALONE_FLAGS)
+    assert not ported & set(bt.UNPORTED)
+    assert flags == set(bt.UNPORTED) | ported | {"--trend",
+                                                 "--telemetry-dir"}
+    assert set(bt.UNPORTED) == {"--multichip", "--multichip-only",
+                                "--multichip-child", "--chaos",
+                                "--chaos-soak"}
 
 
 def test_main_without_a_card_raises_before_any_work(tmp_path, monkeypatch):

@@ -254,11 +254,19 @@ def test_the_port_s_history_holds_card_and_cpu_records_only():
     assert history, "the port's history holds no record"
     backends = {h["run"].get("backend") for h in history}
     assert backends <= {"cuda", "cpu"}, backends
+    # The default headline's keys and those of the ported rows (each
+    # flag's keys as bench.py's main writes them).
+    from test_torch_bench_rows import FLAG_ROWS, jax_headline_keys
+
+    with open(os.path.join(REPO, "bench.py")) as f:
+        src = f.read()
+    keys = set(__import__("bench_torch").HEADLINE_KEYS) | {"trend_ok"}
+    for flag in FLAG_ROWS:
+        keys |= jax_headline_keys((src, ast.parse(src)), flag)
     for h in history:
         if h["run"]["backend"] == "cuda":
             assert " W" in h["run"]["card"], h["run"]
-            assert set(h["metrics"]) <= set(__import__(
-                "bench_torch").HEADLINE_KEYS) | {"trend_ok"}
+            assert set(h["metrics"]) <= keys, set(h["metrics"]) - keys
     report = trend.check_and_count(path)
     assert report["ok"], report["regressions"]
 
