@@ -73,8 +73,21 @@ headline keys and ``*_ok`` gates:
 - ``--sketch-serve`` — the corrected sketch model fitted and served at
   10,000 x 65,536 with every dense N x N site rigged to raise.
 
-The multichip rows and ``--chaos`` / ``--chaos-soak`` are not ported:
-they exit 2, naming their ROADMAP Queue 1 item.
+The multichip row and the chaos runs:
+
+    python3 bench_torch.py --multichip-only   # alone; exit 1 unless ok
+    python3 bench_torch.py --chaos --chaos-soak --multichip   # + sweep
+
+- ``--multichip`` / ``--multichip-only`` — the tile2d gram over every
+  local card (two or more), else over 8 virtual slots of one card in a
+  ``--multichip-child`` subprocess: one slot against the mesh's gather
+  and ring transports (ring bitwise gather), the gather's all-gather
+  timed alone, and the row-split solve stages at 102,400 x 96.
+- ``--chaos`` — config 1's streamed job rerun under three armed faults;
+  its coordinates must be bitwise the clean run's.
+- ``--chaos-soak`` — the port's seeded chaos soak
+  (``spark_examples_tpu_torch/tools/soak.py``), 25 iterations with
+  supervised kill rounds.
 """
 
 from __future__ import annotations
@@ -117,17 +130,18 @@ DETAIL_PATH = os.path.join(REPO, "BENCH_TORCH_DETAIL.json")
 SYN = dict(n_samples=N_SAMPLES, n_variants=N_VARIANTS, n_populations=5,
            fst=0.1, missing_rate=0.01, seed=42)
 
-# bench.py's flags not ported yet and the ROADMAP Queue 1 item that
-# ports each: the multichip rows and the chaos soak.
-UNPORTED = {
-    "--multichip": 3, "--multichip-only": 3, "--multichip-child": 3,
-    "--chaos": 4, "--chaos-soak": 4,
-}
 # The subsystem rows the default sweep adds, in the JAX bench's order,
-# and the two standalone modes (each its own run and headline).
+# the chaos runs and the multichip row it adds after them, and the
+# standalone modes (each its own run and headline).
 ROW_FLAGS = ("--serve", "--fleet", "--controller", "--neighbors", "--store",
              "--kernels")
+CHAOS_FLAGS = ("--chaos", "--chaos-soak")
+MULTICHIP_FLAGS = ("--multichip", "--multichip-only", "--multichip-child")
 STANDALONE_FLAGS = ("--neighbors-only", "--sketch-serve")
+# CUDA_VISIBLE_DEVICES as the caller set it (None: unset), before main
+# pins the sweep to one card: the multichip child sees what the caller
+# saw.
+_VISIBLE_AT_START = os.environ.get("CUDA_VISIBLE_DEVICES")
 
 # The default headline's keys (bench.py's), and the trend gate's.
 HEADLINE_KEYS = (
@@ -2111,6 +2125,343 @@ def bench_sketch_serve(n: int = SKETCH_SERVE_N, nv: int = SKETCH_SERVE_V,
     return out
 
 
+# ------------------------------------------------------------ multichip
+
+MULTICHIP_CARD = (10_240, 8192, 4)  # samples, variants a block, blocks
+MULTICHIP_CPU = (4096, 1024, 2)
+MULTICHIP_SOLVE = (102_400, 96)  # the sketch solve's (n, rank)
+MULTICHIP_SLOTS = 8  # virtual slots on one card: a (2, 4) mesh
+MULTICHIP_REPS = 2
+# The scaling floor of multichip_ok: each slot on a card of its own must
+# not lose wall-clock; slots that share one card (the same compute behind
+# every slot) must stay within noise of parity, the JAX bench's rule for
+# its virtual CPU mesh.
+MULTICHIP_FLOOR = {"cards": 1.0, "virtual": 0.85}
+
+
+def multichip_k1_launches(n_slots: int, n_blocks: int,
+                          reps: int = MULTICHIP_REPS) -> dict:
+    """K1 launches of one multichip measure on the card: each plan runs a
+    warm pass and ``reps`` timed passes of ``n_blocks`` blocks; one launch
+    a block on one slot, one a tile (D tiles) under gather, D a tile
+    under ring."""
+    updates = (1 + reps) * n_blocks
+    return {"d1": updates, "gather": updates * n_slots,
+            "ring": updates * n_slots * n_slots}
+
+
+def multichip_slots(device) -> tuple[list, str]:
+    """The multichip row's slots: every local card when the host shows
+    two or more, else ``MULTICHIP_SLOTS`` virtual slots of ``device``
+    (``core/virtual.py``). Returns ``(devices, "cards" | "virtual")``."""
+    from spark_examples_tpu_torch.core import virtual
+
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        return ([torch.device("cuda", k)
+                 for k in range(torch.cuda.device_count())], "cards")
+    return virtual.virtual_devices(MULTICHIP_SLOTS, device), "virtual"
+
+
+def multichip_blocks(n: int, v_blk: int, n_blocks: int) -> list:
+    """The row's host blocks, 2-bit packed: the JAX bench's draw
+    (``default_rng(11)``, dosages 0-2, 1 % missing)."""
+    from spark_examples_tpu_torch.ingest import bitpack
+
+    rng = np.random.default_rng(11)
+    g = rng.integers(0, 3, size=(n, v_blk * n_blocks), dtype=np.int8)
+    g[rng.random(g.shape) < 0.01] = -1
+    return [torch.from_numpy(bitpack.pack_dosages(g[:, s:s + v_blk]))
+            for s in range(0, g.shape[1], v_blk)]
+
+
+def _multichip_measure(device: str | None = None, shape=None,
+                       solve_shape=None,
+                       reps: int = MULTICHIP_REPS) -> dict:
+    """The measured multichip row (``bench.py``'s ``_multichip_measure``):
+    the tile2d sharded gram (host-fed packed blocks, both transports, K1
+    per tile on the card) against the same workload on ONE slot, and the
+    row-split solve stages (``solvers/solve.stage_runtimes``) at the
+    100k sketch shape on the mesh and on one slot.
+
+    ``device``: default :data:`DEVICE`. ``shape``: ``(n, block
+    variants, blocks)``, default 10,240 x 8,192 x 4 on the card and
+    4,096 x 1,024 x 2 on the CPU (the JAX bench's); ``solve_shape``:
+    ``(n, rank)``, default :data:`MULTICHIP_SOLVE`.
+    The record's keys are the JAX bench's, plus ``slots`` (``cards`` or
+    ``virtual``), ``n_slots``, ``device`` and the K1 launches by pass.
+    ``ring_identical``: the ring's and the gather's int32 accumulators
+    compared exactly. ``overlap_frac``: 1 - (the gather transport's
+    all-gather timed alone per block) / (the ring pass's wall); on
+    virtual slots no byte crosses between devices, so it reads near 1."""
+    from spark_examples_tpu_torch.core import meshes, telemetry
+    from spark_examples_tpu_torch.core.device import resolve_device
+    from spark_examples_tpu_torch.ops import gram as gram_ops
+    from spark_examples_tpu_torch.parallel import gram_sharded
+    from spark_examples_tpu_torch.solvers import solve as solve_mod
+
+    dev = resolve_device(DEVICE if device is None else device)
+    devices, kind = multichip_slots(dev)
+    mesh = meshes.make_mesh(devices)
+    if shape is None:
+        shape = MULTICHIP_CPU if dev.type == "cpu" else MULTICHIP_CARD
+    n, v_blk, n_blocks = shape
+    solve_n, solve_rank = solve_shape or MULTICHIP_SOLVE
+    metric = METRIC
+    lowering = gram_ops.resolve_gram_lowering("auto", True, dev, metric)
+    log(f"multichip: {mesh.describe()}, {n}x{v_blk}x{n_blocks} {metric} "
+        f"gram, {lowering} lowering")
+
+    pblocks = multichip_blocks(n, v_blk, n_blocks)
+    plan8 = gram_sharded.GramPlan(mesh, "tile2d")
+    plan1 = gram_sharded.GramPlan(meshes.make_mesh(devices[:1]),
+                                  "replicated")
+
+    def host(acc):
+        return {k: (v.full("cpu") if isinstance(v, meshes.Tiled)
+                    else v.cpu()).numpy() for k, v in acc.items()}
+
+    def timed_pass(plan, transport):
+        upd = gram_sharded.make_update(plan, metric, packed=True,
+                                       transport=transport,
+                                       lowering=lowering)
+        k1_0 = packed_gram.launches
+        acc = gram_sharded.init_sharded(plan, n, metric)
+        for pb in pblocks:  # warm at the real shapes
+            acc = upd(acc, pb)
+        hard_sync(acc)
+        best = float("inf")
+        for _ in range(reps):
+            acc = gram_sharded.init_sharded(plan, n, metric)
+            t0 = time.perf_counter()
+            for pb in pblocks:
+                acc = upd(acc, pb)
+            hard_sync(acc)
+            best = min(best, time.perf_counter() - t0)
+        return best, host(acc), packed_gram.launches - k1_0
+
+    launches = {}
+    wall_d1, _, launches["d1"] = timed_pass(plan1, "gather")
+    torch.cuda.empty_cache()
+    wall_gather, acc_gather, launches["gather"] = timed_pass(plan8, "gather")
+    steps0 = telemetry.counter_value("gram.ring_steps")
+    wall_ring, acc_ring, launches["ring"] = timed_pass(plan8, "ring")
+    ring_steps = telemetry.counter_value("gram.ring_steps") - steps0
+    ring_identical = all(np.array_equal(acc_gather[k], acc_ring[k])
+                         for k in acc_gather)
+    del acc_gather, acc_ring
+    torch.cuda.empty_cache()
+
+    # The gather transport's all-gather alone, at the block cadence, on
+    # blocks as the feed hands them over (on the home slot's device).
+    probe = gram_sharded.make_gather_probe(plan8, n, pblocks[0].shape[1],
+                                           packed=True)
+    dev_blocks = [pb.to(mesh.home) for pb in pblocks]
+    hard_sync((probe(dev_blocks[0]), dev_blocks))  # warm, once
+    gather_wait = 0.0
+    for blk in dev_blocks:
+        t0 = time.perf_counter()
+        hard_sync(probe(blk))
+        dt = time.perf_counter() - t0
+        telemetry.observe("gram.gather_wait_s", dt)
+        gather_wait += dt
+    del dev_blocks
+    overlap_frac = max(0.0, min(1.0, 1.0 - gather_wait / max(wall_ring,
+                                                             1e-9)))
+    telemetry.gauge_set("gram.overlap_frac", overlap_frac)
+
+    auto = gram_sharded.resolve_transport(plan8, "auto")
+    best_transport = "ring" if wall_ring <= wall_gather else "gather"
+    wall_mesh = min(wall_ring, wall_gather)
+    dense_bytes = float(n) * v_blk * n_blocks  # decoded-equivalent int8
+    gram_mb_s = dense_bytes / wall_mesh / 1e6
+    scaling = wall_d1 / wall_mesh
+    log(f"multichip gram: d1 {wall_d1:.3f}s, {mesh.size} {kind} slots "
+        f"gather {wall_gather:.3f}s / ring {wall_ring:.3f}s (identical="
+        f"{ring_identical}), scaling {scaling:.3f}x, {gram_mb_s:.0f} MB/s "
+        f"dense-equivalent, gather-wait {gather_wait * 1e3:.2f} ms -> "
+        f"overlap {overlap_frac:.4f}; K1 {launches}")
+
+    solve_mesh = solve_mod.stage_runtimes(solve_n, solve_rank, plan8, k=K,
+                                          repeats=2)
+    solve_d1 = solve_mod.stage_runtimes(solve_n, solve_rank, plan1, k=K,
+                                        repeats=2)
+    log(f"multichip solve (N={solve_n}, r={solve_rank}): mesh "
+        + json.dumps({k: round(v, 4) for k, v in solve_mesh.items()})
+        + " vs d1 "
+        + json.dumps({k: round(v, 4) for k, v in solve_d1.items()}))
+    return {
+        "backend": dev.type,
+        "device": torch.cuda.get_device_name(0) if dev.type == "cuda"
+        else host_cpu(),
+        "slots": kind,
+        "n_slots": mesh.size,
+        "n_devices": mesh.size,
+        "n_physical": len(mesh.physical),
+        "mesh": list(mesh.shape),
+        "n_samples": n,
+        "block_variants": v_blk,
+        "n_blocks": n_blocks,
+        "metric": metric,
+        "lowering": lowering,
+        "gram_wall_d1_s": round(wall_d1, 4),
+        "gram_wall_gather_s": round(wall_gather, 4),
+        "gram_wall_ring_s": round(wall_ring, 4),
+        "transport_best": best_transport,
+        "transport_auto": auto,
+        "ring_identical": bool(ring_identical),
+        "ring_steps": int(ring_steps),
+        "k1_launches": launches,
+        "gram_mb_s": round(gram_mb_s, 1),
+        "scaling_d8_vs_d1": round(scaling, 4),
+        "gather_wait_s": round(gather_wait, 6),
+        "overlap_frac": round(overlap_frac, 4),
+        "solve_n100k": {
+            "n": solve_n, "rank": solve_rank,
+            "mesh": {k: round(v, 4) for k, v in solve_mesh.items()},
+            "d1": {k: round(v, 4) for k, v in solve_d1.items()},
+            "mesh_total_s": round(sum(solve_mesh.values()), 4),
+        },
+        "note": (
+            "measured sharded path: tile2d over every local card when "
+            "there are two or more, else over 8 virtual slots of one "
+            "device (the same compute behind every slot: the route, not "
+            "scaling); overlap_frac from the gather transport's "
+            "all-gather timed alone per block against the ring pass"
+        ),
+    }
+
+
+def bench_multichip() -> dict:
+    """``--multichip``: the measured multichip row on :data:`DEVICE`. In
+    process when this process sees two or more cards; otherwise
+    ``bench_torch.py --multichip-child`` measures in a subprocess with
+    the caller's card visibility (this process may have pinned itself to
+    one card): over every card it sees, or over 8 virtual slots of
+    ``cuda:0``. The child prints one JSON line, the record."""
+    if (torch.device(DEVICE).type == "cuda"
+            and torch.cuda.device_count() >= 2):
+        return _multichip_measure()
+    log("multichip: one card in this process -> bench_torch.py "
+        "--multichip-child")
+    env = dict(os.environ)
+    if _VISIBLE_AT_START is None:
+        env.pop("CUDA_VISIBLE_DEVICES", None)
+    else:
+        env["CUDA_VISIBLE_DEVICES"] = _VISIBLE_AT_START
+    cmd = [sys.executable, os.path.abspath(__file__), "--multichip-child"]
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=3000,
+                       env=env, cwd=REPO)
+    for line in p.stderr.splitlines():
+        log(f"  [child] {line}")
+    if p.returncode != 0:
+        raise RuntimeError(f"multichip child failed rc={p.returncode}: "
+                           f"{p.stderr[-2000:]}")
+    return json.loads([ln for ln in p.stdout.splitlines() if ln.strip()][-1])
+
+
+def _multichip_headline(mc: dict) -> dict:
+    """The multichip row's headline keys (the JAX bench's), in
+    ``--multichip`` and ``--multichip-only`` alike. ``multichip_ok``:
+    the ring bitwise the gather, and the slots not losing wall-clock
+    against one slot, at :data:`MULTICHIP_FLOOR` (1.0 where each slot is
+    a card of its own, 0.85 where the slots share one)."""
+    floor = MULTICHIP_FLOOR[mc["slots"]]
+    return {
+        "metric": "multichip_" + mc["metric"] + "_gram",
+        "multichip_gram_mb_s": mc["gram_mb_s"],
+        "multichip_scaling_d8_vs_d1": mc["scaling_d8_vs_d1"],
+        "multichip_overlap_frac": mc["overlap_frac"],
+        "multichip_solve_n100k_s": mc["solve_n100k"]["mesh_total_s"],
+        "multichip_ok": bool(mc["ring_identical"]
+                             and mc["scaling_d8_vs_d1"] >= floor),
+    }
+
+
+# ----------------------------------------------------------------- chaos
+
+CHAOS_SPECS = (
+    "ingest.block_read:io_error:after=3:max=2",
+    "device.put:delay:delay=0.05:after=5:max=3",
+    "multihost.consensus:delay:delay=0.05:max=2",  # several processes only
+)
+CHAOS_SOAK = dict(iterations=25, seed=20260803, include_kill=True)
+
+
+def chaos_streamed(store: str, want_coords: np.ndarray, block: int = BLOCK,
+                   k: int = K, device: str = DEVICE) -> dict:
+    """``--chaos``: the config-1 streamed job rerun with faults armed at
+    the sites its path crosses (the JAX bench's three specs, seed 7): the
+    retry layer absorbs the injected ingest errors, the feed the injected
+    transfer delays, and the coordinates must equal the clean streamed
+    run's bit for bit (integer gram, deterministic dense solve)."""
+    from spark_examples_tpu_torch.core import faults
+    from spark_examples_tpu_torch.pipelines.jobs import pcoa_job
+
+    job = _config1_job(store, block, k, device)
+    k1_0 = packed_gram.launches
+    with faults.armed(list(CHAOS_SPECS), seed=7) as inj:
+        t0 = time.perf_counter()
+        out = pcoa_job(job)
+        total_s = time.perf_counter() - t0
+        fires = {s.split(":")[0]: inj.fire_count(s.split(":")[0])
+                 for s in CHAOS_SPECS}
+    want = np.asarray(want_coords)
+    identical = bool(np.array_equal(out.coords, want))
+    maxdiff = float(np.max(np.abs(out.coords - want)))
+    k1 = packed_gram.launches - k1_0
+    log(f"chaos streamed run: {total_s:.2f}s with fires {fires}; "
+        f"bit-identical to clean = {identical} (max |diff| {maxdiff:.3g}); "
+        f"K1 {k1}")
+    return {"total_s": round(total_s, 3), "fires": fires,
+            "coords_bit_identical": identical,
+            "coords_max_abs_diff": maxdiff, "specs": list(CHAOS_SPECS),
+            "k1_launches": k1}
+
+
+def bench_chaos_soak(cache: str = CACHE, device: str = DEVICE,
+                     **overrides) -> dict:
+    """``--chaos-soak``: the port's seeded fault schedule
+    (``spark_examples_tpu_torch/tools/soak.py``), 25 iterations with
+    supervised kill rounds, seed 20260803, on ``device``. The workdir
+    ``<cache>/chaos_soak`` is removed when the soak is clean and kept on a
+    violation, so the ``SOAK-REPRO`` line has its fixture."""
+    from spark_examples_tpu_torch.tools.soak import SoakConfig, run_soak
+
+    workdir = os.path.join(cache, "chaos_soak")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    report = run_soak(SoakConfig(workdir=workdir, device=device,
+                                 **{**CHAOS_SOAK, **overrides}))
+    if report.ok:
+        shutil.rmtree(workdir, ignore_errors=True)
+    d = report.to_json()
+    d["soak_s"] = round(time.perf_counter() - t0, 1)
+    log(f"chaos soak: {d['iterations']} iterations in {d['soak_s']}s — "
+        f"ok={d['ok']} healed={d['healed']} retries={d['retries']} "
+        f"faults_fired={d['faults_fired']}")
+    for line in d["violations"]:
+        log(line)
+    return d
+
+
+def chaos_headline(configs: dict) -> dict:
+    """The chaos keys of the headline (the JAX bench's)."""
+    out = {}
+    if "chaos" in configs:
+        out["chaos_ok"] = configs["chaos"].get("coords_bit_identical",
+                                               False)
+    soak = configs.get("chaos_soak")
+    if soak is not None and "error" not in soak:
+        out["chaos_soak_ok"] = bool(soak["ok"])
+        out["chaos_soak_iterations"] = soak["iterations"]
+        out["chaos_soak_healed"] = soak["healed"]
+        out["chaos_soak_faults_fired"] = soak["faults_fired"]
+        if soak["violations"]:
+            out["chaos_soak_repro"] = soak["violations"][0]
+    return out
+
+
 def separation(coords: np.ndarray, pops: np.ndarray) -> float:
     """Between-centroid over within-population distance in the first 4
     coordinates."""
@@ -2313,6 +2664,11 @@ def add_rows(headline: dict, configs: dict) -> dict:
             and st["store_hit_vs_cold_parse"] >= 3.0
             and st["compact_deterministic_w4_vs_w1"]
         )
+    if (mc := row("multichip")) is not None:
+        headline.update(_multichip_headline(mc))
+        # The sweep keeps its own metric name; the multichip keys ride
+        # along as fields.
+        headline["metric"] = "ibs_pcoa_chip_2504x1M"
     if (kr := row("kernels")) is not None:
         per = kr["per_kernel"]
         # A highlight pair by name; every other kernel gates through the
@@ -2449,6 +2805,9 @@ def default_sweep(args) -> tuple[str, dict, dict]:
                 f"benchmark {name} output failed structure-recovery check")
     headline = add_lint(make_headline(streamed, staged, base, tunnel,
                                       configs))
+    # The clean streamed coordinates, for --chaos (popped by main before
+    # the record is written).
+    configs["_streamed_coords"] = streamed["coords"]
     return store, headline, configs
 
 
@@ -2465,13 +2824,6 @@ def run_row(configs: dict, name: str, fn, *fargs) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in UNPORTED:
-            log(f"bench_torch: {flag} is not ported yet (ROADMAP Queue 1 "
-                f"item {UNPORTED[flag]}); bench.py's flag runs only the "
-                "JAX package")
-            return 2
     ap = argparse.ArgumentParser(
         prog="bench_torch.py",
         description="the port's benchmark sweep on one NVIDIA GPU")
@@ -2485,15 +2837,33 @@ def main(argv: list[str] | None = None) -> int:
     for flag in ROW_FLAGS:
         ap.add_argument(flag, action="store_true",
                         help=f"add the {flag[2:]} row to the sweep")
-    for flag in STANDALONE_FLAGS:
-        ap.add_argument(flag, action="store_true",
-                        help=f"run the {flag[2:]} row alone (its own "
-                        "headline; exit 1 unless its gate holds)")
+    alone = ("run the {} row alone (its own headline; exit 1 unless its "
+             "gate holds)")
+    flag_help = {
+        "--chaos": "rerun config 1's streamed job under armed faults "
+        "(coordinates bitwise the clean run's)",
+        "--chaos-soak": "add the 25-iteration chaos soak, kill rounds "
+        "included",
+        "--multichip": "add the multichip row after the sweep",
+        "--multichip-only": alone.format("multichip"),
+        # bench_multichip's subprocess.
+        "--multichip-child": argparse.SUPPRESS,
+        **{flag: alone.format(flag[2:]) for flag in STANDALONE_FLAGS},
+    }
+    for flag in CHAOS_FLAGS + MULTICHIP_FLAGS + STANDALONE_FLAGS:
+        ap.add_argument(flag, action="store_true", help=flag_help[flag])
     args = ap.parse_args(argv)
 
-    # One card: with more visible, a job's default mesh would be every
-    # card (core/meshes.py::default_devices).
-    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
+    if args.multichip_child:
+        # bench_multichip's subprocess: measure, print one JSON line.
+        print(json.dumps(_multichip_measure()))
+        return 0
+
+    if not args.multichip_only:
+        # One card: with more visible, a job's default mesh would be every
+        # card (core/meshes.py::default_devices). The multichip row sees
+        # every card (bench_multichip).
+        os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     from spark_examples_tpu_torch.core.device import resolve_device
     from spark_examples_tpu_torch.tools import trend as trend_mod
 
@@ -2502,6 +2872,9 @@ def main(argv: list[str] | None = None) -> int:
     log(f"card: {run_meta['card']} | {run_meta['device']} | torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    if args.multichip_only:
+        return standalone("multichip", bench_multichip, _multichip_headline,
+                          "multichip_ok", argv, run_meta)
     if args.neighbors_only:
         return standalone("neighbors", bench_neighbors, neighbors_headline,
                           "neighbors_ok", argv, run_meta)
@@ -2511,6 +2884,11 @@ def main(argv: list[str] | None = None) -> int:
                           run_meta)
 
     store, headline, configs = default_sweep(args)
+    clean_coords = configs.pop("_streamed_coords", None)
+    if args.chaos:
+        run_row(configs, "chaos", chaos_streamed, store, clean_coords)
+    if args.chaos_soak:
+        run_row(configs, "chaos_soak", bench_chaos_soak)
     rows = {"serve": (bench_serve, (store,)), "fleet": (bench_fleet, ()),
             "controller": (bench_controller, ()),
             "neighbors": (bench_neighbors, ()),
@@ -2521,6 +2899,9 @@ def main(argv: list[str] | None = None) -> int:
         if getattr(args, name):
             fn, fargs = rows[name]
             run_row(configs, name, fn, *fargs)
+    if args.multichip:
+        run_row(configs, "multichip", bench_multichip)
+    headline.update(chaos_headline(configs))
     add_rows(headline, configs)
 
     trend_report = None

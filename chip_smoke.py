@@ -421,7 +421,26 @@ Phases (any failure exits non-zero; none is caught and ignored):
     equal the worked-out value and K2's be 0; the speed gates
     (``kernel_fused_ok``, the hedge, ``store_ok``, ``controller_ok``)
     are printed beside the card line, not enforced.
-66. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+66. The sketch ladder over the mesh (``mesh_sketch_phase``): corrected
+    grm (the factor sketch) and corrected ibs (the dual sketch) at
+    Quickstart width on 2 x 2 virtual slots of the card against one
+    slot: eigenvalues within 1e-5 relative, the top 4 coordinate columns
+    within 5e-4 of their scale up to sign (the tests' tolerances), no
+    K1; a corrected grm run killed 6 blocks into pass 1 on the mesh and
+    resumed, bitwise the uninterrupted mesh run; ``stage_runtimes`` at
+    102,400 x 96 on the plan and on None.
+67. ``bench_torch.py --multichip-only`` in a subprocess
+    (``multichip_phase``; its child over 8 virtual slots of the card):
+    the ring bitwise the gather, K1's launches as worked out
+    (``bench_torch.multichip_k1_launches``: 12 / 96 / 768), the JAX
+    headline's keys; a scaling under the floor is printed, not failed.
+    Its headline goes to a history file in the phase's temporary
+    directory, never to the checkout's.
+68. ``--chaos`` on the phase 64 cohort (bitwise the clean streamed run;
+    K1 one a block), one shuffled pass of the soak's in-process
+    scenarios on the card (seed 7, no kill rounds) and one supervised
+    kill round (``chaos_phase``); any SOAK-REPRO line fails.
+69. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -5146,6 +5165,279 @@ def bench_rows_phase(card: str, tmp: str) -> dict:
             for name, c in counts.items()}
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# Phase 66: the sketch ladder over 2 x 2 virtual slots of the card against
+# one slot, at Quickstart width. The tolerances are the tests' (tests/
+# test_torch_sketch_mesh.py): slot-order sums differ from one slot's by
+# rounding only.
+MESH_SKETCH_SHAPE = (2, 2)
+MESH_SKETCH_EIG_RTOL = 1e-5
+MESH_SKETCH_COORD_TOL = 5e-4
+MESH_SKETCH_KILL_IN_PASS1 = 6
+MESH_STAGE_SHAPE = (102_400, 96)
+
+
+def mesh_sketch_phase(card: str, cohort: np.ndarray) -> dict:
+    """Phase 66: corrected grm (factor sketch) and corrected ibs (dual
+    sketch) jobs at Quickstart width on 2 x 2 virtual slots of the card
+    against one slot; a kill and resume on the mesh, bitwise; the solve
+    stages timed on the plan and on None. Returns the launches by
+    path."""
+    import torch
+
+    from spark_examples_tpu_torch.core import virtual
+    from spark_examples_tpu_torch.core.config import (
+        ComputeConfig,
+        IngestConfig,
+        JobConfig,
+    )
+    from spark_examples_tpu_torch.ingest.source import ArraySource
+    from spark_examples_tpu_torch.ops import braycurtis_kernel, packed_gram
+    from spark_examples_tpu_torch.parallel.gram_sharded import GramPlan
+    from spark_examples_tpu_torch.pipelines import jobs
+    from spark_examples_tpu_torch.solvers import driver, solve
+
+    t_phase = time.perf_counter()
+    pops = _quickstart_populations()
+
+    def job(metric, mesh, **compute):
+        return JobConfig(
+            ingest=IngestConfig(block_variants=BLOCK_VARIANTS),
+            compute=ComputeConfig(metric=metric, num_pc=NUM_PC,
+                                  solver="corrected", device=DEVICE,
+                                  mesh_shape=MESH_SKETCH_SHAPE if mesh
+                                  else None, **compute))
+
+    def run(cfg, mesh, source=None):
+        packed_gram.launches = braycurtis_kernel.launches = 0
+        t0 = time.perf_counter()
+        with (virtual.virtual_slots(4) if mesh
+              else contextlib.nullcontext()):
+            out = jobs.pcoa_job(cfg, source=source or ArraySource(cohort))
+        wall = time.perf_counter() - t0
+        return out, wall, {"packed_gram": packed_gram.launches,
+                           "braycurtis": braycurtis_kernel.launches}
+
+    paths, lines = {}, []
+    with virtual.virtual_slots(4):
+        plan = driver.sketch_plan(job("grm", True))
+    if (plan.mode, plan.mesh.size) != ("variant", 4):
+        fail(f"sketch_plan on 2 x 2 virtual slots: {plan.mode} over "
+             f"{plan.mesh.size} slot(s)")
+    # graftlint: disable=registry-literal  # one factor-sketch and one dual-sketch metric, the two sketch routes phase 66 drives, not an enumeration
+    for metric in ("grm", "ibs"):
+        one, one_wall, _ = run(job(metric, False), False)
+        mesh, mesh_wall, counts = run(job(metric, True), True)
+        rel = relerr(mesh.eigenvalues, one.eigenvalues).max()
+        if not rel < MESH_SKETCH_EIG_RTOL:
+            fail(f"corrected {metric} on 2 x 2 slots: eigenvalues "
+                 f"{rel:.3g} from one slot's (rtol {MESH_SKETCH_EIG_RTOL})")
+        worst = same_columns(mesh.coords, one.coords, NUM_POP_PCS,
+                             MESH_SKETCH_COORD_TOL)
+        sep = separation(mesh.coords, pops)
+        if counts["packed_gram"] or not sep >= SEPARATION_MIN:
+            fail(f"corrected {metric} on 2 x 2 slots: launches {counts}, "
+                 f"PC1-2 separation {sep:.3f}")
+        paths[f"pcoa {metric} corrected 2x2 virtual"] = counts
+        lines.append(f"{metric}: wall {mesh_wall:.3f} s (one slot "
+                     f"{one_wall:.3f} s), eigenvalues {rel:.3g} relative, "
+                     f"top-{NUM_POP_PCS} columns {worst:.3g} of scale, "
+                     f"separation {sep:.2f}")
+    with tempfile.TemporaryDirectory() as ck:
+        killed = job("grm", True, sketch_iters=1, checkpoint_dir=ck,
+                     checkpoint_every_blocks=CKPT_EVERY_BLOCKS)
+        per_pass = math.ceil(cohort.shape[1] / BLOCK_VARIANTS)
+        try:
+            run(killed, True, DyingSource(
+                ArraySource(cohort), per_pass + MESH_SKETCH_KILL_IN_PASS1))
+        except RuntimeError as e:
+            if "simulated preemption" not in str(e):
+                raise
+        else:
+            fail("the dying source did not stop the corrected mesh run")
+        cursor = manifest_cursor(ck)
+        resumed, _, _ = run(job("grm", True, sketch_iters=1,
+                                checkpoint_dir=ck), True)
+    clean, _, _ = run(job("grm", True, sketch_iters=1), True)
+    if not (np.array_equal(resumed.coords, clean.coords)
+            and np.array_equal(resumed.eigenvalues, clean.eigenvalues)):
+        fail("the resumed corrected mesh run differs from the "
+             "uninterrupted one")
+    with virtual.virtual_slots(4):
+        plan = driver.sketch_plan(job("grm", True))
+    stages = {"plan": solve.stage_runtimes(*MESH_STAGE_SHAPE, plan,
+                                           k=NUM_PC, repeats=2),
+              "none": solve.stage_runtimes(*MESH_STAGE_SHAPE, None,
+                                           k=NUM_PC, repeats=2,
+                                           device=DEVICE)}
+    if not all(v > 0 for s in stages.values() for v in s.values()):
+        fail(f"stage_runtimes: {stages}")
+    torch.cuda.empty_cache()
+    print(f"sketch over 2 x 2 virtual slots of the card, corrected, "
+          f"{cohort.shape[0]} x {cohort.shape[1]} [{card}]: "
+          + "; ".join(lines)
+          + f"; killed {MESH_SKETCH_KILL_IN_PASS1} blocks into pass 1, "
+          f"resumed from variant {cursor} bitwise; stage_runtimes at "
+          f"{MESH_STAGE_SHAPE} (s) "
+          + json.dumps({k: {n: round(v, 5) for n, v in s.items()}
+                        for k, s in stages.items()})
+          + f"; phase 66 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def _quickstart_populations() -> np.ndarray:
+    from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+
+    return SyntheticSource(n_samples=N_SAMPLES,
+                           n_variants=N_VARIANTS).populations
+
+
+def quickstart_cohort() -> np.ndarray:
+    """The Quickstart cohort (2504 x 100,000 int8), drawn once."""
+    from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+
+    src = SyntheticSource(n_samples=N_SAMPLES, n_variants=N_VARIANTS)
+    return np.concatenate([b for b, _ in src.blocks(65_536)], axis=1)
+
+
+MULTICHIP_HEADLINE_KEYS = {"metric", "multichip_gram_mb_s",
+                           "multichip_scaling_d8_vs_d1",
+                           "multichip_overlap_frac",
+                           "multichip_solve_n100k_s", "multichip_ok"}
+MULTICHIP_TIMEOUT_S = 900
+
+
+def multichip_phase(card: str, tmp: str) -> dict:
+    """Phase 67: ``bench_torch.py --multichip-only`` in a subprocess (its
+    ``--multichip-child`` over 8 virtual slots of the card), its history
+    file pointed into ``tmp`` so that no tracked file of the checkout is
+    written, even if the run is cut. Fails on a ring that differs from
+    the gather, a K1 count other than the one worked out, or a missing
+    key; a scaling under the floor is a result, printed with the card
+    line. Returns K1's launches by pass."""
+    import bench_torch as bt
+
+    t_phase = time.perf_counter()
+    hist = os.path.join(tmp, "multichip_history.jsonl")
+    run = ("import sys, bench_torch as bt; "
+           f"bt.HISTORY_PATH = {hist!r}; "
+           "sys.exit(bt.main(['--multichip-only']))")
+    p = subprocess.run([sys.executable, "-c", run], cwd=REPO,
+                       capture_output=True, text=True,
+                       timeout=MULTICHIP_TIMEOUT_S)
+    lines = [ln for ln in p.stdout.splitlines() if ln.strip()]
+    if p.returncode not in (0, 1) or len(lines) < 2:
+        fail(f"bench_torch.py --multichip-only exited {p.returncode}: "
+             f"{p.stderr[-3000:]}")
+    headline, full = json.loads(lines[-1]), json.loads(lines[-2])
+    mc = full["configs"]["multichip"]
+    if set(headline) != MULTICHIP_HEADLINE_KEYS:
+        fail(f"multichip headline keys {sorted(headline)}")
+    if not os.path.exists(hist):
+        fail("multichip: --multichip-only recorded no history line")
+    if p.returncode != (0 if headline["multichip_ok"] else 1):
+        fail(f"--multichip-only exited {p.returncode} with multichip_ok "
+             f"{headline['multichip_ok']}")
+    if not mc["ring_identical"]:
+        fail("multichip: the ring's accumulators differ from the gather's")
+    want = bt.multichip_k1_launches(mc["n_slots"], mc["n_blocks"])
+    if mc["k1_launches"] != want:
+        fail(f"multichip: K1 launches {mc['k1_launches']}, worked out "
+             f"{want}")
+    missing = [k for k in ("gram_wall_d1_s", "gram_wall_gather_s",
+                           "gram_wall_ring_s", "transport_best",
+                           "transport_auto", "ring_steps", "gram_mb_s",
+                           "scaling_d8_vs_d1", "gather_wait_s",
+                           "overlap_frac", "solve_n100k", "slots")
+               if k not in mc]
+    if missing:
+        fail(f"multichip record lacks {missing}")
+    print(f"multichip row [{card}]: {mc['n_slots']} {mc['slots']} slots "
+          f"{mc['mesh']}, {mc['n_samples']} x {mc['block_variants']} x "
+          f"{mc['n_blocks']}: d1 {mc['gram_wall_d1_s']} s, gather "
+          f"{mc['gram_wall_gather_s']} s, ring {mc['gram_wall_ring_s']} s "
+          f"(ring bitwise gather; best {mc['transport_best']}, auto "
+          f"{mc['transport_auto']}), scaling {mc['scaling_d8_vs_d1']} "
+          f"(floor {bt.MULTICHIP_FLOOR[mc['slots']]}: multichip_ok "
+          f"{headline['multichip_ok']}, a result), overlap "
+          f"{mc['overlap_frac']} (gather wait {mc['gather_wait_s']} s), "
+          f"{mc['gram_mb_s']} MB/s; solve at 102,400 x 96 (s) "
+          f"{json.dumps(mc['solve_n100k'])}; K1 {mc['k1_launches']} as "
+          f"worked out; ring steps {mc['ring_steps']}; phase 67 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {f"bench --multichip-only {name}": {"packed_gram": n,
+                                               "braycurtis": 0}
+            for name, n in mc["k1_launches"].items()}
+
+
+CHAOS_KILL_SCENARIO = 0  # KILL_SCENARIOS[0]: a kill at ingest.block_read
+
+
+def chaos_phase(card: str, tmp: str) -> dict:
+    """Phase 68: ``--chaos`` (config 1's streamed job under the three
+    armed faults, bitwise the clean run) on the phase 64 cohort, then one
+    shuffled pass of the soak's in-process scenarios (seed 7, no kill
+    rounds: the tier-1 smoke's schedule) and one supervised kill round,
+    on the card. Any SOAK-REPRO line fails. Returns the launches by
+    path."""
+    import torch
+
+    import bench_torch as bt
+    from spark_examples_tpu_torch.ops import braycurtis_kernel, packed_gram
+    from spark_examples_tpu_torch.tools import soak
+
+    t_phase = time.perf_counter()
+    store = bt.cohort_store(os.path.join(tmp, "bench_cache"),
+                            dict(bt.SYN, n_variants=BENCH_VARIANTS))
+    clean = bt.streamed_run(store)
+    packed_gram.launches = braycurtis_kernel.launches = 0
+    chaos = bt.chaos_streamed(store, clean["coords"])
+    counts = {"packed_gram": packed_gram.launches,
+              "braycurtis": braycurtis_kernel.launches}
+    blocks = BENCH_VARIANTS // bt.BLOCK
+    if not chaos["coords_bit_identical"]:
+        fail(f"--chaos: coordinates differ from the clean run's by "
+             f"{chaos['coords_max_abs_diff']}")
+    if counts != {"packed_gram": blocks, "braycurtis": 0} or \
+            chaos["fires"]["ingest.block_read"] != 2:
+        fail(f"--chaos: launches {counts} (expected {blocks}), fires "
+             f"{chaos['fires']}")
+    reports = {}
+    for name, cfg, table in (
+        ("smoke", soak.SoakConfig(
+            workdir=os.path.join(tmp, "soak_smoke"),
+            iterations=len(soak.SCENARIOS), seed=7, include_kill=False,
+            round_budget_s=120.0, device=DEVICE), None),
+        ("kill", soak.SoakConfig(
+            workdir=os.path.join(tmp, "soak_kill"), iterations=1, seed=7,
+            include_kill=True, device=DEVICE),
+         soak.KILL_SCENARIOS[CHAOS_KILL_SCENARIO:CHAOS_KILL_SCENARIO + 1]),
+    ):
+        t0 = time.perf_counter()
+        rep = soak.run_soak(cfg, scenarios=table)
+        reports[name] = (rep, time.perf_counter() - t0)
+        if not rep.ok or rep.iterations != cfg.iterations:
+            fail(f"soak {name}: {rep.iterations} round(s); "
+                 + " | ".join(rep.violations))
+    smoke, kill = reports["smoke"][0], reports["kill"][0]
+    if kill.restarts < 1 or smoke.healed < 1:
+        fail(f"soak: kill round restarts {kill.restarts}, smoke heals "
+             f"{smoke.healed}")
+    torch.cuda.empty_cache()
+    print(f"chaos [{card}]: --chaos on {N_SAMPLES} x {BENCH_VARIANTS} "
+          f"bitwise the clean streamed run in {chaos['total_s']} s (fires "
+          f"{chaos['fires']}, K1 {counts['packed_gram']}); soak smoke "
+          f"{smoke.iterations} rounds in {reports['smoke'][1]:.1f} s "
+          f"(healed {smoke.healed}, retries {smoke.retries}, faults fired "
+          f"{smoke.faults_fired}; slowest round "
+          f"{max(r['s'] for r in smoke.rounds)} s), kill round "
+          f"{kill.rounds[0]['spec']} in {reports['kill'][1]:.1f} s "
+          f"({kill.restarts} restart(s)); no SOAK-REPRO line; phase 68 "
+          f"took {time.perf_counter() - t_phase:.1f} s")
+    return {"bench --chaos": counts}
+
+
 def main() -> int:
     # One card: with more visible, a job's default mesh would be every
     # card (``core/meshes.py::default_devices``) and phases 1-47 would
@@ -5602,14 +5894,21 @@ def main() -> int:
     lint_phase(card)
 
     # -- 64-65. the benchmark harness's configs and subsystem rows ----------
+    # -- 66-68. the sketch over the mesh, the multichip row, the chaos runs -
     with tempfile.TemporaryDirectory() as tmp:
         bench_paths, bench_shapes = bench_phase(card, tmp)
         bench_paths.update(bench_rows_phase(card, tmp))
+        phases_t0 = time.perf_counter()
+        bench_paths.update(mesh_sketch_phase(card, quickstart_cohort()))
+        bench_paths.update(multichip_phase(card, tmp))
+        bench_paths.update(chaos_phase(card, tmp))
+        print(f"phases 66-68 took {time.perf_counter() - phases_t0:.1f} s "
+              f"[{card}]")
     new_paths.update(bench_paths)
     tile_shapes.update(bench_shapes)
 
-    # -- 66. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-65 took "
+    # -- 69. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-68 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",

@@ -25,7 +25,7 @@ slot recording the rank that owns it (:func:`process_mesh`); a rank
 holds only its own slots' tiles.
 
 The JAX layouts (``replicated``, ``tile2d``, ``rows_i``, ``rows_j``,
-``variants_flat``) are slot -> slice maps here: lists indexed by the flat
+``rows_flat``, ``variants_flat``) are slot -> slice maps here: lists indexed by the flat
 slot number.
 """
 
@@ -416,6 +416,17 @@ def rows_j(mesh: Mesh, n: int) -> list[slice]:
     """An (n, v) block's sample rows per slot, split over j."""
     rows = _spans(n, mesh.shape[1])
     return [rows[mesh.coords(s)[1]] for s in range(mesh.size)]
+
+
+def rows_flat(mesh: Mesh, n: int) -> list[slice]:
+    """An (n, r) skinny solver block's sample rows per slot, split over
+    the flattened slot list, i-major (JAX's ``P((i, j), None)``): the
+    sketch solve's layout, where every r x r contraction is a local
+    product per slot summed over the slots. ``ceil(n / D)`` rows a slot;
+    where D does not divide n the last slots hold fewer (or none)."""
+    step = -(-n // mesh.size)
+    return [slice(min(k * step, n), min((k + 1) * step, n))
+            for k in range(mesh.size)]
 
 
 def variants_flat(mesh: Mesh, width: int) -> list[slice]:

@@ -313,6 +313,21 @@ NAMES: dict[str, tuple[str, str]] = {
         "block update) — nonzero proves the ring schedule, not the bulk "
         "gather, is the one running",
     ),
+    "gram.gather_wait_s": (
+        "histogram",
+        "measured wall-clock of the tile2d gather transport's block "
+        "all-gather alone, at the job's block cadence (bench_torch.py "
+        "--multichip times gram_sharded.make_gather_probe) — the serial "
+        "collective cost the ring transport exists to hide; on virtual "
+        "slots of one card it is a copy on the card, no byte crosses",
+    ),
+    "gram.overlap_frac": (
+        "gauge",
+        "1 - gather_wait / ring block period for the measured multi-slot "
+        "gram (bench_torch.py --multichip): the share of the block period "
+        "the ring schedule keeps the slots computing instead of waiting "
+        "on the block collective",
+    ),
     "gram_flops": ("counter", "FLOPs credited to the gram accumulation"),
     "ingest_bytes": ("counter", "bytes actually shipped host->device"),
     "eigh_flops": ("counter", "FLOPs credited to the eigensolve"),

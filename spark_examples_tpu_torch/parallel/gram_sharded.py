@@ -248,6 +248,45 @@ def _shards(plan: GramPlan, block: torch.Tensor) -> dict[int, torch.Tensor]:
             .contiguous() for s, sl in zip(mesh.local_slots, spans)}
 
 
+def _gathered(mesh: meshes.Mesh, block: torch.Tensor) -> dict:
+    """The gather transport's all-gather of one block: the global block
+    (every rank's slab side by side, in rank order; on one process the
+    block itself) copied once onto each physical device of this rank's
+    slots, by device. Virtual slots share their device's copy, and
+    nothing writes to it."""
+    whole = torch.cat(mh.allgather_tensor(mesh, block), dim=1)
+    return {d: whole.to(d, non_blocking=True) for d in mesh.physical}
+
+
+def make_gather_probe(plan: GramPlan, n_samples: int, width: int,
+                      packed: bool = False):
+    """``probe(block) -> copies``: ONLY the tile2d gather transport's
+    block all-gather (:func:`_gathered`, the code the transport runs, no
+    contraction) for an ``(n_samples, width)`` block, padded to the slot
+    grid as the transport pads it. Timing it at the job's block cadence
+    gives the gather wait the ring transport exists to hide: the
+    ``gram.gather_wait_s`` histogram and the numerator of
+    ``gram.overlap_frac`` (``bench_torch.py --multichip``).
+
+    On distinct cards each call copies the block from the home card to
+    every other card. On virtual slots of one card no byte crosses
+    between devices: the probe is one copy on the card (the concatenation
+    of the ranks' slabs), so its wait is small and ``overlap_frac`` reads
+    near 1."""
+    mesh = plan.mesh
+    local = mesh.local_slots
+
+    def probe(block: torch.Tensor) -> dict:
+        if tuple(block.shape) != (n_samples, width):
+            raise ValueError(
+                f"gather probe built for ({n_samples}, {width}) "
+                f"{'packed ' if packed else ''}blocks, got "
+                f"{tuple(block.shape)}")
+        return _gathered(mesh, _pad(block, len(local), packed))
+
+    return probe
+
+
 class _TileContraction:
     """One block's contraction of a chunk (the whole block, or one ring
     shard) into every slot's tiles. Per-chunk host-side work (unpacking
@@ -418,12 +457,9 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
                     nxt.update(zip(into, arriving.wait()))
                     held = nxt
             return acc
-        # The global block: every rank's slab side by side (on one
-        # process the block itself).
-        whole = torch.cat(mh.allgather_tensor(mesh, block), dim=1)
+        copies = _gathered(mesh, block)
         for s in local:
-            contract(acc, s, on_device(
-                s, lambda d: whole.to(d, non_blocking=True)), cache)
+            contract(acc, s, copies[mesh.devices[s]], cache)
         return acc
 
     def _hop(held: dict):

@@ -1,12 +1,14 @@
 """The sketch-solver job driver: streamed passes, then the solve.
 
 :func:`run_sketch_solve` is what ``pipelines/jobs.py`` calls for
-``--solver sketch|corrected`` (the JAX package's ``solvers/driver.py``,
-on one device):
+``--solver sketch|corrected`` (the JAX package's ``solvers/driver.py``):
 
 - stream 1 + ``--sketch-iters`` passes (corrected) or 1 pass (sketch)
   over the cohort through :func:`pipelines.runner.run_pass` (the loop,
-  feed, cursor and checkpoint cadence of the gram route);
+  feed, cursor and checkpoint cadence of the gram route) under
+  :func:`sketch_plan`: on one slot ``replicated``, on more ``variant``
+  (each block split over the slots, the state replicated on the home
+  device), and the solve's (N, r) blocks split by rows over the slots;
 - between passes of the corrected rung, orthonormalize the sketch
   (shifted CholeskyQR2) and iterate: subspace iteration whose every
   B @ Q product is a streamed pass;
@@ -34,6 +36,7 @@ from spark_examples_tpu_torch.core.config import SOLVER_RUNG_ID, JobConfig
 from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import PhaseTimer, hard_sync
 from spark_examples_tpu_torch.ops.eigh import coords_from_eigpairs
+from spark_examples_tpu_torch.parallel.gram_sharded import GramPlan
 from spark_examples_tpu_torch.pipelines import runner
 from spark_examples_tpu_torch.solvers import sketch, solve
 
@@ -117,6 +120,18 @@ class _Checkpoints:
         return acc, int(acc.pop("passno")), cursor
 
 
+def sketch_plan(job: JobConfig) -> GramPlan:
+    """The sketch's distribution plan: the job's mesh (the default slots
+    of ``--device``, under ``--virtual-devices`` when asked, shaped by
+    ``--mesh-shape``: the gram route's ``meshes.job_mesh``), blocks split
+    by variant over it as the gram route's variant mode splits them, the
+    state replicated. ``replicated`` on one slot, ``variant`` on more;
+    never tile2d: there is no N x N accumulator to tile."""
+    device = resolve_device(job.compute.device)
+    mesh = meshes.job_mesh(device, job.compute.mesh_shape)
+    return GramPlan(mesh, "replicated" if mesh.size == 1 else "variant")
+
+
 def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
                      kind: str) -> SketchSolveResult:
     """The sketch or corrected solve of a pcoa or pca job, dispatched on
@@ -134,33 +149,34 @@ def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
         # The config checked what it could; the job also knows its kind,
         # so a pcoa fit of a pca-family metric is refused here.
         kernels.check_factorized_savable(metric, cfg.solver, kind)
-    device = resolve_device(cfg.device)
+    meshes.maybe_init_distributed(cfg.device)
     if meshes.process_count() > 1:
         raise ValueError(
             "--solver sketch/corrected is single-process for now (the "
             "state psums span the local mesh); run multi-host jobs with "
             "--solver exact"
         )
+    plan = sketch_plan(job)
     if isinstance(kernels.get(metric).sketch, kernels.DualSketch):
-        return _run_dual_solve(job, source, timer, kind, metric, device)
+        return _run_dual_solve(job, source, timer, kind, metric, plan)
     spec = kernels.get(metric).sketch
     n = source.n_samples
     rank = min(cfg.sketch_rank, n)
     passes = 1 + (cfg.sketch_iters if cfg.solver == "corrected" else 0)
     packed = kernels.streams_packed(metric, cfg.pack_stream)
     update = sketch.make_update(metric, packed=packed,
-                                precise=cfg.grm_precise)
+                                precise=cfg.grm_precise, plan=plan)
     _gauges(cfg, rank, False, sketch.state_bytes(n, rank),
             sketch.nxn_bytes(n, metric))
     ck = _Checkpoints(job, source, metric, _CKPT_LEAVES, {
         "solver": cfg.solver, "kind": kind, "rank": int(rank),
         "iters": int(cfg.sketch_iters), "seed": int(cfg.sketch_seed)})
 
-    restored = ck.load(device)
+    restored = ck.load(plan.mesh.home)
     if restored is not None:
         state, start_pass, start_variant = restored
     else:
-        state = sketch.init_state(n, rank, cfg.sketch_seed, device)
+        state = sketch.init_state(n, rank, cfg.sketch_seed, plan=plan)
         start_pass = start_variant = 0
 
     n_variants = 0
@@ -168,10 +184,11 @@ def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
     for pass_idx in range(start_pass, passes):
         with telemetry.span("solver.pass"):
             state, n_variants = runner.run_pass(
-                job, source, timer, device, update, state,
+                job, source, timer, plan.mesh.home, update, state,
                 start_variant if pass_idx == start_pass else 0, packed,
                 block_flops=lambda v: sketch.flops_per_block(n, v, rank),
                 save_cb=ck.callback(pass_idx),
+                pad_multiple=plan.block_shards,
             )
         telemetry.count("solver.passes")
         yb, tr = sketch.finalize_pass(state["y"], state["trace"],
@@ -180,15 +197,18 @@ def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
             # The next pass tracks the orthonormalized range of this one
             # (a right multiplication: still centered, so it is the J q
             # the update streams against).
-            state = sketch.reset_for_pass(state, solve.orthonormalize(yb))
+            state = sketch.reset_for_pass(
+                state, solve.orthonormalize(yb, plan), plan)
             if ck.every:
                 ck.save(state, 0, pass_idx + 1)
 
     with timer.phase("eigh"), telemetry.span("solver.solve"):
         if cfg.solver == "sketch":
-            vals, vecs = solve.nystrom_eigs(yb, state["qc"], cfg.num_pc)
+            vals, vecs = solve.nystrom_eigs(yb, state["qc"], cfg.num_pc,
+                                            plan)
         else:
-            vals, vecs = solve.rayleigh_eigs(yb, state["qc"], cfg.num_pc)
+            vals, vecs = solve.rayleigh_eigs(yb, state["qc"], cfg.num_pc,
+                                             plan)
         vals, vecs, tr = hard_sync((vals, vecs, tr))
 
     vals_np = vals.cpu().numpy()
@@ -214,7 +234,7 @@ def run_sketch_solve(job: JobConfig, source, timer: PhaseTimer,
 
 
 def _run_dual_solve(job: JobConfig, source, timer: PhaseTimer, kind: str,
-                    metric: str, device) -> SketchSolveResult:
+                    metric: str, plan: GramPlan) -> SketchSolveResult:
     """The dual-sketch solve of a ratio metric (similarity NUM ⊘ DEN):
     pass 0 streams both sketches and the exact denominator diagonal;
     the rank-1 scale follows, and the solve targets
@@ -234,7 +254,8 @@ def _run_dual_solve(job: JobConfig, source, timer: PhaseTimer, kind: str,
     passes = 1 + (cfg.sketch_iters if cfg.solver == "corrected" else 0)
     packed = kernels.streams_packed(metric, cfg.pack_stream)
     updates = {with_den: sketch.make_dual_update(metric, packed=packed,
-                                                 with_den=with_den)
+                                                 with_den=with_den,
+                                                 plan=plan)
                for with_den in (True, False)}
     _gauges(cfg, rank, True, sketch.dual_state_bytes(n, rank),
             sketch.nxn_bytes(n, metric))
@@ -243,11 +264,11 @@ def _run_dual_solve(job: JobConfig, source, timer: PhaseTimer, kind: str,
         "iters": int(cfg.sketch_iters), "seed": int(cfg.sketch_seed),
         "dual": True})
 
-    restored = ck.load(device)
+    restored = ck.load(plan.mesh.home)
     if restored is not None:
         state, start_pass, start_variant = restored
     else:
-        state = sketch.init_dual_state(n, rank, cfg.sketch_seed, device)
+        state = sketch.init_dual_state(n, rank, cfg.sketch_seed, plan=plan)
         start_pass = start_variant = 0
 
     n_variants = 0
@@ -256,32 +277,35 @@ def _run_dual_solve(job: JobConfig, source, timer: PhaseTimer, kind: str,
         with_den = pass_idx == 0
         with telemetry.span("solver.pass"):
             state, n_variants = runner.run_pass(
-                job, source, timer, device, updates[with_den], state,
+                job, source, timer, plan.mesh.home, updates[with_den], state,
                 start_variant if pass_idx == start_pass else 0, packed,
                 block_flops=lambda v, _wd=with_den: (
                     sketch.dual_flops_per_block(n, v, rank, metric,
                                                 with_den=_wd)),
                 save_cb=ck.callback(pass_idx),
+                pad_multiple=plan.block_shards,
             )
         telemetry.count("solver.passes")
         if pass_idx == 0:
             state = dict(state)
-            state["scale"], defect = sketch.dual_scale(state)
+            state["scale"], defect = sketch.dual_scale(state, plan)
             telemetry.gauge_set("solver.dual_den_defect", float(defect))
         by = sketch.dual_apply(state)
         if pass_idx + 1 < passes:
             # Power step on B: orthonormalize the scaled, centered range
             # and fold the scale into the next pass's streamed probes.
-            state = sketch.reset_dual_pass(state, solve.orthonormalize(by))
+            state = sketch.reset_dual_pass(
+                state, solve.orthonormalize(by, plan), plan)
             if ck.every:
                 ck.save(state, 0, pass_idx + 1)
 
     with timer.phase("eigh"), telemetry.span("solver.solve"):
         if cfg.solver == "sketch":
             vals, vecs = solve.nystrom_eigs_scaled(
-                state["y"], state["qc"], by, cfg.num_pc)
+                state["y"], state["qc"], by, cfg.num_pc, plan)
         else:
-            vals, vecs = solve.rayleigh_eigs(by, state["q"], cfg.num_pc)
+            vals, vecs = solve.rayleigh_eigs(by, state["q"], cfg.num_pc,
+                                             plan)
         vals, vecs = hard_sync((vals, vecs))
 
     coords = coords_from_eigpairs(vals, vecs).cpu().numpy()

@@ -4,7 +4,7 @@ The exact route accumulates N x N gram pieces and eigensolves them,
 which caps the cohort at what one card holds (at 100,000 samples the
 four int32 ibs leaves alone are 160 GB). This module replaces that
 state with an (N, r) range sketch folded block by block during the
-variant pass: the JAX package's ``solvers/sketch.py``, on one device.
+variant pass: the JAX package's ``solvers/sketch.py``.
 
 For every factor-sketchable metric (``kernels.FactorSketch``) the
 centered solve operator is an exact Gram of per-block features
@@ -22,6 +22,16 @@ numerator and pair-count denominator as two sketches in pass 0, take
 the rank-1 scale ``a = sqrt(diag(DEN))`` from the exactly streamed
 denominator diagonal, and iterate the scaled operator
 ``J diag(1/a) NUM diag(1/a) J`` on the later passes.
+
+Under a plan with more than one slot (``driver.sketch_plan``: the
+``variant`` plan, never tile2d) each block is split by variant over the
+slots with the gram route's own split and padding
+(``gram_sharded._shards``, ``meshes.variants_flat``). Each slot forms its
+partial ``y``, ``cm``, ``trace`` and ``nvar`` (the dual ``y``, ``yd``,
+``d``, ``cm``) on its device against its copy of the replicated probes;
+the partials are summed in slot order (JAX's psum) and added onto the
+state, which is replicated: whole on the plan's home device. A pad
+shard (all missing) adds zeros.
 
 The products are ``torch.matmul`` in f32: the JAX package computes them
 with ``dot_general`` outside any Pallas kernel, so no hand-written
@@ -45,6 +55,7 @@ import torch
 
 from spark_examples_tpu_torch import kernels
 from spark_examples_tpu_torch.ingest.bitpack import unpack_dosages
+from spark_examples_tpu_torch.parallel import gram_sharded
 
 # Checkpointed leaves (the JAX package's names). ``cm`` is the streamed
 # column mass S @ 1 = A (A^T 1) that a persisted model's centering reads;
@@ -103,34 +114,94 @@ def _features(block: torch.Tensor, metric: str, precise: bool):
     return spec.features(block, precise)
 
 
-@ieee_f32()
-def update(state: dict, block: torch.Tensor, metric: str,
-           packed: bool = False, precise: bool = False) -> dict:
-    """One block into the factor sketch, in place: y += A (A^T qc);
-    ``trace`` gains ||J A_b||_F^2 = sum_v (||a_v||^2 - (1^T a_v)^2 / N)
-    (the total-inertia denominator), ``nvar`` the kept count, ``cm``
-    the column mass A (A^T 1)."""
-    a, kept = _features(_dosages(block, packed), metric, precise)
-    w = a.T @ state["qc"]  # (v, r)
-    state["y"].add_(a @ w)
-    colsum = a.sum(dim=0)
-    n = a.shape[0]
-    state["trace"].copy_(
-        state["trace"] + (a * a).sum() - (colsum * colsum).sum() / n)
-    state["nvar"].add_(kept)
-    state["cm"].add_(a @ colsum)
+def _splits(plan) -> bool:
+    """Whether ``plan`` splits each block over several slots."""
+    return (plan is not None and plan.mode != "replicated"
+            and plan.mesh.size > 1)
+
+
+def _slot_blocks(plan, block: torch.Tensor, packed: bool) -> dict:
+    """The block's variant shards by slot, each on its slot's device:
+    the gram route's variant split and padding; the whole block as slot
+    0 when ``plan`` does not split."""
+    if not _splits(plan):
+        return {0: block}
+    mesh = plan.mesh
+    return gram_sharded._shards(
+        plan, gram_sharded._pad(block, len(mesh.local_slots), packed))
+
+
+def _on(t: torch.Tensor, device, copies: dict) -> torch.Tensor:
+    """A replicated leaf on ``device``: one copy a physical device."""
+    if device not in copies:
+        copies[device] = t.to(device)
+    return copies[device]
+
+
+def _add_partials(state: dict, partials: list[dict]) -> dict:
+    """Each leaf's slot partials summed in slot order on the state's
+    device, then added onto the state (in place; the 0-d ``trace`` is
+    copied into)."""
+    home = state["y"].device
+    for k in partials[0]:
+        total = None
+        for p in partials:
+            v = torch.as_tensor(p[k], dtype=torch.float32).to(home)
+            total = v if total is None else total + v
+        if state[k].dim() == 0:
+            state[k].copy_(state[k] + total)
+        else:
+            state[k].add_(total)
     return state
 
 
-def make_update(metric: str, packed: bool = False, precise: bool = False):
-    """``(state, block) -> state`` for the factor sketch of ``metric``."""
+@ieee_f32()
+def _factor_partial(block: torch.Tensor, qc: torch.Tensor, metric: str,
+                    packed: bool, precise: bool) -> dict:
+    """One slot's share of a factor update, from its variant shard:
+    A (A^T qc); ||J A||_F^2 = sum_v (||a_v||^2 - (1^T a_v)^2 / N) (the
+    total-inertia denominator); the kept count; the column mass
+    A (A^T 1)."""
+    a, kept = _features(_dosages(block, packed), metric, precise)
+    colsum = a.sum(dim=0)
+    return {"y": a @ (a.T @ qc),
+            "trace": (a * a).sum() - (colsum * colsum).sum() / a.shape[0],
+            "nvar": kept, "cm": a @ colsum}
+
+
+def _factor_step(state: dict, shards: dict, metric: str, packed: bool,
+                 precise: bool) -> dict:
+    copies: dict = {}
+    return _add_partials(state, [
+        _factor_partial(shard, _on(state["qc"], shard.device, copies),
+                        metric, packed, precise)
+        for shard in shards.values()])
+
+
+def update(state: dict, block: torch.Tensor, metric: str,
+           packed: bool = False, precise: bool = False) -> dict:
+    """One block into the factor sketch, in place (one slot): ``y`` gains
+    A (A^T qc), ``trace`` ||J A_b||_F^2, ``nvar`` the kept count, ``cm``
+    the column mass."""
+    return _factor_step(state, {0: block}, metric, packed, precise)
+
+
+def make_update(metric: str, packed: bool = False, precise: bool = False,
+                plan=None):
+    """``(state, block) -> state`` for the factor sketch of ``metric``;
+    under a plan of several slots, each block split over them."""
     kernels.check_sketchable(metric, "sketch")
-    return lambda state, block: update(state, block, metric, packed,
-                                       precise)
+    return lambda state, block: _factor_step(
+        state, _slot_blocks(plan, block, packed), metric, packed, precise)
 
 
-def init_state(n: int, rank: int, seed: int, device) -> dict:
-    """Fresh factor state: zero sketch, centered probes, zero stats."""
+def init_state(n: int, rank: int, seed: int, device=None,
+               plan=None) -> dict:
+    """Fresh factor state: zero sketch, centered probes, zero stats; on
+    the plan's home device when a plan is given (JAX's argument), else
+    on ``device``."""
+    if plan is not None:
+        device = plan.mesh.home
     r = min(rank, n)
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -142,13 +213,15 @@ def init_state(n: int, rank: int, seed: int, device) -> dict:
     }
 
 
-def reset_for_pass(state: dict, qc: torch.Tensor) -> dict:
+def reset_for_pass(state: dict, qc: torch.Tensor, plan=None) -> dict:
     """Fresh accumulators for the next pass, streaming against ``qc``
     (the orthonormalized range the corrected rung iterates). ``cm``
-    re-accumulates to the same value every pass, so it restarts too."""
+    re-accumulates to the same value every pass, so it restarts too.
+    The state stays where it is (the plan's home device); ``plan`` is
+    the JAX signature's and is not read, the state being replicated."""
     return {
         "y": torch.zeros_like(state["y"]),
-        "qc": qc,
+        "qc": qc.to(state["y"].device),
         "trace": torch.zeros_like(state["trace"]),
         "nvar": torch.zeros_like(state["nvar"]),
         "cm": torch.zeros_like(state["cm"]),
@@ -164,16 +237,14 @@ def finalize_pass(y: torch.Tensor, trace: torch.Tensor, nvar: torch.Tensor,
 
 
 @ieee_f32()
-def dual_update(state: dict, block: torch.Tensor, metric: str,
-                packed: bool = False, with_den: bool = True) -> dict:
-    """One block into the dual sketches, in place: y += NUM_b @ qc and,
-    on pass 0 (``with_den``), yd += DEN_b @ qc plus the exact
-    denominator diagonal. Later passes are power steps of the scaled
-    operator and stream the numerator only, plus the scaled column
-    mass NUM_b @ (1 / a)."""
+def _dual_partial(block: torch.Tensor, qc: torch.Tensor, u, metric: str,
+                  packed: bool, with_den: bool) -> dict:
+    """One slot's share of a dual update, from its variant shard:
+    ``y`` = NUM_b @ qc and, on pass 0 (``with_den``), ``yd`` = DEN_b @ qc
+    plus the exact denominator diagonal ``d``; on later passes the scaled
+    column mass ``cm`` = NUM_b @ ``u`` (u = 1 / a)."""
     spec = kernels.get(metric).sketch
     ops = spec.operands(_dosages(block, packed))
-    qc = state["qc"]
     terms = spec.num_terms + (spec.den_terms if with_den else ())
     # Each distinct right operand meets the probes once: (v, r).
     rights = {}
@@ -181,40 +252,70 @@ def dual_update(state: dict, block: torch.Tensor, metric: str,
         if r not in rights:
             rights[r] = ops[r].T @ qc
 
-    def apply(terms, y):
+    def total(terms, product):
+        out = None
         for left, right, w in terms:
-            contrib = ops[left] @ rights[right]
-            y.add_(contrib * w if w != 1.0 else contrib)
+            c = product(left, right)
+            c = c * w if w != 1.0 else c
+            out = c if out is None else out + c
+        return out
 
-    apply(spec.num_terms, state["y"])
+    part = {"y": total(spec.num_terms,
+                       lambda left, right: ops[left] @ rights[right])}
     if with_den:
-        apply(spec.den_terms, state["yd"])
+        part["yd"] = total(spec.den_terms,
+                           lambda left, right: ops[left] @ rights[right])
         # diag(L R^T) is a rowsum per term: the scale is exact.
-        for left, right, w in spec.den_terms:
-            state["d"].add_(w * (ops[left] * ops[right]).sum(dim=1))
+        part["d"] = total(spec.den_terms, lambda left, right: (
+            ops[left] * ops[right]).sum(dim=1))
     else:
-        u = 1.0 / state["scale"]
-        for left, right, w in spec.num_terms:
-            contrib = ops[left] @ (ops[right].T @ u)
-            state["cm"].add_(contrib * w if w != 1.0 else contrib)
-    return state
+        part["cm"] = total(spec.num_terms, lambda left, right: (
+            ops[left] @ (ops[right].T @ u)))
+    return part
+
+
+def _dual_step(state: dict, shards: dict, metric: str, packed: bool,
+               with_den: bool) -> dict:
+    qcs: dict = {}
+    us: dict = {}
+    u = None if with_den else 1.0 / state["scale"]
+    return _add_partials(state, [
+        _dual_partial(shard, _on(state["qc"], shard.device, qcs),
+                      None if u is None else _on(u, shard.device, us),
+                      metric, packed, with_den)
+        for shard in shards.values()])
+
+
+def dual_update(state: dict, block: torch.Tensor, metric: str,
+                packed: bool = False, with_den: bool = True) -> dict:
+    """One block into the dual sketches, in place (one slot): y += NUM_b
+    @ qc and, on pass 0 (``with_den``), yd += DEN_b @ qc plus the exact
+    denominator diagonal. Later passes are power steps of the scaled
+    operator and stream the numerator only, plus the scaled column
+    mass NUM_b @ (1 / a)."""
+    return _dual_step(state, {0: block}, metric, packed, with_den)
 
 
 def make_dual_update(metric: str, packed: bool = False,
-                     with_den: bool = True):
+                     with_den: bool = True, plan=None):
     """``(state, block) -> state`` for the dual sketch of ``metric``;
-    ``with_den=False`` is the numerator-only update of passes >= 1."""
+    ``with_den=False`` is the numerator-only update of passes >= 1.
+    Under a plan of several slots, each block is split over them."""
     kernels.check_sketchable(metric, "corrected")
-    return lambda state, block: dual_update(state, block, metric, packed,
-                                            with_den)
+    return lambda state, block: _dual_step(
+        state, _slot_blocks(plan, block, packed), metric, packed, with_den)
 
 
-def init_dual_state(n: int, rank: int, seed: int, device) -> dict:
+def init_dual_state(n: int, rank: int, seed: int, device=None,
+                    plan=None) -> dict:
     """Fresh dual state: zero sketches, the centered probes as both the
     test basis ``q`` and the streamed ``qc``, unit scale.
     Centered on purpose: NUM and DEN both carry a huge near-constant
     rank-1 component that the double centering removes, so the rank
-    budget goes to the components B keeps."""
+    budget goes to the components B keeps. On the plan's home device
+    when a plan is given (JAX's argument), else on ``device``."""
+    if plan is not None:
+        device = plan.mesh.home
     r = min(rank, n)
     f32 = dict(dtype=torch.float32, device=device)
     qc = center_cols(probes(n, rank, seed)).to(device)
@@ -230,11 +331,13 @@ def init_dual_state(n: int, rank: int, seed: int, device) -> dict:
 
 
 @ieee_f32()
-def dual_scale(state: dict):
+def dual_scale(state: dict, plan=None):
     """``(a, defect)`` from the completed pass-0 state: the rank-1 factor
     ``a = sqrt(diag(DEN))`` (floored at 1e-3 of its mean, so an empty
     denominator scales finitely) and the probe-space estimate of how far
-    DEN is from ``a a^T``, over the exact trace mass ``sum(d)``."""
+    DEN is from ``a a^T``, over the exact trace mass ``sum(d)``.
+    ``plan`` is the JAX signature's and is not read: the state is
+    replicated under every plan, so this reads no slot."""
     d, yd, qc = state["d"], state["yd"], state["qc"]
     a = torch.sqrt(torch.clamp(d, min=0.0))
     a = torch.maximum(a, 1e-3 * torch.clamp(a.mean(), min=1e-30))
@@ -251,10 +354,14 @@ def dual_apply(state: dict) -> torch.Tensor:
     return center_cols(state["y"] / state["scale"][:, None])
 
 
-def reset_dual_pass(state: dict, q_next: torch.Tensor) -> dict:
+def reset_dual_pass(state: dict, q_next: torch.Tensor,
+                    plan=None) -> dict:
     """Fresh sketches for the next pass: track ``q_next`` and stream
     against ``q_next / a`` (the inner half of B's matvec). ``d`` is
-    carried (passes >= 1 never touch it); ``cm`` restarts."""
+    carried (passes >= 1 never touch it); ``cm`` restarts. The state
+    stays where it is (the plan's home device); ``plan`` is the JAX
+    signature's and is not read, the state being replicated."""
+    q_next = q_next.to(state["y"].device)
     return {
         "y": torch.zeros_like(state["y"]),
         "yd": torch.zeros_like(state["yd"]),

@@ -9,15 +9,18 @@ cover) is a leak the accounting structurally cannot see.
 Checks every ``threading.Thread(...)`` call (and
 ``ThreadPoolExecutor``'s ``thread_name_prefix``): ``daemon=`` must be
 explicit, ``name=`` must be present, and a statically-known name prefix
-must be covered by :data:`THREAD_FAMILIES`. The JAX suite parses its
-table from the soak harness (``tools/soak.py``); the port has no soak
-harness, so its table lives here. Dynamic prefixes
-(``thread_name_prefix=name``) are left to review.
+must be covered by :data:`THREAD_FAMILIES`: the port's soak harness's
+``_SUSPECT_THREADS`` (parsed from the AST of
+``spark_examples_tpu_torch/tools/soak.py``, no import, so the rule loads
+no torch), as the JAX suite parses its table from ``tools/soak.py``,
+then the families only the port names (:data:`PORT_FAMILIES`). Dynamic
+prefixes (``thread_name_prefix=name``) are left to review.
 """
 
 from __future__ import annotations
 
 import ast
+import pathlib
 
 from spark_examples_tpu_torch.tools.graftlint.engine import (
     Context,
@@ -30,18 +33,29 @@ from spark_examples_tpu_torch.tools.graftlint.astutil import (
     import_aliases,
 )
 
+_SOAK = pathlib.Path(__file__).resolve().parents[2] / "soak.py"
+
+
+def soak_thread_prefixes(path: pathlib.Path = _SOAK) -> tuple[str, ...]:
+    """The soak harness's ``_SUSPECT_THREADS`` table, read from its
+    source."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and any(isinstance(t, ast.Name)
+                        and t.id == "_SUSPECT_THREADS"
+                        for t in node.targets)):
+            return tuple(ast.literal_eval(node.value))
+    raise ValueError(f"{path} has no _SUSPECT_THREADS table")
+
+
+# Thread families only the port names: its pooled workers and the chip
+# smoke's build thread.
+PORT_FAMILIES = ("vcf-parse", "block-stripe", "compact-chunk",
+                 "neighbors-eval", "chip-smoke")
 # Thread-name prefixes of the port's long-lived and pooled thread
-# families: the soak harness's table (the first thirteen), then the
-# families only the port names.
-THREAD_FAMILIES = (
-    "store-readahead", "projection-serve-worker", "fleet-serve-worker",
-    "fleet-controller", "supervisor-heartbeat", "telemetry-flusher",
-    "prefetch-producer", "partitioned-reader", "projection-http",
-    "live-telemetry-http", "supervisor-live-proxy", "loadgen-client",
-    "fleet-metrics-http",
-    "vcf-parse", "block-stripe", "compact-chunk", "neighbors-eval",
-    "chip-smoke",
-)
+# families: the soak harness's table, then the port's own.
+THREAD_FAMILIES = soak_thread_prefixes() + PORT_FAMILIES
 
 
 def _static_prefix(expr: ast.AST) -> str | None:

@@ -247,7 +247,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     the fleet's pool, router and manifest, and since the fleet-control
     slice the fleet controller package and the host oracle, and since
     the benchmark slice the trend gate and ``bench_torch.py`` (which
-    import neither ``tools`` either)."""
+    import neither ``tools`` either), and since the mesh-sketch slice
+    the chaos soak (``tools.soak``) and the sketch over the mesh."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import spark_examples_tpu_torch as p\n"
@@ -268,7 +269,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'core.supervisor', 'core.stitch', 'serve.pool', 'serve.router', "
         "'serve.fleet', 'fleet', 'fleet.controller', 'fleet.replica', "
         "'fleet.placement', 'fleet.slo', 'fleet.timeline', "
-        "'utils.oracle', 'tools.trend']\n"
+        "'utils.oracle', 'tools.trend', 'tools.soak']\n"
         "missing = [m for m in need if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "for n in names: importlib.import_module(n)\n"

@@ -261,8 +261,16 @@ def test_the_port_s_history_holds_card_and_cpu_records_only():
     with open(os.path.join(REPO, "bench.py")) as f:
         src = f.read()
     keys = set(__import__("bench_torch").HEADLINE_KEYS) | {"trend_ok"}
+    tree = ast.parse(src)
     for flag in FLAG_ROWS:
-        keys |= jax_headline_keys((src, ast.parse(src)), flag)
+        keys |= jax_headline_keys((src, tree), flag)
+    # The chaos runs' and the multichip row's keys.
+    keys |= set(__import__("re").findall(r'headline\["(chaos[a-z_]*)"\]',
+                                         src))
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "_multichip_headline")
+    ret = next(n for n in ast.walk(fn) if isinstance(n, ast.Return))
+    keys |= {k.value for k in ret.value.keys}
     for h in history:
         if h["run"]["backend"] == "cuda":
             assert " W" in h["run"]["card"], h["run"]
