@@ -1,4 +1,5 @@
-"""Per-phase wall-clock timing and the profiler capture.
+"""Per-phase wall-clock timing, device-timed spans and the profiler
+capture.
 
 PyTorch returns from a CUDA call before the device has finished it, so
 a phase that ends without a barrier times the enqueue, not the work.
@@ -9,10 +10,27 @@ phase produced before the phase closes.
 ``phase.<name>`` span on the trace timeline and a counter of summed
 seconds) and every counter it adds, and reports its derived throughputs
 through :func:`telemetry.derive_throughputs`, the formula the exported
-``metrics.json`` uses too. :func:`trace` (``--trace-dir``) captures a
-``torch.profiler`` trace of a whole job, in which each phase is a named
-range (``phase.<name>``). :func:`check_nans` is ``--debug-nans``: a NaN
-check at the job's phase boundaries.
+``metrics.json`` uses too.
+
+This module installs the telemetry's profiler mirror: while a
+``torch.profiler`` capture runs, every telemetry span (a phase, a gram
+block, the feed's stages, a device span) is also a profiler range of
+its own name on its own thread, on the clock of the card's kernels and
+copies in the same capture. With no capture running a span checks one
+flag and opens no range.
+
+:func:`device_span` times work on a CUDA stream with a pair of
+timing-enabled events from a reused pool and never synchronises: the
+pair is read into the histogram of its name, in seconds, only where
+its end event has been waited out anyway: after a :func:`hard_sync`
+barrier, or by a caller that waits on that event itself (the feed's
+copy, when its slab retires). :class:`StreamGaps` measures, the same
+way, how long a stream idles between marked stretches of work. Off the
+card both time the host.
+
+:func:`trace` (``--trace-dir``) captures a ``torch.profiler`` trace of a
+whole job, every thread's ranges included. :func:`check_nans` is
+``--debug-nans``: a NaN check at the job's phase boundaries.
 """
 
 from __future__ import annotations
@@ -20,13 +38,30 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.core.meshes import Tiled
+
+
+def _capture_running() -> bool:
+    """True while a ``torch.profiler`` capture runs, read on any thread
+    (a process-wide flag torch sets when a capture starts)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _open_range(name: str):
+    rng = torch.profiler.record_function(name)
+    rng.__enter__()
+    return rng
+
+
+telemetry.set_profiler_mirror(_capture_running, _open_range)
 
 
 def _tensors(tree):
@@ -55,7 +90,153 @@ def hard_sync(tree):
     devices = {t.device for t in _tensors(tree) if t.device.type == "cuda"}
     for d in devices:
         torch.cuda.synchronize(d)
+    if devices:
+        resolve_device_spans({d.index for d in devices})
     return tree
+
+
+# Pending device spans (their end events may still be ahead of the
+# card) and the reused timing events, per device index. A span whose
+# caller waits on its end event is the caller's, and never pending.
+_DEVICE_LOCK = threading.Lock()
+_PENDING: dict = {}  # an ordered set of _DeviceSpan
+_EVENT_POOL: dict[int, list] = {}
+# Past this many pending spans (a path with no barrier), the ones whose
+# end has already completed are resolved where the next one is added.
+PENDING_MAX = 4096
+
+
+def _cuda_index(device) -> int:
+    device = torch.device(device)
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def _take_events(index: int, n: int) -> list:
+    with _DEVICE_LOCK:
+        pool = _EVENT_POOL.setdefault(index, [])
+        taken = [pool.pop() for _ in range(min(n, len(pool)))]
+    return taken + [torch.cuda.Event(enable_timing=True)
+                    for _ in range(n - len(taken))]
+
+
+def _give_events(index: int, events) -> None:
+    with _DEVICE_LOCK:
+        _EVENT_POOL.setdefault(index, []).extend(events)
+
+
+class _DeviceSpan:
+    """A recorded event pair on a CUDA stream, waiting to be read."""
+
+    __slots__ = ("name", "t0", "tid", "index", "start", "end")
+
+    def __init__(self, name, t0, tid, index, start, end):
+        self.name, self.t0, self.tid, self.index = name, t0, tid, index
+        self.start, self.end = start, end
+
+    def resolve(self) -> None:
+        """Record the pair's device seconds into the histogram of its
+        name; the caller knows the end event has completed. Only the
+        first call records."""
+        with _DEVICE_LOCK:
+            if self.start is None:
+                return
+            start, end, self.start, self.end = self.start, self.end, None, None
+            _PENDING.pop(self, None)
+        telemetry.span_at(self.name, self.t0, start.elapsed_time(end) / 1e3,
+                          cat="device", tid=self.tid)
+        _give_events(self.index, (start, end))
+
+
+def _resolve_completed(spans) -> None:
+    """Resolve those of the pending ``spans`` whose end event has
+    completed (a poll: nothing waits); the rest stay pending."""
+    for d in spans:
+        end = d.end
+        if end is not None and end.query():
+            d.resolve()
+
+
+def resolve_device_spans(indices) -> None:
+    """Resolve the pending device spans on the CUDA devices ``indices``,
+    just synchronised (a span another thread recorded after the barrier
+    waits for the next one)."""
+    with _DEVICE_LOCK:
+        due = [d for d in _PENDING if d.index in indices]
+    _resolve_completed(due)
+
+
+@contextlib.contextmanager
+def device_span(name: str, device, stream=None, waited: bool = False):
+    """Time the block's work on a CUDA device: a timing-enabled event
+    pair recorded on ``stream`` (the device's current stream by default),
+    so nothing waits. By default the pair is left pending and a later
+    :func:`hard_sync` of the device records its seconds into the
+    histogram ``name``. With ``waited`` the caller waits on the yielded
+    pair's ``end`` event itself and then calls its ``resolve()``; no
+    barrier reads such a pair, so its events stay the caller's. Yields
+    the pair (None off the card, where the block's host interval is
+    recorded instead). It is a span like any other: the profiler mirror
+    covers its host interval."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        with telemetry.span(name, cat="device"):
+            yield None
+        return
+    index = _cuda_index(device)
+    if stream is None:
+        stream = torch.cuda.current_stream(index)
+    sp = telemetry.begin(name, cat="device")
+    ds = _DeviceSpan(name, sp.t0, sp.tid, index, *_take_events(index, 2))
+    ds.start.record(stream)
+    try:
+        yield ds
+    finally:
+        ds.end.record(stream)
+        sp.cancel()  # the histogram takes the device seconds instead
+        if not waited:
+            with _DEVICE_LOCK:
+                _PENDING[ds] = None
+                due = list(_PENDING) if len(_PENDING) > PENDING_MAX else []
+            _resolve_completed(due)
+
+
+class StreamGaps:
+    """How long a CUDA device's current stream idles between stretches
+    of work, each stretch between two calls of :meth:`mark`: from the
+    object's making to the first stretch, and between consecutive
+    stretches. Each mark is an event recorded on the stream, read in
+    :meth:`count` after a barrier the caller already makes. Off the card
+    it does nothing."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self._marks = None
+        if device.type == "cuda":
+            self._index = _cuda_index(device)
+            self._stream = torch.cuda.current_stream(self._index)
+            self._marks = []
+            self.mark()
+
+    def mark(self) -> None:
+        """Call before and after each stretch of work."""
+        if self._marks is None:
+            return
+        ev = _take_events(self._index, 1)[0]
+        ev.record(self._stream)
+        self._marks.append(ev)
+
+    def count(self, name: str) -> None:
+        """Add the idle seconds to counter ``name``; the stream has
+        completed every mark (the caller has synchronised)."""
+        if self._marks is None:
+            return
+        marks, self._marks = self._marks, None
+        # (making, before 1), (after 1, before 2), ...: the last mark
+        # ends the last stretch.
+        idle = sum(a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2]))
+        telemetry.count(name, idle / 1e3)
+        _give_events(self._index, marks)
 
 
 # --debug-nans (set by the CLI): PyTorch has no counterpart of
@@ -124,10 +305,7 @@ class PhaseTimer:
     def phase(self, name: str):
         sp = telemetry.begin("phase." + name, cat="phase")
         try:
-            # Also a named range in a --trace-dir capture, where the card's
-            # kernels can be set against the phase's window.
-            with torch.profiler.record_function("phase." + name):
-                yield
+            yield
         finally:
             dt = sp.end()
             self.phases[name] = self.phases.get(name, 0.0) + dt
@@ -160,15 +338,25 @@ def kernel_events(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
+def _all_threads():
+    """The capture option that records the ranges of every thread (the
+    feed's producer's too); without it a capture records only the thread
+    that started it."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    return _ExperimentalConfig(profile_all_threads=True)
+
+
 @contextlib.contextmanager
 def trace(logdir: str | None, device: str = "cpu"):
     """Capture a ``torch.profiler`` trace of the block into ``logdir``
     as a Chrome trace (``trace_rank<r>.json``; loads in Perfetto or
-    ``chrome://tracing``). Host activity always; the card's kernels too
-    when ``device`` is ``cuda`` (a missing card raises). A CUDA capture
-    that recorded no device kernel means CUPTI did not trace the card,
-    and raises rather than leave an untraced job looking traced. Yields
-    the profiler (None when ``logdir`` is unset)."""
+    ``chrome://tracing``). Host activity of every thread always; the
+    card's kernels too when ``device`` is ``cuda`` (a missing card
+    raises). A CUDA capture that recorded no device kernel means CUPTI
+    did not trace the card, and raises rather than leave an untraced job
+    looking traced. Yields the profiler (None when ``logdir`` is
+    unset)."""
     if not logdir:
         yield None
         return
@@ -181,7 +369,8 @@ def trace(logdir: str | None, device: str = "cpu"):
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=_all_threads()) as prof:
         yield prof
     if cuda and not kernel_events(prof):
         raise RuntimeError(

@@ -17,6 +17,17 @@ request. Every name an instrumentation site uses must be declared in
   seconds and, while tracing is configured, into a Chrome trace event
   (keys ``name, cat, ph, ts, dur, pid, tid, args``: the JAX package's,
   so one stitcher reads either package's exports).
+- **The profiler mirror** (:func:`set_profiler_mirror`, installed by
+  ``core/profiling.py``, so this module imports no torch): while a
+  profiler capture runs, every span opened by :func:`span`,
+  :func:`begin` or :func:`traced` also opens a profiler range of its
+  own name on its thread, which puts the spans on the device trace's
+  clock. With no capture running a span pays one check and opens no
+  range. A cancelled span's range stays in the capture (the interval
+  was spent all the same). :func:`span_at` records an interval already
+  past and is not mirrored; nor is a span that ends on another thread
+  than the one it began on (the span cannot close its range there, and
+  the capture closes it when it stops).
 - **Events** (:func:`event`) are instant markers; the newest
   :data:`EVENT_RING` stay readable in-process (:func:`events`) whether
   or not tracing is on.
@@ -269,8 +280,10 @@ NAMES: dict[str, tuple[str, str]] = {
     ),
     "gram.block": (
         "span",
-        "one block period of the streamed gram loop: producer/queue wait + "
-        "host->device transfer + update dispatch + hooks + checkpoint",
+        "one block period of the streamed gram loop on the host: the wait "
+        "for the feed + the copy's and the update's dispatch + hooks + "
+        "checkpoint. On CUDA the update is asynchronous, so this is the "
+        "host's loop period, not the block's device work",
     ),
     "multihost.consensus": (
         "span",
@@ -860,6 +873,42 @@ PORT_NAMES: dict[str, tuple[str, str]] = {
         "cpu), 1 gloo with device tensors staged through the host (ranks "
         "sharing a card), 2 nccl (a card per rank)",
     ),
+    "feed.read": (
+        "span",
+        "the feed producer's host work for one block: the source's slice, "
+        "copy and padding of it (packed_blocks, blocks), or its decode "
+        "into the feed's buffer on the direct drive (decode_range_into)",
+    ),
+    "feed.pin": (
+        "span",
+        "the feed producer's copy of one host block into its pinned "
+        "staging slab (CUDA targets only)",
+    ),
+    "feed.copy": (
+        "span",
+        "one block's host-to-device copy on the feed's copy stream, in "
+        "device seconds (a CUDA event pair, read when its slab retires)",
+    ),
+    "gram.device_gap_s": (
+        "counter",
+        "seconds the compute stream idled in the gram loop (CUDA): from "
+        "the gram phase's start to the first block update, plus between "
+        "consecutive updates; the host enqueuing late and the wait on a "
+        "block's copy both show here. Read at the phase's closing barrier",
+    ),
+    "kernel.packed_gram.launch": (
+        "span",
+        "one launch of the packed CUDA kernel (csrc/packed_gram.cu) in "
+        "device seconds (a CUDA event pair on its stream, read at the "
+        "next barrier); the host interval off the card",
+    ),
+    "eigh.solve": (
+        "span",
+        "the eigensolver of ops/eigh.py (torch.linalg.eigh, or the "
+        "randomized route's power steps and Rayleigh solve) in device "
+        "seconds, cuSOLVER's idle on the card included; the host "
+        "interval off the card",
+    ),
 }
 
 _FAMILIES = tuple(n[:-1] for n in NAMES if n.endswith(".*"))  # "phase."
@@ -1306,6 +1355,17 @@ def request_exemplars() -> list[dict]:
 
 # -- spans ---------------------------------------------------------------------
 
+# The profiler mirror: (is a capture running, open a range of this name
+# and return the object whose ``__exit__`` closes it), or None.
+_mirror = None
+
+
+def set_profiler_mirror(active, open_range) -> None:
+    """Mirror every span opened from now on into a profiler range while
+    ``active()`` is true (``core/profiling.py`` installs torch's)."""
+    global _mirror
+    _mirror = (active, open_range)
+
 
 def _span_event(name, cat, t0, dur, tid, attrs) -> None:
     _append_event({"name": name, "cat": cat, "ph": "X",
@@ -1326,25 +1386,35 @@ def span_at(name: str, t0: float, dur: float, cat: str = "trace",
 
 class SpanHandle:
     """An open span: :meth:`end` records it (histogram + trace event),
-    :meth:`cancel` drops it. Loop bodies use handles to time a whole
-    block period, producer wait included."""
+    :meth:`cancel` drops it; both close its profiler range, if it has
+    one, on the thread it began on. Loop bodies use handles to time a
+    whole block period, producer wait included."""
 
-    __slots__ = ("name", "cat", "t0", "tid", "trace", "_open")
+    __slots__ = ("name", "cat", "t0", "tid", "trace", "_open", "_range")
 
     def __init__(self, name: str, cat: str):
         self.name = name
         self.cat = cat
+        mirror = _mirror
+        self._range = (mirror[1](name) if mirror is not None and mirror[0]()
+                       else None)
         self.t0 = time.perf_counter()
         self.tid = threading.get_ident()
         # Captured at open: the span may end on another thread.
         self.trace = _TRACE_CTX.get()
         self._open = True
 
+    def _close_range(self) -> None:
+        rng, self._range = self._range, None
+        if rng is not None and threading.get_ident() == self.tid:
+            rng.__exit__(None, None, None)
+
     def end(self, **attrs) -> float:
         if not self._open:
             return 0.0
         self._open = False
         dur = time.perf_counter() - self.t0
+        self._close_range()
         _record(self.name, dur)
         if _trace:
             if self.trace is not None:
@@ -1354,6 +1424,7 @@ class SpanHandle:
 
     def cancel(self) -> None:
         self._open = False
+        self._close_range()
 
 
 def begin(name: str, cat: str = "misc") -> SpanHandle:

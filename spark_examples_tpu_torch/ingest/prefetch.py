@@ -30,6 +30,12 @@ before each get, ``prefetch.transfers_in_flight`` and
 ``prefetch.transfer_wait_s`` (a retired slab's residual copy wait). The
 ``device.put`` fault site fires before each block's copy to the device,
 ``prefetch.transfer_wait`` before a slab's copy is waited out.
+
+The port's own spans time the feed's stages: ``feed.read`` (the
+producer's host work for a block: the source's slice and copy, or its
+decode into the feed's buffer), ``feed.pin`` (the producer's copy into
+the pinned slab) and ``feed.copy`` (the host-to-device copy, in device
+seconds: an event pair on the copy stream, read when the slab retires).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 
 from spark_examples_tpu_torch.core import faults, telemetry
 from spark_examples_tpu_torch.core.dtypes import GENOTYPE_DTYPE, MISSING
+from spark_examples_tpu_torch.core.profiling import device_span
 from spark_examples_tpu_torch.ingest import bitpack
 from spark_examples_tpu_torch.ingest.source import BlockMeta, GenotypeSource
 
@@ -209,7 +216,8 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
             else:
                 host = np.full((source.n_samples, width), MISSING,
                                GENOTYPE_DTYPE)
-            source.decode_range_into(lo, hi, host)
+            with telemetry.span("feed.read", cat="feed"):
+                source.decode_range_into(lo, hi, host)
             if slab is not None and hi - lo < width:
                 host[:, hi - lo:] = MISSING
             if not put((host, slab, meta)):
@@ -221,18 +229,27 @@ def _produce(source, block_variants, start_variant, prefetch, pack, ring,
             if decode_direct(source, pack):
                 direct()
                 return
-            for host, meta in _host_blocks(source, block_variants,
-                                           start_variant, pack, stats,
-                                           width):
-                slab = None
-                if ring is not None:
-                    slab = ring.acquire(stop)
-                    if slab is None:
+            # Each read span is begun before the next block is asked for
+            # and ended when it arrives: the source's own work.
+            read = telemetry.begin("feed.read", cat="feed")
+            try:
+                for host, meta in _host_blocks(source, block_variants,
+                                               start_variant, pack, stats,
+                                               width):
+                    read.end()
+                    slab = None
+                    if ring is not None:
+                        slab = ring.acquire(stop)
+                        if slab is None:
+                            return
+                        with telemetry.span("feed.pin", cat="feed"):
+                            np.copyto(slab.array, host)
+                        host = slab.array
+                    if not put((host, slab, meta)):
                         return
-                    np.copyto(slab.array, host)
-                    host = slab.array
-                if not put((host, slab, meta)):
-                    return
+                    read = telemetry.begin("feed.read", cat="feed")
+            finally:
+                read.cancel()  # the last saw only the source's end
             put(_END, measure=False)
         except BaseException as e:  # propagate into the consumer
             put(e, measure=False)
@@ -299,20 +316,25 @@ def stream_to_device(
                 continue
             compute_stream = torch.cuda.current_stream(device)
             with torch.cuda.stream(copy_stream):
-                block = slab.tensor.to(device, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(copy_stream)
-            compute_stream.wait_event(done)
+                # Allocated before the copy's start event: the span then
+                # times the copy, not the allocator.
+                block = torch.empty_like(slab.tensor, device=device)
+                with device_span("feed.copy", device, copy_stream,
+                                 waited=True) as copy:
+                    block.copy_(slab.tensor, non_blocking=True)
+            # The copy's end event: the compute stream waits on it, and
+            # the slab retires once it has completed.
+            compute_stream.wait_event(copy.end)
             # Allocated on the copy stream, used on the compute stream.
             block.record_stream(compute_stream)
-            pending.append((done, slab))
+            pending.append((copy, slab))
             telemetry.gauge_set("prefetch.transfers_in_flight",
                                 float(len(pending)))
             if len(pending) > TRANSFER_DEPTH:
-                ev, old = pending.popleft()
+                copy, old = pending.popleft()
                 faults.fire("prefetch.transfer_wait")
                 t0 = time.perf_counter()
-                ev.synchronize()
+                _retire(copy)
                 telemetry.observe("prefetch.transfer_wait_s",
                                   time.perf_counter() - t0)
                 old.release()
@@ -321,6 +343,12 @@ def stream_to_device(
         # Stop the producer first, then retire the in-flight copies.
         producer.close()
         while pending:
-            ev, slab = pending.popleft()
-            ev.synchronize()
+            copy, slab = pending.popleft()
+            _retire(copy)
             slab.release()
+
+
+def _retire(copy) -> None:
+    """Wait out a block's copy and record its device time."""
+    copy.end.synchronize()
+    copy.resolve()

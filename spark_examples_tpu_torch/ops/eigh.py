@@ -7,6 +7,9 @@
   large N and for tiled matrices, which it reads only through ``b @ q``. Its probes come from a ``torch.Generator`` unless the caller
   hands them in, so tests can feed the JAX and PyTorch sides the same
   numbers.
+
+Either solve is the device span ``eigh.solve`` (its device seconds on a
+card, read at the caller's next barrier).
 """
 
 from __future__ import annotations
@@ -17,12 +20,14 @@ from spark_examples_tpu_torch.core.config import (
     EIGH_ITERS_DEFAULT,
     EIGH_OVERSAMPLE_DEFAULT,
 )
+from spark_examples_tpu_torch.core.profiling import device_span
 
 
 def top_k_eigh(b: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k eigenpairs of symmetric ``b``, eigenvalues descending:
     (vals (k,), vecs (N, k))."""
-    vals, vecs = torch.linalg.eigh(b)  # ascending
+    with device_span("eigh.solve", b.device):
+        vals, vecs = torch.linalg.eigh(b)  # ascending
     return vals.flip(0)[:k], vecs.flip(1)[:, :k]
 
 
@@ -90,7 +95,8 @@ def randomized_eigh(
             generator = torch.Generator(device=b.device).manual_seed(0)
         probes = init_probes(b.shape[0], k + oversample, generator,
                              dtype=b.dtype, device=b.device)
-    vals, vecs, _ = subspace_iterate(b, probes, k, iters + 1, select)
+    with device_span("eigh.solve", probes.device):
+        vals, vecs, _ = subspace_iterate(b, probes, k, iters + 1, select)
     return vals, vecs
 
 

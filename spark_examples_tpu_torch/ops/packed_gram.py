@@ -20,10 +20,12 @@ int32}``, decode + mask + contract without materialising a dosage block.
 tensors), so a run can show that its main path went through the kernel;
 each launch also counts ``kernel.packed_gram.launches`` in the telemetry
 registry, so a job run as a subprocess exports its count in
-``metrics.json``. The counter ``gram.fused_blocks`` keeps the JAX
-package's meaning instead: one per block update through the fused
-lowering (``parallel/gram_sharded.py::make_update``), whatever the
-number of tiles.
+``metrics.json``, and is timed on its stream by the device span
+``kernel.packed_gram.launch`` (read at the next barrier). The counter
+``gram.fused_blocks`` keeps the JAX package's meaning instead: one per
+block update through the fused lowering
+(``parallel/gram_sharded.py::make_update``), whatever the number of
+tiles.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import ctypes
 import torch
 
 from spark_examples_tpu_torch.core import telemetry
+from spark_examples_tpu_torch.core.profiling import device_span
 from spark_examples_tpu_torch.ops.genotype import PRODUCT_OPERANDS, int_dot
 
 # Operands the 2-bit decode can form; the kernel's operand codes.
@@ -179,7 +182,8 @@ def _launch(rows: torch.Tensor, cols: torch.Tensor,
     direct = codes(*(q[2] for q in plan))
     mirror = codes(*(q[3] for q in plan))
     lib = _library()
-    with torch.cuda.device(rows.device):
+    with torch.cuda.device(rows.device), \
+            device_span("kernel.packed_gram.launch", rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         rc = lib.packed_gram_products(
             rows.data_ptr(), cols.data_ptr(), out.data_ptr(),

@@ -52,6 +52,7 @@ from spark_examples_tpu_torch.core.config import IngestConfig, JobConfig
 from spark_examples_tpu_torch.core.device import resolve_device
 from spark_examples_tpu_torch.core.profiling import (
     PhaseTimer,
+    StreamGaps,
     check_nans,
     hard_sync,
 )
@@ -452,6 +453,10 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
     each block's update, before its checkpoint. ``pad_multiple``: the
     plan's variant shards, which every block's width is padded to a
     multiple of. Returns ``(state, n_variants)`` with the state synced.
+
+    On a card the compute stream's idle time in the loop (before the
+    first update and between updates) is counted into
+    ``gram.device_gap_s`` at the phase's closing barrier.
     """
     cfg = job.compute
     blocks_done = 0
@@ -464,11 +469,14 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
         prefetch=job.ingest.prefetch_blocks, pad_multiple=pad_multiple,
     ))
     with timer.phase("gram"), feed as blocks:
+        gaps = StreamGaps(device)
         # Each span is begun before the block is pulled, so it holds the
         # wait for the feed as well as the work.
         sp = telemetry.begin("gram.block", cat="gram")
         for block, meta in blocks:
+            gaps.mark()
             state = update(state, block)
+            gaps.mark()
             if block_flops is not None:
                 timer.add("gram_flops", block_flops(meta.stop - meta.start))
             timer.add("ingest_bytes", block.numel())
@@ -489,6 +497,7 @@ def run_pass(job: JobConfig, source, timer: PhaseTimer, device, update,
             sp = telemetry.begin("gram.block", cat="gram")
         sp.cancel()  # the last span saw only the stream's end
         state = hard_sync(state)
+        gaps.count("gram.device_gap_s")
     n_variants = last_stop if last_stop > 0 else source.n_variants
     return state, n_variants
 

@@ -1290,3 +1290,206 @@ def test_bench_staged_run_launches_k1_per_staged_block(cuda_device,
     want, _ = ref.accumulate_passes(3)
     for k in want:
         assert torch.equal(acc[k].cpu(), want[k]), k
+
+
+def _cell_like_job(n=512, v=8 * 4096):
+    """A small IBS PCoA job fed as the benchmark's memory cell is: a
+    packed cohort in host memory, blocks of 4,096 variants."""
+    from spark_examples_tpu_torch.ingest.bitpack import pack_dosages
+    from spark_examples_tpu_torch.ingest.packed import Packed2BitSource
+
+    syn = SyntheticSource(n_samples=n, n_variants=v, seed=3)
+    g = np.concatenate([b for b, _ in syn.blocks(v)], axis=1)
+    src = Packed2BitSource(packed=pack_dosages(g), v=v)
+    job = JobConfig(ingest=IngestConfig(block_variants=4096),
+                    compute=ComputeConfig(metric="ibs", num_pc=4,
+                                          device="cuda"))
+    return job, src, v // 4096
+
+
+@pytest.mark.gpu
+def test_device_spans_add_no_synchronisation_to_a_job(cuda_device,
+                                                       monkeypatch):
+    """A job with its device spans and its gap counter waits on the card
+    no more often than one without them: the same device-wide
+    synchronisations (its phases' barriers), no more event waits. Every
+    span is read: one copy and one K1 launch a block, one solve, and the
+    compute stream's gaps inside the gram phase."""
+    import contextlib
+
+    from spark_examples_tpu_torch.core import profiling
+    from spark_examples_tpu_torch.ingest import prefetch
+    from spark_examples_tpu_torch.ops import eigh as eigh_ops
+
+    job, src, n_blocks = _cell_like_job()
+    jobs.pcoa_job(job, source=src)  # builds K1, warms cuSOLVER
+    waits = []
+
+    def counted(fn, kind):
+        def wrapper(*args, **kwargs):
+            waits.append(kind)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        counted(torch.cuda.synchronize, "device"))
+    for cls in (torch.cuda.Event, torch.cuda.Stream):
+        monkeypatch.setattr(cls, "synchronize",
+                            counted(cls.synchronize, cls.__name__))
+
+    def run():
+        waits.clear()
+        telemetry.reset()
+        out = jobs.pcoa_job(job, source=src)
+        return list(waits), out
+
+    timed, out = run()
+    snap = telemetry.metrics_snapshot()
+    hists, counters = snap["histograms"], snap["counters"]
+    launches = counters["kernel.packed_gram.launches"]
+    assert hists["feed.copy"]["count"] == n_blocks
+    assert hists["kernel.packed_gram.launch"]["count"] == launches > 0
+    assert hists["eigh.solve"]["count"] == 1
+    assert hists["eigh.solve"]["sum"] <= out.timer.phases["eigh"]
+    assert 0 <= counters["gram.device_gap_s"] <= out.timer.phases["gram"]
+
+    class Untimed:  # the copy's plain event, as the feed had it
+        def __init__(self):
+            self.end = torch.cuda.Event()
+
+        def resolve(self):
+            pass
+
+    @contextlib.contextmanager
+    def untimed(name, device, stream=None, waited=False):
+        span = Untimed()
+        yield span
+        span.end.record(stream or torch.cuda.current_stream(device))
+
+    class NoGaps:
+        def __init__(self, device):
+            pass
+
+        def mark(self):
+            pass
+
+        def count(self, name):
+            pass
+
+    for mod in (prefetch, packed_gram, eigh_ops):
+        monkeypatch.setattr(mod, "device_span", untimed)
+    monkeypatch.setattr(runner, "StreamGaps", NoGaps)
+    plain, _ = run()
+    assert "kernel.packed_gram.launch" not in \
+        telemetry.metrics_snapshot()["histograms"]
+    assert timed.count("device") == plain.count("device") > 0
+    for kind in ("Event", "Stream"):
+        assert timed.count(kind) <= plain.count(kind), kind
+
+
+@pytest.mark.gpu
+def test_a_full_pending_set_leaves_a_waited_span_alone(cuda_device,
+                                                       monkeypatch):
+    """Past ``PENDING_MAX`` a new span polls the pending ones, and a
+    barrier reads them; neither touches a span whose caller waits on its
+    end event, as the feed's copy does, so the caller's event is still
+    there to wait on and resolve."""
+    from spark_examples_tpu_torch.core import profiling
+
+    monkeypatch.setattr(profiling, "PENDING_MAX", 0)
+    telemetry.reset()
+    x = torch.ones(1 << 20, device=cuda_device)
+    with profiling.device_span("feed.copy", cuda_device,
+                               waited=True) as copy:
+        y = x * 2
+    profiling.hard_sync(y)
+    with profiling.device_span("eigh.solve", cuda_device):
+        y = y * 2
+    assert copy.end is not None
+    torch.cuda.current_stream(cuda_device).wait_event(copy.end)
+    copy.end.synchronize()
+    copy.resolve()
+    profiling.hard_sync(y)
+    hists = telemetry.metrics_snapshot()["histograms"]
+    assert hists["feed.copy"]["count"] == 1
+    assert hists["eigh.solve"]["count"] == 1
+
+
+@pytest.mark.gpu
+def test_a_job_past_the_pending_cap_reads_every_span(cuda_device,
+                                                     monkeypatch):
+    """A job whose gram phase holds more device spans than
+    ``PENDING_MAX`` (a cap of 2 against its 8 blocks) runs to its end
+    and still reads one copy and one K1 launch a block and one solve."""
+    from spark_examples_tpu_torch.core import profiling
+
+    job, src, n_blocks = _cell_like_job()
+    jobs.pcoa_job(job, source=src)  # builds K1, warms cuSOLVER
+    monkeypatch.setattr(profiling, "PENDING_MAX", 2)
+    telemetry.reset()
+    out = jobs.pcoa_job(job, source=src)
+    snap = telemetry.metrics_snapshot()
+    hists, counters = snap["histograms"], snap["counters"]
+    assert hists["feed.copy"]["count"] == n_blocks
+    assert hists["kernel.packed_gram.launch"]["count"] == \
+        counters["kernel.packed_gram.launches"] > 0
+    assert hists["eigh.solve"]["count"] == 1
+    assert out.coords.shape[0] == 512 and np.isfinite(out.coords).all()
+
+
+@pytest.mark.gpu
+def test_k1_launch_span_agrees_with_events_around_its_launches(cuda_device):
+    """At the benchmark cell's launch shape, (15,708, 4,096 B), the
+    ``kernel.packed_gram.launch`` spans read K1's time a launch within
+    5 % of one event pair around ten back-to-back launches."""
+    from spark_examples_tpu_torch.core import profiling
+
+    rng = np.random.default_rng(15708)
+    x = _random_packed(rng, 15708, 4096, cuda_device)
+    pieces = kernels.get("ibs").pieces
+    for _ in range(2):
+        out = packed_gram.fused_tile_products(x, x, pieces)
+    profiling.hard_sync(x)
+    telemetry.reset()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    n = 10
+    start.record()
+    for _ in range(n):
+        out = packed_gram.fused_tile_products(x, x, pieces)
+    end.record()
+    profiling.hard_sync(out)
+    hist = telemetry.metrics_snapshot()["histograms"][
+        "kernel.packed_gram.launch"]
+    assert hist["count"] == n
+    assert hist["sum"] * 1e3 / n == pytest.approx(
+        start.elapsed_time(end) / n, rel=0.05)
+
+
+@pytest.mark.gpu
+def test_trace_dir_holds_every_span_on_the_card(cuda_device, tmp_path):
+    """``--trace-dir``'s capture on the card: the card's kernels, each
+    phase once, and the spans as ranges, the feed producer's reads and
+    pins on its own thread."""
+    import json
+    import os
+
+    from spark_examples_tpu_torch.core import profiling
+
+    job, src, n_blocks = _cell_like_job()
+    jobs.pcoa_job(job, source=src)
+    with profiling.trace(str(tmp_path), "cuda"):
+        jobs.pcoa_job(job, source=src)
+    events = [e for e in json.load(open(os.path.join(
+        tmp_path, "trace_rank0.json")))["traceEvents"] if e.get("ph") == "X"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    names = [e["name"] for e in ranges]
+    for phase in ("phase.gram", "phase.finalize", "phase.eigh"):
+        assert names.count(phase) == 1, phase
+    for name in ("feed.copy", "kernel.packed_gram.launch"):
+        assert names.count(name) == n_blocks, name
+    assert names.count("eigh.solve") == 1
+    job_tid = {e["tid"] for e in ranges if e["name"] == "phase.gram"}
+    for name in ("feed.read", "feed.pin"):
+        tids = {e["tid"] for e in ranges if e["name"] == name}
+        assert tids and not tids & job_tid, name

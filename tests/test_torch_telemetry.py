@@ -407,3 +407,137 @@ def test_trace_dir_on_cuda_without_a_card_raises(monkeypatch, tmp_path):
 def test_trace_without_a_dir_is_a_no_op():
     with profiling.trace(None, "cuda") as prof:
         assert prof is None
+
+
+# ------------------------------------------- the port's spans, the mirror
+
+def _feed_source(kind, g, tmp_path):
+    """The cohort ``g`` behind each way the feed reads a block: int8
+    blocks packed on the host, a packed store's own bytes, and a dataset
+    store decoding into the feed's buffer (the dense direct drive)."""
+    from spark_examples_tpu_torch.ingest.bitpack import pack_dosages
+    from spark_examples_tpu_torch.ingest.packed import Packed2BitSource
+
+    if kind == "array":
+        return ArraySource(g), "auto"
+    if kind == "packed":
+        return Packed2BitSource(packed=pack_dosages(g), v=g.shape[1]), "auto"
+    from spark_examples_tpu_torch.store import compact, open_store
+
+    compact(str(tmp_path / "ds"), ArraySource(g), chunk_variants=256)
+    return open_store(str(tmp_path / "ds"), device="cpu"), "dense"
+
+
+@pytest.mark.parametrize("kind", ["array", "packed", "store"])
+def test_cpu_job_counts_the_feed_and_eigh_spans(tmp_path, kind):
+    """``feed.read`` once per block the source gives, on every way the
+    feed reads one; no ``feed.pin`` (no pinned ring off the card), no
+    ``feed.copy`` and no ``gram.device_gap_s`` (device measures);
+    ``eigh.solve`` once per job, inside its phase."""
+    from spark_examples_tpu_torch.ingest.prefetch import decode_direct
+
+    g = _cohort(v=1000)
+    src, pack_stream = _feed_source(kind, g, tmp_path)
+    job = JobConfig(ingest=IngestConfig(block_variants=256),
+                    compute=ComputeConfig(metric="ibs", num_pc=3,
+                                          device="cpu",
+                                          pack_stream=pack_stream))
+    assert decode_direct(src, pack=False) == (kind == "store")
+    outs = [pcoa_job(job, source=src) for _ in range(2)]
+    snap = telemetry.metrics_snapshot()
+    hists, counters = snap["histograms"], snap["counters"]
+    assert hists["feed.read"]["count"] == 2 * 4  # ceil(1000 / 256) a job
+    assert hists["gram.block"]["count"] == 2 * 4
+    assert hists["eigh.solve"]["count"] == 2
+    assert hists["eigh.solve"]["sum"] <= sum(o.timer.phases["eigh"]
+                                             for o in outs)
+    for name in ("feed.pin", "feed.copy", "kernel.packed_gram.launch"):
+        assert name not in hists, name
+    assert "gram.device_gap_s" not in counters
+
+
+def _capture(kind, fn):
+    """Run ``fn`` under a CPU ``torch.profiler`` capture: the program's
+    own (``--trace-dir``, every thread) or a bare one (the thread that
+    started it only, as the benchmark's); the complete events back."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as d:
+        if kind == "program":
+            with profiling.trace(d, "cpu"):
+                fn()
+            path = os.path.join(d, "trace_rank0.json")
+        else:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                fn()
+            path = os.path.join(d, "bare.json")
+            prof.export_chrome_trace(path)
+        with open(path) as f:
+            return [e for e in json.load(f)["traceEvents"]
+                    if e.get("ph") == "X"]
+
+
+@pytest.mark.parametrize("kind", ["program", "bare"])
+def test_spans_are_profiler_ranges_in_a_capture(kind):
+    """Every span is a range of its own name: each phase exactly once a
+    job (its one mirror), the gram blocks and the eigensolve on the
+    job's thread; under the program's capture the feed's reads on the
+    producer's own thread too."""
+    g = _cohort(v=1000)
+    job = JobConfig(ingest=IngestConfig(block_variants=256),
+                    compute=ComputeConfig(metric="ibs", num_pc=3,
+                                          device="cpu"))
+    events = _capture(kind, lambda: [pcoa_job(job, source=ArraySource(g))
+                                     for _ in range(2)])
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    names = [e["name"] for e in ranges]
+    for phase in ("phase.gram", "phase.finalize", "phase.eigh"):
+        assert names.count(phase) == 2, phase
+    assert names.count("eigh.solve") == 2
+    # Every block's span, and the last one cancelled at the stream's end.
+    assert names.count("gram.block") == 2 * 5
+    job_tid = {e["tid"] for e in ranges if e["name"] == "phase.gram"}
+    assert len(job_tid) == 1
+    assert {e["tid"] for e in ranges if e["name"] == "gram.block"} == job_tid
+    if kind == "program":
+        reads = [e for e in ranges if e["name"] == "feed.read"]
+        assert len(reads) >= 2 * 4
+        assert not {e["tid"] for e in reads} & job_tid
+
+
+def test_no_range_is_opened_without_a_capture(monkeypatch):
+    """With no capture running a span opens no range; under one, each
+    span opens one, and closes it when the span ends or is cancelled."""
+    opened = []
+
+    class Range:
+        def __init__(self, name):
+            self.name, self.open = name, True
+            opened.append(self)
+
+        def __exit__(self, *exc):
+            self.open = False
+
+    monkeypatch.setattr(telemetry, "_mirror",
+                        (profiling._capture_running, Range))
+    g = _cohort(v=600)
+    job = JobConfig(ingest=IngestConfig(block_variants=256),
+                    compute=ComputeConfig(metric="ibs", num_pc=3,
+                                          device="cpu"))
+    pcoa_job(job, source=ArraySource(g))
+    with telemetry.span("feed.pin"):
+        pass
+    telemetry.begin("gram.block").cancel()
+    assert opened == []
+    monkeypatch.setattr(telemetry, "_mirror", (lambda: True, Range))
+    with telemetry.span("feed.pin"):
+        pass
+    telemetry.begin("gram.block").cancel()
+    telemetry.begin("feed.read").end()
+    with profiling.device_span("eigh.solve", "cpu"):
+        pass
+    assert [r.name for r in opened] == ["feed.pin", "gram.block",
+                                        "feed.read", "eigh.solve"]
+    assert not any(r.open for r in opened)
