@@ -875,14 +875,29 @@ PORT_NAMES: dict[str, tuple[str, str]] = {
     ),
     "feed.read": (
         "span",
-        "the feed producer's host work for one block: the source's slice, "
-        "copy and padding of it (packed_blocks, blocks), or its decode "
+        "the feed producer's host work for one block: the source's "
+        "slicing of its own bytes (packed_views), its copy and padding "
+        "of them or its re-pack (packed_blocks, blocks), or its decode "
         "into the feed's buffer on the direct drive (decode_range_into)",
     ),
     "feed.pin": (
         "span",
         "the feed producer's copy of one host block into its pinned "
-        "staging slab (CUDA targets only)",
+        "staging slab, the ragged tail padded (CUDA targets only): for a "
+        "source's view, the gather that is the block's one host copy",
+    ),
+    "feed.gathered_blocks": (
+        "counter",
+        "blocks whose one host copy was the feed producer's gather of "
+        "the source's own bytes (a packed_views view) into a pinned "
+        "slab; 0 for a source that builds its blocks",
+    ),
+    "prefetch.device_ring_waits": (
+        "counter",
+        "host-to-device copies a CUDA feed issued while the card still "
+        "held their device buffer (the ring of prefetch + TRANSFER_DEPTH "
+        "buffers, ingest/prefetch.py): the copy waits on the card there; "
+        "0 while the host paces the feed",
     ),
     "feed.copy": (
         "span",

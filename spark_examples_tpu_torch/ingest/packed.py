@@ -6,8 +6,8 @@ package reads in the other byte for byte:
 
 - ``bits=2`` (default): ``genotypes.2bit.npy``, (N, ceil(V/4)) uint8,
   four dosages per byte (ingest/bitpack.py). The feed streams these
-  bytes as they are (``packed_blocks``) and the gram update decodes on
-  the device.
+  bytes as they are (``packed_views``, ``packed_blocks``) and the gram
+  update decodes on the device.
 - ``bits=8``: ``genotypes.npy``, (N, V) int8 dosages.
 """
 
@@ -93,8 +93,9 @@ def save_packed(
 @dataclass
 class Packed2BitSource:
     """2-bit columnar store as a GenotypeSource: ``blocks()`` unpacks on
-    the host; ``packed_blocks()`` yields the stored bytes for the packed
-    transport (ingest/prefetch.stream_to_device(pack=True))."""
+    the host; ``packed_views()`` and ``packed_blocks()`` yield the stored
+    bytes for the packed transport (ingest/prefetch.stream_to_device(
+    pack=True)), as views and as copies."""
 
     packed: np.ndarray  # (N, ceil(V/4)) uint8, possibly memmapped
     v: int  # true variant count (last byte may hold pad codes)
@@ -147,12 +148,14 @@ class Packed2BitSource:
         starts = [int(s) for _, s in self.contig_runs]
         return starts + [self.v]
 
-    def packed_blocks(self, block_variants: int, start_variant: int = 0):
-        """Yield ((N, <=block_variants/4) uint8, meta): the stored bytes,
-        not unpacked. Requires ``block_variants`` divisible by 4 so blocks fall
-        on byte boundaries (``blocks()`` has no such restriction). The
-        fixed byte grid can straddle chromosome runs; such blocks carry
-        ``contig=None`` (positions stay exact)."""
+    def packed_views(self, block_variants: int, start_variant: int = 0):
+        """Yield ((N, <=block_variants/4) uint8, meta, True): each block's
+        stored bytes as a view of ``packed``, with no copy (the third
+        item says so); the feed gathers it into its staging slab, the
+        block's one host copy. Requires ``block_variants`` divisible by
+        4 so blocks fall on byte boundaries (``blocks()`` has no such
+        restriction). The fixed byte grid can straddle chromosome runs;
+        such blocks carry ``contig=None`` (positions stay exact)."""
         if block_variants % bitpack.VARIANTS_PER_BYTE:
             raise ValueError(
                 f"packed_blocks needs block_variants divisible by "
@@ -163,15 +166,22 @@ class Packed2BitSource:
         first = -(-start_variant // block_variants)
         for idx in range(first, -(-self.v // block_variants)):
             lo_b, hi_b = idx * bw, min((idx + 1) * bw, total_w)
-            block = np.ascontiguousarray(self.packed[:, lo_b:hi_b])
             lo, hi = idx * block_variants, min(
                 (idx + 1) * block_variants, self.v
             )
             pos = None
             if self.positions is not None:
                 pos = self.positions[lo:hi]
-            yield block, BlockMeta(idx, lo, hi, self._contig_of(lo, hi),
-                                   pos)
+            yield self.packed[:, lo_b:hi_b], BlockMeta(
+                idx, lo, hi, self._contig_of(lo, hi), pos), True
+
+    def packed_blocks(self, block_variants: int, start_variant: int = 0):
+        """Yield ((N, <=block_variants/4) uint8, meta): the stored bytes,
+        not unpacked, each block a contiguous copy the caller owns
+        (:meth:`packed_views` without the views)."""
+        for view, meta, _ in self.packed_views(block_variants,
+                                               start_variant):
+            yield np.ascontiguousarray(view), meta
 
     def blocks(self, block_variants: int, start_variant: int = 0):
         """Dense int8 blocks: unpack the covering byte range and slice

@@ -105,9 +105,10 @@ class RetryingSource:
     """Transparent retry wrapper over a file-backed source.
 
     Metadata and the ``exact_n_variants`` claim pass through. The packed
-    transport (``packed_blocks``) and the store's decode-to-buffer drive
-    (``block_spans`` + ``decode_range_into``) are forwarded under the
-    same retry loop when the inner source has them.
+    transport (``packed_views``, ``packed_blocks``) and the store's
+    decode-to-buffer drive (``block_spans`` + ``decode_range_into``)
+    are forwarded under the same retry loop when the inner source has
+    them.
 
     ``reopen``: a factory returning a fresh inner source, called before
     each retry. Sources that open their files inside ``blocks()`` (VCF,
@@ -126,6 +127,8 @@ class RetryingSource:
     def __post_init__(self):
         if hasattr(self.inner, "packed_blocks"):
             self.packed_blocks = self._packed_blocks
+        if hasattr(self.inner, "packed_views"):
+            self.packed_views = self._packed_views
         if hasattr(self.inner, "decode_range_into") and hasattr(
                 self.inner, "block_spans"):
             self.block_spans = self._block_spans
@@ -177,7 +180,8 @@ class RetryingSource:
     def _stream(self, opener, start_variant: int, validate: bool):
         """The retry loop: ``opener(cursor)`` re-opens the inner iterator
         at a cursor; ordinals count over the OUTPUT stream, so they do
-        not jump back across a re-open."""
+        not jump back across a re-open. Items are ``(block, meta)``, or
+        ``(bytes, meta, view)`` from ``packed_views``."""
         cursor = start_variant
         idx = 0
         rng = random.Random(self.seed)
@@ -193,11 +197,12 @@ class RetryingSource:
                     self._reopen()
                 need_reopen = False
                 it = opener(cursor)
-                for block, meta in it:
+                for block, meta, *rest in it:
                     faults.fire("ingest.block_read")
                     if validate:
                         self._validate(block, meta.start)
-                    yield block, dataclasses.replace(meta, index=idx)
+                    yield (block, dataclasses.replace(meta, index=idx),
+                           *rest)
                     idx += 1
                     cursor = meta.stop
                     retries_left = self.policy.max_retries
@@ -224,6 +229,14 @@ class RetryingSource:
         # apply, and the 2-bit codec's unpack is bounds-safe.
         yield from self._stream(
             lambda cur: self.inner.packed_blocks(block_variants, cur),
+            start_variant, validate=False,
+        )
+
+    def _packed_views(self, block_variants: int, start_variant: int = 0):
+        # ``(bytes, meta, view)``: the packed transport's views, under the
+        # same loop.
+        yield from self._stream(
+            lambda cur: self.inner.packed_views(block_variants, cur),
             start_variant, validate=False,
         )
 

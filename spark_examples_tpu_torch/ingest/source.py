@@ -210,6 +210,8 @@ class WindowSource:
         # source has.
         if hasattr(self.inner, "packed_blocks"):
             self.packed_blocks = self._packed_blocks
+        if hasattr(self.inner, "packed_views"):
+            self.packed_views = self._packed_views
         if hasattr(self.inner, "decode_range_into") and hasattr(
                 self.inner, "block_spans"):
             self.block_spans = self._block_spans
@@ -241,22 +243,27 @@ class WindowSource:
                 "the window's own variants"
             )
 
-    def _relocalize(self, it, packed: bool = False):
+    def _relocalize(self, it, packed: bool = False, views: bool = False):
+        """The inner stream in the window's coordinates, cut at its end;
+        ``views``: items are ``packed_views``' ``(bytes, meta, view)``,
+        and a cut block stays a view."""
         idx = 0
-        for block, meta in it:
+        for block, meta, *rest in it:
             if meta.start >= self.stop:
                 break
             take = min(meta.stop, self.stop) - meta.start
             # Packed blocks are (N, width / 4) bytes.
             cols = bitpack.packed_width(take) if packed else take
             if cols < block.shape[1]:
-                block = np.ascontiguousarray(block[:, :cols])
+                block = block[:, :cols]
+                if not views:
+                    block = np.ascontiguousarray(block)
             pos = None if packed else meta.positions
             if pos is not None and take < len(pos):
                 pos = pos[:take]
-            yield block, dataclasses.replace(
+            yield (block, dataclasses.replace(
                 meta, index=idx, start=meta.start - self.start,
-                stop=meta.start - self.start + take, positions=pos)
+                stop=meta.start - self.start + take, positions=pos), *rest)
             idx += 1
 
     def blocks(self, block_variants: int, start_variant: int = 0):
@@ -270,6 +277,13 @@ class WindowSource:
             self.inner.packed_blocks(block_variants,
                                      self.start + start_variant),
             packed=True)
+
+    def _packed_views(self, block_variants: int, start_variant: int = 0):
+        self._check_aligned(block_variants)
+        yield from self._relocalize(
+            self.inner.packed_views(block_variants,
+                                    self.start + start_variant),
+            packed=True, views=True)
 
     def _block_spans(self, block_variants: int, start_variant: int = 0):
         """The inner block grid's spans in the window's coordinates,

@@ -10,11 +10,12 @@ The read path is tiered:
    int8 decodes under ``("dense", idx)`` keys, and — for compressed
    chunks on the packed transport — inflated 2-bit payloads under
    ``("packed", idx)``;
-3. the consumer: ``blocks`` / ``packed_blocks`` re-grid chunks into any
-   requested block width (never spanning a contig), ``range_source``
-   answers contig/variant/position range queries off the catalog, and
-   cursors resume deterministically — the drop-in contract every job
-   surface (the runner's jobs) already assumes.
+3. the consumer: ``blocks`` / ``packed_views`` / ``packed_blocks``
+   re-grid chunks into any requested block width (never spanning a
+   contig), ``range_source`` answers contig/variant/position range
+   queries off the catalog, and cursors resume deterministically — the
+   drop-in contract every job surface (the runner's jobs) already
+   assumes.
 
 Decoding (store/codec.py ``decode_into``, one native call where the
 library is built) inflates and 2-bit unpacks into the destination
@@ -566,12 +567,13 @@ class StoreSource:
         for lo, hi, meta in self.block_spans(block_variants, start_variant):
             yield self.read_range(lo, hi), meta
 
-    def packed_blocks(self, block_variants: int, start_variant: int = 0):
-        """2-bit packed blocks for the packed transport. Zero-copy when
-        a block falls inside one raw-codec chunk on the byte grid (the
-        common case: bv dividing chunk_variants); compressed chunks
-        substitute their cached inflated payload for the mmap;
-        re-packed from the dense decode otherwise — same bytes
+    def packed_views(self, block_variants: int, start_variant: int = 0):
+        """``(bytes, meta, view)``: 2-bit packed blocks for the packed
+        transport. A view (``view`` True, no copy) when a block falls
+        inside one chunk on the byte grid (the common case: bv dividing
+        chunk_variants): of the verified mmap for a raw-codec chunk, of
+        the cached inflated payload for a compressed one; re-packed from
+        the dense decode otherwise (``view`` False) — same bytes
         semantics every way (tail pad codes are MISSING, free to every
         gram piece)."""
         if block_variants % bitpack.VARIANTS_PER_BYTE:
@@ -596,10 +598,17 @@ class StoreSource:
                     raw = self._payload(i)
                 b0 = (lo - rec.start) // vpb
                 b1 = bitpack.packed_width(hi - rec.start)
-                pblock = np.ascontiguousarray(raw[:, b0:b1])
+                yield raw[:, b0:b1], self._meta(idx, lo, hi, contig), True
             else:
-                pblock = bitpack.pack_dosages(self.read_range(lo, hi))
-            yield pblock, self._meta(idx, lo, hi, contig)
+                yield (bitpack.pack_dosages(self.read_range(lo, hi)),
+                       self._meta(idx, lo, hi, contig), False)
+
+    def packed_blocks(self, block_variants: int, start_variant: int = 0):
+        """2-bit packed blocks, each a contiguous array the caller owns
+        (:meth:`packed_views` with its views copied)."""
+        for pblock, meta, _ in self.packed_views(block_variants,
+                                                 start_variant):
+            yield np.ascontiguousarray(pblock), meta
 
     # -- range queries (the catalog's partitioner surface) -----------------
 

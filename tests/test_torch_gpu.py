@@ -778,6 +778,69 @@ def test_cuda_feed_fires_the_transfer_wait_site(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("paced_by", ["card", "host"])
+def test_cuda_feed_holds_its_blocks_in_a_device_ring(cuda_device, paced_by):
+    """A feed faster than the card (each update slowed on the compute
+    stream) keeps at most its ring of prefetch + TRANSFER_DEPTH device
+    buffers and waits on the card there (``prefetch.device_ring_waits``);
+    a feed slower than the card (each block's copy held back on the
+    host) never waits. The update reads every block's bytes either way,
+    each gathered from the source's view (``feed.gathered_blocks``),
+    though its scratch, freed on the compute stream while that stream
+    still has work queued on it, is block-sized like a ring buffer."""
+    import contextlib
+
+    from spark_examples_tpu_torch.core import faults
+    from spark_examples_tpu_torch.ingest.bitpack import pack_dosages
+    from spark_examples_tpu_torch.ingest.packed import Packed2BitSource
+    from spark_examples_tpu_torch.ingest.prefetch import (
+        TRANSFER_DEPTH,
+        pad_block,
+        padded_width,
+        stream_to_device,
+    )
+
+    n, bv, n_blocks, prefetch = 1024, 8192, 24, 2
+    g = np.random.default_rng(7).integers(
+        -1, 3, (n, bv * n_blocks - 100), dtype=np.int8)  # a ragged tail
+    src = Packed2BitSource(pack_dosages(g), g.shape[1])
+    w = padded_width(bv, pack=True)
+    seen = torch.empty((n_blocks, n, w), dtype=torch.uint8,
+                       device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    telemetry.reset()
+    slow_host = (faults.armed(["device.put:delay:delay=0.01:max=0"])
+                 if paced_by == "host" else contextlib.nullcontext())
+    buffers = set()
+    with slow_host:
+        for i, (block, _) in enumerate(stream_to_device(
+                src, bv, cuda_device, prefetch=prefetch, pack=True)):
+            scratch = torch.empty_like(block)
+            if paced_by == "card":
+                torch.cuda._sleep(20_000_000)  # ~10 ms of the card
+            scratch.copy_(block)
+            seen[i].copy_(scratch)
+            del scratch
+            buffers.add(block.data_ptr())
+    torch.cuda.synchronize()
+    ring = prefetch + TRANSFER_DEPTH
+    assert len(buffers) <= ring
+    # The ring and one scratch.
+    assert torch.cuda.max_memory_allocated() - base <= (ring + 1) * n * w
+    want = np.stack([pack_dosages(pad_block(g[:, i * bv:(i + 1) * bv], bv))
+                     for i in range(n_blocks)])
+    np.testing.assert_array_equal(seen.cpu().numpy(), want)
+    assert telemetry.counter_value("feed.gathered_blocks") == n_blocks
+    waits = telemetry.counter_value("prefetch.device_ring_waits")
+    if paced_by == "card":
+        assert waits > 0
+    else:
+        assert waits == 0
+
+
+@pytest.mark.gpu
 def test_trace_dir_captures_the_card_s_kernels(cuda_device, tmp_path):
     import json
     import os

@@ -20,12 +20,16 @@ from spark_examples_tpu.ingest import packed as jpacked
 from spark_examples_tpu.ingest import plink as jplink
 from spark_examples_tpu.ingest import vcf as jvcf
 from spark_examples_tpu.ingest.source import ArraySource as JArraySource
+from spark_examples_tpu_torch import store as tstore
+from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.core.config import ReferenceRange
+from spark_examples_tpu_torch.ingest import bitpack
 from spark_examples_tpu_torch.ingest import packed as tpacked
 from spark_examples_tpu_torch.ingest import plink as tplink
 from spark_examples_tpu_torch.ingest import prefetch as tprefetch
 from spark_examples_tpu_torch.ingest import vcf as tvcf
-from spark_examples_tpu_torch.ingest.source import ArraySource
+from spark_examples_tpu_torch.ingest.resilient import RetryingSource
+from spark_examples_tpu_torch.ingest.source import ArraySource, WindowSource
 
 from conftest import random_genotypes
 
@@ -337,3 +341,78 @@ def test_packed_feed_ships_the_stored_bytes(tmp_path, cohort):
     src = tpacked.load_packed(path)
     repacked = list(tprefetch.stream_to_device(src, 130, CPU, pack=True))
     assert [m.stop for _, m in repacked] == [130, 260, 300]
+
+
+class _HostSlab(tprefetch._Slab):
+    """A staging slab in plain host memory (a CPU-only torch cannot pin),
+    first filled with a byte no block holds, so a byte the gather missed
+    shows."""
+
+    def __init__(self, shape, dtype, free):
+        self.tensor = torch.full(shape, 0x5A, dtype=dtype)
+        self.array = self.tensor.numpy()
+        self._free = free
+
+
+def _packed_feed_source(kind, g, tmp_path):
+    """``(source, its variant 0's column in g, views)``: each source the
+    packed feed streams, and whether it hands the feed views."""
+    stored = bitpack.pack_dosages(g)
+    if kind == "memory":
+        return tpacked.Packed2BitSource(stored, g.shape[1]), 0, True
+    if kind == "mapping":
+        tpacked.save_packed(str(tmp_path / "p"), g)
+        return tpacked.load_packed(str(tmp_path / "p")), 0, True
+    if kind == "window":
+        inner = tpacked.Packed2BitSource(stored, g.shape[1])
+        return WindowSource(inner, 64, 256), 64, True
+    if kind.startswith("dense"):
+        return ArraySource(g), 0, False
+    codec, chunk = {"store-raw": ("raw", 64), "store-zlib": ("zlib", 128),
+                    "retrying-store": ("raw", 64),
+                    "store-repack": ("raw", 48)}[kind]
+    path = str(tmp_path / "s")
+    tstore.compact(path, ArraySource(g), chunk_variants=chunk, codec=codec)
+    src = tstore.open_store(path)
+    if kind == "retrying-store":
+        src = RetryingSource(src)
+    # Blocks of 64 straddle chunks of 48: re-packed from the dense decode.
+    return src, 0, kind != "store-repack"
+
+
+@pytest.mark.parametrize("start", [0, 128])
+@pytest.mark.parametrize("kind", ["memory", "mapping", "window", "store-raw",
+                                  "store-zlib", "retrying-store",
+                                  "store-repack", "dense"])
+def test_producer_gathers_a_source_s_views_into_its_slab(
+        tmp_path, cohort, monkeypatch, kind, start):
+    """The CUDA feed's producer over reused staging slabs: a source that
+    holds its 2-bit bytes hands over views, and the gather into the slab
+    (the ragged tail padded with 0xFF over the last block's bytes) is
+    each block's one host copy, counted by ``feed.gathered_blocks``;
+    every slab is byte for byte the block the CPU feed copies out
+    (``np.ascontiguousarray`` and ``pad_packed``), and a source that
+    builds its blocks is gathered from its own array, uncounted."""
+    monkeypatch.setattr(tprefetch, "_Slab", _HostSlab)
+    src, col0, views = _packed_feed_source(kind, cohort, tmp_path)
+    bv, n = 64, cohort.shape[0]
+    width = tprefetch.padded_width(bv, pack=True)
+    ring = tprefetch._PinnedRing(4, (n, width), torch.uint8)
+    want = list(tprefetch.stream_to_device(src, bv, CPU, start_variant=start,
+                                           pack=True))
+    telemetry.reset()
+    got = []
+    for host, slab, meta in tprefetch._produce(src, bv, start, 2, True, ring,
+                                               None, width):
+        assert host is slab.array
+        got.append((host.copy(), meta))
+        slab.release()
+    assert [m.start for _, m in got] == list(range(start, src.n_variants,
+                                                   bv))
+    assert_same_stream(got, [(b.numpy(), m) for b, m in want])
+    for block, meta in got:
+        lo, hi = col0 + meta.start, col0 + meta.stop
+        np.testing.assert_array_equal(block, bitpack.pack_dosages(
+            tprefetch.pad_block(cohort[:, lo:hi], bv)))
+    assert telemetry.counter_value("feed.gathered_blocks") == \
+        (len(got) if views else 0)
