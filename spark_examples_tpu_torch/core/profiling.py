@@ -25,8 +25,9 @@ pair is read into the histogram of its name, in seconds, only where
 its end event has been waited out anyway: after a :func:`hard_sync`
 barrier, or by a caller that waits on that event itself (the feed's
 copy, when its slab retires). :class:`StreamGaps` measures, the same
-way, how long a stream idles between marked stretches of work. Off the
-card both time the host.
+way, how long a stream idles between marked stretches of work, and
+:class:`CardSkew` how far the cards of a mesh drift apart in a block.
+Off the card the first two time the host; the skew needs two cards.
 
 :func:`trace` (``--trace-dir``) captures a ``torch.profiler`` trace of a
 whole job, every thread's ranges included. :func:`check_nans` is
@@ -237,6 +238,51 @@ class StreamGaps:
         idle = sum(a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2]))
         telemetry.count(name, idle / 1e3)
         _give_events(self._index, marks)
+
+
+class CardSkew:
+    """How far the cards of a mesh drift apart, block by block: each
+    card's device time from its first to its last mark in a block (an
+    event on its current stream), the slowest card's less the
+    fastest's, summed over the blocks. The events are read in
+    :meth:`count` after a barrier the caller already makes. With fewer
+    than two cards (virtual slots, or off the card) it does nothing."""
+
+    def __init__(self, devices):
+        cards = {torch.device(d) for d in devices}
+        self._on = (len(cards) > 1
+                    and all(d.type == "cuda" for d in cards))
+        self._blocks: list[dict] = []
+
+    def next_block(self) -> None:
+        """Call before each block's first mark."""
+        if self._on:
+            self._blocks.append({})
+
+    def mark(self, device) -> None:
+        """Call before and after each stretch of a block's work on
+        ``device``."""
+        if not self._on:
+            return
+        index = _cuda_index(device)
+        ev = _take_events(index, 1)[0]
+        ev.record(torch.cuda.current_stream(index))
+        self._blocks[-1].setdefault(index, []).append(ev)
+
+    def count(self, name: str) -> None:
+        """Add the summed skew, in seconds, to counter ``name``; every
+        card has completed every mark (the caller has synchronised)."""
+        if not self._on:
+            return
+        blocks, self._blocks = self._blocks, []
+        skew = 0.0
+        for block in blocks:
+            spans = [evs[0].elapsed_time(evs[-1]) for evs in block.values()]
+            if spans:
+                skew += max(spans) - min(spans)
+            for index, evs in block.items():
+                _give_events(index, evs)
+        telemetry.count(name, skew / 1e3)
 
 
 # --debug-nans (set by the CLI): PyTorch has no counterpart of

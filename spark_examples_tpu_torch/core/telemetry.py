@@ -924,6 +924,47 @@ PORT_NAMES: dict[str, tuple[str, str]] = {
         "seconds, cuSOLVER's idle on the card included; the host "
         "interval off the card",
     ),
+    "tile2d.fanout": (
+        "span",
+        "one copy of a block to another card under the tile2d gather "
+        "transport (parallel/gram_sharded.py::_gathered), in device "
+        "seconds on the block's stream, after the wait for the "
+        "destination's stream",
+    ),
+    "tile2d.fanout_bytes": (
+        "counter",
+        "bytes the tile2d gather transport copied from a block's device "
+        "to another card; 0 on virtual slots of one device",
+    ),
+    "gram.tile_skew_s": (
+        "counter",
+        "seconds by which the slowest card's contraction of a block "
+        "(between events on its stream around its K1 launches and adds) "
+        "outlasted the fastest card's, summed over the blocks; tile2d on "
+        "two or more cards, read after the gram phase's barrier",
+    ),
+    "tile2d.mirror": (
+        "span",
+        "the tiled finalize's fetch of a slot's mirrored blocks from "
+        "another device or rank (parallel/pcoa_sharded.py::_mirror_walk), "
+        "in device seconds on the fetching slot's stream",
+    ),
+    "tile2d.mirror_bytes": (
+        "counter",
+        "bytes of mirrored blocks the tiled finalize fetched from another "
+        "device or rank; 0 on virtual slots of one process",
+    ),
+    "eigh.tiled_product": (
+        "span",
+        "one B @ Q of the tiled eigensolve (parallel/pcoa_sharded.py::"
+        "tiled_matmul): the per-slot products and their sum on the first "
+        "slot, in device seconds on that slot's stream",
+    ),
+    "eigh.tiled_products": (
+        "counter",
+        "B @ Q products of the tiled eigensolve: iters + 2 a randomized "
+        "solve",
+    ),
 }
 
 _FAMILIES = tuple(n[:-1] for n in NAMES if n.endswith(".*"))  # "phase."

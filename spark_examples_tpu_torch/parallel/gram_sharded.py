@@ -54,7 +54,15 @@ Counters: ``gram.fused_blocks`` one per block update under the fused
 lowering (the JAX meaning, whatever the number of tiles),
 ``gram.ring_steps`` D per ring block. K1's own launches are
 ``ops/packed_gram.launches`` and the counter
-``kernel.packed_gram.launches``, both counted where K1 launches.
+``kernel.packed_gram.launches``, both counted where K1 launches. The
+gather transport's fan-out of a block to the other cards is the device
+span ``tile2d.fanout`` (one a copy, on the block's stream) and the
+counter ``tile2d.fanout_bytes`` (bytes copied to a device other than
+the block's: 0 on virtual slots). On two or more cards, tile2d counts
+``gram.tile_skew_s``: a block's contraction on each card (its K1
+launches and adds, between events on the card's stream), the slowest
+card's seconds less the fastest's, summed over the blocks and read
+after the gram phase's closing barrier (:func:`read_tile_skew`).
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ from spark_examples_tpu_torch.core.config import (
     GRAM_PLAN_MODES,
     TILE2D_TRANSPORTS,
 )
+from spark_examples_tpu_torch.core.profiling import CardSkew, device_span
 from spark_examples_tpu_torch.ingest.bitpack import unpack_dosages
 from spark_examples_tpu_torch.ops import genotype, packed_gram
 from spark_examples_tpu_torch.ops import gram as gram_ops
@@ -253,9 +262,25 @@ def _gathered(mesh: meshes.Mesh, block: torch.Tensor) -> dict:
     (every rank's slab side by side, in rank order; on one process the
     block itself) copied once onto each physical device of this rank's
     slots, by device. Virtual slots share their device's copy, and
-    nothing writes to it."""
+    nothing writes to it. Each copy to another device is a
+    ``tile2d.fanout`` span and counts its ``tile2d.fanout_bytes``."""
     whole = torch.cat(mh.allgather_tensor(mesh, block), dim=1)
-    return {d: whole.to(d, non_blocking=True) for d in mesh.physical}
+    copies = {}
+    for d in mesh.physical:
+        if d == whole.device:
+            copies[d] = whole
+            continue
+        if whole.is_cuda and d.type == "cuda":
+            # torch's own barrier for a copy between cards (the block's
+            # stream waits for the destination's), taken before the span
+            # opens so that it holds the copy alone.
+            torch.cuda.current_stream(whole.device).wait_stream(
+                torch.cuda.current_stream(d))
+        with device_span("tile2d.fanout", whole.device):
+            copies[d] = whole.to(d, non_blocking=True)
+        telemetry.count("tile2d.fanout_bytes",
+                        whole.numel() * whole.element_size())
+    return copies
 
 
 def make_gather_probe(plan: GramPlan, n_samples: int, width: int,
@@ -416,10 +441,18 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
         return update_variant
 
     contract = _TileContraction(plan, metric, packed, grm_precise, lowering)
+    skew = CardSkew(mesh.physical)
+
+    def contract_timed(acc, s, chunk, cache):
+        dev = mesh.devices[s]
+        skew.mark(dev)
+        contract(acc, s, chunk, cache)
+        skew.mark(dev)
 
     def update_tile2d(acc, block):
         if fused:
             telemetry.count("gram.fused_blocks", 1)
+        skew.next_block()
         cache: dict = {}
         placed: dict = {}
 
@@ -433,7 +466,7 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
 
         if block_layout == "replicated":
             for s in local:
-                contract(acc, s, on_device(
+                contract_timed(acc, s, on_device(
                     s, lambda d: block.to(d, non_blocking=True)), cache)
             return acc
         # This rank's slab, split over its slots; on one process the
@@ -452,14 +485,14 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
                 if not last:
                     nxt, arriving, into = _hop(held)
                 for s in local:
-                    contract(acc, s, held[s], cache)
+                    contract_timed(acc, s, held[s], cache)
                 if not last:
                     nxt.update(zip(into, arriving.wait()))
                     held = nxt
             return acc
         copies = _gathered(mesh, block)
         for s in local:
-            contract(acc, s, copies[mesh.devices[s]], cache)
+            contract_timed(acc, s, copies[mesh.devices[s]], cache)
         return acc
 
     def _hop(held: dict):
@@ -480,4 +513,13 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
                 into.append(dst)
         return nxt, mh.start_exchange(sends, recvs), into
 
+    update_tile2d.tile_skew = skew
     return update_tile2d
+
+
+def read_tile_skew(update) -> None:
+    """Count the tile2d update's ``gram.tile_skew_s`` since its last
+    read; every card has synchronised. Other updates have none."""
+    skew = getattr(update, "tile_skew", None)
+    if skew is not None:
+        skew.count("gram.tile_skew_s")

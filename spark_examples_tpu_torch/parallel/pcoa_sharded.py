@@ -44,13 +44,25 @@ through ``parallel/multihost.py`` (on one process, device copies):
   sums the two layouts in different orders.
 
 So every rank holds the bits of the one-process tiled run.
+
+Spans and counters: the fetch of a slot's mirrored blocks from another
+device is the device span ``tile2d.mirror`` (on the fetching slot's
+stream, from the fetch's start until the blocks have arrived) and the
+counter ``tile2d.mirror_bytes`` (bytes that crossed from another device
+or rank: 0 on virtual slots of one process); each ``B @ Q`` is the
+device span ``eigh.tiled_product`` (the per-slot products and their sum,
+on this rank's first slot's stream) and one ``eigh.tiled_products``, so
+a randomized solve counts ``iters + 2``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from spark_examples_tpu_torch import kernels
+from spark_examples_tpu_torch.core import telemetry
 from spark_examples_tpu_torch.core.config import (
     EIGH_ITERS_DEFAULT,
     EIGH_OVERSAMPLE_DEFAULT,
@@ -59,6 +71,7 @@ from spark_examples_tpu_torch.core.meshes import Tiled
 from spark_examples_tpu_torch.core.profiling import (
     PhaseTimer,
     check_nans,
+    device_span,
     hard_sync,
 )
 from spark_examples_tpu_torch.models.pca import PCAResult
@@ -168,7 +181,9 @@ def _mirror_walk(like: Tiled, leaves: dict):
     """``(slot, {key: X[cols, rows]^T})`` of the tiled ``leaves`` (laid
     out as ``like``) for this rank's slots, in lockstep across the ranks:
     at step ``l`` every rank fetches the mirrored blocks of its ``l``-th
-    slot (``multihost.regions``), one tile's worth held at a time."""
+    slot (``multihost.regions``), one tile's worth held at a time. A
+    fetch that crosses from another device or rank is a
+    ``tile2d.mirror`` span and counts its ``tile2d.mirror_bytes``."""
     mesh = like.mesh
     for l, s in enumerate(mesh.local_slots):
         wanted = []
@@ -176,8 +191,21 @@ def _mirror_walk(like: Tiled, leaves: dict):
             slot = mesh.slots_of(rank)[l]
             r0, r1, c0, c1 = like.spans(slot)
             wanted.append((slot, (c0, c1, r0, r1)))
-        yield s, {k: mh.regions(v, wanted)[s].T
-                  for k, v in sorted(leaves.items())}
+        r0, r1, c0, c1 = like.spans(s)
+        crossing = sum(
+            (rows.stop - rows.start) * (cols.stop - cols.start)
+            for band in like.region_pieces(c0, c1, r0, r1)
+            for src, rows, cols in band
+            if mesh.owner(src) != mesh.rank
+            or mesh.devices[src] != mesh.devices[s])
+        with (device_span("tile2d.mirror", mesh.devices[s]) if crossing
+              else contextlib.nullcontext()):
+            mirror = {k: mh.regions(v, wanted)[s].T
+                      for k, v in sorted(leaves.items())}
+        if crossing:
+            telemetry.count("tile2d.mirror_bytes", crossing * sum(
+                v.dtype.itemsize for v in leaves.values()))
+        yield s, mirror
 
 
 def finalize_tiles(plan: GramPlan, acc: dict, metric: str,
@@ -278,26 +306,29 @@ def tiled_matmul(b: Tiled, q: torch.Tensor) -> torch.Tensor | None:
     mesh = b.mesh
     home = mesh.home
     q = q.contiguous()
-    error = None
-    try:
-        blocks = torch.stack([(t @ q[c0:c1].to(t.device)).to(home)
-                              for (s, t), (_, _, c0, c1)
-                              in zip(b.local(), map(b.spans,
-                                                    mesh.local_slots))])
-    except Exception as e:  # every rank learns of it in the vote
-        error = e
-    mh.vote_all_ok(error is None, lambda bad: RuntimeError(
-        f"the tiled B @ Q product failed on rank(s) {bad} — see their "
-        "logs"))
-    if error is not None:
-        raise error
-    by_slot = mh.gather_slots(mesh, blocks, dst=0)
-    if by_slot is None:
-        return None
-    out = torch.zeros((b.shape[0], q.shape[1]), dtype=q.dtype, device=home)
-    for s, block in enumerate(by_slot):
-        r0, r1, _, _ = b.spans(s)
-        out[r0:r1] += block
+    telemetry.count("eigh.tiled_products")
+    with device_span("eigh.tiled_product", home):
+        error = None
+        try:
+            blocks = torch.stack([(t @ q[c0:c1].to(t.device)).to(home)
+                                  for (s, t), (_, _, c0, c1)
+                                  in zip(b.local(),
+                                         map(b.spans, mesh.local_slots))])
+        except Exception as e:  # every rank learns of it in the vote
+            error = e
+        mh.vote_all_ok(error is None, lambda bad: RuntimeError(
+            f"the tiled B @ Q product failed on rank(s) {bad} — see their "
+            "logs"))
+        if error is not None:
+            raise error
+        by_slot = mh.gather_slots(mesh, blocks, dst=0)
+        if by_slot is None:
+            return None
+        out = torch.zeros((b.shape[0], q.shape[1]), dtype=q.dtype,
+                          device=home)
+        for s, block in enumerate(by_slot):
+            r0, r1, _, _ = b.spans(s)
+            out[r0:r1] += block
     return out
 
 

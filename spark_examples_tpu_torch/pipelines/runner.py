@@ -284,7 +284,9 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer,
 
     ``on_block(acc, blocks_done, meta)``: called after each block's
     update (the streaming PCoA refreshes its subspace there); it must
-    treat ``acc`` as read-only."""
+    treat ``acc`` as read-only. A tile2d update over two or more cards
+    counts their skew (``gram.tile_skew_s``) once the phase's closing
+    barrier has passed."""
     cfg = job.compute
     device = resolve_device(cfg.device)
     if plan is None:
@@ -345,6 +347,7 @@ def run_gram(job: JobConfig, source, timer: PhaseTimer,
         packed, block_flops=lambda v: gram.flops_per_block(n, v, metric),
         save_cb=save if cfg.checkpoint_dir else None, stats=stream_stats,
         on_block=on_block, pad_multiple=plan.block_shards)
+    gram_sharded.read_tile_skew(update)
     _check_int32_budget(metric, n_variants,
                         (stream_stats or {}).get("max_value", 2))
     return GramRun(acc, source.sample_ids, metric, timer, n_variants,
@@ -423,6 +426,7 @@ def _run_gram_multihost(job: JobConfig, source, timer: PhaseTimer, plan,
             sp = telemetry.begin("gram.block", cat="gram")
         sp.cancel()
         acc = hard_sync(acc)
+    gram_sharded.read_tile_skew(update)
     if not tiled:
         with timer.phase("allreduce"):
             acc = hard_sync(mh.reduce_acc(acc, inplace=True))
