@@ -489,10 +489,10 @@ PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES_S = 3.35e12
 RAGGED_SHAPES = ((37, 21, 301), (1, 1, 1), (65, 130, 17), (64, 64, 16),
                  (200, 129, 33),
-                 # K1's 64-sample tile and 64-byte chunk, each -1, 0, +1,
+                 # K1's 128-sample tile and 32-byte stage, each -1, 0, +1,
                  # and two tiles + 1.
-                 (63, 63, 63), (64, 64, 64), (65, 65, 65), (129, 129, 63),
-                 (129, 65, 65))
+                 (127, 127, 31), (128, 128, 32), (129, 129, 33),
+                 (257, 257, 31), (257, 129, 33))
 # The largest N on the dense route (pipelines/jobs.py): K1 is timed there.
 LARGE_SAMPLES = 16_384
 # Phase 12's raw-value table and phase 16's VCF width.

@@ -15,6 +15,8 @@ int32}``, decode + mask + contract without materialising a dosage block.
   it contracts and where each lands. When rows and cols are the same
   tensor (the gram update's call) the kernel runs only the tiles with
   I <= J and mirrors each into [J, I] from the plan.
+- :func:`launch_plan` is how a launch is cut: its output tile, its sweeps
+  over the contractions, and its grid of persistent blocks.
 
 ``launches`` counts the CUDA kernel's launches (one per call on CUDA
 tensors), so a run can show that its main path went through the kernel;
@@ -44,8 +46,11 @@ _PACKABLE_OPERANDS = frozenset(_OPERAND_CODES)
 MAX_PRODUCTS = 7
 # The kernel's square output tile and the packed bytes it stages per step
 # (TILE and KB in csrc/packed_gram.cu): the edges the tests probe.
-TILE = 64
-CHUNK_BYTES = 64
+TILE = 128
+CHUNK_BYTES = 32
+# Contractions a sweep (G_MAX in csrc/packed_gram.cu): two m64n128 int32
+# accumulator sets are 128 registers a thread.
+SWEEP_CONTRACTIONS = 2
 
 launches = 0
 
@@ -119,6 +124,36 @@ def contraction_plan(products: tuple[str, ...], symmetric: bool
         plan.setdefault((left, right), [-1, -1])[0] = i
         plan.setdefault((right, left), [-1, -1])[1] = i
     return tuple((lo, ro, d, m) for (lo, ro), (d, m) in plan.items())
+
+
+def launch_plan(nr: int, nc: int, symmetric: bool, n_contractions: int,
+                sms: int) -> dict:
+    """How the kernel cuts a launch of ``n_contractions`` over ``nr`` rows
+    and ``nc`` columns on a card of ``sms`` SMs (the geometry
+    ``csrc/packed_gram.cu::packed_gram_products`` computes).
+
+    The output is cut into ``TILE``-square tiles (the I <= J ones when
+    symmetric) and the plan's contractions into consecutive sweeps of at
+    most ``SWEEP_CONTRACTIONS``; an item is one (sweep, tile), and a grid
+    of at most one block per SM walks the items. A small launch fills the
+    card through its sweeps: (2504, 2048 B) ibs is 210 tiles x 3 sweeps.
+    Returns ``tile``, ``sweeps`` (tuples of plan indices), ``tiles``,
+    ``items`` and ``grid``.
+    """
+    if nr < 1 or nc < 1 or n_contractions < 1 or sms < 1:
+        raise ValueError(f"no launch: nr {nr}, nc {nc}, contractions "
+                         f"{n_contractions}, sms {sms}")
+    if symmetric and nr != nc:
+        raise ValueError(f"a symmetric launch is square, got {nr} x {nc}")
+    tiles_r = -(-nr // TILE)
+    tiles_c = -(-nc // TILE)
+    tiles = tiles_r * (tiles_r + 1) // 2 if symmetric else tiles_r * tiles_c
+    sweeps = tuple(
+        tuple(range(q, min(q + SWEEP_CONTRACTIONS, n_contractions)))
+        for q in range(0, n_contractions, SWEEP_CONTRACTIONS))
+    items = tiles * len(sweeps)
+    return {"tile": TILE, "sweeps": sweeps, "tiles": tiles,
+            "items": items, "grid": min(items, sms)}
 
 
 def _check_inputs(rows, cols) -> None:

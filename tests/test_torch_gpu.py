@@ -128,6 +128,91 @@ def test_cuda_kernel_on_an_unaligned_block(cuda_device, symmetric):
         assert torch.equal(got[p], want[p]), p
 
 
+def _assert_launch_matches_plain(rows, cols, products):
+    before = packed_gram.launches
+    got = packed_gram.fused_tile_products(rows, cols, products)
+    assert packed_gram.launches == before + 1
+    want = packed_gram.fused_tile_products_plain(rows, cols, products)
+    torch.cuda.synchronize()
+    for p in products:
+        assert torch.equal(got[p], want[p]), p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_persistent_blocks_walk_more_tiles_than_they_are(cuda_device,
+                                                         symmetric):
+    """More (sweep, tile) items than blocks: each block walks many, and
+    every tile of every sweep lands once."""
+    n = 20 * _T + 3
+    rng = np.random.default_rng(20)
+    rows = _random_packed(rng, n, 2 * _C, cuda_device)
+    cols = rows if symmetric else _random_packed(rng, 17 * _T + 5, 2 * _C,
+                                                 cuda_device)
+    pieces = kernels.get("ibs").pieces
+    plan = packed_gram.launch_plan(
+        n, cols.shape[0], symmetric,
+        len(packed_gram.contraction_plan(pieces, symmetric)),
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert plan["items"] > 2 * plan["grid"]
+    _assert_launch_matches_plain(rows, cols, pieces)
+
+
+@pytest.mark.gpu
+def test_rectangular_launch_of_whole_tiles(cuda_device):
+    """nr != nc, both multiples of the tile: the full grid, no ragged
+    edge (the tiled route's off-diagonal launches)."""
+    rng = np.random.default_rng(35)
+    rows = _random_packed(rng, 3 * _T, 4 * _C, cuda_device)
+    cols = _random_packed(rng, 5 * _T, 4 * _C, cuda_device)
+    _assert_launch_matches_plain(rows, cols, kernels.get("ibs").pieces)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_single_contraction_plan(cuda_device, symmetric):
+    """shared-alt's one product, t1t1: every sweep holds one
+    contraction."""
+    rng = np.random.default_rng(1)
+    rows = _random_packed(rng, 2 * _T + 1, 3 * _C, cuda_device)
+    cols = rows if symmetric else _random_packed(rng, _T + 9, 3 * _C,
+                                                 cuda_device)
+    pieces = kernels.get("shared-alt").pieces
+    assert pieces == ("t1t1",)
+    _assert_launch_matches_plain(rows, cols, pieces)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_seven_product_plan(cuda_device, symmetric):
+    """Every 2-bit product at once: 7 contractions asymmetric, 11
+    symmetric (four sweeps, six), the last sweep holding one."""
+    seven = ("cc", "t1c", "t2c", "yc", "t1t1", "t1t2", "t2t2")
+    assert len(seven) == packed_gram.MAX_PRODUCTS
+    assert len(packed_gram.contraction_plan(seven, symmetric)) == (
+        11 if symmetric else 7)
+    rng = np.random.default_rng(7)
+    rows = _random_packed(rng, _T + 37, 2 * _C + 16, cuda_device)
+    cols = rows if symmetric else _random_packed(rng, 2 * _T + 1,
+                                                 2 * _C + 16, cuda_device)
+    _assert_launch_matches_plain(rows, cols, seven)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("w", [3 * _C + 7, 3 * _C + 16])
+def test_width_whose_tail_ends_inside_a_stage(cuda_device, symmetric, w):
+    """The last stage holds fewer than CHUNK_BYTES bytes: a ragged byte
+    tail (byte loads) and a whole 16-byte chunk (cp.async) followed by
+    one the producer never copies. Whatever shared memory holds past w
+    is masked."""
+    rng = np.random.default_rng(w)
+    rows = _random_packed(rng, _T + 5, w, cuda_device)
+    cols = rows if symmetric else _random_packed(rng, 2 * _T - 3, w,
+                                                 cuda_device)
+    _assert_launch_matches_plain(rows, cols, kernels.get("ibs").pieces)
+
+
 @pytest.mark.gpu
 def test_auto_lowering_runs_the_kernel_on_cuda(cuda_device):
     assert gram.resolve_gram_lowering("auto", True, cuda_device) == "fused"

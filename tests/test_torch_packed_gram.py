@@ -180,3 +180,71 @@ def test_asymmetric_plan_is_one_contraction_per_product():
     assert tpacked.contraction_plan(pieces, symmetric=True) == (
         ("c", "c", 0, 0), ("y", "c", 1, -1), ("c", "y", -1, 1),
         ("t1", "t1", 2, 2), ("t2", "t2", 3, 3))
+
+
+# The card the benchmark's cells run on (an H100 SXM).
+_H100_SMS = 132
+
+
+def test_launch_plan_fills_the_card_at_the_flagship_shape():
+    """(2504, 2048 B) ibs, symmetric: 210 tiles of 128, three sweeps of
+    the five contractions, 630 items for 132 blocks."""
+    plan = tpacked.launch_plan(2504, 2504, True, 5, _H100_SMS)
+    assert plan["tiles"] == 20 * 21 // 2
+    assert plan["items"] == 3 * plan["tiles"]
+    assert plan["grid"] == _H100_SMS
+    assert plan["items"] >= 4 * plan["grid"]
+
+
+@pytest.mark.parametrize("nr,nc,symmetric,contractions", [
+    (15708, 15708, True, 5),    # the one-card cell's launch
+    (38078, 38078, True, 5),    # the four-card cell's diagonal tiles
+    (38078, 38078, False, 4),   # and its off-diagonal ones
+])
+def test_launch_plan_large_launches_take_the_large_tile(nr, nc, symmetric,
+                                                        contractions):
+    plan = tpacked.launch_plan(nr, nc, symmetric, contractions, _H100_SMS)
+    assert plan["tile"] == tpacked.TILE == 128
+    assert plan["grid"] == _H100_SMS
+    assert plan["items"] > 100 * _H100_SMS
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("metric", METRICS)
+def test_every_contraction_lands_in_one_sweep(metric, symmetric):
+    pieces = tkernels.get(metric).pieces
+    n = len(tpacked.contraction_plan(pieces, symmetric))
+    plan = tpacked.launch_plan(300, 300, symmetric, n, _H100_SMS)
+    flat = [q for sweep in plan["sweeps"] for q in sweep]
+    assert flat == list(range(n))
+    assert all(1 <= len(s) <= tpacked.SWEEP_CONTRACTIONS
+               for s in plan["sweeps"])
+    assert len(plan["sweeps"]) == -(-n // tpacked.SWEEP_CONTRACTIONS)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_launch_plan_walk_covers_each_tile_once_a_sweep(symmetric):
+    """Blocks b, b + grid, ... over the items, sweep-major: every (sweep,
+    tile) once, and every block's share within one item of the others."""
+    nr, nc = 5 * tpacked.TILE + 1, 5 * tpacked.TILE + 1
+    if not symmetric:
+        nc = 3 * tpacked.TILE
+    plan = tpacked.launch_plan(nr, nc, symmetric, 5, 7)
+    seen = []
+    per_block = []
+    for b in range(plan["grid"]):
+        mine = list(range(b, plan["items"], plan["grid"]))
+        per_block.append(len(mine))
+        seen += [divmod(item, plan["tiles"]) for item in mine]
+    assert sorted(seen) == [(s, t) for s in range(len(plan["sweeps"]))
+                            for t in range(plan["tiles"])]
+    assert max(per_block) - min(per_block) <= 1
+
+
+@pytest.mark.parametrize("args", [
+    (0, 5, False, 1, 132), (5, 5, True, 0, 132), (5, 4, True, 1, 132),
+    (5, 5, True, 1, 0),
+])
+def test_launch_plan_refuses_an_empty_or_ill_formed_launch(args):
+    with pytest.raises(ValueError):
+        tpacked.launch_plan(*args)
