@@ -23,6 +23,9 @@ import torch
 
 from spark_examples_tpu_torch.ops import distances
 
+# ``braycurtis_manhattan``'s parameters before its stream: x, out, n, f.
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
+
 launches = 0
 
 
@@ -41,37 +44,17 @@ def _check_input(x) -> None:
             raise ValueError("x must be contiguous")
 
 
-def _library():
-    from spark_examples_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("braycurtis")
-    lib.braycurtis_manhattan.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.braycurtis_manhattan.restype = ctypes.c_int
-    lib.braycurtis_error_string.argtypes = [ctypes.c_int]
-    lib.braycurtis_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _launch(x: torch.Tensor) -> torch.Tensor:
     global launches
     n, f = x.shape
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.braycurtis_manhattan(x.data_ptr(), out.data_ptr(), n, f,
-                                      stream)
-    if rc != 0:
-        msg = lib.braycurtis_error_string(rc).decode()
-        raise RuntimeError(
-            f"braycurtis Manhattan kernel launch failed: CUDA error {rc} "
-            f"({msg}) at x {tuple(x.shape)}"
-        )
+    from spark_examples_tpu_torch.ops import cuda_build
+
+    cuda_build.launch("braycurtis", "braycurtis_manhattan", _ARGTYPES,
+                      x.device, (x.data_ptr(), out.data_ptr(), n, f),
+                      "braycurtis Manhattan kernel", f"at x {tuple(x.shape)}")
     launches += 1
     return out
 

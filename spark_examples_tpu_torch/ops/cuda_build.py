@@ -8,7 +8,8 @@ file name carries a hash of its source, so an edited source rebuilds.
 A failed build raises: there is no fallback to the plain version.
 Processes that build at once (the ranks of one job) take turns under an
 advisory lock on ``_build/.lock``: the first builds, the others find the
-library (the kernel releases a dead holder's lock).
+library (the kernel releases a dead holder's lock). :func:`launch` is
+the one way a wrapper calls a library's entry point.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -33,6 +36,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# (source name, entry point) -> (the entry, the library's error string),
+# their argtypes set.
+_entries: dict[tuple[str, str], tuple] = {}
 # source name -> the compiler's report (ptxas: registers, shared memory,
 # spills) from the build this process ran or found.
 reports: dict[str, str] = {}
@@ -120,3 +126,32 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(_library_path(name)))
         return _loaded[name]
+
+
+def launch(name: str, entry: str, argtypes: tuple, device, args: tuple,
+           kernel: str, context: str) -> None:
+    """Call ``entry`` of ``csrc/<name>.cu``'s library: ``entry(*args,
+    stream)``, ``stream`` the current stream of ``device`` (every entry
+    point's last parameter), with ``device`` current. The library is
+    loaded and the entry's ``argtypes`` (its parameters before the
+    stream) set at the first call. A nonzero return raises
+    ``RuntimeError("<kernel> launch failed: CUDA error <rc> (<text>)
+    <context>")``, the text from the library's ``<name>_error_string``."""
+    fns = _entries.get((name, entry))
+    if fns is None:
+        lib = load(name)
+        fn = getattr(lib, entry)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        error_string = getattr(lib, f"{name}_error_string")
+        error_string.argtypes = [ctypes.c_int]
+        error_string.restype = ctypes.c_char_p
+        fns = _entries[(name, entry)] = (fn, error_string)
+    fn, error_string = fns
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: CUDA error {rc} "
+            f"({error_string(rc).decode()}) {context}"
+        )

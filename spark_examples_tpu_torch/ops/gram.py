@@ -154,19 +154,41 @@ def grm_tile_update(acc: dict, block: torch.Tensor, rows: slice,
     return acc
 
 
+def add_count_products(dest: dict, rows: torch.Tensor, cols: torch.Tensor,
+                       pieces: tuple[str, ...], packed: bool,
+                       lowering: str) -> None:
+    """Add the count products of ``rows`` against ``cols`` into ``dest``
+    (``{piece: int32 (rows, cols)}``, in place): the one place the count
+    family picks its lowering, for the whole square and for a tile.
+    ``lowering`` is the RESOLVED choice: ``fused`` runs K1 on the 2-bit
+    bytes (:func:`packed_gram.fused_tile_products`, its plain version on
+    CPU tensors); ``reference`` unpacks ``packed`` operands and contracts
+    through :func:`genotype.int_mm` on CUDA, :func:`genotype.int_dot`
+    elsewhere. Rows and columns that are one tensor take the symmetric
+    route: K1's I <= J launch, or :func:`genotype.gram_products`."""
+    if lowering == "fused":
+        prods = packed_gram.fused_tile_products(rows, cols, pieces)
+    else:
+        dot = genotype.int_mm if rows.is_cuda else genotype.int_dot
+        ur = unpack_dosages(rows) if packed else rows
+        if cols is rows:
+            prods = genotype.gram_products(ur, pieces, dot=dot)
+        else:
+            uc = unpack_dosages(cols) if packed else cols
+            prods = genotype.tile_products(ur, uc, pieces, dot)
+    for k in pieces:
+        dest[k].add_(prods[k])
+
+
 def update(acc: dict, block: torch.Tensor, metric: str,
            precise: bool = False) -> dict:
     """Add one (N, v_blk) int8 block's contribution to ``acc``: the count
-    products through the int8 library product on CUDA
-    (:func:`genotype.int_mm`) and the plain float64 one elsewhere, or the
-    float kernel's own update (``precise`` reaches grm)."""
+    products on the reference lowering (:func:`add_count_products`), or
+    the float kernel's own update (``precise`` reaches grm)."""
     kern = _check_metric(metric)
     if kern.family == "float":
         return kern.update(acc, block, precise)
-    dot = genotype.int_mm if block.is_cuda else genotype.int_dot
-    g = genotype.gram_products(block, kern.pieces, dot=dot)
-    for k in kern.pieces:
-        acc[k].add_(g[k])
+    add_count_products(acc, block, block, kern.pieces, False, "reference")
     return acc
 
 
@@ -181,10 +203,8 @@ def update_fused(acc: dict, packed: torch.Tensor, metric: str) -> dict:
     """Fused-lowering twin of :func:`update_packed`: the packed-gram
     kernel contracts the 2-bit bytes directly (ops/packed_gram.py) —
     bit-identical int32 accumulators."""
-    pieces = kernels.get(metric).pieces
-    prods = packed_gram.fused_tile_products(packed, packed, pieces)
-    for k in pieces:
-        acc[k].add_(prods[k])
+    add_count_products(acc, packed, packed, kernels.get(metric).pieces,
+                       True, "fused")
     return acc
 
 

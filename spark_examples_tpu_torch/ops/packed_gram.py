@@ -51,6 +51,13 @@ CHUNK_BYTES = 32
 # Contractions a sweep (G_MAX in csrc/packed_gram.cu): two m64n128 int32
 # accumulator sets are 128 registers a thread.
 SWEEP_CONTRACTIONS = 2
+# ``packed_gram_products``' parameters before its stream: rows, cols,
+# out, nr, nc, w, the plan's length, its four code arrays, symmetric.
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    *[ctypes.POINTER(ctypes.c_int)] * 4, ctypes.c_int,
+)
 
 launches = 0
 
@@ -180,23 +187,6 @@ def _check_inputs(rows, cols) -> None:
         raise ValueError(f"unsupported device {rows.device}")
 
 
-def _library():
-    from spark_examples_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("packed_gram")
-    lib.packed_gram_products.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.packed_gram_products.restype = ctypes.c_int
-    lib.packed_gram_error_string.argtypes = [ctypes.c_int]
-    lib.packed_gram_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _launch(rows: torch.Tensor, cols: torch.Tensor,
             products: tuple[str, ...]) -> dict[str, torch.Tensor]:
     global launches
@@ -216,22 +206,16 @@ def _launch(rows: torch.Tensor, cols: torch.Tensor,
     right = codes(*(_OPERAND_CODES[q[1]] for q in plan))
     direct = codes(*(q[2] for q in plan))
     mirror = codes(*(q[3] for q in plan))
-    lib = _library()
-    with torch.cuda.device(rows.device), \
-            device_span("kernel.packed_gram.launch", rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = lib.packed_gram_products(
-            rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
-            nr, nc, w, len(plan), left, right, direct, mirror,
-            int(symmetric), stream,
-        )
-    if rc != 0:
-        msg = lib.packed_gram_error_string(rc).decode()
-        raise RuntimeError(
-            f"packed_gram kernel launch failed: CUDA error {rc} ({msg}) "
+    from spark_examples_tpu_torch.ops import cuda_build
+
+    with device_span("kernel.packed_gram.launch", rows.device):
+        cuda_build.launch(
+            "packed_gram", "packed_gram_products", _ARGTYPES, rows.device,
+            (rows.data_ptr(), cols.data_ptr(), out.data_ptr(), nr, nc, w,
+             len(plan), left, right, direct, mirror, int(symmetric)),
+            "packed_gram kernel",
             f"at rows {tuple(rows.shape)}, cols {tuple(cols.shape)}, "
-            f"products {products}"
-        )
+            f"products {products}")
     launches += 1
     telemetry.count("kernel.packed_gram.launches")
     return {p: out[i] for i, p in enumerate(products)}

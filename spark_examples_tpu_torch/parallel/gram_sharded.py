@@ -29,9 +29,7 @@ and launches each slot's work on that slot's device. The modes:
     sends its shard to slot ``s - 1``), so every slot contracts every shard once:
     D K1 launches per tile a block, on shards a D-th of the block wide.
     Integer sums are exact in any order, so the count family is bitwise
-    the gather transport's;
-  * block layout ``replicated``: the block is already whole on every
-    slot; no collective.
+    the gather transport's.
 
   Across the ranks of a job of several processes the mesh spans them
   (``core/meshes.py::process_mesh``) and each rank updates only its own
@@ -45,10 +43,11 @@ and launches each slot's work on that slot's device. The modes:
   contracted with the rest (it adds zeros): every rank runs its launches
   on every step.
 
-  The count family slices the packed rows and columns before unpacking
-  (or feeds the packed slices to K1 under ``fused``); the float family
-  (grm) takes each chunk's per-variant statistics from all of its rows
-  (``Kernel.tile_body``).
+  The count family hands each tile's row and column slices to
+  ``ops/gram.py::add_count_products``, the single-device update's own
+  contraction (K1 on the packed slices, or the reference lowering); the
+  float family (grm) takes each chunk's per-variant statistics from all
+  of its rows (``Kernel.tile_body``).
 
 Counters: ``gram.fused_blocks`` one per block update under the fused
 lowering (the JAX meaning, whatever the number of tiles),
@@ -67,6 +66,7 @@ after the gram phase's closing barrier (:func:`read_tile_skew`).
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -80,7 +80,6 @@ from spark_examples_tpu_torch.core.config import (
 )
 from spark_examples_tpu_torch.core.profiling import CardSkew, device_span
 from spark_examples_tpu_torch.ingest.bitpack import unpack_dosages
-from spark_examples_tpu_torch.ops import genotype, packed_gram
 from spark_examples_tpu_torch.ops import gram as gram_ops
 from spark_examples_tpu_torch.parallel import multihost as mh
 
@@ -324,12 +323,9 @@ class _TileContraction:
         self.kern = kernels.get(metric)
         self.packed = packed
         self.grm_precise = grm_precise
-        self.fused = lowering == "fused"
+        self.lowering = lowering
         self.pieces = self.kern.pieces
         self.scalars = gram_ops.scalar_leaves(metric)
-
-    def _unpack(self, chunk):
-        return unpack_dosages(chunk) if self.packed else chunk
 
     def __call__(self, acc: dict, s: int, chunk: torch.Tensor,
                  dense_cache: dict) -> None:
@@ -344,7 +340,8 @@ class _TileContraction:
             # its id cannot be reused by another tensor meanwhile.
             hit = dense_cache.get(id(chunk))
             if hit is None:
-                hit = dense_cache[id(chunk)] = (chunk, self._unpack(chunk))
+                dense = unpack_dosages(chunk) if self.packed else chunk
+                hit = dense_cache[id(chunk)] = (chunk, dense)
             dense = hit[1]
             tile = {k: (acc[k] if k in self.scalars else acc[k].tiles[s])
                     for k in acc}
@@ -355,37 +352,28 @@ class _TileContraction:
                                 s == mesh.local_slots[0])
             return
         r = chunk[rows]
-        # The same slice on both sides of a diagonal tile: K1 then runs
-        # its symmetric I <= J launch.
+        # The same slice on both sides of a diagonal tile: it then takes
+        # the symmetric route (K1's I <= J launch).
         c = r if (rows == cols) else chunk[cols]
-        if self.fused:
-            prods = packed_gram.fused_tile_products(r, c, self.pieces)
-        else:
-            dot = genotype.int_mm if chunk.is_cuda else genotype.int_dot
-            ur = self._unpack(r)
-            uc = ur if c is r else self._unpack(c)
-            prods = genotype.tile_products(ur, uc, self.pieces, dot)
-        for k in self.pieces:
-            acc[k].tiles[s].add_(prods[k])
+        tiles = {k: acc[k].tiles[s] for k in self.pieces}
+        gram_ops.add_count_products(tiles, r, c, self.pieces, self.packed,
+                                    self.lowering)
 
 
 def make_update(plan: GramPlan, metric: str, packed: bool = False,
-                grm_precise: bool = False, block_layout: str = "sharded",
-                transport: str = "gather", lowering: str = "reference"):
+                grm_precise: bool = False, transport: str = "gather",
+                lowering: str = "reference"):
     """``(acc, block) -> acc`` under the plan, updating ``acc`` in place.
 
-    ``packed``: blocks arrive 2-bit packed ((N, v/4) uint8).
-    ``block_layout``: ``"sharded"`` (a streamed block: split over the
-    slots, reassembled per ``transport``) or ``"replicated"`` (the block
-    is whole on every slot already: tile2d slots slice it locally, no
-    collective). ``transport``: the tile2d reassembly, ``gather`` or
-    ``ring`` (``auto`` here means an unresolved caller and takes
-    ``gather``). ``lowering``: the RESOLVED count-family lowering,
-    ``reference`` or ``fused`` (K1 on CUDA tensors, its plain version on
-    CPU ones). Blocks of any width are padded to the shard grid.
+    ``packed``: blocks arrive 2-bit packed ((N, v/4) uint8), split over
+    the slots and reassembled per ``transport``. ``transport``: the
+    tile2d reassembly, ``gather`` or ``ring`` (``auto`` here means an
+    unresolved caller and takes ``gather``). ``lowering``: the RESOLVED
+    count-family lowering, ``reference`` or ``fused`` (K1 on CUDA
+    tensors, its plain version on CPU ones). Blocks of any width are
+    padded to the shard grid. Under ``fused`` each call counts one
+    ``gram.fused_blocks``.
     """
-    if block_layout not in ("sharded", "replicated"):
-        raise ValueError(f"unknown block_layout {block_layout!r}")
     if transport not in TILE2D_TRANSPORTS:
         raise ValueError(
             f"unknown tile2d transport {transport!r}; valid: "
@@ -399,17 +387,25 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
         )
     if lowering == "fused":
         kernels.check_fused_lowering(metric, packed)
-    if block_layout == "replicated" and plan.mode == "variant":
-        raise ValueError(
-            "block_layout='replicated' under a variant-mode plan would "
-            "make every chip compute the full N x N product redundantly "
-            "— use the sharded transport (or a tile2d plan)"
-        )
-    fused = lowering == "fused"
+    update = _plan_update(plan, metric, packed, grm_precise, transport,
+                          lowering)
+    if lowering != "fused":
+        return update
+
+    @functools.wraps(update)  # carries ``tile_skew`` over
+    def update_fused(acc, block):
+        telemetry.count("gram.fused_blocks", 1)
+        return update(acc, block)
+
+    return update_fused
+
+
+def _plan_update(plan: GramPlan, metric: str, packed: bool,
+                 grm_precise: bool, transport: str, lowering: str):
+    """:func:`make_update`'s update under the plan's mode, uncounted."""
     mesh = plan.mesh
     n_dev = mesh.size
-    ring = (transport == "ring" and block_layout == "sharded"
-            and plan.tiled)
+    ring = transport == "ring" and plan.tiled
     perm = meshes.ring_perm(mesh)
     home = mesh.home
     local = mesh.local_slots
@@ -418,8 +414,6 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
         step = gram_ops.impl_for(metric, packed, grm_precise, lowering)
 
         def update_single(acc, block):
-            if fused:
-                telemetry.count("gram.fused_blocks", 1)
             return step(acc, block.to(home))
 
         return update_single
@@ -428,8 +422,6 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
         step = gram_ops.impl_for(metric, packed, grm_precise, lowering)
 
         def update_variant(acc, block):
-            if fused:
-                telemetry.count("gram.fused_blocks", 1)
             for shard in _shards(plan, _pad(block, n_dev,
                                             packed)).values():
                 partial = step(gram_ops.init(shard.shape[0], metric,
@@ -450,25 +442,8 @@ def make_update(plan: GramPlan, metric: str, packed: bool = False,
         skew.mark(dev)
 
     def update_tile2d(acc, block):
-        if fused:
-            telemetry.count("gram.fused_blocks", 1)
         skew.next_block()
         cache: dict = {}
-        placed: dict = {}
-
-        def on_device(s, make):
-            # One copy a physical device: virtual slots share it, and
-            # nothing writes to it.
-            dev = mesh.devices[s]
-            if dev not in placed:
-                placed[dev] = make(dev)
-            return placed[dev]
-
-        if block_layout == "replicated":
-            for s in local:
-                contract_timed(acc, s, on_device(
-                    s, lambda d: block.to(d, non_blocking=True)), cache)
-            return acc
         # This rank's slab, split over its slots; on one process the
         # whole block over every slot.
         block = _pad(block, len(local), packed)

@@ -38,20 +38,42 @@ def _jax_acc(blocks, packed):
     return {k: np.asarray(v) for k, v in acc.items()}
 
 
+# The whole square (the updaters, rows and columns one tensor), or one
+# off-diagonal tile (``add_count_products`` on row and column slices,
+# as a tile2d slot calls it).
+_OFF_DIAGONAL = (slice(0, 13), slice(13, 29))
+
+
+@pytest.mark.parametrize("region", ["square", "tile"])
 @pytest.mark.parametrize("lowering", ["dense", "packed", "fused"])
-def test_accumulators_after_several_blocks_match_jax(blocks, lowering):
-    acc = tgram.init(29, "ibs", CPU)
+def test_accumulators_after_several_blocks_match_jax(blocks, lowering,
+                                                     region):
+    pieces = ("cc", "yc", "t1t1", "t2t2")
+    rows, cols = _OFF_DIAGONAL
+    if region == "square":
+        acc = tgram.init(29, "ibs", CPU)
+    else:
+        acc = {k: torch.zeros((13, 16), dtype=torch.int32) for k in pieces}
     for b in blocks:
+        block = (torch.from_numpy(b) if lowering == "dense"
+                 else torch.from_numpy(jbitpack.pack_dosages(b)))
+        if region == "tile":
+            tgram.add_count_products(
+                acc, block[rows], block[cols], pieces,
+                lowering != "dense",
+                "fused" if lowering == "fused" else "reference")
+            continue
         if lowering == "dense":
-            out = tgram.update(acc, torch.from_numpy(b), "ibs")
+            out = tgram.update(acc, block, "ibs")
         else:
-            packed = torch.from_numpy(jbitpack.pack_dosages(b))
             update = (tgram.update_fused if lowering == "fused"
                       else tgram.update_packed)
-            out = update(acc, packed, "ibs")
+            out = update(acc, block, "ibs")
         assert out is acc  # in-place accumulation
     want = _jax_acc(blocks, packed=lowering != "dense")
-    assert acc.keys() == want.keys() == {"cc", "yc", "t1t1", "t2t2"}
+    if region == "tile":
+        want = {k: v[rows, cols] for k, v in want.items()}
+    assert acc.keys() == want.keys() == set(pieces)
     for k in want:
         assert acc[k].dtype == torch.int32
         np.testing.assert_array_equal(acc[k].numpy(), want[k], err_msg=k)

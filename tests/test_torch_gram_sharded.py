@@ -236,24 +236,18 @@ def test_ring_divisibility_validated_with_flags_named():
 
 def test_make_update_validates_like_jax():
     """make_update takes the RESOLVED lowering, and a fused request on a
-    dense stream names --pack-stream, as JAX's does; an unknown layout
-    or transport, or replicated blocks under a variant plan, are refused
-    with JAX's words."""
+    dense stream names --pack-stream, as JAX's does; an unknown
+    transport is refused with JAX's words."""
     plan = gs.GramPlan(_mesh(), "tile2d")
     for kw, match in ((dict(packed=True, lowering="auto"),
                        "unresolved gram lowering"),
                       (dict(packed=False, lowering="fused"),
                        "pack.stream"),
-                      (dict(transport="mesh"), "unknown tile2d transport"),
-                      (dict(block_layout="diagonal"),
-                       "unknown block_layout")):
+                      (dict(transport="mesh"), "unknown tile2d transport")):
         with pytest.raises(ValueError, match=match):
             gs.make_update(plan, "ibs", **kw)
         with pytest.raises(ValueError, match=match):
             jgs.make_update(jgs.GramPlan(_jmesh(), "tile2d"), "ibs", **kw)
-    vplan = gs.GramPlan(_mesh(), "variant")
-    with pytest.raises(ValueError, match="redundantly"):
-        gs.make_update(vplan, "ibs", block_layout="replicated")
 
 
 def test_variant_mode_runs_fused_where_jax_refuses(rng):
@@ -371,23 +365,6 @@ def test_fused_ring_matches_jax_interpret_and_counts_as_jax(rng):
         theirs_d = jtelemetry.counter_value(name) - before[name][1]
         assert ours_d == theirs_d == want, name
     assert packed_gram.launches == launches
-
-
-@pytest.mark.parametrize("metric", ["ibs", "grm"])
-def test_replicated_block_layout_matches_jax(rng, metric):
-    g = random_genotypes(rng, 32, 256, missing_rate=0.1)
-    plan, jplan = gs.GramPlan(_mesh(), "tile2d"), jgs.GramPlan(_jmesh(),
-                                                               "tile2d")
-    acc = gs.init_sharded(plan, 32, metric)
-    jacc = jgs.init_sharded(jplan, 32, metric)
-    update = gs.make_update(plan, metric, block_layout="replicated")
-    jupdate = jgs.make_update(jplan, metric, block_layout="replicated")
-    for s in range(0, 256, 64):
-        acc = update(acc, torch.from_numpy(g[:, s:s + 64].copy()))
-        jacc = jupdate(jacc, g[:, s:s + 64])
-    for k in acc:
-        np.testing.assert_allclose(_host(acc[k]), np.asarray(jacc[k]),
-                                   rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 # -------------------------------------------------------------- finalize
