@@ -28,6 +28,9 @@ copy, when its slab retires). :class:`StreamGaps` measures, the same
 way, how long a stream idles between marked stretches of work, and
 :class:`CardSkew` how far the cards of a mesh drift apart in a block.
 Off the card the first two time the host; the skew needs two cards.
+:func:`check_at_barrier` leaves a library's status word on the card
+(cuSOLVER's ``devInfo``) to the same barrier, which raises on a nonzero
+one.
 
 :func:`trace` (``--trace-dir``) captures a ``torch.profiler`` trace of a
 whole job, every thread's ranges included. :func:`check_nans` is
@@ -92,7 +95,9 @@ def hard_sync(tree):
     for d in devices:
         torch.cuda.synchronize(d)
     if devices:
-        resolve_device_spans({d.index for d in devices})
+        indices = {d.index for d in devices}
+        resolve_device_spans(indices)
+        _check_statuses(indices)
     return tree
 
 
@@ -102,6 +107,9 @@ def hard_sync(tree):
 _DEVICE_LOCK = threading.Lock()
 _PENDING: dict = {}  # an ordered set of _DeviceSpan
 _EVENT_POOL: dict[int, list] = {}
+# Status words a library wrote on the card (cuSOLVER's devInfo), each
+# (device index, int32 tensor, what wrote it), read at the next barrier.
+_STATUSES: list = []
 # Past this many pending spans (a path with no barrier), the ones whose
 # end has already completed are resolved where the next one is added.
 PENDING_MAX = 4096
@@ -165,6 +173,34 @@ def resolve_device_spans(indices) -> None:
     with _DEVICE_LOCK:
         due = [d for d in _PENDING if d.index in indices]
     _resolve_completed(due)
+
+
+def check_at_barrier(status: torch.Tensor, what: str) -> None:
+    """Check a library's status word on the card, an int32 tensor that is
+    0 on success, at its device's next :func:`hard_sync`, which waits
+    anyway: nonzero raises there. Off the card it is checked at once."""
+    if status.device.type != "cuda":
+        _raise_on_status(status, what)
+        return
+    with _DEVICE_LOCK:
+        _STATUSES.append((_cuda_index(status.device), status, what))
+
+
+def _check_statuses(indices) -> None:
+    """Read the status words pending on the CUDA devices ``indices``,
+    just synchronised; a nonzero one raises."""
+    with _DEVICE_LOCK:
+        due = [s for s in _STATUSES if s[0] in indices]
+        _STATUSES[:] = [s for s in _STATUSES if s[0] not in indices]
+    for _, status, what in due:
+        _raise_on_status(status, what)
+
+
+def _raise_on_status(status: torch.Tensor, what: str) -> None:
+    value = int(status.reshape(-1)[0])
+    if value != 0:
+        raise RuntimeError(f"{what} failed on {status.device}: status "
+                           f"{value}")
 
 
 @contextlib.contextmanager

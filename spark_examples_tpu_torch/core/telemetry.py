@@ -919,10 +919,18 @@ PORT_NAMES: dict[str, tuple[str, str]] = {
     ),
     "eigh.solve": (
         "span",
-        "the eigensolver of ops/eigh.py (torch.linalg.eigh, or the "
-        "randomized route's power steps and Rayleigh solve) in device "
-        "seconds, cuSOLVER's idle on the card included; the host "
-        "interval off the card",
+        "the eigensolver of ops/eigh.py (torch.linalg.eigh, the subset "
+        "solve, or the randomized route's power steps and Rayleigh "
+        "solve) in device seconds, cuSOLVER's idle on the card and the "
+        "subset solve's host step included; the host interval off the "
+        "card",
+    ),
+    "eigh.subset_solves": (
+        "counter",
+        "top-k subset eigensolves on a card (ops/eigh.py::subset_eigh: "
+        "one tridiagonal reduction, T's top k eigenpairs on the host, k "
+        "vectors transformed back), one a dense solve there; 0 on the "
+        "CPU and on the randomized route",
     ),
     "tile2d.fanout": (
         "span",

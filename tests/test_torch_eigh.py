@@ -96,3 +96,163 @@ def test_coords_and_flops_match_jax():
     for method in ("dense", "randomized"):
         assert teigh.eigh_flops(500, method, k=10) == \
             jeigh.eigh_flops(500, method, k=10)
+
+
+def test_top_k_eigh_on_the_cpu_keeps_the_full_solve():
+    """A CPU tensor takes ``torch.linalg.eigh``, whatever N and k: the
+    same numbers as the full solve's top k, and no subset solve."""
+    from spark_examples_tpu_torch.core import telemetry
+
+    b = torch.from_numpy(_planted_b(seed=4))
+    before = telemetry.counter_value("eigh.subset_solves")
+    vals, vecs = teigh.top_k_eigh(b, 4)
+    full_vals, full_vecs = torch.linalg.eigh(b)
+    assert telemetry.counter_value("eigh.subset_solves") == before
+    assert torch.equal(vals, full_vals.flip(0)[:4])
+    assert torch.equal(vecs, full_vecs.flip(1)[:, :4])
+
+
+@pytest.mark.parametrize("device,n,k,subset", [
+    ("cpu", 15708, 10, False),
+    ("cuda", 15708, 10, True),
+    ("cuda:1", 15708, 10, True),
+    ("cuda", 15708, 64, True),
+    ("cuda", 3584, 10, True),
+    ("cuda", 3072, 10, False),
+    ("cuda", 2504, 10, False),
+    ("cuda", 3584, 32, False),
+    ("cuda", 8192, 32, True),
+    ("cuda", 8192, 64, False),
+    ("cuda", 16384, 16384, False),
+    ("cuda", 15708, 0, False),
+])
+def test_subset_route_picks_by_device_n_and_k(device, n, k, subset):
+    """The rule against the probe's pairs (full against subset on the
+    card): each shape goes to the solve that was faster there."""
+    assert teigh.subset_route(torch.device(device), n, k) is subset
+
+
+def _tridiagonal(n, top, seed, gap=None):
+    """A symmetric tridiagonal (d, e) in float64 whose top eigenvalues
+    are ``top`` over a bulk in [0, 0.5]; with ``gap`` the two largest
+    bulk eigenvalues lie ``gap`` apart. Built as Lanczos would: the
+    reduction of a planted dense matrix (LAPACK dsytrd)."""
+    from scipy.linalg import lapack
+
+    rng = np.random.default_rng(seed)
+    bulk = rng.uniform(0.0, 0.5, n - len(top))
+    if gap is not None:
+        bulk[:2] = [0.5, 0.5 - gap]
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a = (q * np.concatenate([top, bulk])) @ q.T
+    _, d, e, _, info = lapack.dsytrd((a + a.T) / 2, lower=1)
+    assert info == 0
+    return d, e
+
+
+@pytest.mark.parametrize("n,k,top,gap", [
+    (80, 4, [40.0, 25.0, 12.0, 6.0], None),          # separated top k
+    (81, 5, [40.0, 25.0, 12.0, 6.0], 1e-7),          # odd n; a cluster at k
+    (60, 1, [9.0], None),                            # k = 1
+    (64, 5, [3.0, 2.0, 1.0], 1e-9),                  # k reaches the bulk
+])
+def test_tridiagonal_top_k_matches_numpy(n, k, top, gap):
+    """The host step of the subset solve against ``numpy.linalg.eigh`` of
+    the same tridiagonal, in float64: the top k descending, within the
+    bisection's stop (1e-10 of the norm, so 1e-9 of lambda_1 here); the
+    vectors orthonormal to 1e-12, each an eigenvector to 1e-9 of lambda_1
+    (well posed inside a cluster, where a column is not), and equal to
+    numpy's up to sign where their gaps exceed 1e-3 of lambda_1."""
+    d, e = _tridiagonal(n, np.array(top), seed=n + k, gap=gap)
+    t = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
+    want_vals, want_vecs = np.linalg.eigh(t)
+    want_vals, want_vecs = want_vals[::-1][:k], want_vecs[:, ::-1][:, :k]
+    vals, vecs = teigh.tridiagonal_top_k(d, e, k)
+    assert vals.dtype == vecs.dtype == np.float64
+    assert vals.shape == (k,) and vecs.shape == (n, k)
+    scale = want_vals[0]
+    np.testing.assert_allclose(vals, want_vals, rtol=0, atol=1e-9 * scale)
+    assert np.all(np.diff(vals) <= 0)
+    np.testing.assert_allclose(vecs.T @ vecs, np.eye(k), rtol=0, atol=1e-12)
+    resid = np.linalg.norm(t @ vecs - vecs * vals, axis=0)
+    assert resid.max() <= 1e-9 * scale
+    all_vals = np.linalg.eigvalsh(t)[::-1]
+    for j in range(k):
+        gaps = np.abs(np.delete(all_vals, j) - all_vals[j])
+        if gaps.min() > 1e-3 * scale:
+            _assert_cols_match_up_to_sign(vecs[:, j:j + 1],
+                                          want_vecs[:, j:j + 1], atol=1e-9)
+
+
+def _lapack_in_cusolvers_place(monkeypatch):
+    """``cusolver.sytrd`` and ``ormtr`` on CPU tensors, read as cuSOLVER
+    reads them (a contiguous (n, n) tensor as its column-major
+    transpose, (k, n) as n x k columns): LAPACK's own ``ssytrd``, and
+    its reflectors applied in float64 from the last to the first."""
+    from scipy.linalg import lapack
+
+    from spark_examples_tpu_torch.ops import cusolver
+
+    def sytrd(a, d, e, tau, info):
+        col_major = a.numpy().T
+        c, d_, e_, tau_, info_ = lapack.ssytrd(
+            np.asfortranarray(col_major), lower=1)
+        col_major[:] = c
+        d.numpy()[:], e.numpy()[:], tau.numpy()[:] = d_, e_, tau_
+        info.numpy()[0] = info_
+
+    def ormtr(a, tau, c, info):
+        refl = a.numpy().T.astype(np.float64)
+        cols = c.numpy().T
+        n = refl.shape[0]
+        x = cols.astype(np.float64)
+        for i in range(n - 2, -1, -1):
+            v = np.zeros(n)
+            v[i + 1] = 1.0
+            v[i + 2:] = refl[i + 2:, i]
+            x -= float(tau[i]) * np.outer(v, v @ x)
+        cols[:] = x
+        info.numpy()[0] = 0
+
+    monkeypatch.setattr(cusolver, "sytrd", sytrd)
+    monkeypatch.setattr(cusolver, "ormtr", ormtr)
+
+
+@pytest.mark.parametrize("n,k", [(60, 4), (61, 1), (61, 7)])
+def test_subset_eigh_with_lapack_in_cusolvers_place(monkeypatch, n, k):
+    """The subset solve's plumbing on the CPU, LAPACK standing in for
+    cuSOLVER: the layouts handed to the library, the one copy of T and
+    its status, the host step and the k vectors' way back give the top
+    k of the full float64 solve: eigenvalues within 1e-5 of lambda_1,
+    residuals and orthogonality under 1e-5, and the separated columns
+    of JAX's solve up to sign."""
+    _lapack_in_cusolvers_place(monkeypatch)
+    b = _planted_b(n=n, k=4, seed=n + k)
+    vals, vecs = teigh.subset_eigh(torch.from_numpy(b), k)
+    assert vals.dtype == vecs.dtype == torch.float32
+    assert vals.shape == (k,) and vecs.shape == (n, k)
+    want = np.linalg.eigvalsh(b.astype(np.float64))[::-1][:k]
+    scale = want[0]
+    v, lam = vecs.double().numpy(), vals.double().numpy()
+    np.testing.assert_allclose(lam, want, rtol=0, atol=1e-5 * scale)
+    resid = np.linalg.norm(b.astype(np.float64) @ v - v * lam, axis=0)
+    assert resid.max() <= 1e-5 * scale
+    assert np.abs(v.T @ v - np.eye(k)).max() <= 1e-5
+    vals_j, vecs_j = jeigh.top_k_eigh(b, min(k, 4))
+    _assert_cols_match_up_to_sign(v[:, :min(k, 4)], np.asarray(vecs_j),
+                                  atol=1e-3)
+
+
+def test_subset_eigh_raises_on_a_failed_reduction(monkeypatch):
+    """A nonzero status from the reduction raises where T reaches the
+    host; no full solve takes its place."""
+    from spark_examples_tpu_torch.ops import cusolver
+
+    _lapack_in_cusolvers_place(monkeypatch)
+
+    def failed(a, d, e, tau, info):
+        info.fill_(-4)
+
+    monkeypatch.setattr(cusolver, "sytrd", failed)
+    with pytest.raises(RuntimeError, match="cusolverDnSsytrd.*status -4"):
+        teigh.subset_eigh(torch.from_numpy(_planted_b()), 4)

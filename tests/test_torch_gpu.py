@@ -1641,3 +1641,164 @@ def test_trace_dir_holds_every_span_on_the_card(cuda_device, tmp_path):
     for name in ("feed.read", "feed.pin"):
         tids = {e["tid"] for e in ranges if e["name"] == name}
         assert tids and not tids & job_tid, name
+
+
+def _planted_on_card(n, vals, seed, device):
+    """Symmetric float32 ``Q diag(vals) Q^T`` on the card, ``Q`` the
+    Q factor of a seeded Gaussian (n, n) in float64."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, n), generator=g, dtype=torch.float64, device=device)
+    q, _ = torch.linalg.qr(x)
+    lam = torch.as_tensor(vals, dtype=torch.float64, device=device)
+    b = (q * lam) @ q.T
+    return (0.5 * (b + b.T)).float()
+
+
+def _spectrum(n, top, seed, gap=None):
+    """``top`` over a bulk in [0, 1]; with ``gap`` the bulk's largest two
+    lie ``gap`` apart at 1.0."""
+    bulk = np.random.default_rng(seed).uniform(0.0, 1.0, n - len(top))
+    if gap is not None:
+        bulk[:2] = [1.0, 1.0 - gap]
+    return np.concatenate([top, bulk])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,top,gap", [
+    (600, 10, [100.0 - 9.0 * i for i in range(10)], None),  # separated
+    (601, 10, [100.0 - 9.0 * i for i in range(9)], 1e-4),   # cluster at k
+    (600, 1, [100.0, 50.0], None),                          # k = 1
+    (601, 12, [100.0, 60.0, 30.0], 1e-6),                    # odd n, bulk
+])
+def test_subset_eigh_matches_the_full_solve(cuda_device, n, k, top, gap):
+    """The subset solve (cuSOLVER's reduction, the tridiagonal's top k
+    on the host, k vectors back through ``ormtr``) against
+    ``torch.linalg.eigh`` of the same matrix on the card: eigenvalues
+    within 1e-5 of lambda_1; each pair's residual and the columns'
+    orthogonality under 1e-5 (relative to lambda_1); each column equal to
+    the full solve's up to sign where its gaps exceed 1e-2 of lambda_1.
+    The reduction's status is read with T, ``ormtr``'s at the barrier."""
+    from spark_examples_tpu_torch.core import profiling
+    from spark_examples_tpu_torch.ops import eigh as eigh_ops
+
+    lam = _spectrum(n, top, seed=n + k, gap=gap)
+    b = _planted_on_card(n, lam, seed=n * k, device=cuda_device)
+    vals, vecs = eigh_ops.subset_eigh(b, k)
+    profiling.hard_sync((vals, vecs))
+    assert not profiling._STATUSES
+    assert vals.device == vecs.device == b.device
+    assert vals.shape == (k,) and vecs.shape == (n, k)
+    full_vals, full_vecs = torch.linalg.eigh(b)
+    full_vals, full_vecs = full_vals.flip(0)[:k], full_vecs.flip(1)[:, :k]
+    scale = float(full_vals[0])
+    assert float((vals - full_vals).abs().max()) <= 1e-5 * scale
+    assert bool((vals[:-1] >= vals[1:]).all())
+    v, b64 = vecs.double(), b.double()
+    resid = (b64 @ v - v * vals.double()).norm(dim=0)
+    assert float(resid.max()) <= 1e-5 * scale
+    eye = torch.eye(k, dtype=torch.float64, device=b.device)
+    assert float((v.T @ v - eye).abs().max()) <= 1e-5
+    spectrum = np.sort(lam)[::-1]
+    for j in range(k):
+        gaps = np.abs(np.delete(spectrum, j) - spectrum[j])
+        if gaps.min() > 1e-2 * spectrum[0]:
+            s = torch.sign(vecs[:, j] @ full_vecs[:, j])
+            assert float((s * vecs[:, j] - full_vecs[:, j]).abs().max()) \
+                <= 1e-4, j
+
+
+@pytest.mark.gpu
+def test_top_k_eigh_on_the_card_counts_its_subset_solves(cuda_device):
+    """``top_k_eigh`` on the card takes the subset solve where
+    ``subset_route`` says so (one ``eigh.subset_solves``, one
+    ``eigh.solve`` span), and the full solve, the same numbers as
+    ``torch.linalg.eigh``'s top k, where k reaches N or N is too small
+    for k."""
+    from spark_examples_tpu_torch.core import profiling
+    from spark_examples_tpu_torch.ops import eigh as eigh_ops
+
+    n = 3584
+    lam = _spectrum(n, [100.0 - 9.0 * i for i in range(10)], seed=5)
+    b = _planted_on_card(n, lam, seed=6, device=cuda_device)
+    telemetry.reset()
+    vals, vecs = eigh_ops.top_k_eigh(b, 10)
+    profiling.hard_sync(vecs)
+    snap = telemetry.metrics_snapshot()
+    assert snap["counters"]["eigh.subset_solves"] == 1
+    assert snap["histograms"]["eigh.solve"]["count"] == 1
+    want = torch.linalg.eigvalsh(b).flip(0)[:10]
+    assert float((vals - want).abs().max()) <= 1e-5 * float(want[0])
+    for m, k in ((b, 32), (b[:8, :8].contiguous(), 8),
+                 (b[:3072, :3072].contiguous(), 10)):
+        assert not eigh_ops.subset_route(m.device, m.shape[0], k)
+        vals, vecs = eigh_ops.top_k_eigh(m, k)
+        full_vals, full_vecs = torch.linalg.eigh(m)
+        assert torch.equal(vals, full_vals.flip(0)[:k])
+        assert torch.equal(vecs, full_vecs.flip(1)[:, :k])
+    profiling.hard_sync(vecs)
+    assert telemetry.counter_value("eigh.subset_solves") == 1
+
+
+@pytest.mark.gpu
+def test_a_failed_status_on_the_card_raises_at_the_barrier(cuda_device):
+    """A library's status word left nonzero on the card raises at its
+    device's next barrier, and only there; a zero one passes."""
+    from spark_examples_tpu_torch.core import profiling
+
+    ok = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    bad = torch.full((1,), 7, dtype=torch.int32, device=cuda_device)
+    profiling.check_at_barrier(ok, "a zero status")
+    profiling.hard_sync(ok)
+    profiling.check_at_barrier(bad, "cusolverDnSormtr")
+    with pytest.raises(RuntimeError, match="cusolverDnSormtr.*status 7"):
+        profiling.hard_sync(bad)
+    assert not profiling._STATUSES
+
+
+@pytest.mark.gpu
+def test_the_subset_solve_adds_no_synchronisation_to_a_job(cuda_device,
+                                                           monkeypatch):
+    """A job whose eigensolve takes the subset route (its reach lowered to
+    the job's N) waits on the card as often as with the full solve: the
+    same device-wide synchronisations and event and stream waits. It
+    counts one subset solve, and its eigenvalues agree with the job's
+    CPU run within 1e-5 of lambda_1. (The full solve on the card reads
+    this 512-sample matrix's eigenvalues ~1.4e-4 of lambda_1 high, which
+    its float64 eigenvalues show; the subset solve reads them within
+    2e-7.)"""
+    from spark_examples_tpu_torch.ops import eigh as eigh_ops
+
+    job, src, _ = _cell_like_job()
+    jobs.pcoa_job(job, source=src)  # builds K1, warms cuSOLVER
+    waits = []
+
+    def counted(fn, kind):
+        def wrapper(*args, **kwargs):
+            waits.append(kind)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        counted(torch.cuda.synchronize, "device"))
+    for cls in (torch.cuda.Event, torch.cuda.Stream):
+        monkeypatch.setattr(cls, "synchronize",
+                            counted(cls.synchronize, cls.__name__))
+
+    def run(n2_per_pair):
+        monkeypatch.setattr(eigh_ops, "SUBSET_N2_PER_PAIR", n2_per_pair)
+        jobs.pcoa_job(job, source=src)  # warms the route
+        waits.clear()
+        telemetry.reset()
+        out = jobs.pcoa_job(job, source=src)
+        return (list(waits), telemetry.counter_value("eigh.subset_solves"),
+                out.eigenvalues)
+
+    full, full_solves, _ = run(float("inf"))
+    subset, subset_solves, subset_vals = run(0.0)
+    assert (full_solves, subset_solves) == (0, 1)
+    for kind in ("device", "Event", "Stream"):
+        assert subset.count(kind) == full.count(kind), kind
+    job.compute.device = "cpu"
+    want = jobs.pcoa_job(job, source=src).eigenvalues
+    np.testing.assert_allclose(subset_vals, want, rtol=0,
+                               atol=1e-5 * want[0])
