@@ -440,7 +440,20 @@ Phases (any failure exits non-zero; none is caught and ignored):
     K1 one a block), one shuffled pass of the soak's in-process
     scenarios on the card (seed 7, no kill rounds) and one supervised
     kill round (``chaos_phase``); any SOAK-REPRO line fails.
-69. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
+69. K2 on the Bray-Curtis cell's count table (``count_table_phase``):
+    the configuration ``benchmark/configs/emp-10k.json``'s 10,000 x
+    262,144 rarefied sOTU counts (N F past 2^31), drawn on the card by
+    ``benchmark/community.py`` (seed 69), held as host CSR in a
+    ``CountTableSource`` and densified through its ``dense``: every row
+    must sum to the depth and the nonzeros must be the CSR's. Then one
+    ``pairwise_manhattan_kernel`` launch, timed with CUDA events, with
+    K2's launch counts set to 0 just before: it must launch once
+    (``launches`` and ``kernel.braycurtis.launches``) and its whole
+    (N, N) numerator must equal the exact integer numerator
+    (``braycurtis_ref.manhattan``: row totals less twice the level-
+    indicator min-sums, from the CSR arrays) bitwise. Its time is
+    printed beside its bound.
+70. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
@@ -480,6 +493,10 @@ BC_FEATURES = 4096
 BC_LEVELS = 256
 BC_RAGGED = ((1, 1), (37, 301), (65, 130), (300, 1025), (257, 4097),
              (127, 128), (128, 129), (129, 131), (257, 128))
+# Phase 69: the Bray-Curtis benchmark cell's configuration and a seed
+# for its count table.
+COUNT_TABLE_CONFIG = os.path.join("benchmark", "configs", "emp-10k.json")
+COUNT_TABLE_SEED = 69
 # FP32 lanes per SM (Hopper): the CUDA-core instruction rate is
 # SMs x 128 x the SM clock.
 FP32_LANES_PER_SM = 128
@@ -551,6 +568,30 @@ def k1_bounds(n: int, w: int, products) -> dict:
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_full_ms": max(full_ops / PEAK_INT8_OPS * 1e3, bytes_ms),
+    }
+
+
+def k2_bounds(n: int, f: int) -> dict:
+    """K2's least time over an (n, f) float32 table: FADD + FADD|.| per
+    (i, j, f) triple over the i <= j half the output needs (the other
+    half is its transpose), at the card's FP32 rate (SMs x 128 lanes x
+    the SM clock); the bytes are the table read once and the numerator
+    written once. The full-square bound counts all n^2 pairs."""
+    import torch
+
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instr_s = sms * FP32_LANES_PER_SM * clock
+    instr = 2.0 * n * (n + 1) / 2 * f
+    byte_count = 4.0 * n * f + 4.0 * n * n
+    ops_ms = instr / instr_s * 1e3
+    bytes_ms = byte_count / PEAK_BYTES_S * 1e3
+    return {
+        "instr": instr, "bytes": byte_count, "instr_s": instr_s,
+        "sms": sms, "clock": clock, "bytes_ms": bytes_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_full_ms": max(2.0 * n * n * f / instr_s * 1e3, bytes_ms),
     }
 
 
@@ -5438,6 +5479,80 @@ def chaos_phase(card: str, tmp: str) -> dict:
     return {"bench --chaos": counts}
 
 
+def count_table_phase(card: str, dev) -> dict:
+    """Phase 69: K2 once over the Bray-Curtis cell's count table, taken
+    through ``CountTableSource.dense``, bitwise against the exact
+    integer numerator; returns its shape, time, bound and launches."""
+    import torch
+
+    from benchmark.community import Community
+    from benchmark.reference.braycurtis_ref import manhattan
+    from spark_examples_tpu_torch.core import telemetry
+    from spark_examples_tpu_torch.ingest.table import CountTableSource
+    from spark_examples_tpu_torch.ops import braycurtis_kernel
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, COUNT_TABLE_CONFIG)) as fh:
+        config = json.load(fh)
+    config.setdefault("name", os.path.basename(COUNT_TABLE_CONFIG))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    indptr, indices, counts = Community(config, COUNT_TABLE_SEED,
+                                        dev).csr()
+    src = CountTableSource(indptr, indices, counts, config["n_features"])
+    n, f, depth = src.n_samples, src.n_features, int(config["depth"])
+    if n * f < 2**31:
+        fail(f"the count table {(n, f)} does not pass 2^31 elements")
+    table = src.dense(dev)
+    totals = table.sum(dim=1)  # integers under 2^24: exact in float32
+    nonzeros = int(torch.count_nonzero(table))
+    if not bool((totals == depth).all()) or nonzeros != src.nnz:
+        fail(f"the densified count table {(n, f)}: row sums "
+             f"{float(totals.min())}..{float(totals.max())} (depth "
+             f"{depth}), {nonzeros} nonzeros against the CSR's {src.nnz}")
+    table_s = time.perf_counter() - t0
+    # Built and loaded before the launch counted below.
+    braycurtis_kernel.pairwise_manhattan_kernel(table[:2, :4].contiguous())
+    torch.cuda.synchronize()
+    braycurtis_kernel.launches = 0
+    tel0 = telemetry.counter_value("kernel.braycurtis.launches")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = braycurtis_kernel.pairwise_manhattan_kernel(table)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    launches = braycurtis_kernel.launches
+    counted = telemetry.counter_value("kernel.braycurtis.launches") - tel0
+    if launches != 1 or counted != 1:
+        fail(f"K2 launched {launches} times ({counted} counted in "
+             f"telemetry) over the count table {(n, f)}, expected 1")
+    del table, totals
+    want = manhattan(indptr, indices, counts, f, dev)
+    torch.cuda.synchronize()
+    wrong = got.double() != want
+    if bool(wrong.any()):
+        rows = wrong.any(dim=1).nonzero().flatten()
+        fail(f"K2 != the exact numerator over the count table {(n, f)}: "
+             f"{int(wrong.sum())} entries in {rows.numel()} rows, from "
+             f"row {int(rows[0])}; max |diff| "
+             f"{float((got.double() - want).abs().max())}")
+    del got, want, wrong
+    bound = k2_bounds(n, f)
+    print(f"K2 over the count table ({n}, {f}) f32, {src.nnz} nonzeros, "
+          f"counts to {int(counts.max())} [{card}]: drawn and densified in "
+          f"{table_s:.1f} s (row sums {depth}); {ms:.4f} ms/launch, "
+          f"{launches} launch ({counted:.0f} in kernel.braycurtis.launches); "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; full "
+          f"square {bound['bound_full_ms']:.4f} ms), "
+          f"{bound['bound_ms'] / ms * 100:.2f} % of it; the whole "
+          "numerator bitwise the exact integer numerator")
+    return {"shape": (n, f), "ms": ms, "launches": launches,
+            "bound_ms": bound["bound_ms"],
+            "bound_full_ms": bound["bound_full_ms"]}
+
+
 def main() -> int:
     # One card: with more visible, a job's default mesh would be every
     # card (``core/meshes.py::default_devices``) and phases 1-47 would
@@ -5741,19 +5856,13 @@ def main() -> int:
         fail("the matmul lowering gave non-finite distances")
     mm_err = float((mm_bc - exact_bc).abs().max())
     del mm_bc, exact_bc, num
-    clock = max_sm_clock_hz()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    instr_s = sms * FP32_LANES_PER_SM * clock
-    # FADD + FADD|.| per (i, j, f) triple over the i <= j half the output
-    # needs (the other half is its transpose); the full square beside it.
-    k2_instr = 2.0 * n * (n + 1) / 2 * f
-    k2_full_instr = 2.0 * n * n * f
-    k2_bytes = 4.0 * n * f + 4.0 * n * n
-    k2_ops_ms = k2_instr / instr_s * 1e3
-    k2_bytes_ms = k2_bytes / PEAK_BYTES_S * 1e3
-    k2_bound_ms = max(k2_ops_ms, k2_bytes_ms)
-    k2_bound_by = "operations" if k2_ops_ms >= k2_bytes_ms else "bytes"
-    k2_bound_full_ms = max(k2_full_instr / instr_s * 1e3, k2_bytes_ms)
+    k2_bound = k2_bounds(n, f)
+    k2_bound_ms = k2_bound["bound_ms"]
+    k2_bound_by = k2_bound["bound_by"]
+    k2_bound_full_ms = k2_bound["bound_full_ms"]
+    k2_instr, k2_bytes = k2_bound["instr"], k2_bound["bytes"]
+    sms, clock, instr_s = (k2_bound[k] for k in ("sms", "clock", "instr_s"))
+    k2_bytes_ms = k2_bound["bytes_ms"]
     print(f"K2 timing at ({n}, {f}) f32 [{card}]: {k2_ms:.4f} ms/launch; "
           f"bound {k2_bound_ms:.4f} ms ({k2_bound_by}: {k2_instr:.4g} FP32 "
           f"instructions for i <= j; full square {k2_bound_full_ms:.4f} ms) "
@@ -5907,8 +6016,13 @@ def main() -> int:
     new_paths.update(bench_paths)
     tile_shapes.update(bench_shapes)
 
-    # -- 69. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-68 took "
+    # -- 69. K2 over the Bray-Curtis cell's count table ----------------------
+    count_k2 = count_table_phase(card, dev)
+    table_path = "count table {} x {}".format(*count_k2["shape"])
+    table_key = "n{}_f{}".format(*count_k2["shape"])
+
+    # -- 70. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-69 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
@@ -5946,7 +6060,8 @@ def main() -> int:
                              "pca": pca_counts["braycurtis"],
                              **{path: c["braycurtis"]
                                 for path, c in new_paths.items()
-                                if "braycurtis" in c}},
+                                if "braycurtis" in c},
+                             table_path: count_k2["launches"]},
         "max_abs_err": max(k2_err, k2_float_err),
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -5955,9 +6070,13 @@ def main() -> int:
         "library_ms": k2_library_ms,
         "bound_full_ms": k2_bound_full_ms,
         "matmul_lowering_ms": matmul_ms,
+        f"ms_{table_key}": count_k2["ms"],
+        f"bound_ms_{table_key}": count_k2["bound_ms"],
+        f"bound_full_ms_{table_key}": count_k2["bound_full_ms"],
+        f"launches_{table_key}": count_k2["launches"],
         "parity": f"bitwise on integer tables; rtol {rtol:.3g} on a float "
-                  "table",
-        "parity_cases": k2_cases,
+                  f"table; bitwise the exact numerator on the {table_path}",
+        "parity_cases": k2_cases + 1,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

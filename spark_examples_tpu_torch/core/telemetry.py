@@ -866,6 +866,35 @@ PORT_NAMES: dict[str, tuple[str, str]] = {
         "gather plan, one per slot a block under a variant plan, D per "
         "tile a block under the ring transport",
     ),
+    "kernel.braycurtis.launches": (
+        "counter",
+        "launches of the Manhattan CUDA kernel behind Bray-Curtis "
+        "(csrc/braycurtis.cu), counted where its wrapper launches it "
+        "(ops/braycurtis_kernel.py): one a Bray-Curtis job on a card",
+    ),
+    "kernel.braycurtis.launch": (
+        "span",
+        "one launch of the Manhattan CUDA kernel (csrc/braycurtis.cu) in "
+        "device seconds (a CUDA event pair on its stream, read at the "
+        "next barrier); the host interval off the card",
+    ),
+    "table.upload": (
+        "span",
+        "a count table taken whole by a job (ingest/table.py::"
+        "CountTableSource.dense): its CSR arrays copied to the job's "
+        "device and scattered into the zeroed float32 table, in device "
+        "seconds on a card; the host interval off the card",
+    ),
+    "table.nnz": (
+        "counter",
+        "nonzero counts of the count tables jobs took (one table a "
+        "Bray-Curtis job over a CountTableSource)",
+    ),
+    "table.upload_bytes": (
+        "counter",
+        "bytes of the CSR arrays (row offsets, feature indices, counts) "
+        "of the count tables jobs took, copied to the job's device",
+    ),
     "multihost.backend": (
         "gauge",
         "the collective backend of a job of several processes, chosen up "

@@ -145,6 +145,12 @@ class ArraySource:
             yield block, BlockMeta(idx, lo, hi, self.contig, pos)
 
 
+def materialize(source, block_variants: int) -> np.ndarray:
+    """The source's whole (N, V) int8 table, block by block."""
+    return np.concatenate([b for b, _ in source.blocks(block_variants)],
+                          axis=1)
+
+
 def close_source(source) -> None:
     """Stop the background work a source holds (a store's readahead
     pool), through any wrapper that forwards ``close``; a no-op for

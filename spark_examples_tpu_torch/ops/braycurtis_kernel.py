@@ -12,7 +12,11 @@ Counterpart of ``spark_examples_tpu/ops/pallas/braycurtis_kernel.py``.
   (``ops.distances.bc_from_manhattan``).
 
 ``launches`` counts the CUDA kernel's launches (one per call on a CUDA
-tensor), so a run can show that its main path went through the kernel.
+tensor), so a run can show that its main path went through the kernel;
+each launch also counts ``kernel.braycurtis.launches`` in the telemetry,
+so a job run as a subprocess exports it, and is timed on the card by
+the device span ``kernel.braycurtis.launch`` (read at the next
+barrier).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import ctypes
 
 import torch
 
+from spark_examples_tpu_torch.core import telemetry
+from spark_examples_tpu_torch.core.profiling import device_span
 from spark_examples_tpu_torch.ops import distances
 
 # ``braycurtis_manhattan``'s parameters before its stream: x, out, n, f.
@@ -52,10 +58,13 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
         return out
     from spark_examples_tpu_torch.ops import cuda_build
 
-    cuda_build.launch("braycurtis", "braycurtis_manhattan", _ARGTYPES,
-                      x.device, (x.data_ptr(), out.data_ptr(), n, f),
-                      "braycurtis Manhattan kernel", f"at x {tuple(x.shape)}")
+    with device_span("kernel.braycurtis.launch", x.device):
+        cuda_build.launch("braycurtis", "braycurtis_manhattan", _ARGTYPES,
+                          x.device, (x.data_ptr(), out.data_ptr(), n, f),
+                          "braycurtis Manhattan kernel",
+                          f"at x {tuple(x.shape)}")
     launches += 1
+    telemetry.count("kernel.braycurtis.launches")
     return out
 
 

@@ -70,10 +70,12 @@ from spark_examples_tpu_torch.ingest.source import (
     EmptyShare,
     WindowSource,
     close_source,
+    materialize,
     partition_ranges,
     window_for_process,
 )
 from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
+from spark_examples_tpu_torch.ingest.table import check_source, count_table
 from spark_examples_tpu_torch.ingest.vcf import VcfSource
 from spark_examples_tpu_torch.ops import braycurtis_kernel, distances, gram
 from spark_examples_tpu_torch.parallel import gram_sharded
@@ -511,7 +513,9 @@ def job_source(job: JobConfig, source, timer: PhaseTimer):
     """The job's source: ``source`` itself when given (its caller owns
     it), else one built from ``job.ingest`` under the ``ingest_setup``
     phase and closed when the job ends, so a store's readahead threads
-    end with the job."""
+    end with the job. A count table under a metric that cannot read it
+    is refused here, before any work."""
+    check_source(source, job.compute.metric or "ibs")
     if source is not None:
         yield source
         return
@@ -594,7 +598,7 @@ def _run_similarity_cpu(job: JobConfig, source,
     if kern.family == "float":
         with timer.phase("gram"):
             g = kern.oracle_similarity(
-                _materialize(source, job.ingest.block_variants))
+                materialize(source, job.ingest.block_variants))
         return SimilarityResult(g, oracle.gower_f32(g), source.sample_ids,
                                 metric, timer, source.n_variants)
     acc = {k: np.zeros((n, n)) for k in kern.pieces}
@@ -612,33 +616,24 @@ def _run_similarity_cpu(job: JobConfig, source,
                             source.n_variants)
 
 
-def _materialize(source, block_variants: int) -> np.ndarray:
-    """The source's whole (N, F) int8 table, block by block."""
-    return np.concatenate([b for b, _ in source.blocks(block_variants)],
-                          axis=1)
-
-
 def braycurtis_distance(job: JobConfig, source,
                         timer: PhaseTimer) -> torch.Tensor:
     """The Bray-Curtis (N, N) distance, left on the job's device: the
-    dense (N, F) table (the dosage matrix doubles as the count table;
-    missing counts as absence), lowered by the resolved
-    ``--braycurtis-method``. Under ``--backend cpu-reference`` it is
-    scipy's float64 ``pdist`` on the host (a CPU tensor)."""
+    dense (N, F) table of ``ingest.table.count_table`` (a count table's
+    own, else the dosage matrix with missing as absence), lowered by the
+    resolved ``--braycurtis-method``. Under ``--backend cpu-reference``
+    it is scipy's float64 ``pdist`` on the host (a CPU tensor)."""
     cfg = job.compute
     device = resolve_device(cfg.device)
     method = distances.resolve_braycurtis_method(cfg.braycurtis_method,
                                                  device)
     host = cfg.backend == "cpu-reference"
     with timer.phase("ingest"):
-        x = np.maximum(_materialize(source, job.ingest.block_variants), 0)
-        if not host:
-            # int8 over the link, widened on the device.
-            table = hard_sync(
-                torch.from_numpy(x).to(device).to(torch.float32))
+        table = hard_sync(count_table(source, job.ingest.block_variants)
+                          .dense("cpu" if host else device))
     if host:
         with timer.phase("distance"):
-            return torch.from_numpy(oracle.cpu_braycurtis(x))
+            return torch.from_numpy(oracle.cpu_braycurtis(table.numpy()))
     with timer.phase("distance"):
         if method == "matmul":
             d = distances.braycurtis_matmul(table,

@@ -1802,3 +1802,104 @@ def test_the_subset_solve_adds_no_synchronisation_to_a_job(cuda_device,
     want = jobs.pcoa_job(job, source=src).eigenvalues
     np.testing.assert_allclose(subset_vals, want, rtol=0,
                                atol=1e-5 * want[0])
+
+
+def _sotu_table(seed, n, f, depth=5000, richness=(100, 2000)):
+    """A rarefied count table as CSR: each row ``depth`` reads over a few
+    hundred to a few thousand features of ``f``, heavy-tailed."""
+    rng = np.random.default_rng(seed)
+    indptr, indices, counts = [0], [], []
+    for _ in range(n):
+        k = int(rng.integers(*richness))
+        feats = np.sort(rng.choice(f, size=k, replace=False))
+        c = rng.multinomial(depth, rng.dirichlet(np.full(k, 0.1)))
+        keep = c > 0
+        indices.append(feats[keep])
+        counts.append(c[keep])
+        indptr.append(indptr[-1] + int(keep.sum()))
+    return (np.array(indptr), np.concatenate(indices).astype(np.int32),
+            np.concatenate(counts).astype(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [300, 384])
+def test_k2_at_the_cell_width_equals_the_exact_numerator(cuda_device, n):
+    """K2 on a band of rows at the Bray-Curtis cell's 262,144 features
+    (N F past 2^26; the cell's 10,000 rows take it past 2^31): bitwise
+    the reference's exact integer numerator, both triangles."""
+    from benchmark.reference.braycurtis_ref import manhattan
+
+    from spark_examples_tpu_torch.ingest.table import CountTableSource
+
+    f = 262_144
+    indptr, indices, counts = _sotu_table(n, n, f)
+    x = CountTableSource(indptr, indices, counts, f).dense(cuda_device)
+    before = telemetry.counter_value("kernel.braycurtis.launches")
+    got = braycurtis_kernel.pairwise_manhattan_kernel(x)
+    assert telemetry.counter_value("kernel.braycurtis.launches") == \
+        before + 1
+    want = manhattan(indptr, indices, counts, f, cuda_device)
+    torch.cuda.synchronize()
+    assert counts.max() > 256
+    assert torch.equal(got.double(), want)
+
+
+@pytest.mark.gpu
+def test_count_table_densified_on_the_card_equals_the_host_csr(
+        cuda_device):
+    from spark_examples_tpu_torch.ingest.table import CountTableSource
+
+    n, f = 257, 40_001
+    indptr, indices, counts = _sotu_table(3, n, f)
+    src = CountTableSource(indptr, indices, counts, f)
+    want = np.zeros((n, f), np.float32)
+    for i in range(n):
+        lo, hi = indptr[i], indptr[i + 1]
+        want[i, indices[lo:hi]] = counts[lo:hi]
+    for _ in range(2):  # the second upload reuses the pinned arrays
+        got = src.dense(cuda_device)
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(), want)
+    assert np.array_equal(src.dense("cpu").numpy(), want)
+
+
+@pytest.mark.gpu
+def test_a_braycurtis_job_over_a_count_table_launches_k2_once(cuda_device):
+    """One K2 launch and one table upload a job, each with its device
+    span; the job judged against the plain reference under the
+    Bray-Curtis cell's limits, and its CPU run beside it."""
+    import json
+    import pathlib
+
+    from benchmark.reference.braycurtis_ref import Reference
+    from benchmark.reference.compare import judge
+
+    from spark_examples_tpu_torch.ingest.table import CountTableSource
+
+    n, f = 600, 20_000
+    indptr, indices, counts = _sotu_table(11, n, f, depth=2000)
+    src = CountTableSource(indptr, indices, counts, f)
+    job = JobConfig(compute=ComputeConfig(metric="braycurtis", num_pc=6,
+                                          device="cuda"))
+    jobs.pcoa_job(job, source=src)  # builds K2, warms cuSOLVER
+    telemetry.reset()
+    before = braycurtis_kernel.launches
+    out = jobs.pcoa_job(job, source=src)
+    assert braycurtis_kernel.launches == before + 1
+    assert telemetry.counter_value("kernel.braycurtis.launches") == 1
+    assert telemetry.counter_value("table.nnz") == len(indices)
+    for span in ("kernel.braycurtis.launch", "table.upload"):
+        assert telemetry.histogram_sum(span) > 0, span
+    limits = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                         / "benchmark" / "workloads"
+                         / "emp-10k.braycurtis-memory.json").read_text())[
+                             "limits"]
+    ref = Reference(indptr, indices, counts, f, 6, cuda_device)
+    readings = judge(ref, out.coords, out.eigenvalues)
+    assert all(readings[k] <= limits[k] for k in limits), readings
+    job.compute.device = "cpu"
+    cpu = jobs.pcoa_job(job, source=src)
+    np.testing.assert_allclose(out.eigenvalues, cpu.eigenvalues, rtol=0,
+                               atol=1e-5 * cpu.eigenvalues[0])
+    telemetry.reset()
