@@ -46,7 +46,9 @@ Phases (any failure exits non-zero; none is caught and ignored):
    (levels 256).
 9. Run the Bray-Curtis job through the CLI: ``pcoa --metric braycurtis
    --n-samples 10000 --n-variants 4096 --num-pc 10``; K2 must launch
-   exactly once, the coordinates must be finite and separate the
+   exactly once, and so must the subset solve's band chase (K3,
+   ``csrc/band_chase.cu``) and its back-transform (N = 10,000 takes the
+   two-stage reduction); the coordinates must be finite and separate the
    planted populations (PC1-2 separation >= SEPARATION_MIN; the JAX
    package's own CPU run of this job on 500 and 1,000 samples of the
    same seed gives 20.3 and 20.0).
@@ -453,8 +455,20 @@ Phases (any failure exits non-zero; none is caught and ignored):
     (``braycurtis_ref.manhattan``: row totals less twice the level-
     indicator min-sums, from the CSR arrays) bitwise. Its time is
     printed beside its bound.
-70. Print the script's time, the ``kernels`` JSON line (K1 and K2), the
-    card line, and as the last line ``{"ok": true, "device": {...}}``.
+70. K3 at the one-card cells' sizes (``band_chase_phase``): for N =
+    15,708 and 10,000, a PCoA-class matrix (``pcoa_class_matrix``, in
+    float32) reduced to a band of ``BAND_WIDTH`` by
+    ``ops/eigh.py::dense_to_band``; then, with K3's launch counts set to
+    0 just before, one ``band_chase.chase`` and one
+    ``band_chase.apply_q2`` on T's top 10 vectors (``tridiagonal_top_k``),
+    each timed with CUDA events and each launching once. T's whole
+    spectrum must lie within 3e-5 of lambda_1 of the band's float64
+    spectrum (``eigvalsh`` on the card), and the 10 vectors taken back
+    through Q2 must be eigenvectors of the float64 band within the
+    cells' limits (residual 3e-5 of lambda_1, orthogonality 3e-5).
+    Their times are printed beside their bounds.
+71. Print the script's time, the ``kernels`` JSON line (K1, K2 and K3),
+    the card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Each CLI run sets every kernel's launch count to 0 just before and reads
 them just after. A ptxas report with spills fails phase 2.
@@ -497,6 +511,12 @@ BC_RAGGED = ((1, 1), (37, 301), (65, 130), (300, 1025), (257, 4097),
 # for its count table.
 COUNT_TABLE_CONFIG = os.path.join("benchmark", "configs", "emp-10k.json")
 COUNT_TABLE_SEED = 69
+# Phase 70: K3 at the one-card cells' sizes, on their jobs' k, held to
+# the cells' limits (eigenvalue gap and residual as fractions of
+# lambda_1, orthogonality).
+CHASE_SIZES = (15_708, 10_000)
+CHASE_K = 10
+CHASE_LIMIT = 3e-5
 # FP32 lanes per SM (Hopper): the CUDA-core instruction rate is
 # SMs x 128 x the SM clock.
 FP32_LANES_PER_SM = 128
@@ -5553,6 +5573,151 @@ def count_table_phase(card: str, dev) -> dict:
             "bound_full_ms": bound["bound_full_ms"]}
 
 
+def pcoa_class_matrix(n: int, groups: int, seed: int, dev):
+    """``B = X_c X_c^T / p`` in float64 on ``dev``: n samples in
+    ``groups`` groups of random sizes, each row its group's centroid (0.3
+    per feature) plus unit noise, over p = 2n features, columns centered
+    (a few group axes over a Marchenko-Pastur bulk)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = 2 * n
+    label = torch.randint(groups, (n,), generator=g, device=dev)
+    centroids = 0.3 * torch.randn((groups, p), generator=g, device=dev,
+                                  dtype=torch.float64)
+    x = centroids[label] + torch.randn((n, p), generator=g, device=dev,
+                                       dtype=torch.float64)
+    x -= x.mean(dim=0)
+    b = x @ x.T / p
+    return 0.5 * (b + b.T)
+
+
+def k3_bounds(n: int, b: int, k: int) -> dict:
+    """K3's least times at the card's FP32 rate (SMs x 128 lanes x the SM
+    clock, an FMA an instruction) and HBM bandwidth. The chase: ~n^2 / 2b
+    steps of ~6 b^2 FMAs (the two-sided update of a b x b diagonal
+    block, the block below updated, its first column annihilated and the
+    rest updated), 3 n^2 b in all; bytes, the band read from ``a`` once,
+    the reflectors (n^2 / 2 floats) and T written once. The
+    back-transform: each of the ~n^2 / 2b reflectors on k columns, 2 b k
+    FMAs each; bytes, the reflectors read once and the k columns read
+    and written once. Neither counts the chain of ~2n dependent steps
+    that the chase's schedule follows."""
+    import torch
+
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instr_s = sms * FP32_LANES_PER_SM * clock
+    out = {}
+    for name, instr, byte_count in (
+            ("chase", 3.0 * n * n * b,
+             4.0 * (n * (b + 1) + n * n / 2 + 2 * n)),
+            ("q2", 1.0 * n * n * k, 4.0 * (n * n / 2 + 2 * n * k))):
+        ops_ms = instr / instr_s * 1e3
+        bytes_ms = byte_count / PEAK_BYTES_S * 1e3
+        out[name] = {"instr": instr, "bytes": byte_count,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes"}
+    return out
+
+
+def band_chase_phase(card: str, dev) -> dict:
+    """Phase 70: K3, the band chase and its back-transform, at the
+    one-card cells' sizes on PCoA-class matrices, against the band's
+    float64 spectrum and eigenvectors; returns, by size, its times,
+    bounds, launches and readings."""
+    import torch
+    from scipy.linalg import eigvalsh_tridiagonal
+
+    from spark_examples_tpu_torch.ops import band_chase
+    from spark_examples_tpu_torch.ops import eigh as eigh_ops
+
+    width = eigh_ops.BAND_WIDTH
+    # Loaded before the launches counted below, on a small symmetric
+    # matrix.
+    warm = torch.randn((3 * width, 3 * width), device=dev)
+    warm = (warm + warm.T).contiguous()
+    band_chase.chase(warm, width, torch.empty(6 * width, device=dev))
+    band_chase.apply_q2(warm, width, torch.zeros((1, 3 * width), device=dev))
+    torch.cuda.synchronize()
+    del warm
+    results = {}
+    for n in CHASE_SIZES:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        a = pcoa_class_matrix(n, 7, n, dev).float()
+        eigh_ops.dense_to_band(a, width)
+        # The band of A (``a`` read column-major): ``a``'s upper band.
+        upper = a.double().triu().tril(width)
+        band = upper + upper.triu(1).T
+        del upper
+        want = torch.linalg.eigvalsh(band)
+        scale = float(want.abs().max())
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        tri = torch.empty(2 * n, dtype=torch.float32, device=dev)
+        band_chase.launches = band_chase.q2_launches = 0
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        events[0].record()
+        band_chase.chase(a, width, tri)
+        events[1].record()
+        host = tri.cpu()
+        status = int(host[-1:].view(torch.int32))
+        if status != 0:
+            fail(f"K3's chase at n {n}, b {width}: status {status}")
+        d, e = host[:n].double().numpy(), host[n:-1].double().numpy()
+        spec = torch.from_numpy(eigvalsh_tridiagonal(d, e)).to(dev)
+        gap = float((spec - want).abs().max()) / scale
+        vals, vecs = eigh_ops.tridiagonal_top_k(d, e, CHASE_K)
+        cols = torch.from_numpy(
+            np.ascontiguousarray(vecs.T, dtype=np.float32)).to(dev)
+        events[2].record()
+        band_chase.apply_q2(a, width, cols)
+        events[3].record()
+        torch.cuda.synchronize()
+        chase_ms = events[0].elapsed_time(events[1])
+        q2_ms = events[2].elapsed_time(events[3])
+        launches = (band_chase.launches, band_chase.q2_launches)
+        if launches != (1, 1):
+            fail(f"K3 launched {launches} times (chase, back-transform) "
+                 f"at n {n}, expected once each")
+        x = cols.double().T
+        lam = torch.from_numpy(vals.copy()).to(dev)
+        resid = float((band @ x - x * lam).norm(dim=0).max()) / scale
+        orth = float((x.T @ x - torch.eye(CHASE_K, dtype=torch.float64,
+                                            device=dev)).abs().max())
+        if not (gap <= CHASE_LIMIT and resid <= CHASE_LIMIT
+                and orth <= CHASE_LIMIT):
+            fail(f"K3 at n {n}, b {width}: T's spectrum off the band's "
+                 f"float64 one by {gap:.3g} of lambda_1, its top "
+                 f"{CHASE_K} vectors through Q2: residual {resid:.3g} of "
+                 f"lambda_1, orthogonality {orth:.3g} (limit "
+                 f"{CHASE_LIMIT:g} each)")
+        bound = k3_bounds(n, width, CHASE_K)
+        print(f"K3 at n {n}, b {width} on a PCoA-class band [{card}]: "
+              f"stage 1 and the float64 spectrum in {setup_s:.1f} s; "
+              f"chase {chase_ms:.4f} ms ({chase_ms / (2 * n) * 1e3:.3f} us "
+              f"a step of its ~2n chain), bound "
+              f"{bound['chase']['bound_ms']:.4f} ms "
+              f"({bound['chase']['bound_by']}), "
+              f"{bound['chase']['bound_ms'] / chase_ms * 100:.2f} % of it; "
+              f"back-transform of {CHASE_K} vectors {q2_ms:.4f} ms, bound "
+              f"{bound['q2']['bound_ms']:.4f} ms ({bound['q2']['bound_by']})"
+              f", {bound['q2']['bound_ms'] / q2_ms * 100:.2f} % of it; "
+              f"launches {launches}; T's spectrum within {gap:.3g} of "
+              f"lambda_1 of the band's float64 spectrum, residual "
+              f"{resid:.3g} of lambda_1, orthogonality {orth:.3g} (limit "
+              f"{CHASE_LIMIT:g})")
+        results[n] = {"chase_ms": chase_ms, "q2_ms": q2_ms,
+                      "launches": launches,
+                      "chase_bound_ms": bound["chase"]["bound_ms"],
+                      "q2_bound_ms": bound["q2"]["bound_ms"],
+                      "readings": (gap, resid, orth)}
+        del a, band, want, spec, cols, x
+    return results
+
+
 def main() -> int:
     # One card: with more visible, a job's default mesh would be every
     # card (``core/meshes.py::default_devices``) and phases 1-47 would
@@ -5577,6 +5742,7 @@ def main() -> int:
     from spark_examples_tpu_torch.ingest import bitpack
     from spark_examples_tpu_torch.ingest.synthetic import SyntheticSource
     from spark_examples_tpu_torch.ops import cuda_build, distances, genotype
+    from spark_examples_tpu_torch.ops import band_chase
     from spark_examples_tpu_torch.ops import braycurtis_kernel, packed_gram
     from spark_examples_tpu_torch.pipelines import runner
 
@@ -5880,11 +6046,16 @@ def main() -> int:
     argv = ["pcoa", "--metric", "braycurtis", "--n-samples",
             str(BC_SAMPLES), "--n-variants", str(BC_FEATURES), "--num-pc",
             str(NUM_PC), "--device", DEVICE]
+    band_chase.launches = band_chase.q2_launches = 0
     bc_counts, timings, coords, wall = run_cli(cli_main, argv,
                                                launch_counters, NUM_PC)
+    bc_k3 = (band_chase.launches, band_chase.q2_launches)
     if bc_counts["braycurtis"] != 1:
         fail(f"K2 launched {bc_counts['braycurtis']} times on the "
              "Bray-Curtis job, expected 1")
+    if bc_k3 != (1, 1):
+        fail(f"K3 launched {bc_k3} times (chase, back-transform) on the "
+             "Bray-Curtis job, expected once each")
     if coords.shape != (BC_SAMPLES, NUM_PC):
         fail(f"Bray-Curtis coords shape {coords.shape}, expected "
              f"({BC_SAMPLES}, {NUM_PC})")
@@ -5897,8 +6068,8 @@ def main() -> int:
           f"[{card}]: wall {wall:.3f} s; phases: "
           + ", ".join(f"{k} {timings[k]:.4f} s"
                       for k in ("ingest_setup", "ingest", "distance", "eigh"))
-          + f"; launches {bc_counts}; coords finite; PC1-2 separation "
-          f"{sep:.2f} (min {SEPARATION_MIN})")
+          + f"; launches {bc_counts}, K3 {bc_k3}; coords finite; PC1-2 "
+          f"separation {sep:.2f} (min {SEPARATION_MIN})")
 
     # -- 10. exact vs fused Bray-Curtis lowering, bitwise -------------------
     bc_dists = {}
@@ -6021,8 +6192,11 @@ def main() -> int:
     table_path = "count table {} x {}".format(*count_k2["shape"])
     table_key = "n{}_f{}".format(*count_k2["shape"])
 
-    # -- 70. summary --------------------------------------------------------
-    print(f"chip_smoke: phases 1-69 took "
+    # -- 70. K3 at the one-card cells' sizes ---------------------------------
+    chase = band_chase_phase(card, dev)
+
+    # -- 71. summary --------------------------------------------------------
+    print(f"chip_smoke: phases 1-70 took "
           f"{time.perf_counter() - script_t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [{
         "name": "packed_gram",
@@ -6077,6 +6251,27 @@ def main() -> int:
         "parity": f"bitwise on integer tables; rtol {rtol:.3g} on a float "
                   f"table; bitwise the exact numerator on the {table_path}",
         "parity_cases": k2_cases + 1,
+    }, {
+        "name": "band_chase",
+        "route": "cuda",
+        "source": "spark_examples_tpu_torch/csrc/band_chase.cu",
+        "replaces": None,
+        "launches": sum(sum(r["launches"]) for r in chase.values()),
+        "launches_by_path": {
+            "pcoa braycurtis": {"chase": bc_k3[0], "apply_q2": bc_k3[1]},
+            **{f"n{n}": {"chase": r["launches"][0],
+                         "apply_q2": r["launches"][1]}
+               for n, r in chase.items()}},
+        **{f"{key}_n{n}": r[key] for n, r in chase.items()
+           for key in ("chase_ms", "chase_bound_ms", "q2_ms",
+                       "q2_bound_ms")},
+        "parity": f"T's spectrum, and the top {CHASE_K} vectors through "
+                  "Q2, against the band's float64 eigenproblem within "
+                  f"{CHASE_LIMIT:g} (of lambda_1 for the spectrum and the "
+                  "residual)",
+        "readings": {f"n{n}": dict(zip(("eig_gap", "resid", "orth"),
+                                       r["readings"]))
+                     for n, r in chase.items()},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -176,9 +176,10 @@ def resolve_device_spans(indices) -> None:
 
 
 def check_at_barrier(status: torch.Tensor, what: str) -> None:
-    """Check a library's status word on the card, an int32 tensor that is
-    0 on success, at its device's next :func:`hard_sync`, which waits
-    anyway: nonzero raises there. Off the card it is checked at once."""
+    """Check a library's status words on the card, an int32 tensor whose
+    every element is 0 on success, at its device's next :func:`hard_sync`,
+    which waits anyway: a nonzero one raises there. Off the card they are
+    checked at once."""
     if status.device.type != "cuda":
         _raise_on_status(status, what)
         return
@@ -197,10 +198,11 @@ def _check_statuses(indices) -> None:
 
 
 def _raise_on_status(status: torch.Tensor, what: str) -> None:
-    value = int(status.reshape(-1)[0])
-    if value != 0:
+    words = status.reshape(-1).cpu()
+    bad = words.nonzero().flatten()
+    if bad.numel():
         raise RuntimeError(f"{what} failed on {status.device}: status "
-                           f"{value}")
+                           f"{int(words[bad[0]])}")
 
 
 @contextlib.contextmanager

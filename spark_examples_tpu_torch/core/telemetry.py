@@ -961,6 +961,24 @@ PORT_NAMES: dict[str, tuple[str, str]] = {
         "vectors transformed back), one a dense solve there; 0 on the "
         "CPU and on the randomized route",
     ),
+    "eigh.two_stage_solves": (
+        "counter",
+        "subset eigensolves whose reduction ran in two stages (dense to "
+        "band, then the band chase of csrc/band_chase.cu), one a solve; "
+        "0 on the CPU and on the randomized route",
+    ),
+    "eigh.band": (
+        "span",
+        "the subset solve's first stage, dense to band by blocked FP32 "
+        "products (ops/eigh.py::dense_to_band), in device seconds, inside "
+        "eigh.solve; the host interval off the card",
+    ),
+    "eigh.chase": (
+        "span",
+        "the subset solve's second stage, band to tridiagonal by the "
+        "bulge-chasing kernel (ops/band_chase.py::chase), in device "
+        "seconds, inside eigh.solve; the host interval off the card",
+    ),
     "tile2d.fanout": (
         "span",
         "one copy of a block to another card under the tile2d gather "

@@ -5,6 +5,8 @@ library that torch's CUDA build loads.
   tridiagonal form, ``T = Q^T A Q`` (``cusolverDnSsytrd``), in place.
 - :func:`ormtr`: ``C := Q C`` for a block of columns, ``Q`` the
   reduction's reflectors (``cusolverDnSormtr``).
+- :func:`geqrf`: the QR factorisation of a column-major panel in place
+  (``cusolverDnSgeqrf``).
 - :func:`call`: any other entry point, its ``argtypes`` set by the
   caller on the :func:`library`.
 
@@ -52,6 +54,9 @@ _SIGNATURES = {
                                     _P, _I, _IP),
     "cusolverDnSormtr": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P,
                          _I, _P),
+    # handle, m, n, A, lda, (lwork | tau, work, lwork, devInfo)
+    "cusolverDnSgeqrf_bufferSize": (_P, _I, _I, _P, _I, _IP),
+    "cusolverDnSgeqrf": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -177,3 +182,23 @@ def ormtr(a: torch.Tensor, tau: torch.Tensor, c: torch.Tensor,
     call(a.device, "cusolverDnSormtr", *ptrs, work.data_ptr(), lwork.value,
          info.data_ptr())
 
+
+
+def geqrf(a: torch.Tensor, tau: torch.Tensor, info: torch.Tensor) -> None:
+    """QR of the column-major ``a`` (m, w) in place (strides ``(1,
+    lda)``: a column block of a contiguous matrix's transpose): R on and
+    above its diagonal, the reflectors below it, their ``min(m, w)``
+    taus into ``tau``; ``devInfo`` into the int32 ``info``."""
+    m, w = a.shape
+    lda = a.stride(1)
+    if (a.dtype != torch.float32 or a.device.type != "cuda"
+            or a.stride(0) != 1 or lda < max(1, m)):
+        raise ValueError(
+            "expected a column-major float32 CUDA panel, got "
+            f"{a.dtype} {tuple(a.shape)} strides {a.stride()} on {a.device}")
+    ptrs = (m, w, a.data_ptr(), lda)
+    lwork = ctypes.c_int()
+    call(a.device, "cusolverDnSgeqrf_bufferSize", *ptrs, ctypes.byref(lwork))
+    work = _workspace(a.device, lwork)
+    call(a.device, "cusolverDnSgeqrf", *ptrs, tau.data_ptr(), work.data_ptr(),
+         lwork.value, info.data_ptr())

@@ -184,6 +184,151 @@ def test_tridiagonal_top_k_matches_numpy(n, k, top, gap):
                                           want_vecs[:, j:j + 1], atol=1e-9)
 
 
+def _band_dense(am, b):
+    """The symmetric band of width b that ``am`` holds read column-major
+    (its lower band), as a dense float64 matrix."""
+    n = am.shape[0]
+    out = np.zeros((n, n))
+    for d in range(min(b, n - 1) + 1):
+        out += np.diag(np.diagonal(am, d).astype(np.float64), -d)
+    return np.tril(out) + np.tril(out, -1).T
+
+
+@pytest.mark.parametrize("n,b", [(60, 8), (60, 32), (200, 8), (200, 32)])
+def test_dense_to_band_keeps_the_spectrum_and_q1_rebuilds_a(n, b):
+    """The first stage in torch on the CPU (``torch.geqrf`` in cuSOLVER's
+    place): the band it leaves has the matrix's eigenvalues (scipy
+    ``eig_banded`` in float64) within 1e-6 of lambda_1, nothing past the
+    band's width is read, and ``Q1`` (from its reflectors and T factors,
+    applied to the identity) is orthogonal within 2e-6 and rebuilds A,
+    ``Q1 B Q1^T``, within 1e-6 of lambda_1."""
+    from scipy.linalg import eig_banded
+
+    from spark_examples_tpu_torch.ops import band_chase
+
+    a0 = _planted_b(n=n, k=4, seed=n * b)
+    a = torch.from_numpy(a0.copy())
+    tees = teigh.dense_to_band(a, b)
+    assert tees.shape == (len(range(0, n - b - 1, b)), b, b)
+    am = a.numpy()
+    band = band_chase.band_of(am, b)[:, :b + 1]
+    got = eig_banded(band.T.astype(np.float64), lower=True,
+                     eigvals_only=True)
+    want = np.linalg.eigvalsh(a0.astype(np.float64))
+    scale = want[-1]
+    assert np.abs(got - want).max() <= 1e-6 * scale
+    q1 = torch.eye(n, dtype=torch.float32)
+    teigh.apply_q1(a, b, tees, q1)
+    q = q1.double().numpy().T
+    assert np.abs(q.T @ q - np.eye(n)).max() <= 2e-6
+    rebuilt = q @ _band_dense(am, b) @ q.T
+    assert np.abs(rebuilt - a0).max() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("n,b", [(60, 8), (61, 16), (200, 7), (200, 32)])
+def test_plain_band_chase_gives_a_tridiagonal_with_the_bands_spectrum(n, b):
+    """The plain bulge chase, the kernel's stand-in on the CPU, on the
+    lower band of a planted matrix: status 0; T's eigenvalues are the
+    band's (``eigvalsh`` in float64) within 1e-6 of lambda_1; its
+    reflectors, stored in ``a``'s strict lower triangle, rebuild the
+    band, ``Q2 T Q2^T``, within 1e-6 of lambda_1, and leave the band's
+    first stage reflectors (``a``'s upper triangle past the band) as
+    they were."""
+    from spark_examples_tpu_torch.ops import band_chase
+
+    a0 = _planted_b(n=n, k=4, seed=n + b)
+    a = torch.from_numpy(a0.copy())
+    tri = torch.empty(2 * n, dtype=torch.float32)
+    band_chase.chase(a, b, tri)
+    assert int(tri[-1:].view(torch.int32)) == 0
+    d, e = tri[:n].double().numpy(), tri[n:-1].double().numpy()
+    t = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
+    band = _band_dense(a0, b)
+    want = np.linalg.eigvalsh(band)
+    scale = np.abs(want).max()
+    assert np.abs(np.linalg.eigvalsh(t) - want).max() <= 1e-6 * scale
+    np.testing.assert_array_equal(np.triu(a.numpy(), b + 1),
+                                  np.triu(a0, b + 1))
+    q2 = torch.eye(n, dtype=torch.float32)
+    band_chase.apply_q2(a, b, q2)
+    q = q2.double().numpy().T
+    assert np.abs(q @ t @ q.T - band).max() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("n,k", [(60, 4), (61, 1), (61, 7), (200, 10)])
+def test_two_stage_subset_eigh_with_the_stand_ins(monkeypatch, n, k):
+    """The two-stage subset solve on the CPU (its route's reach lowered
+    to these sizes), its stand-ins in the card's place: LAPACK's
+    ``geqrf`` through ``torch.geqrf`` for cuSOLVER's, the plain chase and
+    back-transform for the kernels. The layouts, the one copy of T and
+    its status, the host step and the k vectors' way back through both
+    stages give the top k of the full float64 solve: eigenvalues within
+    1e-5 of lambda_1, residuals and orthogonality under 1e-5, and the
+    separated columns of JAX's solve up to sign."""
+    monkeypatch.setattr(teigh, "TWO_STAGE_FROM", 0)
+    b = _planted_b(n=n, k=4, seed=n + k)
+    vals, vecs = teigh.subset_eigh(torch.from_numpy(b), k)
+    assert vals.dtype == vecs.dtype == torch.float32
+    assert vals.shape == (k,) and vecs.shape == (n, k)
+    want = np.linalg.eigvalsh(b.astype(np.float64))[::-1][:k]
+    scale = want[0]
+    v, lam = vecs.double().numpy(), vals.double().numpy()
+    np.testing.assert_allclose(lam, want, rtol=0, atol=1e-5 * scale)
+    resid = np.linalg.norm(b.astype(np.float64) @ v - v * lam, axis=0)
+    assert resid.max() <= 1e-5 * scale
+    assert np.abs(v.T @ v - np.eye(k)).max() <= 1e-5
+    vals_j, vecs_j = jeigh.top_k_eigh(b, min(k, 4))
+    _assert_cols_match_up_to_sign(v[:, :min(k, 4)], np.asarray(vecs_j),
+                                  atol=1e-3)
+
+
+def test_two_stage_subset_eigh_raises_on_a_failed_chase(monkeypatch):
+    """A nonzero status from the reduction's second stage raises where T
+    reaches the host; no full solve takes its place."""
+    from spark_examples_tpu_torch.ops import band_chase
+
+    def failed(a, b, tri):
+        tri[-1:].view(torch.int32).fill_(2)
+
+    monkeypatch.setattr(teigh, "TWO_STAGE_FROM", 0)
+    monkeypatch.setattr(band_chase, "chase_plain", failed)
+    with pytest.raises(RuntimeError, match="band_chase.*status 2"):
+        teigh.subset_eigh(torch.from_numpy(_planted_b()), 4)
+
+
+@pytest.mark.parametrize("words,raised", [
+    ([0, 0, 0], None), ([0, -5, 0, 0], -5), ([3, 0, 9], 3), ([0, 0, 7], 7),
+])
+def test_a_status_of_several_words_raises_on_any_nonzero_one(words, raised):
+    """A status of several words (the first stage's devInfo, one a
+    panel) raises on its first nonzero word wherever it lies, so a later
+    panel's 0 does not hide an earlier panel's failure; all zeros pass."""
+    from spark_examples_tpu_torch.core import profiling
+
+    status = torch.tensor(words, dtype=torch.int32)
+    if raised is None:
+        profiling.check_at_barrier(status, "cusolverDnSgeqrf")
+        return
+    with pytest.raises(RuntimeError,
+                       match=f"cusolverDnSgeqrf.*status {raised}$"):
+        profiling.check_at_barrier(status, "cusolverDnSgeqrf")
+
+
+@pytest.mark.parametrize("n,two_stage", [
+    (3584, False), (4096, False), (4352, False), (4607, False),
+    (4608, True), (4864, True), (5120, True), (10000, True), (15708, True),
+    (76156, True),
+])
+def test_two_stage_route_follows_n_alone(n, two_stage):
+    """One rule on the shape, set from the probe's pairs (one-stage
+    against two-stage subset solves on the card): the two-stage
+    reduction from n = 4,608 on: one stage is as fast or faster at
+    4,352 and two are faster at 4,608, at k = 1, 10 and 32 alike; one
+    band width; no option."""
+    assert teigh.two_stage_route(n) is two_stage
+    assert teigh.BAND_WIDTH == 64
+
+
 def _lapack_in_cusolvers_place(monkeypatch):
     """``cusolver.sytrd`` and ``ormtr`` on CPU tensors, read as cuSOLVER
     reads them (a contiguous (n, n) tensor as its column-major

@@ -1753,6 +1753,13 @@ def test_a_failed_status_on_the_card_raises_at_the_barrier(cuda_device):
     with pytest.raises(RuntimeError, match="cusolverDnSormtr.*status 7"):
         profiling.hard_sync(bad)
     assert not profiling._STATUSES
+    # A word a panel: an early panel's failure before later zeros.
+    panels = torch.tensor([0, -3, 0, 0], dtype=torch.int32,
+                          device=cuda_device)
+    profiling.check_at_barrier(panels, "cusolverDnSgeqrf")
+    with pytest.raises(RuntimeError, match="cusolverDnSgeqrf.*status -3"):
+        profiling.hard_sync(panels)
+    assert not profiling._STATUSES
 
 
 @pytest.mark.gpu
@@ -1803,6 +1810,112 @@ def test_the_subset_solve_adds_no_synchronisation_to_a_job(cuda_device,
     np.testing.assert_allclose(subset_vals, want, rtol=0,
                                atol=1e-5 * want[0])
 
+
+
+
+@pytest.mark.gpu
+def test_the_two_stage_solve_adds_no_synchronisation_to_a_job(cuda_device,
+                                                              monkeypatch):
+    """The same job with the subset solve's two-stage reduction (its
+    reach lowered to the job's N): its streams join by events, so it
+    waits on the card as often as the full solve, and it counts one
+    ``eigh.two_stage_solves``."""
+    from spark_examples_tpu_torch.ops import eigh as eigh_ops
+
+    monkeypatch.setattr(eigh_ops, "TWO_STAGE_FROM", 0)
+    test_the_subset_solve_adds_no_synchronisation_to_a_job(cuda_device,
+                                                           monkeypatch)
+    assert telemetry.counter_value("eigh.two_stage_solves") == 1
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [512, 1031, 2048])
+def test_band_chase_matches_its_plain_counterpart(cuda_device, n):
+    """The chase kernel (csrc/band_chase.cu) against its plain numpy
+    counterpart on the same symmetric band, at the solve's band width
+    (``ops/eigh.py::BAND_WIDTH``): status 0; T's spectrum within 2e-6
+    of the band's norm of the band's float64 spectrum, on both sides;
+    the first entries of T, which depend on few steps, within 1e-5 of
+    each other; the kernel's reflectors rebuild the band, ``Q2 T
+    Q2^T``, within 1e-5, and ``Q2`` is orthogonal within 1e-5; each
+    kernel launches once."""
+    from scipy.linalg import eig_banded
+
+    from spark_examples_tpu_torch.ops import band_chase
+    from spark_examples_tpu_torch.ops.eigh import BAND_WIDTH as width
+
+    rng = np.random.default_rng(n + width)
+    x = rng.standard_normal((n, n)).astype(np.float32)
+    a = np.ascontiguousarray(x + x.T)
+    band = band_chase.band_of(a, width)[:, :width + 1]
+    dense = np.zeros((n, n))
+    for d in range(width + 1):
+        dense += np.diag(band[:n - d, d].astype(np.float64), -d)
+    dense = np.tril(dense) + np.tril(dense, -1).T
+    norm = np.abs(dense).sum(axis=0).max()
+    want = eig_banded(band.T.astype(np.float64), lower=True,
+                      eigvals_only=True)
+    got_a = torch.from_numpy(a).to(cuda_device)
+    tri = torch.empty(2 * n, dtype=torch.float32, device=cuda_device)
+    before = band_chase.launches
+    band_chase.chase(got_a, width, tri)
+    torch.cuda.synchronize()
+    assert band_chase.launches == before + 1
+    plain_a = torch.from_numpy(a.copy())
+    plain = torch.empty(2 * n, dtype=torch.float32)
+    band_chase.chase(plain_a, width, plain)
+    for t in (tri.cpu(), plain):
+        assert int(t[-1:].view(torch.int32)) == 0
+        d, e = t[:n].double().numpy(), t[n:-1].double().numpy()
+        spec = np.linalg.eigvalsh(np.diag(d) + np.diag(e, 1)
+                                  + np.diag(e, -1))
+        assert np.abs(spec - want).max() <= 2e-6 * norm
+    head = tri.cpu()[:8].numpy(), plain[:8].numpy()
+    np.testing.assert_allclose(np.abs(head[0]), np.abs(head[1]), rtol=0,
+                               atol=1e-5 * norm)
+    q2 = torch.eye(n, dtype=torch.float32, device=cuda_device)
+    before = band_chase.q2_launches
+    band_chase.apply_q2(got_a, width, q2)
+    assert band_chase.q2_launches == before + 1
+    q = q2.double().cpu().numpy().T
+    t = tri.cpu().double().numpy()
+    tmat = np.diag(t[:n]) + np.diag(t[n:-1], 1) + np.diag(t[n:-1], -1)
+    assert np.abs(q @ tmat @ q.T - dense).max() <= 1e-5 * norm
+    assert np.abs(q.T @ q - np.eye(n)).max() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [10000, 15708])
+def test_two_stage_solve_at_the_cells_sizes(cuda_device, n):
+    """The subset solve at the one-card cells' sizes on a PCoA-class
+    matrix (samples in groups over a noise bulk, ``B = X X^T / p`` in
+    float64, ``tools/eigh_probe.py``'s cohort): its float32 top 10
+    against float64 ``eigvalsh`` within the cells' limits, 3e-5 of
+    lambda_1 for ``eig_gap`` and ``resid`` and 3e-5 for ``orth``; one
+    ``eigh.two_stage_solves`` and one ``eigh.band`` and ``eigh.chase``
+    span a solve, inside ``eigh.solve``."""
+    from spark_examples_tpu_torch.core import profiling
+    from spark_examples_tpu_torch.ops import eigh as eigh_ops
+    from tools.eigh_probe import cohort_matrix
+
+    b64 = cohort_matrix(n, 7, seed=n, device=cuda_device)
+    want = torch.linalg.eigvalsh(b64).flip(0)[:10]
+    b = b64.float()
+    telemetry.reset()
+    vals, vecs = eigh_ops.top_k_eigh(b, 10)
+    profiling.hard_sync((vals, vecs))
+    snap = telemetry.metrics_snapshot()
+    assert snap["counters"]["eigh.two_stage_solves"] == 1
+    hists = snap["histograms"]
+    for name in ("eigh.solve", "eigh.band", "eigh.chase"):
+        assert hists[name]["count"] == 1, name
+    assert hists["eigh.band"]["sum"] + hists["eigh.chase"]["sum"] \
+        <= hists["eigh.solve"]["sum"]
+    scale = float(want[0])
+    lam, v = vals.double(), vecs.double()
+    assert float((lam - want).abs().max()) <= 3e-5 * scale
+    assert float((b64 @ v - v * lam).norm(dim=0).max()) <= 3e-5 * scale
+    eye = torch.eye(10, dtype=torch.float64, device=cuda_device)
+    assert float((v.T @ v - eye).abs().max()) <= 3e-5
 
 def _sotu_table(seed, n, f, depth=5000, richness=(100, 2000)):
     """A rarefied count table as CSR: each row ``depth`` reads over a few

@@ -1,26 +1,31 @@
 """The top-k eigensolve on one card: the full solve against the subset
 solves, at the sizes the dense route meets.
 
-    python3 -m tools.eigh_probe [--sizes 2504,10000,15708] [--k 10] \
-        [--out probe.jsonl]
+    python3 -m tools.eigh_probe [--sizes 2504,10000,15708] [--k 10,32] \
+        [--routes full,subset,twostage] [--out probe.jsonl]
 
 For each size N it draws a PCoA-class matrix on the card (N samples in
 groups with drifted centroids over 2N features, column-centered, ``B =
 X X^T`` in float64: a few group axes over a Marchenko-Pastur bulk, whose
 edge holds the k-th eigenvalue), takes its top-k eigenvalues in float64
-as the reference, and solves its float32 copy three ways:
+as the reference, and solves its float32 copy four ways, for each k:
 
 - ``full``: ``torch.linalg.eigh`` (cuSOLVER ``syevd``), then the top k;
 - ``syevdx``: ``cusolverDnSsyevdx`` over the index range ``N-k+1..N``;
-- ``subset``: ``ops/eigh.py::subset_eigh``, the reduction on the card,
-  the tridiagonal's top k on the host, k vectors transformed back.
+- ``subset``: ``ops/eigh.py::subset_eigh`` held to one stage:
+  cuSOLVER's reduction (``sytrd``), the tridiagonal's top k on the
+  host, k vectors back through ``ormtr``;
+- ``twostage``: ``subset_eigh`` held to two stages (dense to band, then
+  the band chase at ``BAND_WIDTH``), the same host step, k vectors back
+  through both stages; its stages also timed one by one between
+  synchronisations (``stages_s``: band, chase, host, back).
 
 Each is timed by the host clock between synchronisations (a warm-up,
 then ``--reps`` runs), traced once under ``torch.profiler`` (the card's
 busy share of the solve and its costliest kernels), its peak of
 allocated memory read, and judged by ``benchmark/reference/compare.py``
 (``eig_gap``, ``resid``, ``orth`` against the float64 matrix). One JSON
-line a (size, route) goes to stdout, and is appended to ``--out`` where
+line a (size, k, route) goes to stdout, and is appended to ``--out`` where
 given.
 """
 
@@ -103,8 +108,40 @@ def syevdx_top_k(b, k):
     return w[:k].flip(0), a[:k].flip(0).T
 
 
-ROUTES = {"full": full_top_k, "subset": eigh_ops.subset_eigh,
-          "syevdx": syevdx_top_k}
+def twostage_stages(b, k):
+    """``subset_eigh``'s steps one by one, each ended by a
+    synchronisation: the host seconds of the band, the chase, the host
+    step (T's copy and its top k) and the back-transform."""
+    from spark_examples_tpu_torch.ops import band_chase
+
+    n = b.shape[0]
+    width = eigh_ops.BAND_WIDTH
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    a = b.clone(memory_format=torch.contiguous_format)
+    tri = torch.empty(2 * n, dtype=torch.float32, device=b.device)
+    tees = eigh_ops.dense_to_band(a, width)
+    mark()
+    band_chase.chase(a, width, tri)
+    mark()
+    host = tri.cpu()
+    _, vecs = eigh_ops.tridiagonal_top_k(host[:n].double().numpy(),
+                                         host[n:-1].double().numpy(), k)
+    mark()
+    cols = torch.from_numpy(vecs.T.astype("float32")).to(b.device)
+    band_chase.apply_q2(a, width, cols)
+    eigh_ops.apply_q1(a, width, tees, cols)
+    mark()
+    return dict(zip(("band", "chase", "host", "back"),
+                    (round(t1 - t0, 6) for t0, t1 in zip(marks, marks[1:]))))
+
+
+ROUTES = {"full": full_top_k, "syevdx": syevdx_top_k,
+          "subset": eigh_ops.subset_eigh, "twostage": eigh_ops.subset_eigh}
 
 
 def host_seconds(fn):
@@ -119,74 +156,89 @@ def host_seconds(fn):
     return wrapper
 
 
-def probe(n: int, k: int, reps: int, seed: int, device) -> list[dict]:
+def probe(n: int, ks: list[int], reps: int, seed: int, device,
+          routes) -> list[dict]:
     b64 = cohort_matrix(n, 7 if n > 5000 else 5, seed, device)
     t0 = time.perf_counter()
-    ref_vals = torch.linalg.eigvalsh(b64).flip(0)[:k]
+    all_vals = torch.linalg.eigvalsh(b64).flip(0)
     torch.cuda.synchronize()
-    ref = types.SimpleNamespace(b=b64, vals=ref_vals)
     b = b64.float()
+    top = all_vals[:max(ks)]
     print(f"# n {n}: reference eigvalsh {time.perf_counter() - t0:.2f} s, "
-          f"lam_1..{k + 1} / lam_1 = "
-          f"{[round(float(v / ref_vals[0]), 6) for v in ref_vals]}",
-          flush=True)
+          f"lam_1..{max(ks)} / lam_1 = "
+          f"{[round(float(v / top[0]), 6) for v in top]}", flush=True)
     rows = []
-    for route, fn in ROUTES.items():
-        try:
-            fn(b, k)  # warm: the library, its handle, the workspace sizes
-        except RuntimeError as exc:  # a route the library refuses
-            rows.append({"n": n, "k": k, "route": route, "error": str(exc)})
+    rule = eigh_ops.TWO_STAGE_FROM
+    for k in ks:
+        ref = types.SimpleNamespace(b=b64, vals=all_vals[:k])
+        for route in routes:
+            try:
+                # The subset solve held to one stage or to two.
+                eigh_ops.TWO_STAGE_FROM = 0 if route == "twostage" else n + 1
+                rows.append(_solve_row(n, k, reps, ref, b, route,
+                                       ROUTES[route]))
+            except RuntimeError as exc:  # a route the library refuses
+                rows.append({"n": n, "k": k, "route": route,
+                             "error": str(exc)})
+            finally:
+                eigh_ops.TWO_STAGE_FROM = rule
             print(json.dumps(rows[-1]), flush=True)
-            continue
-        torch.cuda.synchronize()
-        walls = []
-        original = eigh_ops.tridiagonal_top_k
-        tri = eigh_ops.tridiagonal_top_k = host_seconds(original)
-        try:
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
+    return rows
+
+
+def _solve_row(n, k, reps, ref, b, route, fn) -> dict:
+    """One route's row: its walls, trace, peak, readings (and, on the
+    two-stage route, its stages)."""
+    fn(b, k)  # warm: the library, its handle, the workspace sizes
+    torch.cuda.synchronize()
+    walls = []
+    original = eigh_ops.tridiagonal_top_k
+    tri = eigh_ops.tridiagonal_top_k = host_seconds(original)
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            vals, vecs = fn(b, k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with capture(True, True) as trace:
+            with torch.profiler.record_function("phase.solve"):
                 vals, vecs = fn(b, k)
                 torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t)
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            with capture(True, True) as trace:
-                with torch.profiler.record_function("phase.solve"):
-                    vals, vecs = fn(b, k)
-                    torch.cuda.synchronize()
-        finally:
-            eigh_ops.tridiagonal_top_k = original
-        peak = torch.cuda.max_memory_allocated() - base
-        window = [e for e in trace["events"] if e["name"] == "phase.solve"]
-        summary = summarize(trace["events"], 1)
-        window_s = window[0]["dur"] * 1e-6
-        coords = vecs * torch.sqrt(vals.clamp(min=0.0))
-        readings = judge(ref, coords.double().cpu().numpy(),
-                         vals.double().cpu().numpy())
-        row = {
-            "n": n, "k": k, "route": route,
-            "wall_s": sorted(walls), "traced_window_s": window_s,
-            "busy_s": summary["busy_s"],
-            "idle_frac": 1.0 - summary["busy_s"] / window_s,
-            "host_tridiagonal_s": tri.spent / (reps + 1),
-            "peak_extra_bytes": peak,
-            **readings,
-            "top_ops": [[name[:90], round(s, 6)]
-                        for name, s in summary["device_ops"][:8]],
-        }
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-        del vals, vecs, coords
-    return rows
+    finally:
+        eigh_ops.tridiagonal_top_k = original
+    peak = torch.cuda.max_memory_allocated() - base
+    stages = [twostage_stages(b, k) for _ in range(reps)] \
+        if route == "twostage" else None
+    window = [e for e in trace["events"] if e["name"] == "phase.solve"]
+    summary = summarize(trace["events"], 1)
+    window_s = window[0]["dur"] * 1e-6
+    coords = vecs * torch.sqrt(vals.clamp(min=0.0))
+    readings = judge(ref, coords.double().cpu().numpy(),
+                     vals.double().cpu().numpy())
+    return {
+        "n": n, "k": k, "route": route,
+        "band": eigh_ops.BAND_WIDTH if route == "twostage" else None,
+        "wall_s": sorted(walls), "stages_s": stages,
+        "traced_window_s": window_s, "busy_s": summary["busy_s"],
+        "idle_frac": 1.0 - summary["busy_s"] / window_s,
+        "host_tridiagonal_s": tri.spent / (reps + 1),
+        "peak_extra_bytes": peak,
+        **readings,
+        "top_ops": [[name[:90], round(s, 6)]
+                    for name, s in summary["device_ops"][:8]],
+    }
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sizes", default="2504,10000,15708")
-    parser.add_argument("--k", type=int, default=10)
+    parser.add_argument("--k", default="10")
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=2600000001)
+    parser.add_argument("--routes", default=",".join(ROUTES))
     parser.add_argument("--out", type=Path)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -205,7 +257,8 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}; cuSOLVER "
           f"{lib_path}", flush=True)
     for n in (int(s) for s in args.sizes.split(",")):
-        rows = probe(n, args.k, args.reps, args.seed + n, device)
+        rows = probe(n, [int(k) for k in args.k.split(",")], args.reps,
+                     args.seed + n, device, args.routes.split(","))
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             with args.out.open("a") as out:
